@@ -1,0 +1,484 @@
+"""Scenario registry + batched multi-cell evaluation engine.
+
+Port of ``repro/core/scenarios.py`` (device sharding waits for a later
+slice).  A :class:`ScenarioGrid` stacks B single-cell ``MecParams`` into one
+(B, ...) parameter set and advances every cell per slot with the same
+``step_p`` the single cell uses: the batch dimension is written out where
+the reference ``vmap``s, and the slot loop is a Python loop where the
+reference ``lax.scan``s.  Cell tables are built on the host and the stacked
+tensors move to the device once.
+
+The batched Oracle's per-slot (B, N, C) objective table goes through the
+``partition_sweep`` CUDA kernel in one launch for all cells, with the even
+split pinned to the per-cell UE count and one row of MEC constants per
+cell, so cells need not share them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from .. import _tree
+from ..device import resolve_device
+from ..profiling.profiles import LayerProfile
+from ..traffic import processes as traffic
+from . import sweep
+from .env import (LAM_FIXED, LAM_PEAK, LAM_TRACE, MecConfig, MecEnv,
+                  MecParams, MecState, SlotResult, free_space_gain,
+                  make_params, reset_p, step_p)
+
+
+# ---------------------------------------------------------------------------
+# Scenario spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """Declarative single-cell scenario: everything needed to build an env."""
+
+    name: str
+    cfg: MecConfig
+    profiles: tuple[LayerProfile, ...]
+    e_budget: tuple[float, ...]
+    c_budget: tuple[float, ...]
+    mean_gain: float | None = None          # None -> paper free-space default
+    lam_fixed: tuple[float, ...] | None = None
+    arrival: object | None = None           # explicit arrival process
+    description: str = ""
+
+    @property
+    def n_ue(self) -> int:
+        return len(self.profiles)
+
+    def _kwargs(self) -> dict:
+        return dict(mean_gain=self.mean_gain,
+                    lam_fixed=None if self.lam_fixed is None
+                    else list(self.lam_fixed), arrival=self.arrival)
+
+    def build(self, device=None) -> MecEnv:
+        return MecEnv(list(self.profiles), self.cfg, list(self.e_budget),
+                      list(self.c_budget), device=device, **self._kwargs())
+
+    def params(self, device=None) -> MecParams:
+        return make_params(list(self.profiles), self.cfg, list(self.e_budget),
+                           list(self.c_budget), device=device, **self._kwargs())
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, Callable[..., Scenario]] = {}
+
+
+def register(name: str):
+    """Decorator: register a named scenario constructor."""
+    def deco(fn):
+        if name in _REGISTRY:
+            raise ValueError(f"scenario {name!r} already registered")
+        _REGISTRY[name] = fn
+        fn.scenario_name = name
+        return fn
+    return deco
+
+
+def names() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def make(name: str, **knobs) -> Scenario:
+    """Build a registered scenario by name (knobs forwarded verbatim)."""
+    try:
+        ctor = _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown scenario {name!r}; have {names()}") from None
+    return ctor(**knobs)
+
+
+# ---------------------------------------------------------------------------
+# Built-in scenario constructors
+# ---------------------------------------------------------------------------
+
+def _paper_fleet(n_alexnet: int, n_resnet: int):
+    from ..profiling.convnets import alexnet_profile, resnet18_profile
+    profiles = ([alexnet_profile()] * n_alexnet
+                + [resnet18_profile()] * n_resnet)
+    e = (0.040,) * n_alexnet + (0.060,) * n_resnet
+    c = (0.100,) * n_alexnet + (0.030,) * n_resnet
+    return tuple(profiles), e, c
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(float(x), dtype=torch.float32)
+
+
+@register("paper_table1")
+def paper_table1(n_alexnet: int = 2, n_resnet: int = 3,
+                 cfg: MecConfig = MecConfig()) -> Scenario:
+    """Paper Sec. V-A / Table I: 2x AlexNet + 3x ResNet18, iid-uniform rates."""
+    profiles, e, c = _paper_fleet(n_alexnet, n_resnet)
+    return Scenario(name="paper_table1", cfg=cfg, profiles=profiles,
+                    e_budget=e, c_budget=c,
+                    description="paper Table I single cell")
+
+
+@register("fixed_rate")
+def fixed_rate(rate: float = 2.5, n_alexnet: int = 2,
+               n_resnet: int = 3) -> Scenario:
+    """Fig. 4 sweep point: constant per-UE arrival rate (req/s)."""
+    profiles, e, c = _paper_fleet(n_alexnet, n_resnet)
+    n = len(profiles)
+    return Scenario(name=f"fixed_rate[{rate:g}]",
+                    cfg=MecConfig(lam_mode=LAM_FIXED),
+                    profiles=profiles, e_budget=e, c_budget=c,
+                    lam_fixed=(float(rate),) * n,
+                    description=f"Fig. 4 fixed-rate cell @ {rate:g} req/s")
+
+
+@register("peak_window")
+def peak_window(base_rate: float = 2.5, boost: float = 1.0, start: int = 75,
+                stop: int = 110) -> Scenario:
+    """Fig. 5 stability run: constant base rate + a peak-workload window."""
+    profiles, e, c = _paper_fleet(2, 3)
+    n = len(profiles)
+    cfg = MecConfig(lam_mode=LAM_PEAK, peak_start=int(start),
+                    peak_stop=int(stop), peak_boost=float(boost))
+    return Scenario(name=f"peak_window[{base_rate:g}+{boost:g}]",
+                    cfg=cfg, profiles=profiles, e_budget=e, c_budget=c,
+                    lam_fixed=(float(base_rate),) * n,
+                    description="Fig. 5 peak-workload cell")
+
+
+@register("hetero_fleet")
+def hetero_fleet(n_ue: int = 8, seed: int = 0,
+                 rate_range: tuple[float, float] = (0.5, 2.5)) -> Scenario:
+    """Heterogeneous fleet: random AlexNet/ResNet mix, budgets and rates."""
+    from ..profiling.convnets import alexnet_profile, resnet18_profile
+    rng = np.random.default_rng(seed)
+    pool = (alexnet_profile(), resnet18_profile())
+    picks = rng.integers(0, len(pool), n_ue)
+    profiles = tuple(pool[i] for i in picks)
+    e = tuple(float(x) for x in rng.uniform(0.030, 0.080, n_ue))
+    c = tuple(float(x) for x in rng.uniform(0.025, 0.120, n_ue))
+    lam = tuple(float(x) for x in rng.uniform(*rate_range, n_ue))
+    return Scenario(name=f"hetero_fleet[{n_ue}@{seed}]",
+                    cfg=MecConfig(lam_mode=LAM_FIXED),
+                    profiles=profiles, e_budget=e, c_budget=c,
+                    lam_fixed=lam,
+                    description="random device/budget/rate mix")
+
+
+@register("mmpp_burst")
+def mmpp_burst(seed: int = 0, rates: tuple[float, ...] = (0.5, 3.0),
+               p_stay: float = 0.92, horizon: int = 400,
+               n_alexnet: int = 2, n_resnet: int = 3) -> Scenario:
+    """Bursty cell: per-UE Markov-modulated (MMPP) rates over the paper fleet."""
+    profiles, e, c = _paper_fleet(n_alexnet, n_resnet)
+    arrival = traffic.make_mmpp(len(profiles), seed=seed, rates=rates,
+                                p_stay=p_stay, horizon=horizon)
+    return Scenario(name=f"mmpp_burst[{seed}]", cfg=MecConfig(),
+                    profiles=profiles, e_budget=e, c_budget=c,
+                    arrival=arrival,
+                    description="Markov-modulated bursty arrivals "
+                                f"(regimes {rates}, p_stay={p_stay:g})")
+
+
+@register("diurnal")
+def diurnal(base: float = 1.5, amp: float = 1.0, period: float = 200.0,
+            phase: float = 0.0, n_alexnet: int = 2,
+            n_resnet: int = 3) -> Scenario:
+    """Day/night cell: sinusoidal arrival rates around a base load."""
+    profiles, e, c = _paper_fleet(n_alexnet, n_resnet)
+    n = len(profiles)
+    arrival = traffic.Diurnal(base=traffic.per_ue(base, n),
+                              amp=traffic.per_ue(amp, n),
+                              period=_f32(period), phase=_f32(phase))
+    return Scenario(name=f"diurnal[{base:g}±{amp:g}]", cfg=MecConfig(),
+                    profiles=profiles, e_budget=e, c_budget=c,
+                    arrival=arrival,
+                    description=f"sinusoidal load, period {period:g} slots")
+
+
+@register("flash_crowd")
+def flash_crowd(base: float = 1.0, spike: float = 2.5, t0: int = 100,
+                decay: float = 30.0, n_alexnet: int = 2,
+                n_resnet: int = 3) -> Scenario:
+    """Flash-crowd cell: base load + an exponentially decaying spike at t0."""
+    profiles, e, c = _paper_fleet(n_alexnet, n_resnet)
+    n = len(profiles)
+    arrival = traffic.FlashCrowd(base=traffic.per_ue(base, n),
+                                 spike=_f32(spike), t0=torch.tensor(int(t0)),
+                                 decay=_f32(decay))
+    return Scenario(name=f"flash_crowd[{spike:g}@{t0}]", cfg=MecConfig(),
+                    profiles=profiles, e_budget=e, c_budget=c,
+                    arrival=arrival,
+                    description=f"flash crowd +{spike:g} req/s at slot {t0}")
+
+
+@register("trace_replay")
+def trace_replay(trace=None, path: str | None = None, offset: int = 0,
+                 seed: int = 0, rate_range: tuple[float, float] = (0.5, 2.5),
+                 ) -> Scenario:
+    """Replay a recorded arrival trace (repro_torch.traffic.Trace) as the cell load.
+
+    With neither ``trace`` nor ``path``, a small deterministic MMPP demo
+    trace is materialized, the same one the reference builds.
+    """
+    from ..traffic.trace import Trace, from_process
+    if trace is None:
+        if path is None:
+            proc = traffic.make_mmpp(4, seed=seed, horizon=64)
+            trace = from_process(proc, 64)
+        else:
+            trace = Trace.load(path)
+    if offset:
+        trace = trace.shifted(offset)
+    cell = hetero_fleet(n_ue=trace.n_ue, seed=seed, rate_range=rate_range)
+    return dataclasses.replace(
+        cell, name=f"trace_replay[{trace.n_ue}ue+{offset}]",
+        cfg=MecConfig(lam_mode=LAM_TRACE), arrival=trace.process(),
+        lam_fixed=None,
+        description=f"replays a {trace.n_slots}-slot recorded trace "
+                    f"(offset {offset})")
+
+
+def multicell_grid(cells: int = 16, ues: int = 8, seed: int = 0,
+                   d_min_m: float = 60.0, d_max_m: float = 300.0,
+                   rate_range: tuple[float, float] = (0.5, 2.5),
+                   uniform_scalars: bool = True) -> list[Scenario]:
+    """B independent cells for one batched grid: each cell is a heterogeneous
+    fleet at its own ES distance (per-cell mean channel gain).
+
+    ``uniform_scalars=True`` keeps every ``MecConfig`` scalar at Table I
+    values; ``False`` draws a per-cell Lyapunov weight V.  Either way the
+    grid's Oracle sweep is one kernel launch, with one row of constants per
+    cell.
+    """
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(cells):
+        cell = hetero_fleet(n_ue=ues, seed=seed * 10_007 + b,
+                            rate_range=rate_range)
+        dist = float(rng.uniform(d_min_m, d_max_m))
+        cfg = cell.cfg
+        if not uniform_scalars:
+            cfg = dataclasses.replace(cfg, v=float(rng.uniform(5.0, 20.0)))
+        out.append(dataclasses.replace(
+            cell, name=f"cell[{b}]@{dist:.0f}m", cfg=cfg,
+            mean_gain=free_space_gain(distance_m=dist),
+            description=f"grid cell {b}, ES distance {dist:.0f} m"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stacking
+# ---------------------------------------------------------------------------
+
+def _pad_cuts(p: MecParams, cmax: int) -> MecParams:
+    """Pad a cell's cut axis to ``cmax`` columns.
+
+    Per-cut tables are constant for c >= L_n, so edge replication preserves
+    them; raw per-layer tables (what the sweep kernel reads) get zeros, as
+    there is no layer there, and psi's edge value is already 0.
+    """
+    c = p.num_cuts
+    if c == cmax:
+        return p
+    pad_edge = lambda t: torch.cat([t, t[..., -1:].expand(*t.shape[:-1], cmax - c)],
+                                   dim=-1)
+    pad_zero = lambda t: torch.cat([t, t.new_zeros(*t.shape[:-1], cmax - c)],
+                                   dim=-1)
+    return dataclasses.replace(
+        p,
+        macs=pad_zero(p.macs), param_bytes=pad_zero(p.param_bytes),
+        act_bytes=pad_zero(p.act_bytes),
+        prefix_macs=pad_edge(p.prefix_macs),
+        suffix_macs=pad_edge(p.suffix_macs),
+        psi=pad_zero(p.psi),
+        prefix_params=pad_edge(p.prefix_params),
+        suffix_params=pad_edge(p.suffix_params),
+        prefix_act_max=pad_edge(p.prefix_act_max),
+        suffix_act_max=pad_edge(p.suffix_act_max))
+
+
+def stack_params(params_list: Sequence[MecParams]) -> MecParams:
+    """Stack B single-cell params into one (B, ...) set.
+
+    Cells must share the UE count, ``edge_queueing`` and the arrival-process
+    type (and its tensor shapes); the cut axis is padded to the widest cell.
+    """
+    if not params_list:
+        raise ValueError("need at least one cell")
+    n_ues = {p.n_ue for p in params_list}
+    if len(n_ues) != 1:
+        raise ValueError(f"cells must share the UE count, got {sorted(n_ues)}")
+    if len({p.edge_queueing for p in params_list}) != 1:
+        raise ValueError("cells must share edge_queueing")
+    kinds = {type(p.arrival) for p in params_list}
+    if len(kinds) != 1:
+        raise ValueError(
+            "cells must share the arrival-process type; got "
+            f"{sorted(k.__name__ for k in kinds)}")
+    cmax = max(p.num_cuts for p in params_list)
+    return _tree.stack([_pad_cuts(p, cmax) for p in params_list])
+
+
+# ---------------------------------------------------------------------------
+# Batched policies: (params, states, generator) -> (B, N) cuts
+# ---------------------------------------------------------------------------
+
+def oracle_policy(params: MecParams, state: MecState, gen) -> torch.Tensor:
+    """Decoupled per-slot argmin over each cell's objective table, through
+    the partition-sweep kernel on CUDA tensors."""
+    del gen
+    return sweep.kernel_oracle_cut_p(params, state)
+
+
+def local_policy(params: MecParams, state: MecState, gen) -> torch.Tensor:
+    del state, gen
+    return params.L
+
+
+def edge_policy(params: MecParams, state: MecState, gen) -> torch.Tensor:
+    del state, gen
+    return torch.zeros_like(params.L)
+
+
+def random_policy(params: MecParams, state: MecState, gen) -> torch.Tensor:
+    """Uniform cut in [0, L] per UE (``torch.randint`` takes one bound only,
+    so the per-UE bound scales a uniform draw)."""
+    del state
+    u = torch.rand(params.L.shape, generator=gen, device=params.device)
+    cut = torch.floor(u * (params.L + 1).to(u.dtype)).long()
+    return torch.minimum(cut, params.L)
+
+
+POLICIES: dict[str, Callable] = {
+    "oracle": oracle_policy,
+    "local": local_policy,
+    "edge": edge_policy,
+    "random": random_policy,
+}
+
+
+# ---------------------------------------------------------------------------
+# Batched engine
+# ---------------------------------------------------------------------------
+
+def _summary(results: SlotResult) -> dict:
+    """Per-cell (B,) means of a (steps, B, N) result stack."""
+    return {
+        "reward": torch.mean(results.reward, dim=0),
+        "delay": torch.mean(results.delay, dim=(0, 2)),
+        "energy": torch.mean(results.energy, dim=(0, 2)),
+        "mem": torch.mean(results.mem_cost, dim=(0, 2)),
+        "q_energy_final": torch.mean(results.q_energy[-1], dim=-1),
+        "q_memory_final": torch.mean(results.q_memory[-1], dim=-1),
+        "cut_mean": torch.mean(results.cut.to(torch.float32), dim=(0, 2)),
+    }
+
+
+class ScenarioGrid:
+    """B independent cells advanced together, one slot at a time.
+
+    ``params`` is the stacked (B, ...) ``MecParams`` on ``device``;
+    ``reset`` / ``step`` act on stacked (B, ...) states.
+    """
+
+    def __init__(self, scenarios: Sequence[Scenario], device=None):
+        self.scenarios = tuple(scenarios)
+        if not self.scenarios:
+            raise ValueError("empty grid")
+        self.device = resolve_device(device)
+        host = stack_params([s.params(device="cpu") for s in self.scenarios])
+        self.params = _tree.to_device(host, self.device)
+        self.b = len(self.scenarios)
+        self.n_ue = self.scenarios[0].n_ue
+        self.num_cuts = int(self.params.num_cuts)
+        # (B, 11) rows of MEC constants, one per cell, for the sweep kernel
+        self.sweep_scalars = sweep.scalar_rows_p(self.params)
+
+    def generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    # -- per-slot primitives ------------------------------------------------
+
+    def reset(self, gen=None, draws=None) -> MecState:
+        """Stacked (B, ...) states; ``draws=(gain, lam)`` (B, N) overrides
+        the generator."""
+        return reset_p(self.params, gen, draws)
+
+    def step(self, states: MecState, cuts: torch.Tensor,
+             draws=None) -> tuple[MecState, SlotResult]:
+        """(B, N) cuts -> stacked next states + (B, N) slot results."""
+        return step_p(self.params, states, cuts, draws)
+
+    # -- batched oracle sweep ----------------------------------------------
+
+    def objective_tables(self, states: MecState) -> torch.Tensor:
+        """(B, N, C) drift-plus-penalty tables for every cell at once: one
+        ``partition_sweep`` kernel launch over the flattened (B*N, C) rows
+        on CUDA (the even split per cell, each cell its own constants), the
+        plain version on the CPU."""
+        return sweep.kernel_table_p(self.params, states, self.sweep_scalars)
+
+    def oracle_cuts(self, states: MecState) -> torch.Tensor:
+        """Batched Oracle decision: argmin over each cell's objective table."""
+        return torch.argmin(self.objective_tables(states), dim=-1)
+
+    # -- rollout ------------------------------------------------------------
+
+    def make_rollout(self, policy: str | Callable = "oracle",
+                     steps: int = 200, draws=None):
+        """Reset all cells and advance ``steps`` slots.
+
+        ``policy`` is a registry name or a callable
+        ``(params, states, generator) -> (B, N) cuts``; ``"oracle"`` goes
+        through ``oracle_cuts``.  ``draws=(gains, lams)``, each
+        (steps + 1, B, N), replaces the channel and arrival draws (entry 0
+        at reset, entry t + 1 after slot t).  Returns
+        ``fn(gen_or_seed) -> (final_states, results, summary)`` with results
+        stacked (steps, B, N) and summary per-cell (B,) means.
+        """
+        if policy == "oracle":
+            act = lambda params, sts, gen: self.oracle_cuts(sts)
+        else:
+            act = POLICIES[policy] if isinstance(policy, str) else policy
+        at = (lambda t: None) if draws is None else (
+            lambda t: (draws[0][t], draws[1][t]))
+
+        def rollout(gen):
+            if not isinstance(gen, torch.Generator):
+                gen = self.generator(int(gen))
+            states = self.reset(gen, at(0))
+            results = []
+            for t in range(steps):
+                cuts = act(self.params, states, gen)
+                states, res = self.step(states, cuts, at(t + 1))
+                results.append(res)
+            results = _tree.stack(results)
+            return states, results, _summary(results)
+
+        return rollout
+
+    def rollout(self, policy: str | Callable = "oracle", steps: int = 200,
+                seed: int = 0):
+        """Convenience one-shot: build + run the rollout."""
+        return self.make_rollout(policy, steps)(seed)
+
+
+def grid_from_names(specs: Sequence[str | tuple[str, dict]],
+                    device=None) -> ScenarioGrid:
+    """Build a grid from registry names, e.g. ``[("fixed_rate", {"rate": r})
+    for r in (0.5, 1.0, 1.5, 2.0, 2.5)]``."""
+    cells = []
+    for spec in specs:
+        if isinstance(spec, str):
+            cells.append(make(spec))
+        else:
+            name, knobs = spec
+            cells.append(make(name, **knobs))
+    return ScenarioGrid(cells, device=device)
