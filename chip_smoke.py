@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the LyMDO controller deciding and scoring
-slots for a 4096-cell x 8-UE grid (32,768 UEs) -- through its public entry
-points, and checks every kernel of that path against its plain PyTorch
-version on the card:
+Drives the port's two main paths through their public entry points -- the
+LyMDO controller deciding and scoring slots for a 4096-cell x 8-UE grid
+(32,768 UEs), and the partitioned qwen3-0.6b served at full width on the
+ES tier -- and checks every kernel of those paths against its plain
+PyTorch version on the card:
 
-1. builds the CUDA kernels from the sources in this checkout;
+1. builds the CUDA kernels from the sources in this checkout, one nvcc
+   process per source, all at once;
 2. holds each kernel against its plain version at the main path's shapes
    and three more -- an LM-shaped fleet (C = 103), a ragged row count and a
    grid whose cells have their own MEC constants (rtol 1e-4 / atol 1e-3 on
@@ -23,7 +25,22 @@ version on the card:
    slots with torch.profiler (device-busy share of the window, device ops
    per slot, the kernels that take the most device time);
 4. runs the single-cell paper scenario with the four baseline cut
-   functions and prints the quickstart comparison.
+   functions and prints the quickstart comparison;
+5. holds the flash and decode attention kernels against their plain
+   versions at the serving path's shapes and at the reference's own kernel
+   test cases (2e-5 in float32, 2e-2 in bf16; rows of a left pad, which see
+   no key, are compared only for being finite and zero), and times each at
+   the main path's shape: device time, wall time per call, the plain
+   version, torch's scaled_dot_product_attention as a yardstick, and the
+   bound;
+6. runs ``python -m repro_torch.serve_partitioned``'s ``main`` at full width
+   (qwen3-0.6b, 28 layers, bf16, seeded random weights): the controller
+   decides 3 slots, the split runs at the chosen and the middle unit cut
+   against the monolithic pass, and the continuous-batching engine serves
+   16 requests of 8-300 prompt tokens, counting the attention kernels'
+   launches over that run; then checks, on the card, that a float32 copy
+   at 4 layers gives each request the tokens of its solo run, and that a
+   2-layer bf16 prefill agrees with the port's CPU path.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  The last lines are the card's name and power limit, one JSON
@@ -41,6 +58,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 RTOL, ATOL = 1e-4, 1e-3          # the sweep tolerance of the reference's tests
+ATT_TOL_F32, ATT_TOL_BF16 = 2e-5, 2e-2   # the attention tolerances of the same tests
 BIG = 1e29
 GRID_CELLS, GRID_UES = 4096, 8
 MAIN_SLOTS = 50
@@ -50,6 +68,9 @@ PROFILE_SLOTS = 3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12             # dense tensor-core bf16
+SERVE_ARGS = ["--split-seq", "512"]   # full width, 28 layers, bf16, 16 requests
+PROFILE_TICKS = 5
 
 
 def log(msg: str) -> None:
@@ -149,6 +170,373 @@ def profile_grid(torch, grid, slots: int) -> dict:
     }
 
 
+
+# -- phase 5: the attention kernels ------------------------------------------
+
+FLASH_CASES = [
+    # (label, B, Sq, Sk, H, KV, hd, dtype, kind, window, pad)
+    ("engine solo prefill, 27-token prompt in the 32 bucket",
+     1, 32, 32, 16, 8, 128, "bf16", "causal", 0, [5]),
+    ("engine first chunk", 1, 32, 32, 16, 8, 128, "bf16", "causal", 0, None),
+    ("split check", 2, 512, 512, 16, 8, 128, "bf16", "causal", 0, None),
+    ("padded batch at s_max", 4, 512, 512, 16, 8, 128, "bf16", "causal", 0,
+     [0, 100, 311, 500]),
+    ("padded batch, odd S", 4, 300, 300, 16, 8, 128, "bf16", "causal", 0,
+     [0, 13, 40, 299]),
+    ("test_kernels causal", 2, 256, 256, 8, 4, 64, "f32", "causal", 0, None),
+    ("test_kernels local", 2, 256, 256, 8, 4, 64, "f32", "local", 96, None),
+    ("test_kernels full", 2, 256, 256, 8, 4, 64, "f32", "full", 0, None),
+    ("test_kernels kv 1", 1, 128, 128, 4, 1, 128, "f32", "causal", 0, None),
+    ("test_kernels G 3", 2, 192, 192, 6, 2, 64, "f32", "local", 96, None),
+    ("odd length causal", 2, 100, 100, 4, 2, 32, "f32", "causal", 0, None),
+    ("odd length local", 2, 100, 100, 4, 2, 32, "f32", "local", 24, None),
+    ("odd length full", 2, 100, 100, 4, 2, 32, "f32", "full", 0, None),
+    ("odd Sq != Sk", 2, 37, 75, 4, 2, 32, "f32", "full", 0, None),
+    ("ragged pad causal", 3, 64, 64, 4, 2, 32, "f32", "causal", 0, [0, 13, 40]),
+    ("ragged pad local", 3, 50, 50, 4, 2, 32, "f32", "local", 24, [0, 13, 40]),
+    ("ragged pad full", 3, 50, 50, 4, 2, 32, "f32", "full", 0, [0, 13, 40]),
+    ("hd 256", 1, 128, 128, 4, 1, 256, "f32", "causal", 0, [7]),
+    ("hd 256 bf16", 2, 96, 96, 10, 1, 256, "bf16", "local", 32, None),
+]
+DECODE_CASES = [
+    # (label, B, S, H, KV, hd, dtype, all-invalid row?)
+    ("engine tick: 8 slots x table width 32 x 16", 8, 512, 16, 8, 128, "bf16",
+     False),
+    ("test_kernels", 2, 256, 8, 4, 64, "f32", False),
+    ("test_kernels kv 1", 1, 512, 4, 1, 128, "f32", False),
+    ("test_kernels kv == heads", 3, 128, 2, 2, 64, "f32", False),
+    ("ragged tail S 10", 3, 10, 4, 2, 32, "f32", False),
+    ("ragged tail S 17", 3, 17, 4, 2, 32, "f32", False),
+    ("ragged tail S 33", 3, 33, 4, 2, 32, "f32", True),
+    ("ragged tail S 5", 3, 5, 4, 2, 32, "f32", False),
+    ("hd 256, G 10", 2, 100, 10, 1, 256, "f32", True),
+    ("hd 256 bf16", 2, 300, 10, 1, 256, "bf16", False),
+]
+
+
+def att_tol(torch, dtype) -> float:
+    return ATT_TOL_F32 if dtype == torch.float32 else ATT_TOL_BF16
+
+
+def attention_inputs(torch, gen, b, sq, sk, h, kv, hd, dtype):
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return rnd(b, sq, h, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
+
+
+def check_flash(torch, fa, ref, gen, case) -> float:
+    label, b, sq, sk, h, kv, hd, dt, kind, window, pad = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = attention_inputs(torch, gen, b, sq, sk, h, kv, hd, dtype)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    got = fa.flash_attention_cuda(q, k, v, kind=kind, window=window, pad=pad_t)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, kind=kind, window=window, pad=pad_t)
+    tol = att_tol(torch, dtype)
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"flash {label}: non-finite output")
+    err = 0.0
+    for i in range(b):
+        p0 = 0 if pad is None else min(pad[i], sq)
+        g_i, w_i = got[i, p0:].float(), want[i, p0:].float()
+        if g_i.numel():
+            err = max(err, float((g_i - w_i).abs().max()))
+            if not torch.allclose(g_i, w_i, rtol=tol, atol=tol):
+                fail(f"flash {label}: row {i} outside {tol} (max abs err "
+                     f"{float((g_i - w_i).abs().max()):.3e})")
+        if kind != "full" and p0 and bool((got[i, :p0] != 0).any()):
+            fail(f"flash {label}: a query row that sees no key is not zero")
+    log(f"  flash  {dt:4s} {kind:6s} B{b} Sq{sq} Sk{sk} H{h}/{kv} hd{hd} "
+        f"pad={pad}: ok, max abs err {err:.3e} ({label})")
+    return err
+
+
+def check_decode(torch, da, ref, gen, case) -> float:
+    label, b, s, h, kv, hd, dt, dead_row = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    if dead_row:
+        valid[-1] = False        # no valid key: the uniform average
+    got = da.decode_attention_cuda(q, k, v, valid)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, k, v, valid)
+    tol = att_tol(torch, dtype)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"decode {label}: outside {tol} (max abs err {err:.3e})")
+    log(f"  decode {dt:4s} B{b} S{s} H{h}/{kv} hd{hd}"
+        f"{' all-invalid row' if dead_row else ''}: ok, max abs err "
+        f"{err:.3e} ({label})")
+    return err
+
+
+def to_heads(torch, t, group):
+    """(B, S, KV, hd) -> (B, H, S, hd) with each kv head repeated G times."""
+    return t.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+
+
+def time_attention(torch, kernel, plain, library, n_flops, n_bytes, peak_s,
+                   iters=50):
+    """Device and wall time of kernel, plain and library calls; the bound."""
+    ops_ms, bytes_ms = n_flops / peak_s * 1e3, n_bytes / PEAK_BYTES_S * 1e3
+    return {"ms": device_ms(torch, kernel, iters),
+            "call_ms": call_ms(torch, kernel, iters),
+            "plain_ms": device_ms(torch, plain, 5),
+            "plain_call_ms": call_ms(torch, plain, 5),
+            "library_ms": device_ms(torch, library, iters),
+            "library_call_ms": call_ms(torch, library, iters),
+            "gflop": n_flops / 1e9, "mbytes": n_bytes / 1e6,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def attention_phase(torch, fa, da, ref) -> dict:
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    log("[5] attention kernels vs plain PyTorch on the card")
+    flash_errs = [check_flash(torch, fa, ref, gen, c) for c in FLASH_CASES]
+    decode_errs = [check_decode(torch, da, ref, gen, c) for c in DECODE_CASES]
+    out = {"flash_max_abs_err": max(flash_errs),
+           "decode_max_abs_err": max(decode_errs)}
+
+    # flash at the split check's shape and at the engine's solo prefill
+    for key, (b, s, pad) in (("flash", (2, 512, None)),
+                             ("flash_engine", (1, 32, [5]))):
+        h, kv, hd = 16, 8, 128
+        q, k, v = attention_inputs(torch, gen, b, s, s, h, kv, hd,
+                                   torch.bfloat16)
+        pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                      device="cuda")
+        kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
+            q.transpose(1, 2).contiguous()
+        if pad is None:
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                             is_causal=True)
+        else:
+            allowed = (torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+                       [None] & (torch.arange(s, device="cuda")[None, None, :]
+                                 >= pad_t[:, None, None]))[:, None]
+            library = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed)
+        pairs = fa.live_pairs(b, s, s, "causal", pad=pad)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * 4 * (pad is not None)
+        out[key] = time_attention(
+            torch, lambda: fa.flash_attention_cuda(q, k, v, pad=pad_t),
+            lambda: ref.flash_attention_ref(q, k, v, pad=pad_t), library,
+            4 * h * hd * pairs, n_bytes, PEAK_BF16_S)
+        out[key]["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal pad={pad}"
+
+    # decode at the engine tick's shape: 8 slots, the gathered 512 keys,
+    # cache lengths of prompts of 8-300 tokens plus up to 32 new ones
+    b, s, h, kv, hd = 8, 512, 16, 8, 128
+    q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, torch.bfloat16)
+    lens = torch.randint(8, 333, (b,), generator=gen, device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
+        q.transpose(1, 2).contiguous()
+    mask4 = valid[:, None, None, :]
+    n_valid = int(valid.sum())
+    n_bytes = (2 * q.numel() + 2 * n_valid * kv * hd) * 2 + valid.numel()
+    out["decode"] = time_attention(
+        torch, lambda: da.decode_attention_cuda(q, k, v, valid),
+        lambda: ref.decode_attention_ref(q, k, v, valid),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4),
+        4 * h * hd * n_valid, n_bytes, PEAK_BF16_S)
+    out["decode"]["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16, "
+                              f"{n_valid} valid keys")
+    for key in ("flash", "flash_engine", "decode"):
+        t = out[key]
+        log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
+            f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
+            f"{t['plain_call_ms']:.4f} wall; sdpa {t['library_ms']:.4f} ms "
+            f"device, {t['library_call_ms']:.4f} wall; bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['gflop']:.4f} "
+            f"GFLOP, {t['mbytes']:.3f} MB)")
+    return out
+
+
+# -- phase 6: the partitioned qwen3-0.6b served on the card ------------------
+
+def solo_tokens(torch, transformer, params, cfg, prompt, max_new, s_max):
+    """Greedy tokens of one request run alone: prefill, then decode_step;
+    and the top-2 logit gap at each step."""
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device="cuda")
+    logits, cache = transformer.prefill(params, cfg, {"tokens": toks},
+                                        s_max=s_max)
+    out, gaps = [], []
+    for _ in range(max_new):
+        top = torch.topk(logits[0], 2).values
+        gaps.append(float(top[0] - top[1]))
+        out.append(int(torch.argmax(logits[0])))
+        if len(out) == max_new:
+            break
+        logits, cache = transformer.decode_step(
+            params, cfg, cache, torch.tensor([out[-1]], device="cuda"))
+    return out, gaps
+
+
+def profile_ticks(torch, eng, ticks: int) -> dict:
+    """Device time of ``ticks`` engine ticks under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    if not rows:
+        fail("the profiler recorded no device time over the decode ticks")
+    device_us = sum(e.device_time_total for e in rows)
+    dec = [e for e in rows if "decode_kernel" in e.key]
+    if not dec:
+        fail("no decode-attention kernel in the profiled decode ticks")
+    return {
+        "ticks": ticks, "wall_ms_per_tick": wall_s * 1e3 / ticks,
+        "device_ms_per_tick": device_us / 1e3 / ticks,
+        "device_busy_share": device_us / 1e6 / wall_s,
+        "device_ops_per_tick": sum(e.count for e in rows) / ticks,
+        "decode_attention_ms": (sum(e.device_time_total for e in dec) / 1e3
+                                / sum(e.count for e in dec)),
+        "top": [{"name": e.key[:80], "count": e.count,
+                 "device_ms": e.device_time_total / 1e3}
+                for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]],
+    }
+
+
+def serving_phase(torch, fa, da) -> dict:
+    from repro_torch import _tree
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+
+    log("[6] main path: python -m repro_torch.serve_partitioned "
+        + " ".join(SERVE_ARGS) + " (qwen3-0.6b, full width, bf16)")
+    fa.flash_attention_cuda.launches = 0
+    da.decode_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    rep = sp.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    rep["main_s"] = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention_cuda.launches,
+                "decode_attention": da.decode_attention_cuda.launches}
+    srv = rep["serving"]
+    log(f"    launches over the run: {launches}; {rep['main_s']:.1f} s")
+    if srv["completed"] != srv["requests"] or srv["requests"] < 16:
+        fail(f"served {srv['completed']} of {srv['requests']} requests")
+    if any(len(o) != 32 for o in srv["out"].values()):
+        fail("a request did not get its 32 tokens")
+    for sp_row in rep["split"]:
+        if not sp_row["finite"] or sp_row["max_abs_err"] > (
+                ATT_TOL_BF16 + ATT_TOL_BF16 * sp_row["max_abs_logit"]):
+            fail(f"split at unit {sp_row['unit_cut']} disagrees with the "
+                 f"monolithic pass: {sp_row}")
+    if min(launches.values()) <= 0:
+        fail(f"an attention kernel was not launched on the main path: "
+             f"{launches}")
+    if launches["decode_attention"] != rep["layers"] * srv["decode_steps"]:
+        fail(f"decode kernel launched {launches['decode_attention']} times, "
+             f"expected {rep['layers']} per decode tick")
+    rep["launches"] = launches
+
+    cfg = sp.model_config(layers=rep["layers"])
+    params = transformer.init_params(sp.SEED, cfg, "cuda")   # main()'s weights
+    reqs = sp.make_requests(cfg, 16, sp.PROMPT_MIN, 300, 32, sp.SEED)
+    parted = []
+    for r in reqs[:4]:
+        solo, gaps = solo_tokens(torch, transformer, params, cfg, r.prompt,
+                                 32, 512)
+        got = srv["out"][r.rid]
+        if solo != got:
+            i = next(j for j, (a, b) in enumerate(zip(solo, got)) if a != b)
+            parted.append({"rid": r.rid, "len": len(r.prompt), "step": i,
+                           "top2_gap": gaps[i]})
+    rep["bf16_parted_from_solo"] = parted
+    log(f"    bf16 engine vs solo on 4 requests: {len(parted)} parted "
+        f"{parted}")
+
+    # where a decode tick's time goes: 8 slots decoding, profiled
+    eng = ServingEngine(cfg, params, slots=8, s_max=512)
+    for r in sp.make_requests(cfg, 8, 100, 300, 150, 1):
+        eng.submit(r)
+    while eng.queue or eng._stream_req is not None:
+        eng.step()
+    rep["tick_profile"] = profile_ticks(torch, eng, PROFILE_TICKS)
+    t = rep["tick_profile"]
+    log(f"    profiler over {PROFILE_TICKS} decode ticks (8 slots): wall "
+        f"{t['wall_ms_per_tick']:.2f} ms/tick, device "
+        f"{t['device_ms_per_tick']:.3f} ms/tick, device busy "
+        f"{t['device_busy_share']:.3f}, {t['device_ops_per_tick']:.0f} device "
+        f"ops/tick, decode_attention {t['decode_attention_ms']:.4f} ms per "
+        f"launch")
+    for row in t["top"]:
+        log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
+            f"{row['name']}")
+    del params, eng
+
+    # float32 at full width, 4 layers: the engine's tokens are each
+    # request's solo tokens (chunked prefill, buckets and preemption)
+    cfg32 = sp.model_config(layers=4, dtype="float32")
+    p32 = transformer.init_params(7, cfg32, "cuda")
+    # 11 allocatable blocks of 16 for 3 slots: the pool forces preemption
+    eng = ServingEngine(cfg32, p32, slots=3, s_max=256, kv_blocks=12)
+    reqs = sp.make_requests(cfg32, 8, 5, 150, 12, 3)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    bad = []
+    for r in reqs:
+        solo, gaps = solo_tokens(torch, transformer, p32, cfg32, r.prompt,
+                                 12, 256)
+        if solo != r.out:
+            bad.append({"rid": r.rid, "len": len(r.prompt),
+                        "min_top2_gap": min(gaps)})
+    log(f"    float32 engine vs solo, 4 layers: {len(reqs) - len(bad)}/"
+        f"{len(reqs)} requests identical ({eng.preemptions} preemptions, "
+        f"{eng.prefill_steps} prefills and chunks)")
+    if bad:
+        fail(f"float32 engine tokens differ from the solo runs: {bad}")
+    if eng.preemptions == 0:
+        fail("the pool sized to force preemption preempted nothing")
+    rep["f32_identical"] = len(reqs)
+    rep["f32_preemptions"] = eng.preemptions
+    del p32, eng
+
+    # the card against the port's CPU path: same weights, 2 layers, bf16
+    cfg2 = sp.model_config(layers=2)
+    p_cpu = transformer.init_params(11, cfg2, "cpu")
+    p_gpu = _tree.to_device(p_cpu, "cuda")
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg2.vocab, (2, 64), generator=g)
+    pad = torch.tensor([0, 20], dtype=torch.int32)
+    lg_cpu, _ = transformer.prefill(p_cpu, cfg2, {"tokens": toks}, s_max=64,
+                                    pad=pad)
+    lg_gpu, _ = transformer.prefill(p_gpu, cfg2, {"tokens": toks.cuda()},
+                                    s_max=64, pad=pad.cuda())
+    diff = (lg_gpu.cpu() - lg_cpu).abs()
+    # the share of its allclose limit that each logit's error uses; the
+    # check passes while the worst share is <= 1
+    share = diff / (ATT_TOL_BF16 + ATT_TOL_BF16 * lg_cpu.abs())
+    worst = int(share.argmax())
+    rep["card_vs_cpu_max_abs_err"] = float(diff.max())
+    rep["card_vs_cpu_worst_share"] = float(share.flatten()[worst])
+    log(f"    card vs CPU prefill logits, 2 layers bf16: max abs err "
+        f"{float(diff.max()):.3e} (max |logit| {float(lg_cpu.abs().max()):.3f});"
+        f" worst element: err {float(diff.flatten()[worst]):.3e} at |logit| "
+        f"{float(lg_cpu.abs().flatten()[worst]):.3f}, "
+        f"{float(share.flatten()[worst]):.3f} of its limit")
+    if not torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=ATT_TOL_BF16,
+                          atol=ATT_TOL_BF16):
+        fail("card and CPU prefill logits disagree beyond the bf16 tolerance")
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -159,7 +547,9 @@ def main() -> int:
     from repro_torch.core import env as menv
     from repro_torch.core import lymdo, scenarios
     from repro_torch.core.lyapunov import VirtualQueues
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import partition_sweep as ps
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -174,12 +564,15 @@ def main() -> int:
     count = torch.cuda.device_count()
     log(f"[1] card: {kind} x{count}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    lib = ps.build()
+    libs = [ps.LIBRARY, fa.LIBRARY, da.LIBRARY]
+    _build.build_all(libs)
     build_s = time.perf_counter() - t0
-    log(f"    built {lib.relative_to(ROOT)} in {build_s:.1f} s")
-    for line in ps.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    for lib in libs:
+        log(f"    built {lib.path().relative_to(ROOT)}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
+    log(f"    {len(libs)} kernels built in {build_s:.1f} s")
     report.update(card=kind, count=count, nvidia_smi=smi, build_s=build_s)
 
     # -- 2. kernel vs plain on the card --------------------------------------
@@ -371,6 +764,11 @@ def main() -> int:
         fail("the oracle scores worse than a fixed baseline")
     report["single_cell"] = single
 
+    att = attention_phase(torch, fa, da, ref)
+    report["attention"] = att
+    serving = serving_phase(torch, fa, da)
+    report["serving"] = serving
+
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/partition_sweep.cu",
@@ -380,6 +778,20 @@ def main() -> int:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }]
+    for name, key, err_key, source, replaces in (
+            ("flash_attention", "flash", "flash_max_abs_err",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:163"),
+            ("decode_attention", "decode", "decode_max_abs_err",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:84")):
+        t = att[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serving["launches"][name],
+            "max_abs_err": att[err_key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     report["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -1,5 +1,6 @@
-"""Leaf-wise maps over the port's containers: dataclasses and named tuples
-whose fields are tensors, nested containers or static values.
+"""Leaf-wise maps over the port's containers: dataclasses, named tuples,
+dicts and lists whose entries are tensors, nested containers or static
+values.
 
 This is what ``jax.tree.map`` does for the reference's pytrees: it stacks B
 cells into one batch, moves a whole parameter set to a device, and slices
@@ -25,6 +26,10 @@ def map_tensors(fn, *trees):
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(map_tensors(fn, *leaves)
                              for leaves in zip(*trees)))
+    if isinstance(first, dict):
+        return {k: map_tensors(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [map_tensors(fn, *leaves) for leaves in zip(*trees)]
     return first
 
 

@@ -10,6 +10,61 @@ import torch
 
 from . import ref
 
+# Above this many score elements per (batch x head) the CPU path switches to
+# the blocked formulation, as the reference's non-Pallas arm does.
+_BLOCKED_THRESHOLD = 2048 * 2048
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    pad_mask=None):
+    """GQA attention.  q (B, Sq, H, hd), k/v (B, Sk, KV, hd); kind "causal",
+    "local" (sliding window) or "full".
+
+    ``pad_mask`` (B, Sk) bool marks VALID keys per row; False is left-pad
+    filler, contiguous from position 0.  On CUDA the flash kernel runs at
+    every size, with the mask as a per-row pad count.  On the CPU this is
+    the reference's non-Pallas arm: dense attention under the kind's mask
+    and that pad (``ref.flash_attention_ref``), or, without a pad mask, dense up to ``_BLOCKED_THRESHOLD`` score
+    elements and blocked above.
+    """
+    pad = None
+    if pad_mask is not None:
+        pad = (~pad_mask).sum(dim=1, dtype=torch.int32)
+    if q.is_cuda:
+        from .flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), kind=kind, window=window,
+                                    pad=pad)
+    if pad is not None:
+        return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
+                                       pad=pad)
+    sq, sk = q.shape[1], k.shape[1]
+    if sq * sk <= _BLOCKED_THRESHOLD:
+        return ref.attention_ref(q, k, v, mask=ref.build_mask(kind, sq, sk,
+                                                              window))
+    return ref.attention_blocked(q, k, v, kind=kind, window=window)
+
+
+def decode_attention(q, k, v, valid_mask):
+    """Single-token GQA attention.  q (B, 1, H, hd), k/v (B, S, KV, hd),
+    valid_mask (B, S) bool."""
+    if q.is_cuda:
+        from .decode_attention import decode_attention_cuda
+        return decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), valid_mask.contiguous())
+    return ref.decode_attention_ref(q, k, v, valid_mask)
+
+
+def chunk_attention(q, k, v, *, start: int):
+    """Chunked-prefill GQA attention: q (B, C, H, hd) holds the tokens at
+    positions ``start .. start + C - 1``; k/v (B, S, KV, hd) are dense
+    scratch caches.  Query row i sees key j iff j <= start + i.  Plain torch
+    on every device: the reference has no kernel for it either."""
+    sq, sk = q.shape[1], k.shape[1]
+    mask = (torch.arange(sk, device=q.device)[None, :]
+            <= (start + torch.arange(sq, device=q.device))[:, None])
+    return ref.attention_ref(q, k, v, mask=mask)
+
 
 def partition_sweep(macs, params_b, acts, psi, L, lam, gain, q_energy,
                     q_memory, scalars):

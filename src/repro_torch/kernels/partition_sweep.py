@@ -2,9 +2,9 @@
 
 The Hopper kernel is ``csrc/partition_sweep.cu``; it replaces the TPU kernel
 ``repro/kernels/partition_sweep.py::_kernel``.  This module builds it on
-first use with ``nvcc`` into ``build/`` at the root of the checkout, keyed
-by a hash of the source, loads it with ``ctypes`` and launches it on
-PyTorch's current stream.  Nothing is compiled or loaded at import time.
+first use through ``kernels._build`` (``nvcc`` into ``build/``, keyed by a
+hash of the source, loaded with ``ctypes``) and launches it on PyTorch's
+current stream.  Nothing is compiled or loaded at import time.
 
 ``partition_sweep_cuda.launches`` counts launches: it rises by one each
 time the wrapper launches the kernel, and nowhere else.
@@ -12,19 +12,11 @@ time the wrapper launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "partition_sweep.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from . import _build
+
 N_SCALARS = 11
 
 # Float32 operations of the sweep, counted from the kernel body (a division
@@ -53,62 +45,15 @@ def byte_count(rows: int, cols: int, cells: int) -> int:
             + cells * N_SCALARS * 4 + rows * cols * 4)
 
 
-_lib = None
-build_log = ""
+def _bind(lib) -> None:
+    fn = lib.partition_sweep_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA partition sweep cannot be built")
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"partition_sweep-{digest}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel unless a build of this exact source exists."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.partition_sweep_launch
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.partition_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.partition_sweep_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = _build.Library("partition_sweep", _build.CSRC / "partition_sweep.cu",
+                         _bind, extra_flags=("-fmad=false",))
 
 
 def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
@@ -154,7 +99,7 @@ def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
 
-    lib = _load()
+    lib = LIBRARY.load()
     out = torch.empty((rows, c), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.partition_sweep_launch(
@@ -162,9 +107,7 @@ def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
         *(t.data_ptr() for t in vectors), scalars.data_ptr(), out.data_ptr(),
         rows, c, n_total, device.index if device.index is not None
         else torch.cuda.current_device(), stream)
-    if err != 0:
-        raise RuntimeError("partition_sweep launch failed: "
-                           + lib.partition_sweep_error_string(err).decode())
+    LIBRARY.check(err)
     partition_sweep_cuda.launches += 1
     return out
 

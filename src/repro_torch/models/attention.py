@@ -1,0 +1,202 @@
+"""GQA attention: init, projections, the prefill / decode / chunk / paged
+paths and the global KV cache.
+
+Port of ``repro/models/attention.py`` (global attention, kind "g").  The
+attention itself goes through ``kernels.ops``: on CUDA tensors the flash and
+decode kernels, on the CPU their plain versions.  Where the reference
+returns an updated cache, the port writes into the cache it was given and
+returns that same cache: a caller that needs the old state clones it first.
+Sliding-window ring caches (kind "l") come with the slice that ports the
+hybrid stacks.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..kernels import ops
+from .common import dense_init, dtype_of, head_rms_norm, rope
+
+RING_SLICE = ("the slice that ports the hybrid and SSM stacks "
+              "(recurrentgemma-2b, mamba2-1.3b)")
+
+
+class KVCache(NamedTuple):
+    """Global-attention cache: full-length K and V."""
+    k: torch.Tensor   # (B, S_max, KV, hd), or a pool (n_blocks, block, KV, hd)
+    v: torch.Tensor
+
+
+def init_attention(gen, cfg, *, cross: bool = False, device=None) -> dict:
+    """Parameters of one attention sub-block."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv
+    dt = dtype_of(cfg.param_dtype)
+    p = {
+        "wq": dense_init(gen, (d, h * hd), dt, device=device),
+        "wk": dense_init(gen, (d, kv * hd), dt, device=device),
+        "wv": dense_init(gen, (d, kv * hd), dt, device=device),
+        "wo": dense_init(gen, (h * hd, d), dt, scale=(h * hd) ** -0.5,
+                         device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(h * hd, dtype=dt, device=device)
+        p["bk"] = torch.zeros(kv * hd, dtype=dt, device=device)
+        p["bv"] = torch.zeros(kv * hd, dtype=dt, device=device)
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = torch.zeros(hd, dtype=dt, device=device)
+        p["k_norm"] = torch.zeros(hd, dtype=dt, device=device)
+    return p
+
+
+def _project_q(p, cfg, x):
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(*x.shape[:-1], h, hd)
+    if "q_norm" in p:
+        q = head_rms_norm(q, p["q_norm"])
+    return q
+
+
+def _project_kv(p, cfg, x):
+    kv, hd = cfg.n_kv, cfg.resolved_head_dim
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(*x.shape[:-1], kv, hd)
+    v = v.reshape(*x.shape[:-1], kv, hd)
+    if "k_norm" in p:
+        k = head_rms_norm(k, p["k_norm"])
+    return k, v
+
+
+def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
+    """Full-sequence self-attention (train / prefill).  kind: g | l | e.
+
+    ``positions`` is (S,) or per-row (B, S); ``pad_mask`` (B, S) marks the
+    valid (non-left-pad) positions.  Returns (out, (k, v)).
+    """
+    q = _project_q(p, cfg, x)
+    k, v = _project_kv(p, cfg, x)
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    akind = {"l": "local", "e": "full"}.get(kind, "causal")
+    out = ops.flash_attention(q, k, v, kind=akind, window=cfg.window,
+                              pad_mask=pad_mask)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"], (k, v)
+
+
+def init_kv_cache(cfg, batch: int, s_max: int, dtype, device=None) -> KVCache:
+    kv, hd = cfg.n_kv, cfg.resolved_head_dim
+    return KVCache(
+        k=torch.zeros(batch, s_max, kv, hd, dtype=dtype, device=device),
+        v=torch.zeros(batch, s_max, kv, hd, dtype=dtype, device=device))
+
+
+def prefill_into_kv(cache: KVCache, k, v) -> KVCache:
+    """Write a prefilled sequence at positions 0.. of the cache (in place)."""
+    s = k.shape[1]
+    cache.k[:, :s] = k
+    cache.v[:, :s] = v
+    return cache
+
+
+def decode_self_attention(p, cfg, x, cache: KVCache, pos: int, *, kind: str,
+                          pad=None):
+    """Single-token decode against a dense cache: x (B, 1, D).
+
+    ``pos`` is the shared write position; ``pad`` (B,) the rows' left-pad
+    counts (RoPE at ``pos - pad``, cache slots below ``pad`` masked).
+    Writes the token's K/V into ``cache`` at ``pos``.  Returns (out, cache).
+    """
+    if kind != "g":
+        raise NotImplementedError(
+            f"decode of attention kind {kind!r} (ring caches) is not ported "
+            f"yet; it comes with {RING_SLICE}")
+    q = _project_q(p, cfg, x)               # (B, 1, H, hd)
+    k_new, v_new = _project_kv(p, cfg, x)   # (B, 1, KV, hd)
+    if cfg.rope_theta:
+        if pad is None:
+            pvec = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        else:
+            pvec = (pos - pad)[:, None]
+        q = rope(q, pvec, cfg.rope_theta)
+        k_new = rope(k_new, pvec, cfg.rope_theta)
+    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    b, s = cache.k.shape[:2]
+    slots = torch.arange(s, device=x.device)
+    valid = (slots <= pos)[None, :].expand(b, s)
+    if pad is not None:
+        valid = valid & (slots[None, :] >= pad[:, None])
+    out = ops.decode_attention(q, cache.k, cache.v, valid)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"], cache
+
+
+def chunk_self_attention(p, cfg, x, cache: KVCache, start: int, positions):
+    """Resumable chunked prefill: x (B, C, D) holds the chunk's tokens at
+    ``positions = start + arange(C)``; ``cache`` is a dense (B, S_max, KV,
+    hd) scratch holding the first ``start`` tokens.  Writes the chunk's K/V
+    at ``start`` (in place; rows past the scratch's end are dropped) and
+    attends with the prefix-causal mask.  Returns (out, cache)."""
+    q = _project_q(p, cfg, x)
+    k_new, v_new = _project_kv(p, cfg, x)
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k_new = rope(k_new, positions, cfg.rope_theta)
+    # the reference's dynamic_update_slice clamps the start so the chunk
+    # fits; a chunk never crosses s_max on the engine's path
+    s_max, c = cache.k.shape[1], x.shape[1]
+    at = min(start, s_max - c)
+    cache.k[:, at:at + c] = k_new.to(cache.k.dtype)
+    cache.v[:, at:at + c] = v_new.to(cache.v.dtype)
+    out = ops.chunk_attention(q, cache.k, cache.v, start=start)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"], cache
+
+
+def decode_self_attention_paged(p, cfg, x, cache: KVCache, *, kind: str,
+                                block_table, seq_lens):
+    """Single-token decode against the paged pool (continuous batching).
+
+    ``cache`` is a pool ``(n_blocks, block_size, KV, hd)``; ``block_table``
+    (B, M) maps row i's logical blocks to pool blocks and ``seq_lens`` (B,)
+    is the position row i writes.  The new K/V goes into block
+    ``block_table[i, seq_lens[i] // bs]`` at offset ``seq_lens[i] % bs``
+    (in place); attention gathers each row's blocks into a (B, M * bs) view
+    with positions past ``seq_lens[i]`` masked.  Idle rows (seq_lens 0,
+    table all zeros) write into the reserved dummy block 0.
+    """
+    if kind != "g":
+        raise NotImplementedError(
+            f"paged decode of attention kind {kind!r} (ring caches) is not "
+            f"ported yet; it comes with {RING_SLICE}")
+    q = _project_q(p, cfg, x)
+    k_new, v_new = _project_kv(p, cfg, x)
+    if cfg.rope_theta:
+        pvec = seq_lens[:, None]
+        q = rope(q, pvec, cfg.rope_theta)
+        k_new = rope(k_new, pvec, cfg.rope_theta)
+    b = x.shape[0]
+    bs = cache.k.shape[1]
+    m = block_table.shape[1]
+    rows = torch.arange(b, device=x.device)
+    blk = block_table[rows, seq_lens // bs]
+    off = seq_lens % bs
+    cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
+    kvh, hd = cache.k.shape[-2:]
+    k_rows = cache.k[block_table].reshape(b, m * bs, kvh, hd)
+    v_rows = cache.v[block_table].reshape(b, m * bs, kvh, hd)
+    valid = (torch.arange(m * bs, device=x.device)[None, :]
+             <= seq_lens[:, None])
+    out = ops.decode_attention(q, k_rows, v_rows, valid)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"], cache

@@ -1,0 +1,75 @@
+"""Shared model primitives: dtypes, initialisers, norms, RoPE, masks.
+
+Port of ``repro/models/common.py``.  Norms and RoPE compute in float32 and
+cast back to the input's dtype, as the reference does.  Initialisers draw
+from an explicit ``torch.Generator``; they do not reproduce the reference's
+numbers (parity tests carry the reference's parameters across instead).
+"""
+from __future__ import annotations
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def dense_init(gen, shape, dtype, scale: float | None = None, device=None):
+    """Truncated-normal (at +-2 sigma) fan-in init, cast to ``dtype``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen, shape, dtype, device=None):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm in float32 with a ``1 + scale`` gain, cast back to x's dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.float())).to(x.dtype)
+
+
+def head_rms_norm(x, scale, eps: float = 1e-6):
+    """Per-head QK-norm (Qwen3): normalises the head_dim axis."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embeddings.  x (..., S, H, hd); positions (..., S) or (S,).
+    Angles and rotation in float32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]       # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_mask(s_q: int, s_k: int, q_offset: int = 0, device=None):
+    """(s_q, s_k) bool: query i sees key j iff j <= i + q_offset."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    return kj <= qi
+
+
+def local_mask(s_q: int, s_k: int, window: int, q_offset: int = 0,
+               device=None):
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    return (kj <= qi) & (kj > qi - window)

@@ -1,0 +1,424 @@
+"""Serving engine for the edge tier: continuous batching over a paged KV
+cache.
+
+Port of the continuous mode of ``repro/serving/engine.py``.  Requests
+arrive continuously (the paper's serial queuing model), so the engine
+admits per tick: a queued request prefills SOLO into a free decode slot
+(batch 1, left-padded to its bucket width) while the other slots keep
+decoding, and its KV lands in blocks handed out by
+``kvpool.BlockAllocator``.  Each slot carries its own cache length, and one
+``transformer.decode_step_paged`` call advances every active slot.  When a
+slot outgrows its blocks and the pool is dry, the youngest admitted request
+is preempted back to the front of the queue; greedy decode is
+deterministic, so re-admission gives the same tokens.
+
+Prompts longer than ``prefill_chunk`` ("auto": 32 when ``s_max > 32``)
+stream through ``transformer.prefill_chunk`` one chunk per tick, each chunk
+committed into the slot's blocks (``kvpool.commit_chunk``), so a long prompt
+never stalls the decoding slots for more than a chunk.
+
+There is no jit and no donation: the pool is updated in place.  Greedy
+argmax runs on the device, so only the (B,) token ids reach the host each
+tick.  A recorder (duck-typed, like ``repro.traffic.recorder``) sees
+submit / admit / prefill-done / preempt / complete in ticks of the step
+clock.  ``sync_batching=True``, ``mesh=``, ``telemetry=`` and
+``sanitize=True`` come with later slices and raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..models import transformer
+from . import kvpool
+
+LATER = "a later slice of the port"
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # (S,) int32
+    max_new: int = 16
+    ue: int | None = None       # originating UE (traffic-trace binning)
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket_ladder(s_max: int, lo: int = 8) -> tuple[int, ...]:
+    """Power-of-two prompt-width buckets up to s_max (always includes s_max)."""
+    buckets = []
+    w = lo
+    while w < s_max:
+        buckets.append(w)
+        w *= 2
+    buckets.append(s_max)
+    return tuple(buckets)
+
+
+class ServingEngine:
+    """Continuous batching: per-tick admission into free slots, paged KV
+    (``kv_block`` tokens per block, ``kv_blocks`` pool blocks, by default
+    enough for every slot to reach ``s_max``), youngest-request preemption
+    when the pool runs dry, chunked prefill of long prompts.  Runs on the
+    device that holds ``params``."""
+
+    def __init__(self, cfg, params, *, slots: int = 4, s_max: int = 128,
+                 prefill_buckets=None, recorder=None, mesh=None,
+                 sync_batching: bool = False, kv_block: int = 16,
+                 kv_blocks: int | None = None, telemetry=None,
+                 sanitize: bool = False, prefill_chunk="auto"):
+        for name, on in (("sync_batching=True", sync_batching),
+                         ("mesh=", mesh is not None),
+                         ("telemetry=", telemetry is not None),
+                         ("sanitize=True", sanitize)):
+            if on:
+                raise NotImplementedError(
+                    f"ServingEngine({name}) is not ported yet; it comes "
+                    f"with {LATER}")
+        self.cfg, self.params = cfg, params
+        self.device = params["embed"].device
+        self.slots = slots
+        self.s_max = s_max
+        self.prefill_buckets = tuple(sorted(
+            _bucket_ladder(s_max) if prefill_buckets is None
+            else prefill_buckets))
+        if not self.prefill_buckets or self.prefill_buckets[-1] > s_max:
+            raise ValueError(f"prefill buckets {self.prefill_buckets} must be "
+                             f"non-empty and <= s_max={s_max}")
+        if prefill_chunk == "auto":
+            prefill_chunk = 32 if s_max > 32 else None
+        if prefill_chunk is not None and not 0 < int(prefill_chunk) <= s_max:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be in "
+                             f"[1, s_max={s_max}], None, or 'auto'")
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        self.recorder = recorder
+        self.clock = 0                       # engine ticks (step() calls)
+        self.queue: deque[Request] = deque()
+        self.active: list[Request | None] = [None] * slots
+        self._completed: list[Request] = []
+        self.remaining = np.zeros(slots, np.int32)
+        self.decode_steps = 0                # decode dispatches
+        self.prefill_steps = 0               # solo prefills and chunks
+        self.preemptions = 0
+        # (batch, width, ragged?) prefill shapes run so far: the reference
+        # compiles one program for each
+        self._prefill_shapes: set[tuple] = set()
+
+        self.kv_block = kv_block
+        self.table_width = -(-s_max // kv_block)            # blocks per slot
+        if kv_blocks is None:
+            kv_blocks = slots * self.table_width + 1        # + the dummy
+        self.allocator = kvpool.BlockAllocator(kv_blocks, kv_block)
+        self._pool_state = kvpool.init_decode_state(cfg, params, slots,
+                                                    kv_blocks, kv_block)
+        self.block_tables = np.zeros((slots, self.table_width), np.int32)
+        self.seq_lens = np.zeros(slots, np.int32)
+        self.last_tokens = np.zeros(slots, np.int32)
+        self.owned: list[list[int]] = [[] for _ in range(slots)]
+        self._admit_seq = np.full(slots, -1, np.int64)      # admission order
+        self._admit_counter = 0
+        # chunked-prefill stream: at most ONE request mid-prefill
+        self._stream_req: Request | None = None
+        self._stream_slot = -1
+        self._stream_cache = None            # device {units, tail} scratch
+        self._stream_done = 0                # prompt tokens advanced so far
+        self._stream_ids = None              # device (table_width,) block row
+
+    def _tensor(self, a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def submit(self, req: Request):
+        if req.ue is not None and req.ue < 0:
+            raise ValueError(f"request {req.rid}: ue must be >= 0, got "
+                             f"{req.ue}")
+        n = len(req.prompt)
+        if n + max(req.max_new, 1) - 1 > self.s_max:
+            raise ValueError(
+                f"request {req.rid}: prompt width {n} + decode budget "
+                f"{req.max_new} exceeds s_max={self.s_max}")
+        self.queue.append(req)
+        if self.recorder is not None:
+            self.recorder.record_submit(req.rid, self.clock, ue=req.ue)
+
+    def _bucket_width(self, width: int, max_new: int) -> int:
+        """Smallest bucket >= width that still leaves ``max_new`` tokens;
+        the exact width where no bucket fits."""
+        limit = self.s_max - max_new + 1
+        if width > limit:
+            raise ValueError(
+                f"prompt width {width} + decode budget {max_new} exceeds "
+                f"s_max={self.s_max}")
+        for b in self.prefill_buckets:
+            if b >= width and b <= limit:
+                return b
+        return width
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def _complete(self, req: Request):
+        req.done = True
+        self._completed.append(req)
+        if self.recorder is not None:
+            self.recorder.record_complete(req.rid, self.clock)
+
+    def _record_prefill_done(self, rid: int):
+        rec = getattr(self.recorder, "record_prefill_done", None)
+        if rec is not None:
+            rec(rid, self.clock)
+
+    def _complete_at_admission(self, req: Request):
+        """max_new <= 1: the one token (if any) came from the prefill, so
+        the request completes at its admission tick without a slot."""
+        if self.recorder is not None:
+            self.recorder.record_admit(req.rid, self.clock)
+        self._record_prefill_done(req.rid)
+        self._complete(req)
+
+    def _solo_prefill(self, req: Request):
+        """Batch-1 bucketed prefill.  Returns (next token, cache, pad)."""
+        n = len(req.prompt)
+        width = self._bucket_width(n, max(req.max_new, 1))
+        toks = np.pad(np.asarray(req.prompt), (width - n, 0))[None]
+        pad = width - n
+        pad_arg = self._tensor([pad], torch.int32) if pad else None
+        self._prefill_shapes.add((1, width, pad_arg is not None))
+        logits, cache = transformer.prefill(
+            self.params, self.cfg, {"tokens": self._tensor(toks)},
+            s_max=self.s_max, pad=pad_arg)
+        self.prefill_steps += 1
+        # admission's one sync: a single token id
+        nxt = int(torch.argmax(logits[0], -1))
+        return nxt, {"units": cache["units"], "tail": cache["tail"]}, pad
+
+    def _admit_continuous(self):
+        """Admit from the queue head into free slots, one solo prefill per
+        request, until slots or blocks run out (strict FIFO).  While a
+        chunked prefill streams, this tick's admission work is its next
+        chunk and nothing else."""
+        if self._stream_req is not None:
+            self._advance_stream()
+            return
+        while self.queue:
+            req = self.queue[0]
+            n = len(req.prompt)
+            if req.max_new <= 0:
+                self.queue.popleft()
+                self._complete_at_admission(req)
+                continue
+            if req.max_new == 1:
+                self.queue.popleft()
+                nxt, _, _ = self._solo_prefill(req)
+                req.out.append(nxt)
+                self._complete_at_admission(req)
+                continue
+            free = [i for i, r in enumerate(self.active) if r is None]
+            if not free:
+                return
+            total = kvpool.blocks_for(n + req.max_new - 1, self.kv_block)
+            if total > self.allocator.capacity:
+                raise ValueError(
+                    f"request {req.rid} needs {total} KV blocks "
+                    f"({n} prompt + {req.max_new} decode tokens) but the "
+                    f"pool holds {self.allocator.capacity}")
+            blocks = self.allocator.alloc(kvpool.blocks_for(n, self.kv_block))
+            if blocks is None:
+                return                       # pool full: wait for completions
+            self.queue.popleft()
+            slot = free[0]
+            try:
+                if self.prefill_chunk is not None and n > self.prefill_chunk:
+                    self._start_stream(req, slot, blocks)
+                    return               # one chunk of prefill work per tick
+                nxt, cache, pad = self._solo_prefill(req)
+            except Exception:
+                self.allocator.free(blocks)
+                self.queue.appendleft(req)
+                raise
+            width = n + pad
+            ids = np.zeros(-(-width // self.kv_block), np.int64)
+            ids[:len(blocks)] = blocks       # slack blocks -> dummy block 0
+            kvpool.commit_prefill(self._pool_state, cache, pad, slot,
+                                  self._tensor(ids), block_size=self.kv_block)
+            req.out.append(nxt)
+            self._occupy(slot, req, blocks, seq_len=n, last=nxt)
+            if self.recorder is not None:
+                self.recorder.record_admit(req.rid, self.clock)
+            self._record_prefill_done(req.rid)
+
+    def _occupy(self, slot: int, req: Request, blocks, *, seq_len: int,
+                last: int):
+        self.active[slot] = req
+        self.owned[slot] = list(blocks)
+        self.block_tables[slot, :] = 0
+        self.block_tables[slot, :len(blocks)] = blocks
+        self.seq_lens[slot] = seq_len
+        self.last_tokens[slot] = last
+        self.remaining[slot] = req.max_new - 1
+        self._admit_seq[slot] = self._admit_counter
+        self._admit_counter += 1
+
+    def _start_stream(self, req: Request, slot: int, blocks):
+        """Begin a chunked prefill: chunk 1 is a plain batch-1 prefill at the
+        chunk width (its KV scratch is ``s_max`` long, so it is the stream's
+        resumable cache), committed into the slot's blocks.  The slot stays
+        out of the decode dispatch (seq_len 0, a dummy table row) until the
+        last chunk lands."""
+        c = self.prefill_chunk
+        toks = np.asarray(req.prompt, np.int32)[None, :c]
+        self._prefill_shapes.add((1, c, False))
+        _, cache = transformer.prefill(self.params, self.cfg,
+                                       {"tokens": self._tensor(toks)},
+                                       s_max=self.s_max)
+        self.prefill_steps += 1
+        cache = {"units": cache["units"], "tail": cache["tail"]}
+        ids = np.zeros(self.table_width, np.int64)
+        ids[:len(blocks)] = blocks
+        self._stream_ids = self._tensor(ids)
+        kvpool.commit_chunk(self._pool_state, cache, 0, c, slot,
+                            self._stream_ids, block_size=self.kv_block)
+        self._stream_req, self._stream_slot = req, slot
+        self._stream_cache, self._stream_done = cache, c
+        self._occupy(slot, req, blocks, seq_len=0, last=0)
+        if self.recorder is not None:
+            self.recorder.record_admit(req.rid, self.clock)
+
+    def _advance_stream(self):
+        """One chunk of the streaming request's prefill; the last chunk's
+        logits are the whole-prompt logits, so its argmax is the first
+        token and the slot joins this tick's decode dispatch."""
+        req, slot, c = self._stream_req, self._stream_slot, self.prefill_chunk
+        n = len(req.prompt)
+        start = self._stream_done
+        n_valid = min(c, n - start)
+        chunk = np.zeros((1, c), np.int64)
+        chunk[0, :n_valid] = req.prompt[start:start + n_valid]
+        logits, cache = transformer.prefill_chunk(
+            self.params, self.cfg, self._stream_cache, self._tensor(chunk),
+            start, n_valid)
+        self.prefill_steps += 1
+        kvpool.commit_chunk(self._pool_state, cache, start, n_valid, slot,
+                            self._stream_ids, block_size=self.kv_block)
+        self._stream_cache = cache
+        self._stream_done = start + n_valid
+        if self._stream_done < n:
+            return
+        nxt = int(torch.argmax(logits[0], -1))   # the stream's one sync
+        req.out.append(nxt)
+        self.seq_lens[slot] = n
+        self.last_tokens[slot] = nxt
+        self._end_stream()
+        self._record_prefill_done(req.rid)
+
+    def _end_stream(self):
+        self._stream_req, self._stream_slot = None, -1
+        self._stream_cache, self._stream_done = None, 0
+        self._stream_ids = None
+
+    def _release_slot(self, slot: int):
+        self.allocator.free(self.owned[slot])
+        self.owned[slot] = []
+        self.block_tables[slot, :] = 0
+        self.seq_lens[slot] = 0
+        self.last_tokens[slot] = 0
+        self.remaining[slot] = 0
+        self._admit_seq[slot] = -1
+        self.active[slot] = None
+
+    def _preempt(self, slot: int):
+        """Evict the request in ``slot`` to the FRONT of the queue,
+        discarding its output and KV (recompute-style preemption)."""
+        req = self.active[slot]
+        if slot == self._stream_slot:
+            self._end_stream()           # the stream restarts from chunk 1
+        req.out.clear()
+        self._release_slot(slot)
+        self.queue.appendleft(req)
+        self.preemptions += 1
+        rec_preempt = getattr(self.recorder, "record_preempt", None)
+        if rec_preempt is not None:
+            rec_preempt(req.rid, self.clock)
+
+    def _grow_blocks(self):
+        """Before a decode tick, give every active slot the block its next
+        KV write lands in; oldest first, preempting the youngest when the
+        pool is dry."""
+        order = sorted((i for i, r in enumerate(self.active) if r is not None),
+                       key=lambda i: self._admit_seq[i])
+        for slot in order:
+            if self.active[slot] is None:    # preempted below, mid-loop
+                continue
+            bidx = int(self.seq_lens[slot]) // self.kv_block
+            if bidx < len(self.owned[slot]):
+                continue
+            while True:
+                got = self.allocator.alloc(1)
+                if got is not None:
+                    self.owned[slot].append(got[0])
+                    self.block_tables[slot, bidx] = got[0]
+                    break
+                victim = max(
+                    (j for j, r in enumerate(self.active) if r is not None),
+                    key=lambda j: self._admit_seq[j])
+                self._preempt(victim)
+                if victim == slot:
+                    break                    # this slot went back to queue
+
+    def _step_continuous(self) -> bool:
+        self._admit_continuous()
+        self._grow_blocks()
+        live = [i for i, r in enumerate(self.active)
+                if r is not None and i != self._stream_slot]
+        if not live:
+            return self._stream_req is not None or bool(self.queue)
+        table = self.block_tables
+        if self._stream_req is not None:
+            # the mid-prefill slot rides the dispatch as an idle row whose
+            # zeroed table row sends its writes to the dummy block 0
+            table = table.copy()
+            table[self._stream_slot] = 0
+        logits, self._pool_state = transformer.decode_step_paged(
+            self.params, self.cfg, self._pool_state,
+            self._tensor(self.last_tokens), self._tensor(table),
+            self._tensor(self.seq_lens))
+        self.decode_steps += 1
+        # the tick's one sync: (slots,) token ids
+        nxt = torch.argmax(logits, -1).cpu().numpy()
+        for i in live:
+            req = self.active[i]
+            self.seq_lens[i] += 1
+            self.last_tokens[i] = nxt[i]
+            req.out.append(int(nxt[i]))
+            self.remaining[i] -= 1
+            if self.remaining[i] <= 0:
+                self._release_slot(i)
+                self._complete(req)
+        return True
+
+    # -- stepping the engine --------------------------------------------------
+
+    def step(self) -> bool:
+        """One engine tick.  Returns False when idle."""
+        self.clock += 1
+        return self._step_continuous()
+
+    def pop_completed(self) -> list[Request]:
+        """Drain and return the requests finished since the last drain."""
+        finished, self._completed = self._completed, []
+        return finished
+
+    def run_until_idle(self, max_steps: int = 10_000) -> list[Request]:
+        """Step until the queue and all slots drain; return every request
+        completed since the last drain.  Raises RuntimeError when
+        ``max_steps`` ticks pass with work pending."""
+        for _ in range(max_steps):
+            if not self.step():
+                return self.pop_completed()
+        raise RuntimeError(
+            f"engine did not drain within max_steps={max_steps}: "
+            f"{len(self.queue)} request(s) still queued, "
+            f"{sum(r is not None for r in self.active)} slot(s) active")

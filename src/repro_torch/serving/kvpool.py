@@ -1,0 +1,188 @@
+"""Paged KV-cache pool for continuous-batching serving.
+
+Port of ``repro/serving/kvpool.py`` for global-attention stacks.  The KV
+cache of every unit-stacked "g" layer lives in a block pool
+``(U, n_blocks, block_size, KV, hd)``; a host-side :class:`BlockAllocator`
+hands out blocks, and block 0 is a reserved dummy that idle decode rows
+write into.  Each slot's block table maps its logical blocks to pool
+blocks; the paged decode gathers them back into a contiguous view for the
+decode-attention kernel.
+
+Where the reference returns a new pool, the port writes into the pool it
+was given (``commit_prefill``, ``commit_chunk``).  Ring caches ("l") and
+recurrent state ("r"/"s") come with the slice that ports those kinds.
+"""
+from __future__ import annotations
+
+from collections import deque
+
+import torch
+
+from ..models import transformer
+from ..models.attention import KVCache
+from ..models.common import dtype_of
+
+
+class BlockAllocator:
+    """Host-side free-list over the KV block pool.
+
+    Block 0 is reserved as the dummy block (idle decode rows write there);
+    ``capacity`` is therefore ``n_blocks - 1``.  Every block is either in
+    the free list or handed out: ``free()`` of a block never handed out
+    raises, both paths validate their whole argument before changing
+    anything, and ``alloc()`` rolls back if it finds the free list corrupt.
+    """
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError(f"need >= 2 blocks (one is the reserved dummy), "
+                             f"got {n_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self._free: deque[int] = deque(range(1, n_blocks))
+        self._handed: set[int] = set()
+
+    @property
+    def capacity(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def handed_out(self) -> frozenset[int]:
+        return frozenset(self._handed)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """Pop ``n`` blocks, or None (and no side effect) if unavailable."""
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} blocks")
+        if n > len(self._free):
+            return None
+        got: list[int] = []
+        for _ in range(n):
+            b = self._free.popleft()
+            if b in self._handed:            # corrupted free list: roll back
+                self._free.extendleft(reversed(got + [b]))
+                raise ValueError(f"free list corrupted: block {b} is both "
+                                 f"free and handed out")
+            got.append(b)
+        self._handed.update(got)
+        return got
+
+    def free(self, blocks) -> None:
+        """Return blocks to the free list; a bad batch raises with the
+        allocator unchanged."""
+        blocks = list(blocks)
+        seen: set[int] = set()
+        for b in blocks:
+            if not 1 <= b < self.n_blocks:
+                raise ValueError(f"block {b} outside pool (dummy block 0 is "
+                                 f"never allocated)")
+            if b in seen:
+                raise ValueError(f"double free of block {b} (duplicated "
+                                 f"within one free() batch)")
+            if b not in self._handed:
+                if b in self._free:
+                    raise ValueError(f"double free of block {b}")
+                raise ValueError(f"free of block {b} that was never handed "
+                                 f"out")
+            seen.add(b)
+        for b in blocks:
+            self._handed.discard(b)
+            self._free.append(b)
+
+
+def blocks_for(tokens: int, block_size: int) -> int:
+    """Blocks needed to hold ``tokens`` KV entries (at least one)."""
+    return max(1, -(-tokens // block_size))
+
+
+def pool_stats(allocator: BlockAllocator, seq_lens, owned) -> dict:
+    """Host-side pool gauges: free blocks, utilization (allocated /
+    capacity) and internal fragmentation (wasted token slots inside
+    allocated blocks / allocated token capacity)."""
+    cap = allocator.capacity
+    allocated = sum(len(blocks) for blocks in owned)
+    used_tokens = sum(int(seq_lens[i]) for i in range(len(owned))
+                      if owned[i])
+    alloc_tokens = allocated * allocator.block_size
+    return {
+        "n_free": allocator.n_free,
+        "capacity": cap,
+        "allocated": allocated,
+        "utilization": allocated / cap if cap else 0.0,
+        "fragmentation": (1.0 - used_tokens / alloc_tokens
+                          if alloc_tokens else 0.0),
+    }
+
+
+def init_decode_state(cfg, params, slots: int, n_blocks: int,
+                      block_size: int) -> dict:
+    """The zeroed continuous-decode state on the parameters' device: one
+    unit-stacked KV block pool per "g" layer of the unit.  (``slots``
+    sizes the per-slot rows of ring and recurrent state, which this slice's
+    stacks do not have.)"""
+    transformer.check_servable(cfg)
+    device = params["embed"].device
+    dt = dtype_of(cfg.compute_dtype)
+    shape = (cfg.n_units, n_blocks, block_size, cfg.n_kv,
+             cfg.resolved_head_dim)
+    return {"units": {f"slot{i}": KVCache(
+                          torch.zeros(shape, dtype=dt, device=device),
+                          torch.zeros(shape, dtype=dt, device=device))
+                      for i, _ in enumerate(cfg.block_pattern)},
+            "tail": []}
+
+
+def _pools(state, solo):
+    for name, pool in state["units"].items():
+        yield pool, solo["units"][name]
+
+
+def commit_prefill(state, solo, pad: int, slot: int, block_ids, *,
+                   block_size: int):
+    """Write one solo-prefilled request into the decode state, in place.
+
+    ``solo`` is the {"units", "tail"} cache of a batch-1 bucketed prefill,
+    ``pad`` its left-pad count and ``block_ids`` (nb,) the pool blocks for
+    the bucket width (entries past the owned count are the dummy block 0,
+    which absorbs the rolled-out pad).  The token axis is rolled by -pad so
+    the real tokens sit at positions 0.., then cut or zero-padded to
+    ``nb * block_size`` and written block by block.  ``slot`` is the decode
+    row (used by ring and recurrent state in later slices).
+    """
+    nb = block_ids.shape[0]
+    want = nb * block_size
+    for pool, one in _pools(state, solo):
+        for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
+            x = torch.roll(leaf[:, 0], -int(pad), dims=1)   # (U, s_max, KV, hd)
+            tok = x.shape[1]
+            if want < tok:
+                x = x[:, :want]
+            elif want > tok:
+                x = torch.cat([x, x.new_zeros((x.shape[0], want - tok)
+                                              + tuple(x.shape[2:]))], dim=1)
+            dst[:, block_ids] = x.reshape(x.shape[0], nb, block_size,
+                                          *x.shape[2:])
+    return state
+
+
+def commit_chunk(state, solo, chunk_start: int, n_new: int, slot: int,
+                 block_ids, *, block_size: int):
+    """Write ONE prefill chunk of a streaming request into the decode state,
+    in place: solo-scratch positions ``chunk_start .. chunk_start + n_new -
+    1`` go to their blocks in ``block_ids`` (the slot's full table row).
+    The reference also routes the chunk's junk lanes into the dummy block
+    0; the port writes only the real positions, so every block but 0 ends
+    up the same.  ``slot`` is the decode row (used by ring and recurrent
+    state in later slices)."""
+    pos = chunk_start + torch.arange(n_new, device=block_ids.device)
+    blk = block_ids[pos // block_size]
+    off = pos % block_size
+    for pool, one in _pools(state, solo):
+        for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
+            dst[:, blk, off] = leaf[:, 0, chunk_start:chunk_start + n_new]
+    return state

@@ -1,0 +1,91 @@
+"""Partitioned-model execution: the paper's Fig. 1 on the LM stack.
+
+Port of ``repro/serving/partitioned.py`` (without ``mesh=``, which comes
+with a later slice).  A ``PartitionedLM`` splits a decoder-only stack at a
+*unit* boundary: units ``0..cut_unit-1`` run on the device tier (UE), the
+rest on the edge tier (ES), and the boundary hidden state (psi in the
+paper) crosses between.  The LyMDO controller picks the cut per slot from
+the arch's layer profile (``profiling.lmprofiles``); ``layer_cut_to_unit``
+maps a profile-layer cut onto a unit cut.  At the full-offload cut the ES
+half holds the whole stack and ``es_engine`` serves token traffic on it.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _tree
+from ..configs.base import ArchConfig
+from ..models import transformer
+from ..models.common import dtype_of
+
+
+def split_params(params, cut_unit: int):
+    """Slice the stacked unit params into (ue_half, es_half)."""
+    ue = {"embed": params["embed"],
+          "units": _tree.map_tensors(lambda a: a[:cut_unit], params["units"])}
+    es = {k: v for k, v in params.items() if k != "units"}
+    es["units"] = _tree.map_tensors(lambda a: a[cut_unit:], params["units"])
+    return ue, es
+
+
+def layer_cut_to_unit(cfg: ArchConfig, layer_cut: int) -> int:
+    """Map a profile-layer cut (0..L) to a unit boundary (0..n_units).
+
+    Profile layers: [input, embed, stack..., head]; stack layer i sits in
+    unit i // len(pattern)."""
+    stack_cut = max(0, layer_cut - 2 + 1)    # layers executed locally
+    return min(stack_cut // len(cfg.block_pattern), cfg.n_units)
+
+
+class PartitionedLM:
+    """Two-tier forward pass for plain decoder stacks."""
+
+    def __init__(self, cfg: ArchConfig, params, cut_unit: int, *, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "PartitionedLM(mesh=) is not ported yet; it comes with a "
+                "later slice of the port")
+        transformer.check_servable(cfg)
+        self.cfg = cfg
+        self.cut_unit = int(cut_unit)
+        self.mesh = None
+        self.ue_params, self.es_params = split_params(params, self.cut_unit)
+
+    def _ue_half(self, tokens):
+        x = transformer._embed(self.ue_params, self.cfg, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return transformer.run_units(self.ue_params["units"], self.cfg, x,
+                                     positions)
+
+    def _es_half(self, hidden):
+        positions = torch.arange(hidden.shape[1], device=hidden.device)
+        x = transformer.run_units(self.es_params["units"], self.cfg, hidden,
+                                  positions)
+        return transformer._logits(self.es_params, self.cfg, x)
+
+    def boundary_bytes(self, batch: int, seq: int) -> int:
+        """psi: what crosses the uplink (eq. 3's payload)."""
+        if self.cut_unit == 0:
+            return batch * seq * 4                      # raw tokens
+        return batch * seq * self.cfg.d_model * 2        # bf16 hidden
+
+    def es_engine(self, **engine_kwargs):
+        """A continuous-batching ``ServingEngine`` on the ES half; the
+        full-offload cut only (``cut_unit == 0``)."""
+        if self.cut_unit != 0:
+            raise ValueError(
+                f"es_engine needs the full-offload cut (cut_unit=0, the "
+                f"whole stack on the ES tier); got cut_unit="
+                f"{self.cut_unit}")
+        from .engine import ServingEngine
+        return ServingEngine(self.cfg, self.es_params, **engine_kwargs)
+
+    def infer(self, tokens):
+        """Returns (logits, boundary activation): the latter is what the
+        transmission model charges for."""
+        if self.cut_unit == 0:
+            # full offload: raw tokens cross the uplink, ES does everything
+            x = transformer._embed(self.es_params, self.cfg, tokens)
+            return self._es_half(x.to(dtype_of(self.cfg.compute_dtype))), tokens
+        hidden = self._ue_half(tokens)
+        return self._es_half(hidden), hidden

@@ -303,6 +303,20 @@ def _port_sources():
     return files + [ROOT / "chip_smoke.py"]
 
 
+def test_import_guard_covers_the_serving_slice():
+    """The guard below globs the whole package: the modules of the served
+    LM path and the kernel sources' wrappers are among its files."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_sources()[:-1]}
+    for mod in ("configs/base.py", "kernels/_build.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "models/transformer.py", "models/attention.py",
+                "serving/engine.py", "serving/kvpool.py",
+                "serving/partitioned.py", "profiling/lmprofiles.py",
+                "serve_partitioned.py"):
+        assert mod in names, mod
+
+
 def test_port_imports_neither_jax_nor_reference():
     bad = []
     for path in _port_sources():

@@ -1,5 +1,6 @@
-"""Card-only tests of the port (``-m gpu``): the CUDA partition sweep
-against its plain PyTorch version, and the grid's Oracle path launching it.
+"""Card-only tests of the port (``-m gpu``): each CUDA kernel against its
+plain PyTorch version, the grid's Oracle path launching the partition
+sweep, and the serving engine launching the attention kernels.
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch:
@@ -11,6 +12,8 @@ there is none.  Tolerance: rtol 1e-4 / atol 1e-3 on feasible cells and the
 same infeasible set (the reference's sweep tolerance); argmins must agree
 wherever the plain table's best and second best are further apart than
 that, and elsewhere the kernel's pick must score within it of the best.
+Attention: 2e-5 in float32, 2e-2 in bf16 (the reference's kernel
+tolerances); query rows inside a left pad see no key and must be zero.
 """
 import numpy as np
 import pytest
@@ -18,9 +21,14 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.core import scenarios as p_sc
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import decode_attention as p_da
+from repro_torch.kernels import flash_attention as p_fa
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import partition_sweep as p_ps
 from repro_torch.kernels import ref as p_ref
+from repro_torch.models import transformer as p_tf
+from repro_torch.serving import engine as p_engine
 
 BIG = 1e29
 SWEEP_RTOL, SWEEP_ATOL = 1e-4, 1e-3
@@ -136,3 +144,108 @@ def test_grid_with_per_cell_constants_runs_the_kernel_on_card():
     np.testing.assert_allclose(got[feasible], want[feasible],
                                rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
     assert ((got > BIG) == ~feasible).all()
+
+
+def _att_inputs(b, sq, sk, h, kv, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return rnd(b, sq, h, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,kind,window,pad", [
+    (1, 32, 32, 16, 8, 128, "causal", 0, [5]),
+    (2, 300, 300, 16, 8, 128, "causal", 0, [0, 299]),
+    (2, 100, 100, 6, 2, 64, "local", 24, [0, 50]),
+    (2, 37, 75, 4, 2, 32, "full", 0, None),
+    (1, 96, 96, 10, 1, 256, "causal", 0, None)])
+def test_flash_kernel_matches_plain(dtype, tol, b, sq, sk, h, kv, hd, kind,
+                                    window, pad):
+    _need_card()
+    q, k, v = _att_inputs(b, sq, sk, h, kv, hd, dtype, sq + hd)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    before = p_fa.flash_attention_cuda.launches
+    got = p_ops.flash_attention(q, k, v, kind=kind, window=window,
+                                pad_mask=None if pad is None else
+                                torch.arange(sk, device="cuda")[None] >= pad_t[:, None])
+    torch.cuda.synchronize()
+    assert p_fa.flash_attention_cuda.launches == before + 1
+    want = p_ref.flash_attention_ref(q, k, v, kind=kind, window=window,
+                                     pad=pad_t)
+    assert torch.isfinite(got.float()).all()
+    for i in range(b):
+        p0 = 0 if pad is None else pad[i]
+        torch.testing.assert_close(got[i, p0:].float(), want[i, p0:].float(),
+                                   rtol=tol, atol=tol)
+        if kind != "full":
+            assert (got[i, :p0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(8, 512, 16, 8, 128),
+                                         (3, 33, 4, 2, 32),
+                                         (2, 100, 10, 1, 256)])
+def test_decode_kernel_matches_plain(dtype, tol, b, s, h, kv, hd):
+    """Ragged lengths and one row with no valid key (the uniform average)."""
+    _need_card()
+    q, k, v = _att_inputs(b, 1, s, h, kv, hd, dtype, s)
+    lens = torch.randint(1, s + 1, (b,), device="cuda")
+    valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+    valid[-1] = False
+    before = p_da.decode_attention_cuda.launches
+    got = p_ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert p_da.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               p_ref.decode_attention_ref(q, k, v, valid).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_reject_bad_inputs_on_card():
+    _need_card()
+    q, k, v = _att_inputs(2, 8, 8, 4, 2, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        p_fa.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                  k, v)
+    with pytest.raises(ValueError, match="pad"):
+        p_fa.flash_attention_cuda(q, k, v, pad=torch.zeros(2, device="cuda"))
+    with pytest.raises(ValueError, match="valid_mask"):
+        p_da.decode_attention_cuda(q[:, :1].contiguous(), k, v,
+                                   torch.ones(2, 8, device="cuda"))
+    with pytest.raises(ValueError, match="valid_mask"):
+        p_da.decode_attention_cuda(q[:, :1].contiguous(), k, v,
+                                   torch.ones(2, 7, dtype=torch.bool,
+                                              device="cuda"))
+
+
+@pytest.mark.gpu
+def test_engine_on_card_gives_the_cpu_engines_tokens():
+    """float32, a narrow qwen3 with 32-wide heads: the engine on the card
+    launches both attention kernels and serves the CPU engine's tokens."""
+    _need_card()
+    cfg = reduced(get_config("qwen3-0.6b"), n_layers=2, head_dim=32)
+    cpu = p_tf.init_params(0, cfg, "cpu")
+    gpu = _tree.to_device(cpu, "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 40, 9, 70)]
+    outs = []
+    for params in (cpu, gpu):
+        eng = p_engine.ServingEngine(cfg, params, slots=2, s_max=128)
+        reqs = [p_engine.Request(rid=i, prompt=pr, max_new=6)
+                for i, pr in enumerate(prompts)]
+        before = (p_fa.flash_attention_cuda.launches,
+                  p_da.decode_attention_cuda.launches)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        outs.append([r.out for r in reqs])
+    assert p_fa.flash_attention_cuda.launches > before[0]
+    assert p_da.decode_attention_cuda.launches == before[1] + 2 * eng.decode_steps
+    assert outs[0] == outs[1]

@@ -1,0 +1,39 @@
+"""The slice's entry point, ``python -m repro_torch.serve_partitioned``, on
+the CPU at full width and 2 layers: controller, split and ES engine."""
+import math
+
+from repro_torch import serve_partitioned as sp
+
+ARGV = ["--device", "cpu", "--layers", "2", "--requests", "4",
+        "--prompt-max", "60", "--max-new", "4", "--slots", "2",
+        "--s-max", "128"]
+
+
+def test_main_serves_every_request_on_cpu():
+    rep = sp.main(ARGV)
+    assert (rep["arch"], rep["layers"], rep["device"]) == ("qwen3-0.6b", 2,
+                                                           "cpu")
+    assert rep["dtype"] == "bfloat16"
+    cuts = rep["controller_cuts"]
+    assert len(cuts) == sp.CTRL_SLOTS
+    assert all(len(c) == sp.UES for c in cuts)
+    assert 0 <= rep["unit_cut"] <= rep["layers"]
+
+    assert rep["split"]
+    for row in rep["split"]:
+        assert row["finite"]
+        # bf16 end to end: the split agrees with the monolithic pass
+        assert row["max_abs_err"] <= 2e-2 + 2e-2 * row["max_abs_logit"], row
+        assert row["boundary_bytes"] > 0
+
+    srv = rep["serving"]
+    assert srv["requests"] == 4 and srv["completed"] == 4
+    assert sorted(srv["out"]) == [0, 1, 2, 3]
+    assert all(len(o) == 4 for o in srv["out"].values())
+    assert srv["generated_tokens"] == 16
+    assert srv["decode_steps"] > 0 and srv["prefill_steps"] >= 4
+    assert srv["ticks"] >= srv["decode_steps"]
+    for key in ("decode_tick_ms_p50", "decode_tick_ms_p99",
+                "prefill_tick_ms_p50", "prefill_tick_ms_p99",
+                "tokens_per_s", "wall_s"):
+        assert math.isfinite(srv[key]) and srv[key] > 0, key

@@ -18,6 +18,7 @@ import torch
 from repro.core import scenarios as r_sc
 from repro.kernels import ref as r_ref
 from repro.kernels.partition_sweep import _RHI, _RLO, partition_sweep_batched
+from repro_torch.kernels import _build as p_build
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import partition_sweep as p_ps
 from repro_torch.kernels import ref as p_ref
@@ -135,7 +136,7 @@ def test_plain_sweep_lm_fleet_c103():
 
 
 def test_kernel_ratio_literals_match_reference():
-    src = p_ps._SRC.read_text()
+    src = p_ps.LIBRARY.source.read_text()
     blocks = re.findall(r"kRatio(Lo|Hi)\[kFibIters\] = \{(.*?)\};", src, re.S)
     got = {name: np.asarray([float(x.rstrip("f")) for x in
                              body.replace("\n", " ").split(",") if x.strip()],
@@ -166,16 +167,22 @@ def test_kernel_wrapper_rejects_cpu_and_bad_inputs():
 
 
 def test_build_is_keyed_to_the_source(monkeypatch, tmp_path):
-    path = p_ps.library_path()
+    """The shared build helper names each library by a hash of its source
+    and flags, and says so when there is no nvcc."""
+    path = p_ps.LIBRARY.path()
     assert path.parent.name == "build" and path.suffix == ".so"
+    assert "-fmad=false" in p_ps.LIBRARY.flags
     src = tmp_path / "k.cu"
-    src.write_text(p_ps._SRC.read_text() + "\n// edited\n")
-    monkeypatch.setattr(p_ps, "_SRC", src)
-    assert p_ps.library_path() != path
-    monkeypatch.setattr(p_ps.shutil, "which", lambda _: None)
+    src.write_text(p_ps.LIBRARY.source.read_text() + "\n// edited\n")
+    edited = p_build.Library("partition_sweep", src, lambda lib: None,
+                             extra_flags=("-fmad=false",))
+    assert edited.path() != path
+    assert p_build.Library("partition_sweep", p_ps.LIBRARY.source,
+                           lambda lib: None).path() != path
+    monkeypatch.setattr(p_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
-        p_ps._nvcc()
+        p_build.nvcc()
 
 
 def test_random_sweep_inputs_plain_matches_reference():
