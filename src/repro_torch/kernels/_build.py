@@ -82,6 +82,14 @@ class Library:
             raise RuntimeError(f"{self.name} launch failed: {msg.decode()}")
 
 
+def all_libraries() -> list[Library]:
+    """The port's kernel libraries, one per ``csrc/*.cu`` source."""
+    from . import (decode_attention, flash_attention, partition_sweep,
+                   rglru_scan, ssd_scan)
+    return [partition_sweep.LIBRARY, flash_attention.LIBRARY,
+            decode_attention.LIBRARY, ssd_scan.LIBRARY, rglru_scan.LIBRARY]
+
+
 def build_all(libraries) -> list[pathlib.Path]:
     """Build every library that is not built yet, one nvcc process per
     source, all started together; raise if any fails."""

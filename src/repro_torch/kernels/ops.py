@@ -66,6 +66,51 @@ def chunk_attention(q, k, v, *, start: int):
     return ref.attention_ref(q, k, v, mask=mask)
 
 
+def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
+    """Mamba2 SSD.  x (B, S, H, P), dt (B, S, H), a_log (H,), b/c
+    (B, S, G, N), d_skip (H,); ``reset`` (B, S) bool zeroes the carried
+    state entering flagged steps.  Returns (y (B, S, H, P), final state
+    (B, H, N, P) float32).
+
+    On CUDA the SSD kernel runs at any S (its tile is its own; ``chunk``
+    is a tiling choice that does not change the result).  On the CPU the
+    plain chunked scan runs at ``chunk``, as the reference does: S is
+    right-padded to a chunk multiple with dt = 0 steps (decay exp(0) = 1,
+    contribution dt b x = 0, so the final state is untouched) and the
+    padded rows of y are cut off.
+    """
+    if x.is_cuda:
+        from .ssd_scan import ssd_scan_cuda
+        return ssd_scan_cuda(
+            x.contiguous(), dt.float().contiguous(),
+            a_log.float().contiguous(), b.contiguous(), c.contiguous(),
+            d_skip.float().contiguous(),
+            reset=None if reset is None else reset.contiguous())
+    s = x.shape[1]
+    tail = (-s) % chunk
+    if tail:
+        def pad_s(t):
+            return torch.cat([t, t.new_zeros((t.shape[0], tail)
+                                             + tuple(t.shape[2:]))], dim=1)
+        x, dt, b, c = pad_s(x), pad_s(dt), pad_s(b), pad_s(c)
+        if reset is not None:
+            reset = pad_s(reset)
+    y, state = ref.ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk=chunk,
+                                reset=reset)
+    return (y[:, :s] if tail else y), state
+
+
+def rglru_scan(x, a, reset=None):
+    """Gated linear recurrence h_t = a_t h_{t-1} + x_t over (B, S, R), any
+    S; ``reset`` (B, S) bool zeroes the state entering flagged steps."""
+    if x.is_cuda:
+        from .rglru_scan import rglru_scan_cuda
+        return rglru_scan_cuda(
+            x.contiguous(), a.contiguous(),
+            reset=None if reset is None else reset.contiguous())
+    return ref.rglru_scan_ref(x, a, reset=reset)
+
+
 def partition_sweep(macs, params_b, acts, psi, L, lam, gain, q_energy,
                     q_memory, scalars):
     """Per-(UE, cut) drift-plus-penalty table (paper eq. 11) of one cell:

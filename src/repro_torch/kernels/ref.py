@@ -2,7 +2,8 @@
 
 The CPU tests run these, ``kernels.ops`` runs them only for tensors on the
 CPU, and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
-Port of ``repro/kernels/ref.py`` (the attention and partition-sweep parts).
+Port of ``repro/kernels/ref.py`` (the attention, scan and partition-sweep
+parts).
 """
 from __future__ import annotations
 
@@ -133,6 +134,132 @@ def decode_attention_ref(q, k, v, valid_mask):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
+    """Mamba2 SSD (state-space dual) scan in chunked form.
+
+    x (B, S, H, P); dt (B, S, H) step sizes (> 0); a_log (H,) with
+    A = -exp(a_log); b, c (B, S, G, N), group g serving heads
+    g * H/G .. (g + 1) * H/G - 1; d_skip (H,); ``reset`` (B, S) bool zeroes
+    the state entering step t (t's own contribution survives).  S must be a
+    multiple of ``chunk``.  Returns (y (B, S, H, P) in x's dtype, final
+    state (B, H, N, P) float32, or float64 for float64 x).  Per head, with state M (N x P):
+
+        M_t = [reset_t ? 0 : exp(A dt_t) M_{t-1}] + dt_t b_t x_t^T
+        y_t = c_t M_t + D x_t
+
+    Resets stay in the linear domain (segment-id masks), and the causal and
+    same-segment mask is applied to the log decay before the exp: for
+    r > q the exponent is positive and would overflow.  Arithmetic is
+    float32 (float64 for float64 inputs), but the prefix sums of A dt
+    within a chunk, and their differences, are float64: at mamba2's decays
+    (A dt down to about -13 a step) they reach -3,000 over a 256-step
+    chunk, where the float32 ulp is 2.4e-4, and a decay factor would carry
+    that relative error.  The CUDA kernel does the same.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    reps = h // g
+    bh = torch.repeat_interleave(b, reps, dim=2)
+    ch = torch.repeat_interleave(c, reps, dim=2)
+    a = -torch.exp(a_log.to(f))
+    dt32 = dt.to(f)
+    la = a[None, None, :] * dt32
+
+    nc = s // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).to(f)
+    bc = bh.reshape(bsz, nc, chunk, h, n).to(f)
+    cc = ch.reshape(bsz, nc, chunk, h, n).to(f)
+    dtc = dt32.reshape(bsz, nc, chunk, h)
+    cum = torch.cumsum(la.reshape(bsz, nc, chunk, h).double(),
+                       dim=2)                                  # (B,C,Q,H)
+    total = cum[:, :, -1]                                      # (B,C,H)
+
+    keep = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()[None, None, None]
+    if reset is not None:
+        seg = torch.cumsum(reset.reshape(bsz, nc, chunk).to(torch.int32),
+                           dim=2)                               # (B,C,Q)
+        keep = keep & (seg[:, :, :, None] == seg[:, :, None, :])[:, :, None]
+
+    # intra-chunk term: y[q] = sum_{r<=q} exp(cum_q - cum_r) (c_q.b_r) dt_r x_r
+    scores = torch.einsum("bcqhn,bcrhn->bchqr", cc, bc)
+    cum_h = cum.permute(0, 1, 3, 2)                            # (B,C,H,Q)
+    ldecay = cum_h[..., :, None] - cum_h[..., None, :]
+    ldecay = torch.where(keep, ldecay, -torch.inf)
+    w = scores * torch.exp(ldecay).to(f)
+    y_intra = torch.einsum("bchqr,bcrh,bcrhp->bcqhp", w, dtc, xc)
+
+    # chunk-boundary states: sum_r exp(total - cum_r) dt_r b_r x_r^T
+    decay_to_end = torch.exp(total[:, :, None, :] - cum).to(f)
+    gate = torch.ones(bsz, nc, dtype=f, device=x.device)
+    inter_decay = torch.exp(cum).to(f)
+    if reset is not None:
+        decay_to_end = decay_to_end * (seg == seg[:, :, -1:])[..., None]
+        gate = (seg[:, :, -1] == 0).to(f)
+        inter_decay = inter_decay * (seg == 0)[..., None]
+    contrib = torch.einsum("bcqh,bcqh,bcqhn,bcqhp->bchnp", decay_to_end, dtc,
+                           bc, xc)
+
+    m = torch.zeros(bsz, h, n, p, dtype=f, device=x.device)
+    starts = []
+    for i in range(nc):
+        starts.append(m)
+        m = (m * torch.exp(total[:, i]).to(f)[..., None, None]
+             * gate[:, i, None, None, None] + contrib[:, i])
+    m_starts = torch.stack(starts, dim=1)                      # (B,C,H,N,P)
+
+    y_inter = torch.einsum("bcqh,bcqhn,bchnp->bcqhp", inter_decay, cc,
+                           m_starts)
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    y = y + d_skip.to(f)[None, None, :, None] * x.to(f)
+    return y.to(x.dtype), m
+
+
+def ssd_step_ref(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    """One decode step of the SSD recurrence.  state (B, H, N, P) float32;
+    x_t (B, H, P); dt_t (B, H); b_t, c_t (B, G, N).  Returns (y_t (B, H, P)
+    in x_t's dtype, new state)."""
+    reps = x_t.shape[1] // b_t.shape[1]
+    bh = torch.repeat_interleave(b_t, reps, dim=1).float()
+    ch = torch.repeat_interleave(c_t, reps, dim=1).float()
+    a = -torch.exp(a_log.float())
+    dt32 = dt_t.float()
+    decay = torch.exp(a[None, :] * dt32)
+    x32 = x_t.float()
+    new_state = (state * decay[..., None, None]
+                 + torch.einsum("bh,bhn,bhp->bhnp", dt32, bh, x32))
+    y = torch.einsum("bhnp,bhn->bhp", new_state, ch)
+    y = y + d_skip.float()[None, :, None] * x32
+    return y.to(x_t.dtype), new_state
+
+
+def rglru_scan_ref(x, a, reset=None):
+    """Linear recurrence h_t = a_t h_{t-1} + x_t over (B, S, R), h_0 = 0.
+
+    ``reset`` (B, S) bool zeroes the state entering step t, written as
+    a_t = 0 so the combine stays exact.  A log2(S) doubling scan of the
+    pairs (A, X): (A_t, X_t) <- (A_t A_{t-k}, X_t + A_t X_{t-k}), float32.
+    Returns h in x's dtype.
+    """
+    a32, x32 = a.float(), x.float()
+    if reset is not None:
+        a32 = torch.where(reset[:, :, None], 0.0, a32)
+    s = x.shape[1]
+    shift = 1
+    while shift < s:
+        a_prev = torch.cat([torch.ones_like(a32[:, :shift]), a32[:, :-shift]],
+                           dim=1)
+        x_prev = torch.cat([torch.zeros_like(x32[:, :shift]),
+                            x32[:, :-shift]], dim=1)
+        x32 = x32 + a32 * x_prev
+        a32 = a32 * a_prev
+        shift *= 2
+    return x32.to(x.dtype)
 
 # The MEC constants of the partition sweep, in the order of a scalar row.
 SCALAR_NAMES = ("rho", "kappa", "p_tx", "w_hz", "n0", "f_max_ue", "f_max_es",

@@ -1,0 +1,117 @@
+"""Serving launcher: the ES-side continuous-batching engine on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+        [--smoke] [--device cpu] [--requests 6] [--slots 2]
+        [--prompt-len 16] [--max-new 8]
+
+Builds ``--arch`` from a seeded random init (``--smoke``: the reduced
+config of the same family, float32) and serves ``--requests`` synthetic
+prompts of ``--prompt-len`` tokens, ``--max-new`` tokens each, printing
+each request's latency.  Port of ``repro/launch/serve.py`` for one device,
+on CUDA unless ``--device cpu``; the production mesh (``--multi-pod``) and
+the synchronized-batch engine (``--sync-batching``) come with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs.base import get_config, reduced
+from ..device import resolve_device
+from ..models import transformer
+from ..serving.engine import Request, ServingEngine
+
+SEED = 0
+
+
+def make_engine(cfg, params, *, slots: int, prompt_len: int,
+                max_new: int) -> ServingEngine:
+    """The engine the launcher serves with: ``s_max`` leaves room for a
+    ``prompt_len`` prompt, ``max_new`` tokens and 8 more."""
+    return ServingEngine(cfg, params, slots=slots,
+                         s_max=prompt_len + max_new + 8)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced config (float32)")
+    ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported yet (the production mesh)")
+    ap.add_argument("--sync-batching", action="store_true",
+                    help="not ported yet (the synchronized-batch engine)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi-pod (the production mesh) is not ported yet; it comes "
+            "with a later slice (the mesh)")
+    if args.sync_batching:
+        raise NotImplementedError(
+            "--sync-batching is not ported yet; it comes with a later slice "
+            "(the engine's synchronized-batch mode)")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    if cfg.enc_layers:
+        raise SystemExit("enc-dec serving needs source embeddings; the "
+                         "launcher serves decoder stacks")
+    device = resolve_device(args.device)
+    params = transformer.init_params(SEED, cfg, device)
+    n_params = transformer.param_count(params)
+    print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params "
+          f"({cfg.n_layers} layers, {cfg.param_dtype}) on {device}, "
+          f"{args.slots} slots")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    eng = make_engine(cfg, params, slots=args.slots,
+                      prompt_len=args.prompt_len, max_new=args.max_new)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len)
+                    .astype(np.int32), max_new=args.max_new)
+            for i in range(args.requests)]
+    t_submit = {}
+    for r in reqs:
+        eng.submit(r)
+        t_submit[r.rid] = time.perf_counter()
+    t_done = {}
+    while eng.step():
+        sync()
+        for r in reqs:
+            if r.done and r.rid not in t_done:
+                t_done[r.rid] = time.perf_counter()
+    sync()
+    latency = {}
+    for r in reqs:
+        latency[r.rid] = (t_done.get(r.rid, time.perf_counter())
+                          - t_submit[r.rid]) * 1e3
+        print(f"  req {r.rid}: {len(r.out)} tokens, {latency[r.rid]:7.1f} ms, "
+              f"out[:4]={r.out[:4]}")
+    print(f"[serve] {len(reqs)} requests in {eng.clock} engine steps "
+          f"(continuous: {eng.decode_steps} decode dispatches, "
+          f"{eng.prefill_steps} prefills and chunks, "
+          f"{eng.preemptions} preemptions)")
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "dtype": cfg.param_dtype, "device": str(device),
+            "params": n_params, "ticks": eng.clock,
+            "decode_steps": eng.decode_steps,
+            "prefill_steps": eng.prefill_steps,
+            "chunk_steps": eng.chunk_steps, "chunk_tokens": eng.chunk_tokens,
+            "preemptions": eng.preemptions,
+            "out": {r.rid: list(r.out) for r in reqs},
+            "latency_ms": latency}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,12 @@
 """GQA attention: init, projections, the prefill / decode / chunk / paged
-paths and the global KV cache.
+paths, the global KV cache and the sliding-window ring cache.
 
-Port of ``repro/models/attention.py`` (global attention, kind "g").  The
-attention itself goes through ``kernels.ops``: on CUDA tensors the flash and
-decode kernels, on the CPU their plain versions.  Where the reference
-returns an updated cache, the port writes into the cache it was given and
-returns that same cache: a caller that needs the old state clones it first.
-Sliding-window ring caches (kind "l") come with the slice that ports the
-hybrid stacks.
+Port of ``repro/models/attention.py`` (self-attention kinds "g", global,
+and "l", sliding window).  The attention itself goes through
+``kernels.ops``: on CUDA tensors the flash and decode kernels, on the CPU
+their plain versions.  Where the reference returns an updated cache, the
+port writes into the cache it was given and returns that same cache: a
+caller that needs the old state clones it first.
 """
 from __future__ import annotations
 
@@ -18,14 +17,18 @@ import torch
 from ..kernels import ops
 from .common import dense_init, dtype_of, head_rms_norm, rope
 
-RING_SLICE = ("the slice that ports the hybrid and SSM stacks "
-              "(recurrentgemma-2b, mamba2-1.3b)")
-
-
 class KVCache(NamedTuple):
     """Global-attention cache: full-length K and V."""
     k: torch.Tensor   # (B, S_max, KV, hd), or a pool (n_blocks, block, KV, hd)
     v: torch.Tensor
+
+
+class RingCache(NamedTuple):
+    """Sliding-window cache: ``window`` slots and each slot's absolute
+    position (-1 where empty)."""
+    k: torch.Tensor     # (B, W, KV, hd)
+    v: torch.Tensor
+    pos: torch.Tensor   # (B, W) int32
 
 
 def init_attention(gen, cfg, *, cross: bool = False, device=None) -> dict:
@@ -99,6 +102,33 @@ def init_kv_cache(cfg, batch: int, s_max: int, dtype, device=None) -> KVCache:
         v=torch.zeros(batch, s_max, kv, hd, dtype=dtype, device=device))
 
 
+def init_ring_cache(cfg, batch, dtype, device=None) -> RingCache:
+    """Empty ring; ``batch`` is the row count or a tuple of leading dims
+    (units, rows)."""
+    lead = (batch,) if isinstance(batch, int) else tuple(batch)
+    shape = (*lead, cfg.window, cfg.n_kv, cfg.resolved_head_dim)
+    return RingCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((*lead, cfg.window), -1, dtype=torch.int32,
+                       device=device))
+
+
+def prefill_into_ring(cache: RingCache, k, v, length: int) -> RingCache:
+    """Store the last ``window`` entries of a prefilled sequence (in place)
+    at their ring slots, slot = position % window, so that decode writes
+    continue from there."""
+    w = cache.k.shape[1]
+    s = k.shape[1]
+    take = min(w, s)
+    pos = torch.arange(s - take, s, device=k.device)
+    slots = pos % w
+    cache.k[:, slots] = k[:, s - take:].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, s - take:].to(cache.v.dtype)
+    cache.pos[:, slots] = pos.to(torch.int32)
+    return cache
+
+
 def prefill_into_kv(cache: KVCache, k, v) -> KVCache:
     """Write a prefilled sequence at positions 0.. of the cache (in place)."""
     s = k.shape[1]
@@ -107,18 +137,17 @@ def prefill_into_kv(cache: KVCache, k, v) -> KVCache:
     return cache
 
 
-def decode_self_attention(p, cfg, x, cache: KVCache, pos: int, *, kind: str,
+def decode_self_attention(p, cfg, x, cache, pos: int, *, kind: str,
                           pad=None):
-    """Single-token decode against a dense cache: x (B, 1, D).
+    """Single-token decode: x (B, 1, D) against a dense ``KVCache`` (kind
+    "g") or a ``RingCache`` (kind "l").
 
     ``pos`` is the shared write position; ``pad`` (B,) the rows' left-pad
-    counts (RoPE at ``pos - pad``, cache slots below ``pad`` masked).
-    Writes the token's K/V into ``cache`` at ``pos``.  Returns (out, cache).
+    counts (RoPE at ``pos - pad``, cache entries below ``pad`` masked).
+    Writes the token's K/V into ``cache`` at ``pos`` (a ring: at slot
+    ``pos % window``, and only the last ``window`` positions stay valid).
+    Returns (out, cache).
     """
-    if kind != "g":
-        raise NotImplementedError(
-            f"decode of attention kind {kind!r} (ring caches) is not ported "
-            f"yet; it comes with {RING_SLICE}")
     q = _project_q(p, cfg, x)               # (B, 1, H, hd)
     k_new, v_new = _project_kv(p, cfg, x)   # (B, 1, KV, hd)
     if cfg.rope_theta:
@@ -128,13 +157,20 @@ def decode_self_attention(p, cfg, x, cache: KVCache, pos: int, *, kind: str,
             pvec = (pos - pad)[:, None]
         q = rope(q, pvec, cfg.rope_theta)
         k_new = rope(k_new, pvec, cfg.rope_theta)
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
     b, s = cache.k.shape[:2]
-    slots = torch.arange(s, device=x.device)
-    valid = (slots <= pos)[None, :].expand(b, s)
-    if pad is not None:
-        valid = valid & (slots[None, :] >= pad[:, None])
+    at = pos % s if kind == "l" else pos
+    cache.k[:, at] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, at] = v_new[:, 0].to(cache.v.dtype)
+    if kind == "l":
+        cache.pos[:, at] = pos
+        valid = (cache.pos >= 0) & (cache.pos >= pos - s + 1)
+        if pad is not None:
+            valid = valid & (cache.pos >= pad[:, None])
+    else:
+        slots = torch.arange(s, device=x.device)
+        valid = (slots <= pos)[None, :].expand(b, s)
+        if pad is not None:
+            valid = valid & (slots[None, :] >= pad[:, None])
     out = ops.decode_attention(q, cache.k, cache.v, valid)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ p["wo"], cache
@@ -162,22 +198,22 @@ def chunk_self_attention(p, cfg, x, cache: KVCache, start: int, positions):
     return out @ p["wo"], cache
 
 
-def decode_self_attention_paged(p, cfg, x, cache: KVCache, *, kind: str,
+def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,
                                 block_table, seq_lens):
-    """Single-token decode against the paged pool (continuous batching).
+    """Single-token decode against per-slot caches (continuous batching):
+    row i writes position ``seq_lens[i]`` (in place).
 
-    ``cache`` is a pool ``(n_blocks, block_size, KV, hd)``; ``block_table``
-    (B, M) maps row i's logical blocks to pool blocks and ``seq_lens`` (B,)
-    is the position row i writes.  The new K/V goes into block
-    ``block_table[i, seq_lens[i] // bs]`` at offset ``seq_lens[i] % bs``
-    (in place); attention gathers each row's blocks into a (B, M * bs) view
-    with positions past ``seq_lens[i]`` masked.  Idle rows (seq_lens 0,
-    table all zeros) write into the reserved dummy block 0.
+    * kind "g": ``cache`` is a pool ``KVCache`` (n_blocks, block_size, KV,
+      hd); ``block_table`` (B, M) maps row i's logical blocks to pool
+      blocks.  The new K/V goes into block ``block_table[i, seq_lens[i] //
+      bs]`` at offset ``seq_lens[i] % bs``; attention gathers each row's
+      blocks into a (B, M * bs) view with positions past ``seq_lens[i]``
+      masked.  Idle rows (seq_lens 0, table all zeros) write into the
+      reserved dummy block 0.
+    * kind "l": ``cache`` is a per-slot ``RingCache`` (B, W, KV, hd); row i
+      writes ring slot ``seq_lens[i] % W`` (positions are semantic: the
+      commit re-slots prefill entries).
     """
-    if kind != "g":
-        raise NotImplementedError(
-            f"paged decode of attention kind {kind!r} (ring caches) is not "
-            f"ported yet; it comes with {RING_SLICE}")
     q = _project_q(p, cfg, x)
     k_new, v_new = _project_kv(p, cfg, x)
     if cfg.rope_theta:
@@ -185,6 +221,18 @@ def decode_self_attention_paged(p, cfg, x, cache: KVCache, *, kind: str,
         q = rope(q, pvec, cfg.rope_theta)
         k_new = rope(k_new, pvec, cfg.rope_theta)
     b = x.shape[0]
+    if kind == "l":
+        w = cache.k.shape[1]
+        rows = torch.arange(b, device=x.device)
+        slot = seq_lens % w
+        cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
+        cache.pos[rows, slot] = seq_lens.to(torch.int32)
+        valid = ((cache.pos >= 0)
+                 & (cache.pos >= (seq_lens - w + 1)[:, None]))
+        out = ops.decode_attention(q, cache.k, cache.v, valid)
+        out = out.reshape(*x.shape[:-1], -1)
+        return out @ p["wo"], cache
     bs = cache.k.shape[1]
     m = block_table.shape[1]
     rows = torch.arange(b, device=x.device)

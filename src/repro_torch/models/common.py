@@ -1,4 +1,5 @@
-"""Shared model primitives: dtypes, initialisers, norms, RoPE, masks.
+"""Shared model primitives: dtypes, initialisers, norms, RoPE, masks and
+the scan-reset mask of a left-padded batch.
 
 Port of ``repro/models/common.py``.  Norms and RoPE compute in float32 and
 cast back to the input's dtype, as the reference does.  Initialisers draw
@@ -73,3 +74,13 @@ def local_mask(s_q: int, s_k: int, window: int, q_offset: int = 0,
     qi = torch.arange(s_q, device=device)[:, None] + q_offset
     kj = torch.arange(s_k, device=device)[None, :]
     return (kj <= qi) & (kj > qi - window)
+
+
+def pad_reset(pad_mask):
+    """Scan-reset mask of a LEFT-padded batch: (B, S) valid mask -> (B, S)
+    bool, True on every pad position and on each row's first real token,
+    so the scans zero their carried state through the pad run and again
+    entering the first real token."""
+    pads = ~pad_mask
+    prev_pad = torch.cat([torch.zeros_like(pads[:, :1]), pads[:, :-1]], dim=1)
+    return pads | prev_pad

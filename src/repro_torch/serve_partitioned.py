@@ -1,16 +1,17 @@
 """Partitioned LM serving: the paper's loop on an LM workload, on the card.
 
-    PYTHONPATH=src python -m repro_torch.serve_partitioned [--layers N]
-        [--device cpu] [--requests 16] [--max-new 32] ...
+    PYTHONPATH=src python -m repro_torch.serve_partitioned [--arch NAME]
+        [--layers N] [--device cpu] [--requests 16] [--max-new 32] ...
 
 The LyMDO controller watches the per-slot MEC state of 3 UEs (channels,
-arrivals, virtual queues) over qwen3-0.6b's layer profile and picks the
+arrivals, virtual queues) over the arch's layer profile and picks the
 partition cut with the Oracle for 3 slots; a ``PartitionedLM`` runs the
 split at the chosen unit cut and at the middle unit, each checked against
-the monolithic forward pass; then the ES tier serves a burst of requests through the
-continuous-batching engine.  The model is qwen3-0.6b at full width from a
-seeded random init (28 layers unless ``--layers`` cuts the depth), in
-bf16, on CUDA unless ``--device cpu``.  Port of
+the monolithic forward pass; then the ES tier serves a burst of requests
+through the continuous-batching engine.  The model (``--arch``: a config
+that ``PartitionedLM`` takes, qwen3-0.6b by default, or mamba2-1.3b) runs
+at full width from a seeded random init (its full depth unless
+``--layers`` cuts it), in bf16, on CUDA unless ``--device cpu``.  Port of
 ``examples/serve_partitioned.py``, which runs a reduced qwen3 on JAX.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from .configs import get_config
+from .configs.base import load_all
 from .core import sweep
 from .core.env import MecConfig, MecEnv
 from .device import resolve_device
@@ -32,17 +34,26 @@ from .serving.engine import Request
 from .serving.partitioned import PartitionedLM, layer_cut_to_unit
 
 
-ARCH = "qwen3-0.6b"    # all-"g" stack: the layer kinds this slice serves
+DEFAULT_ARCH = "qwen3-0.6b"
 UES = 3                # UEs the controller decides for
 CTRL_SLOTS = 3         # controller slots decided before the split runs
 PROMPT_MIN = 8         # shortest prompt of the served burst
 SEED = 0               # weights, controller state, split tokens, prompts
 
 
-def model_config(layers: int | None = None, dtype: str | None = None):
-    """``ARCH`` at full width, its depth cut to ``layers`` and its parameter
+def partitionable() -> list[str]:
+    """The configs ``PartitionedLM`` takes: plain stacks (no tail, no
+    encoder) of the layer kinds the port serves."""
+    return sorted(name for name, cfg in load_all().items()
+                  if not cfg.tail_pattern and not cfg.enc_layers
+                  and set(cfg.block_pattern) <= set(transformer.SERVED))
+
+
+def model_config(arch: str = DEFAULT_ARCH, layers: int | None = None,
+                 dtype: str | None = None):
+    """``arch`` at full width, its depth cut to ``layers`` and its parameter
     and compute dtype set to ``dtype`` where given."""
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     over = {}
     if layers:
         over["n_layers"] = layers
@@ -87,6 +98,8 @@ def serve(engine, requests, sync) -> dict:
     return {"completed": len(done), "requests": len(requests),
             "ticks": engine.clock, "decode_steps": engine.decode_steps,
             "prefill_steps": engine.prefill_steps,
+            "chunk_steps": engine.chunk_steps,
+            "chunk_tokens": engine.chunk_tokens,
             "preemptions": engine.preemptions, "wall_s": wall,
             "generated_tokens": generated, "tokens_per_s": generated / wall,
             "decode_tick_ms_p50": pct(decode_ms, 50),
@@ -98,6 +111,7 @@ def serve(engine, requests, sync) -> dict:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=DEFAULT_ARCH, choices=partitionable())
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (full width)")
     ap.add_argument("--device", default=None, help="default: cuda")
@@ -114,8 +128,8 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg_full = get_config(ARCH)
-    cfg = model_config(args.layers)
+    cfg_full = get_config(args.arch)
+    cfg = model_config(args.arch, args.layers)
     params = transformer.init_params(SEED, cfg, device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     report = {"arch": cfg.name, "layers": cfg.n_layers,

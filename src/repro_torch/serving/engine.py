@@ -17,6 +17,11 @@ stream through ``transformer.prefill_chunk`` one chunk per tick, each chunk
 committed into the slot's blocks (``kvpool.commit_chunk``), so a long prompt
 never stalls the decoding slots for more than a chunk.
 
+Sliding-window ("l") and recurrent ("r", "s") layers keep one row of ring
+or state per slot: every decode tick steps all rows, so an idle or
+mid-stream slot's rows fill with garbage, which the commit that admits a
+request there (or its stream's next chunk) overwrites whole.
+
 There is no jit and no donation: the pool is updated in place.  Greedy
 argmax runs on the device, so only the (B,) token ids reach the host each
 tick.  A recorder (duck-typed, like ``repro.traffic.recorder``) sees
@@ -104,6 +109,8 @@ class ServingEngine:
         self.remaining = np.zeros(slots, np.int32)
         self.decode_steps = 0                # decode dispatches
         self.prefill_steps = 0               # solo prefills and chunks
+        self.chunk_steps = 0                 # chunks after a stream's first
+        self.chunk_tokens = 0                # prompt tokens of those chunks
         self.preemptions = 0
         # (batch, width, ragged?) prefill shapes run so far: the reference
         # compiles one program for each
@@ -301,6 +308,8 @@ class ServingEngine:
             self.params, self.cfg, self._stream_cache, self._tensor(chunk),
             start, n_valid)
         self.prefill_steps += 1
+        self.chunk_steps += 1
+        self.chunk_tokens += n_valid
         kvpool.commit_chunk(self._pool_state, cache, start, n_valid, slot,
                             self._stream_ids, block_size=self.kv_block)
         self._stream_cache = cache

@@ -1,16 +1,19 @@
 """Paged KV-cache pool for continuous-batching serving.
 
-Port of ``repro/serving/kvpool.py`` for global-attention stacks.  The KV
-cache of every unit-stacked "g" layer lives in a block pool
+Port of ``repro/serving/kvpool.py``.  The KV cache of every unit-stacked
+"g" layer lives in a block pool
 ``(U, n_blocks, block_size, KV, hd)``; a host-side :class:`BlockAllocator`
 hands out blocks, and block 0 is a reserved dummy that idle decode rows
 write into.  Each slot's block table maps its logical blocks to pool
 blocks; the paged decode gathers them back into a contiguous view for the
 decode-attention kernel.
 
+Sliding-window rings ("l") hold a fixed ``window`` of slots and recurrent
+state ("r", "s") is O(1) per request, so those live as plain per-slot rows
+(batch axis = decode slots), as in the reference.
+
 Where the reference returns a new pool, the port writes into the pool it
-was given (``commit_prefill``, ``commit_chunk``).  Ring caches ("l") and
-recurrent state ("r"/"s") come with the slice that ports those kinds.
+was given (``commit_prefill``, ``commit_chunk``).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from collections import deque
 import torch
 
 from ..models import transformer
-from ..models.attention import KVCache
+from ..models.attention import KVCache, RingCache
 from ..models.common import dtype_of
 
 
@@ -121,68 +124,104 @@ def pool_stats(allocator: BlockAllocator, seq_lens, owned) -> dict:
 
 def init_decode_state(cfg, params, slots: int, n_blocks: int,
                       block_size: int) -> dict:
-    """The zeroed continuous-decode state on the parameters' device: one
-    unit-stacked KV block pool per "g" layer of the unit.  (``slots``
-    sizes the per-slot rows of ring and recurrent state, which this slice's
-    stacks do not have.)"""
+    """The zeroed continuous-decode state on the parameters' device, with
+    the structure of a ``transformer.prefill`` cache (no ``pos``/``pad``):
+    each "g" layer's KV as a block pool ``(U, n_blocks, block_size, KV,
+    hd)`` (tail layers without the U axis), and each ring ("l") and
+    recurrent ("r", "s") cache with one row per decode slot."""
     transformer.check_servable(cfg)
     device = params["embed"].device
     dt = dtype_of(cfg.compute_dtype)
-    shape = (cfg.n_units, n_blocks, block_size, cfg.n_kv,
-             cfg.resolved_head_dim)
-    return {"units": {f"slot{i}": KVCache(
-                          torch.zeros(shape, dtype=dt, device=device),
-                          torch.zeros(shape, dtype=dt, device=device))
-                      for i, _ in enumerate(cfg.block_pattern)},
-            "tail": []}
+
+    def build(kind, lead):
+        if kind != "g":
+            return transformer.new_cache(cfg, kind, (*lead, slots), 0, device)
+        shape = (*lead, n_blocks, block_size, cfg.n_kv,
+                 cfg.resolved_head_dim)
+        return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                       torch.zeros(shape, dtype=dt, device=device))
+
+    return {"units": {f"slot{i}": build(kind, (cfg.n_units,))
+                      for i, kind in enumerate(cfg.block_pattern)},
+            "tail": [build(kind, ()) for kind in cfg.tail_pattern]}
 
 
-def _pools(state, solo):
+def _pairs(state, solo):
+    """(decode-state cache, solo cache) of every layer, each with a leading
+    layer axis (a tail cache gets a view with one)."""
     for name, pool in state["units"].items():
         yield pool, solo["units"][name]
+    lead = lambda c: type(c)(*[t.unsqueeze(0) for t in c])
+    for pool, one in zip(state["tail"], solo["tail"]):
+        yield lead(pool), lead(one)
+
+
+def _copy_rows(pool, one, slot: int) -> None:
+    """A ring or recurrent cache of the batch-1 solo run into decode row
+    ``slot``, whole."""
+    for dst, src in zip(pool, one):
+        dst[:, slot] = src[:, 0]
 
 
 def commit_prefill(state, solo, pad: int, slot: int, block_ids, *,
                    block_size: int):
     """Write one solo-prefilled request into the decode state, in place.
 
-    ``solo`` is the {"units", "tail"} cache of a batch-1 bucketed prefill,
-    ``pad`` its left-pad count and ``block_ids`` (nb,) the pool blocks for
-    the bucket width (entries past the owned count are the dummy block 0,
-    which absorbs the rolled-out pad).  The token axis is rolled by -pad so
-    the real tokens sit at positions 0.., then cut or zero-padded to
-    ``nb * block_size`` and written block by block.  ``slot`` is the decode
-    row (used by ring and recurrent state in later slices).
+    ``solo`` is the {"units", "tail"} cache of a batch-1 bucketed prefill
+    and ``pad`` its left-pad count.  Global KV: ``block_ids`` (nb,) are the
+    pool blocks for the bucket width (entries past the owned count are the
+    dummy block 0, which absorbs the rolled-out pad); the token axis is
+    rolled by -pad so the real tokens sit at positions 0.., then cut or
+    zero-padded to ``nb * block_size`` and written block by block.  Rings:
+    prefill stored entries at their padded positions, so the ring rolls by
+    -pad to semantic slots and pad entries get position -1.  Recurrent
+    state is copied whole.  Rings and recurrent state land in row
+    ``slot``.
     """
     nb = block_ids.shape[0]
     want = nb * block_size
-    for pool, one in _pools(state, solo):
-        for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
-            x = torch.roll(leaf[:, 0], -int(pad), dims=1)   # (U, s_max, KV, hd)
-            tok = x.shape[1]
-            if want < tok:
-                x = x[:, :want]
-            elif want > tok:
-                x = torch.cat([x, x.new_zeros((x.shape[0], want - tok)
-                                              + tuple(x.shape[2:]))], dim=1)
-            dst[:, block_ids] = x.reshape(x.shape[0], nb, block_size,
-                                          *x.shape[2:])
+    pad = int(pad)
+    for pool, one in _pairs(state, solo):
+        if isinstance(pool, KVCache):
+            for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
+                x = torch.roll(leaf[:, 0], -pad, dims=1)   # (U, s_max, KV, hd)
+                tok = x.shape[1]
+                if want < tok:
+                    x = x[:, :want]
+                elif want > tok:
+                    x = torch.cat([x, x.new_zeros((x.shape[0], want - tok)
+                                                  + tuple(x.shape[2:]))],
+                                  dim=1)
+                dst[:, block_ids] = x.reshape(x.shape[0], nb, block_size,
+                                              *x.shape[2:])
+        elif isinstance(pool, RingCache):
+            pos = torch.roll(one.pos[:, 0], -pad, dims=1)
+            pool.k[:, slot] = torch.roll(one.k[:, 0], -pad, dims=1)
+            pool.v[:, slot] = torch.roll(one.v[:, 0], -pad, dims=1)
+            pool.pos[:, slot] = torch.where(pos >= pad, pos - pad, -1)
+        else:
+            _copy_rows(pool, one, slot)
     return state
 
 
 def commit_chunk(state, solo, chunk_start: int, n_new: int, slot: int,
                  block_ids, *, block_size: int):
     """Write ONE prefill chunk of a streaming request into the decode state,
-    in place: solo-scratch positions ``chunk_start .. chunk_start + n_new -
-    1`` go to their blocks in ``block_ids`` (the slot's full table row).
-    The reference also routes the chunk's junk lanes into the dummy block
-    0; the port writes only the real positions, so every block but 0 ends
-    up the same.  ``slot`` is the decode row (used by ring and recurrent
-    state in later slices)."""
+    in place.  Global KV: solo-scratch positions ``chunk_start ..
+    chunk_start + n_new - 1`` go to their blocks in ``block_ids`` (the
+    slot's full table row); the reference also routes the chunk's junk
+    lanes into the dummy block 0, the port writes only the real positions,
+    so every block but 0 ends up the same.  Rings and recurrent state are
+    copied whole into row ``slot`` after every chunk (a chunk stream has no
+    pad, so ring positions are already semantic): that overwrites what the
+    decode ticks stepped into the streaming slot's rows meanwhile."""
     pos = chunk_start + torch.arange(n_new, device=block_ids.device)
     blk = block_ids[pos // block_size]
     off = pos % block_size
-    for pool, one in _pools(state, solo):
-        for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
-            dst[:, blk, off] = leaf[:, 0, chunk_start:chunk_start + n_new]
+    for pool, one in _pairs(state, solo):
+        if isinstance(pool, KVCache):
+            for dst, leaf in ((pool.k, one.k), (pool.v, one.v)):
+                dst[:, blk, off] = leaf[:, 0, chunk_start:chunk_start + n_new]
+        else:
+            _copy_rows(pool, one, slot)
     return state

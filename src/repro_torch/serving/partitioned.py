@@ -1,8 +1,9 @@
 """Partitioned-model execution: the paper's Fig. 1 on the LM stack.
 
 Port of ``repro/serving/partitioned.py`` (without ``mesh=``, which comes
-with a later slice).  A ``PartitionedLM`` splits a decoder-only stack at a
-*unit* boundary: units ``0..cut_unit-1`` run on the device tier (UE), the
+with a later slice).  A ``PartitionedLM`` splits a decoder-only stack (every
+served layer kind: g, l, r, s; no tail, as in the reference) at a *unit*
+boundary: units ``0..cut_unit-1`` run on the device tier (UE), the
 rest on the edge tier (ES), and the boundary hidden state (psi in the
 paper) crosses between.  The LyMDO controller picks the cut per slot from
 the arch's layer profile (``profiling.lmprofiles``); ``layer_cut_to_unit``
@@ -38,13 +39,19 @@ def layer_cut_to_unit(cfg: ArchConfig, layer_cut: int) -> int:
 
 
 class PartitionedLM:
-    """Two-tier forward pass for plain decoder stacks."""
+    """Two-tier forward pass for plain decoder stacks of any served kind
+    (g, l, r, s); like the reference, it refuses stacks with tail layers or
+    an encoder, whose cuts would not fall on unit boundaries."""
 
     def __init__(self, cfg: ArchConfig, params, cut_unit: int, *, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "PartitionedLM(mesh=) is not ported yet; it comes with a "
                 "later slice of the port")
+        if cfg.tail_pattern or cfg.enc_layers:
+            raise ValueError(
+                f"{cfg.name}: the partitioned model takes plain stacks, "
+                f"without tail layers or an encoder (as the reference)")
         transformer.check_servable(cfg)
         self.cfg = cfg
         self.cut_unit = int(cut_unit)

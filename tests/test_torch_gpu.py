@@ -14,6 +14,9 @@ wherever the plain table's best and second best are further apart than
 that, and elsewhere the kernel's pick must score within it of the best.
 Attention: 2e-5 in float32, 2e-2 in bf16 (the reference's kernel
 tolerances); query rows inside a left pad see no key and must be zero.
+Scans: 1e-4 in float32 (the reference's scan tolerance), 2e-2 for an SSD y
+or RG-LRU h that comes out in bf16, 1e-4 for the SSD state, which is
+float32 from the same inputs either way.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from repro_torch.kernels import flash_attention as p_fa
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import partition_sweep as p_ps
 from repro_torch.kernels import ref as p_ref
+from repro_torch.kernels import rglru_scan as p_rg
+from repro_torch.kernels import ssd_scan as p_ssd
 from repro_torch.models import transformer as p_tf
 from repro_torch.serving import engine as p_engine
 
@@ -248,4 +253,158 @@ def test_engine_on_card_gives_the_cpu_engines_tokens():
         outs.append([r.out for r in reqs])
     assert p_fa.flash_attention_cuda.launches > before[0]
     assert p_da.decode_attention_cuda.launches == before[1] + 2 * eng.decode_steps
+    assert outs[0] == outs[1]
+
+
+def ssd_inputs(b, s, h, p, g, n, dtype, device, seed=0):
+    """The reference's SSD test inputs, drawn with numpy: x, dt (softplus),
+    a_log, b, c, d_skip."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    x = f32(rng.standard_normal((b, s, h, p))).to(dtype)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((b, s, h)))))
+    a_log = f32(np.log(np.linspace(1.0, 8.0, h)))
+    bm = f32(rng.standard_normal((b, s, g, n)) * 0.5).to(dtype)
+    cm = f32(rng.standard_normal((b, s, g, n)) * 0.5).to(dtype)
+    d = f32(np.linspace(0.5, 1.5, h))
+    return x, dt, a_log, bm, cm, d
+
+
+def resets(b, s, at, device):
+    r = torch.zeros(b, s, dtype=torch.bool)
+    for row, t in at:
+        r[row, t] = True
+    return r.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,reset_at", [
+    (2, 64, 4, 16, 2, 8, 16, None),            # tests/test_kernels.py cases
+    (1, 128, 2, 32, 1, 16, 32, None),
+    (2, 96, 3, 16, 3, 8, 24, None),
+    (2, 64, 3, 8, 1, 4, 16, ((0, 5), (0, 16), (1, 37))),
+    (2, 160, 3, 8, 1, 4, 16, ((0, 5), (0, 64), (0, 100), (1, 127))),
+    (1, 13, 2, 8, 1, 4, 1, None),              # odd length
+    (1, 32, 64, 64, 1, 128, 32, ((0, 0), (0, 1), (0, 2))),   # mamba2 prefill
+])
+def test_ssd_kernel_matches_plain(dtype, b, s, h, p, g, n, chunk, reset_at):
+    _need_card()
+    args = ssd_inputs(b, s, h, p, g, n, dtype, "cuda")
+    reset = None if reset_at is None else resets(b, s, reset_at, "cuda")
+    before = p_ssd.ssd_scan_cuda.launches
+    y, st = p_ops.ssd_scan(*args, chunk=chunk, reset=reset)
+    torch.cuda.synchronize()
+    assert p_ssd.ssd_scan_cuda.launches == before + 1
+    y_want, st_want = p_ref.ssd_scan_ref(*args, chunk=chunk, reset=reset)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(_np(y.float()), _np(y_want.float()), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(_np(st), _np(st_want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,r,reset_at", [
+    (2, 128, 64, None), (1, 64, 128, None), (3, 256, 32, None),
+    (2, 64, 16, ((0, 5), (0, 16), (1, 37))),
+    (2, 37, 16, ((0, 20), (1, 20))),            # odd length
+    (2, 512, 2560, ((1, 0), (1, 1), (1, 2))),   # recurrentgemma's width
+])
+def test_rglru_kernel_matches_plain(dtype, b, s, r, reset_at):
+    _need_card()
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor((rng.standard_normal((b, s, r)) * 0.3)
+                        .astype(np.float32), device="cuda").to(dtype)
+    a = torch.sigmoid(torch.as_tensor(rng.standard_normal((b, s, r))
+                                      .astype(np.float32), device="cuda")
+                      + 2.0).to(dtype)
+    reset = None if reset_at is None else resets(b, s, reset_at, "cuda")
+    before = p_rg.rglru_scan_cuda.launches
+    got = p_ops.rglru_scan(x, a, reset)
+    torch.cuda.synchronize()
+    assert p_rg.rglru_scan_cuda.launches == before + 1
+    want = p_ref.rglru_scan_ref(x, a, reset)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(_np(got.float()), _np(want.float()), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_takes_views_at_any_element_offset():
+    """A unit's slice of a stacked parameter (a_log, d_skip of 2 heads in
+    unit 1 start 8 bytes in) is contiguous but not 16-byte aligned; the
+    kernel reads it element by element and must take it."""
+    _need_card()
+    x, dt, a_log, bm, cm, d = ssd_inputs(1, 8, 2, 8, 1, 4, torch.float32,
+                                         "cuda")
+    stacked_a, stacked_d = torch.stack([a_log, a_log]), torch.stack([d, d])
+    assert stacked_a[1].data_ptr() % 16 == 8
+    y, st = p_ssd.ssd_scan_cuda(x, dt, stacked_a[1], bm, cm, stacked_d[1])
+    y_want, st_want = p_ref.ssd_scan_ref(x, dt, a_log, bm, cm, d, chunk=8)
+    np.testing.assert_allclose(_np(y), _np(y_want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(st), _np(st_want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_scan_wrappers_reject_bad_inputs_on_card():
+    _need_card()
+    x, dt, a_log, bm, cm, d = ssd_inputs(1, 8, 2, 8, 1, 4, torch.float32,
+                                         "cuda")
+    with pytest.raises(ValueError, match="float32"):
+        p_ssd.ssd_scan_cuda(x, dt.bfloat16(), a_log, bm, cm, d)
+    with pytest.raises(ValueError, match="share"):
+        p_ssd.ssd_scan_cuda(x, dt, a_log, bm.bfloat16(), cm, d)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        p_ssd.ssd_scan_cuda(x[..., :6].contiguous(), dt, a_log, bm, cm, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        p_ssd.ssd_scan_cuda(torch.cat([x, x], -1)[..., :8], dt, a_log, bm,
+                            cm, d)
+    with pytest.raises(ValueError, match="share"):
+        p_rg.rglru_scan_cuda(x[:, :, 0], x[:, :, 0].bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        p_rg.rglru_scan_cuda(x[:, :, 0].cpu(), x[:, :, 0].cpu())
+
+
+_WRAPPERS = {"ssd": p_ssd.ssd_scan_cuda, "rglru": p_rg.rglru_scan_cuda,
+             "flash": p_fa.flash_attention_cuda,
+             "decode": p_da.decode_attention_cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,pattern,kernels", [
+    pytest.param("recurrentgemma-2b", None, ("rglru", "flash", "decode"),
+                 id="recurrentgemma-2b"),
+    pytest.param("mamba2-1.3b", ("g", "r", "s"),
+                 ("ssd", "rglru", "flash", "decode"), id="hybrid-grs")])
+def test_engine_on_card_serves_ring_and_recurrent_stacks(arch, pattern,
+                                                         kernels):
+    """float32, reduced recurrentgemma (r, r, l units, an r, r tail) and a
+    g/r/s stack with 32-wide heads: the engine on the card launches the
+    kernel of every layer kind it holds and serves the CPU engine's
+    tokens."""
+    _need_card()
+    cfg = reduced(get_config(arch), head_dim=32)
+    if pattern is not None:
+        cfg = reduced(get_config(arch), head_dim=32, n_layers=6, n_heads=4,
+                      n_kv=2, block_pattern=pattern, rnn_width=32)
+    cpu = p_tf.init_params(0, cfg, "cpu")
+    gpu = _tree.to_device(cpu, "cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 40, 9, 70)]
+    outs = []
+    for params in (cpu, gpu):
+        eng = p_engine.ServingEngine(cfg, params, slots=2, s_max=128)
+        reqs = [p_engine.Request(rid=i, prompt=pr, max_new=6)
+                for i, pr in enumerate(prompts)]
+        before = {k: _WRAPPERS[k].launches for k in kernels}
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        outs.append([r.out for r in reqs])
+    for k in kernels:
+        assert _WRAPPERS[k].launches > before[k], k
     assert outs[0] == outs[1]

@@ -311,8 +311,7 @@ def test_decode_step_paged_matches_reference(model):
 
 
 @pytest.mark.parametrize("arch,slice_word", [
-    ("gemma3-1b", "hybrid"), ("recurrentgemma-2b", "hybrid"),
-    ("mamba2-1.3b", "hybrid"), ("moonshot-v1-16b-a3b", "MoE"),
+    ("moonshot-v1-16b-a3b", "MoE"), ("llama4-maverick-400b-a17b", "MoE"),
     ("llama-3.2-vision-90b", "cross-attention"),
     ("seamless-m4t-large-v2", "cross-attention")])
 def test_unported_layer_kinds_raise_naming_their_slice(arch, slice_word):
@@ -321,6 +320,22 @@ def test_unported_layer_kinds_raise_naming_their_slice(arch, slice_word):
         p_tf.init_params(0, cfg, "cpu")
     for name in ("qwen3-0.6b", "qwen1.5-110b", "starcoder2-7b"):
         p_tf.check_servable(p_base.get_config(name))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b",
+                                  "mamba2-1.3b"])
+def test_ring_and_recurrent_stacks_are_servable(arch):
+    """The "l", "r" and "s" kinds (and tail stacks) are served: the port's
+    own init gives the reference's parameter structure and shapes."""
+    cfg = p_base.reduced(p_base.get_config(arch))
+    p_tf.check_servable(cfg)
+    p = p_tf.init_params(0, cfg, "cpu")
+    r = jax.eval_shape(lambda k: r_tf.init_params(k, cfg_r(cfg)),
+                       jax.random.PRNGKey(0))
+    shapes = lambda t: sorted((jax.tree_util.keystr(k), tuple(v.shape))
+                              for k, v in jax.tree_util.tree_leaves_with_path(t))
+    assert shapes(jax.tree.map(lambda t: np.zeros(t.shape), p)) == shapes(r)
+    assert len(p.get("tail", [])) == len(cfg.tail_pattern)
 
 
 def test_init_params_shapes_dtypes_and_device_rule():

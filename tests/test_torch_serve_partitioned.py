@@ -1,6 +1,9 @@
-"""The slice's entry point, ``python -m repro_torch.serve_partitioned``, on
-the CPU at full width and 2 layers: controller, split and ES engine."""
+"""The partitioned server, ``python -m repro_torch.serve_partitioned``, on
+the CPU at full width and 2 layers: controller, split and ES engine, for
+qwen3-0.6b (the default) and mamba2-1.3b (``--arch``)."""
 import math
+
+import pytest
 
 from repro_torch import serve_partitioned as sp
 
@@ -37,3 +40,30 @@ def test_main_serves_every_request_on_cpu():
                 "prefill_tick_ms_p50", "prefill_tick_ms_p99",
                 "tokens_per_s", "wall_s"):
         assert math.isfinite(srv[key]) and srv[key] > 0, key
+
+
+def test_main_serves_mamba2_on_cpu():
+    """``--arch mamba2-1.3b``: the SSD stack through the same path; its
+    controller runs over mamba2's 50-layer profile."""
+    rep = sp.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--layers",
+                   "2", "--requests", "3", "--prompt-max", "50",
+                   "--max-new", "3", "--slots", "2", "--s-max", "96",
+                   "--split-seq", "12"])
+    assert (rep["arch"], rep["layers"], rep["dtype"]) == ("mamba2-1.3b", 2,
+                                                          "bfloat16")
+    for row in rep["split"]:
+        assert row["finite"] and row["max_abs_err"] == 0.0, row
+    srv = rep["serving"]
+    assert srv["completed"] == 3
+    assert all(len(o) == 3 for o in srv["out"].values())
+    assert srv["prefill_steps"] - srv["chunk_steps"] == 3
+
+
+def test_arch_choices_are_the_partitionable_configs():
+    assert sp.partitionable() == ["mamba2-1.3b", "qwen1.5-110b",
+                                  "qwen3-0.6b", "starcoder2-7b"]
+    with pytest.raises(SystemExit):
+        sp.parse_args(["--arch", "recurrentgemma-2b"])    # a tail stack
+    cfg = sp.model_config("mamba2-1.3b", layers=4, dtype="float32")
+    assert (cfg.n_layers, cfg.d_model, cfg.compute_dtype) == (4, 2048,
+                                                              "float32")
