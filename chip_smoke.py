@@ -29,11 +29,15 @@ against its plain PyTorch version on the card:
    functions and prints the quickstart comparison;
 5. holds the flash and decode attention kernels against their plain
    versions at the serving path's shapes and at the reference's own kernel
-   test cases (2e-5 in float32, 2e-2 in bf16; rows of a left pad, which see
-   no key, are compared only for being finite and zero), and times each at
-   the main path's shape: device time, wall time per call, the plain
-   version, torch's scaled_dot_product_attention as a yardstick, and the
-   bound;
+   test cases, each float32 case with a bf16 twin for flash's tensor-core
+   body (2e-5 in float32, 2e-2 in bf16; rows of a left pad, which see no
+   key, are compared only for being finite and zero), split-K decode with a
+   row whose keys are all masked and a split whose keys are, and the paged
+   decode entry against the gather and the plain version over a scattered
+   block table; and times each at the main path's shape: device time, wall
+   time per call, the plain version, torch's scaled_dot_product_attention
+   as a yardstick, and the bound (the paged entry also beside the gather +
+   dense kernel it replaces);
 6. runs ``python -m repro_torch.serve_partitioned``'s ``main`` at full width
    (qwen3-0.6b, 28 layers, bf16, seeded random weights): the controller
    decides 3 slots, the split runs at the chosen and the middle unit cut
@@ -49,7 +53,8 @@ against its plain PyTorch version on the card:
    the SSD state, 2e-2 for an output rounded to bf16) and the attention
    kernels at recurrentgemma's shapes (10 heads over 1 kv head, hd 256, a
    2048 window and a 64 one, a scattered 2048-slot ring), and times both
-   scans at the split check's shape;
+   scans at the split check's shape, decode over the ring and flash at
+   recurrentgemma's prefill shapes;
 8. runs ``serve_partitioned.main`` with ``--arch mamba2-1.3b`` (48 layers,
    bf16): controller, split at the chosen and middle unit, a ragged burst
    of 12 requests; SSD launches must be exactly 48 per monolithic or split
@@ -233,6 +238,9 @@ FLASH_CASES = [
     ("hd 256", 1, 128, 128, 4, 1, 256, "f32", "causal", 0, [7]),
     ("hd 256 bf16", 2, 96, 96, 10, 1, 256, "bf16", "local", 32, None),
 ]
+# bf16 twins of the float32 cases: the tensor-core body covered as widely
+FLASH_CASES += [(c[0] + ", bf16 twin", *c[1:7], "bf16", *c[8:])
+                for c in FLASH_CASES if c[7] == "f32"]
 DECODE_CASES = [
     # (label, B, S, H, KV, hd, dtype, all-invalid row?)
     ("engine tick: 8 slots x table width 32 x 16", 8, 512, 16, 8, 128, "bf16",
@@ -246,6 +254,20 @@ DECODE_CASES = [
     ("ragged tail S 5", 3, 5, 4, 2, 32, "f32", False),
     ("hd 256, G 10", 2, 100, 10, 1, 256, "f32", True),
     ("hd 256 bf16", 2, 300, 10, 1, 256, "bf16", False),
+    ("S 1000: not a multiple of a split", 3, 1000, 4, 2, 32, "f32", True),
+    ("recurrentgemma's ring shape", 8, 2048, 10, 1, 256, "bf16", True),
+    ("recurrentgemma's ring shape", 8, 2048, 10, 1, 256, "f32", True),
+    ("G 20: two head groups", 1, 777, 40, 2, 64, "f32", True),
+]
+PAGED_CASES = [
+    # (label, B, M, bs, H, KV, hd, dtype, seq_lens): lengths of 0, of a
+    # block boundary and of the table's end, over a scattered table
+    ("engine tick: 8 slots x 32 blocks of 16", 8, 32, 16, 16, 8, 128, "bf16",
+     [0, 15, 16, 511, 100, 300, 1, 64]),
+    ("engine tick, float32", 8, 32, 16, 16, 8, 128, "f32",
+     [511, 0, 16, 31, 200, 2, 480, 64]),
+    ("hd 256, G 10", 4, 9, 16, 10, 1, 256, "bf16", [0, 143, 16, 70]),
+    ("hd 32, blocks of 8", 3, 5, 8, 4, 2, 32, "f32", [39, 0, 8]),
 ]
 
 
@@ -292,6 +314,9 @@ def check_decode(torch, da, ref, gen, case) -> float:
     q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
     valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    if s >= 192:
+        valid[0] = True          # a real row whose second split is all masked
+        valid[0, 64:128] = False
     if dead_row:
         valid[-1] = False        # no valid key: the uniform average
     got = da.decode_attention_cuda(q, k, v, valid)
@@ -304,6 +329,45 @@ def check_decode(torch, da, ref, gen, case) -> float:
     log(f"  decode {dt:4s} B{b} S{s} H{h}/{kv} hd{hd}"
         f"{' all-invalid row' if dead_row else ''}: ok, max abs err "
         f"{err:.3e} ({label})")
+    return err
+
+
+def paged_inputs(torch, gen, b, m, bs, h, kv, hd, dtype):
+    """q, K/V pools of b * m + 3 blocks and a scattered (b, m) table."""
+    n_blocks = b * m + 3
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    table = torch.randperm(n_blocks, generator=gen, device="cuda")[:b * m]
+    return (rnd(b, 1, h, hd), rnd(n_blocks, bs, kv, hd),
+            rnd(n_blocks, bs, kv, hd), table.reshape(b, m).to(torch.int32))
+
+
+def gather_rows(torch, pool, table):
+    """The (B, M * bs, KV, hd) rows a table maps out of a pool."""
+    b, m = table.shape
+    return pool[table.long()].reshape(b, m * pool.shape[1], *pool.shape[2:])
+
+
+def paged_valid(torch, table, bs, lens):
+    return (torch.arange(table.shape[1] * bs, device="cuda")[None, :]
+            <= lens[:, None])
+
+
+def check_paged(torch, da, ref, gen, case) -> float:
+    label, b, m, bs, h, kv, hd, dt, seq_lens = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, kp, vp, table = paged_inputs(torch, gen, b, m, bs, h, kv, hd, dtype)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    got = da.decode_attention_paged_cuda(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, gather_rows(torch, kp, table),
+                                    gather_rows(torch, vp, table),
+                                    paged_valid(torch, table, bs, lens))
+    tol = att_tol(torch, dtype)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"paged decode {label}: outside {tol} (max abs err {err:.3e})")
+    log(f"  paged  {dt:4s} B{b} M{m} bs{bs} H{h}/{kv} hd{hd} seq_lens="
+        f"{seq_lens}: ok, max abs err {err:.3e} ({label})")
     return err
 
 
@@ -329,41 +393,64 @@ def time_kernel(torch, kernel, plain, library, n_flops, n_bytes, peak_s,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def time_flash(torch, fa, ref, gen, b, s, h, kv, hd, pad, window=0) -> dict:
+    """Flash in bf16 at B x S (causal, or local under ``window``, which at
+    these lengths masks what causal masks), beside SDPA and the bound."""
+    import torch.nn.functional as F
+    kind = "local" if window else "causal"
+    q, k, v = attention_inputs(torch, gen, b, s, s, h, kv, hd, torch.bfloat16)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
+        q.transpose(1, 2).contiguous()
+    if pad is None and (not window or window >= s - 1):
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+    else:
+        allowed = ref.build_mask(kind, s, s, window, device="cuda")[None]
+        if pad is not None:
+            allowed = allowed & (torch.arange(s, device="cuda")[None, None, :]
+                                 >= pad_t[:, None, None])
+        allowed = allowed[:, None]
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed)
+    pairs = fa.live_pairs(b, s, s, kind, window, pad=pad)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * 4 * (pad is not None)
+    t = time_kernel(
+        torch, lambda: fa.flash_attention_cuda(q, k, v, kind=kind,
+                                               window=window, pad=pad_t),
+        lambda: ref.flash_attention_ref(q, k, v, kind=kind, window=window,
+                                        pad=pad_t), library,
+        4 * h * hd * pairs, n_bytes, PEAK_BF16_S)
+    t["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16 {kind}"
+                  f"{f' {window}' if window else ''} pad={pad}")
+    return t
+
+
+def log_timed(key: str, t: dict) -> None:
+    lib = ("no single PyTorch call" if t["library_ms"] is None else
+           f"sdpa {t['library_ms']:.4f} ms device, "
+           f"{t['library_call_ms']:.4f} wall")
+    log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
+        f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
+        f"{t['plain_call_ms']:.4f} wall; {lib}; bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}: {t['gflop']:.4f} GFLOP, {t['mbytes']:.3f} MB)")
+
+
 def attention_phase(torch, fa, da, ref) -> dict:
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
     log("[5] attention kernels vs plain PyTorch on the card")
     flash_errs = [check_flash(torch, fa, ref, gen, c) for c in FLASH_CASES]
     decode_errs = [check_decode(torch, da, ref, gen, c) for c in DECODE_CASES]
+    paged_errs = [check_paged(torch, da, ref, gen, c) for c in PAGED_CASES]
     out = {"flash_max_abs_err": max(flash_errs),
-           "decode_max_abs_err": max(decode_errs)}
+           "decode_max_abs_err": max(decode_errs + paged_errs)}
 
     # flash at the split check's shape and at the engine's solo prefill
-    for key, (b, s, pad) in (("flash", (2, 512, None)),
-                             ("flash_engine", (1, 32, [5]))):
-        h, kv, hd = 16, 8, 128
-        q, k, v = attention_inputs(torch, gen, b, s, s, h, kv, hd,
-                                   torch.bfloat16)
-        pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
-                                                      device="cuda")
-        kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
-            q.transpose(1, 2).contiguous()
-        if pad is None:
-            library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                             is_causal=True)
-        else:
-            allowed = (torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-                       [None] & (torch.arange(s, device="cuda")[None, None, :]
-                                 >= pad_t[:, None, None]))[:, None]
-            library = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=allowed)
-        pairs = fa.live_pairs(b, s, s, "causal", pad=pad)
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * 4 * (pad is not None)
-        out[key] = time_kernel(
-            torch, lambda: fa.flash_attention_cuda(q, k, v, pad=pad_t),
-            lambda: ref.flash_attention_ref(q, k, v, pad=pad_t), library,
-            4 * h * hd * pairs, n_bytes, PEAK_BF16_S)
-        out[key]["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal pad={pad}"
+    out["flash"] = time_flash(torch, fa, ref, gen, 2, 512, 16, 8, 128, None)
+    out["flash_engine"] = time_flash(torch, fa, ref, gen, 1, 32, 16, 8, 128,
+                                     [5])
 
     # decode at the engine tick's shape: 8 slots, the gathered 512 keys,
     # cache lengths of prompts of 8-300 tokens plus up to 32 new ones
@@ -383,14 +470,38 @@ def attention_phase(torch, fa, da, ref) -> dict:
         4 * h * hd * n_valid, n_bytes, PEAK_BF16_S)
     out["decode"]["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16, "
                               f"{n_valid} valid keys")
-    for key in ("flash", "flash_engine", "decode"):
-        t = out[key]
-        log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
-            f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
-            f"{t['plain_call_ms']:.4f} wall; sdpa {t['library_ms']:.4f} ms "
-            f"device, {t['library_call_ms']:.4f} wall; bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['gflop']:.4f} "
-            f"GFLOP, {t['mbytes']:.3f} MB)")
+
+    # the paged entry at the same tick: 8 slots x 32 blocks of 16 over a
+    # scattered table, beside the gather + dense kernel it replaces and SDPA
+    m, bs = 32, 16
+    q, kp, vp, table = paged_inputs(torch, gen, b, m, bs, h, kv, hd,
+                                    torch.bfloat16)
+    lens = (lens - 1).to(torch.int32)            # keys 0 .. seq_lens[b]
+    valid = paged_valid(torch, table, bs, lens)
+    rows = lambda: (gather_rows(torch, kp, table), gather_rows(torch, vp, table))
+    kr, vr = rows()
+    kt, vt, qt = to_heads(torch, kr, h // kv), to_heads(torch, vr, h // kv), \
+        q.transpose(1, 2).contiguous()
+    mask4 = valid[:, None, None, :]
+    n_valid = int(valid.sum())
+    n_bytes = ((2 * q.numel() + 2 * n_valid * kv * hd) * 2
+               + (table.numel() + lens.numel()) * 4)
+    t = time_kernel(
+        torch, lambda: da.decode_attention_paged_cuda(q, kp, vp, table, lens),
+        lambda: ref.decode_attention_ref(q, *rows(), valid),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4),
+        4 * h * hd * n_valid, n_bytes, PEAK_BF16_S)
+    gather_dense = lambda: da.decode_attention_cuda(q, *rows(), valid)
+    t["gather_dense_ms"] = device_ms(torch, gather_dense, 50)
+    t["gather_dense_call_ms"] = call_ms(torch, gather_dense, 50)
+    t["shape"] = (f"B{b} M{m} bs{bs} H{h}/{kv} hd{hd} bf16 paged, {n_valid} "
+                  f"valid keys")
+    out["decode_paged"] = t
+    for key in ("flash", "flash_engine", "decode", "decode_paged"):
+        log_timed(key, out[key])
+    log(f"    gather + dense kernel at the paged shape: device "
+        f"{t['gather_dense_ms']:.4f} ms, wall {t['gather_dense_call_ms']:.4f} "
+        f"ms")
     return out
 
 
@@ -414,11 +525,18 @@ def solo_tokens(torch, transformer, params, cfg, prompt, max_new, s_max):
     return out, gaps
 
 
-def profile_ticks(torch, eng, ticks: int, kernel: str | None = "decode_kernel",
+# decode attention's CUDA kernels: the split pass, which runs once a launch,
+# and the merge, which runs where there is more than one split
+DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
+
+
+def profile_ticks(torch, eng, ticks: int, kernel=DECODE_KERNELS,
                   key: str = "decode_attention_ms") -> dict:
     """Device time of ``ticks`` engine ticks under torch.profiler, and the
-    mean device time of one launch of ``kernel`` (a CUDA kernel's name)
-    under ``key``."""
+    mean device time of one launch of ``kernel`` under ``key``: the CUDA
+    kernels whose names hold one of ``kernel``'s strings, summed, over the
+    launches of the first.  PyTorch's index kernels (gathers, scatters) are
+    listed per tick under "index_kernels"."""
     eng.step()
     torch.cuda.synchronize()
     rows, wall_s = profiled(torch, lambda: [eng.step() for _ in range(ticks)])
@@ -432,12 +550,17 @@ def profile_ticks(torch, eng, ticks: int, kernel: str | None = "decode_kernel",
                  "device_ms": e.device_time_total / 1e3}
                 for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]],
     }
+    out["index_kernels"] = [
+        {"name": e.key[:80], "per_tick": e.count / ticks,
+         "device_ms_per_tick": e.device_time_total / 1e3 / ticks}
+        for e in rows if "index" in e.key.lower() or "gather" in e.key.lower()]
     if kernel is not None:
-        hits = [e for e in rows if kernel in e.key]
-        if not hits:
-            fail(f"no {kernel} in the profiled decode ticks")
+        counted = [e for e in rows if kernel[0] in e.key]
+        hits = [e for e in rows if any(n in e.key for n in kernel)]
+        if not counted:
+            fail(f"no {kernel[0]} in the profiled decode ticks")
         out[key] = (sum(e.device_time_total for e in hits) / 1e3
-                    / sum(e.count for e in hits))
+                    / sum(e.count for e in counted))
     return out
 
 
@@ -450,6 +573,9 @@ def log_profile(t: dict, slots: int) -> None:
     for row in t["top"]:
         log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
             f"{row['name']}")
+    for row in t["index_kernels"]:
+        log(f"      index kernel: {row['per_tick']:.1f} a tick, "
+            f"{row['device_ms_per_tick']:.4f} ms a tick  {row['name']}")
 
 
 def f32_identity(torch, cfg32) -> dict:
@@ -803,18 +929,20 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
         (2 * q.numel() + 2 * n_valid * 256) * 2 + valid.numel(), PEAK_BF16_S)
     out["decode_ring"]["shape"] = (f"B8 S2048 H{h}/1 hd256 bf16, {n_valid} "
                                    f"valid keys")
-    t = out["decode_ring"]
-    log(f"    decode_attention at {t['shape']}: device {t['ms']:.4f} ms, wall "
-        f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; sdpa "
-        f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
-        f"({t['bound_by']})")
-    for key in ("ssd", "rglru"):
-        t = out[key]
-        log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
-            f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
-            f"{t['plain_call_ms']:.4f} wall; no single PyTorch call; bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['gflop']:.4f} GFLOP, "
-            f"{t['mbytes']:.3f} MB)")
+    splits, chunk = da.decode_splits(8, 1, 2048)
+    out["decode_ring"]["splits"] = splits
+    if splits < 2:
+        fail(f"decode at the ring runs {splits} split")
+    log(f"    decode at the ring: {splits} splits of {chunk} keys, "
+        f"{8 * splits} blocks")
+    # flash at recurrentgemma's prefill shapes: a 32-token solo prefill
+    # with a left pad, and B 2 x S 512 (window 2048: causal at this length)
+    out["flash_rg_engine"] = time_flash(torch, fa, ref, gen, 1, 32, 10, 1,
+                                        256, [5], window=2048)
+    out["flash_rg"] = time_flash(torch, fa, ref, gen, 2, 512, 10, 1, 256,
+                                 None, window=2048)
+    for key in ("decode_ring", "flash_rg_engine", "flash_rg", "ssd", "rglru"):
+        log_timed(key, out[key])
     return out
 
 
@@ -982,7 +1110,7 @@ def recurrentgemma_phase(torch) -> dict:
     check_counts("the burst", rep["burst_launches"], stats, **per)
     log_serving("burst", stats)
     rep["tick_profile"] = decoding_profile(torch, cfg, params,
-                                           "decode_kernel")
+                                           DECODE_KERNELS)
     del params, eng
     rep.update(f32_identity(torch, dataclasses.replace(
         cfg, n_layers=5, param_dtype="float32", compute_dtype="float32")))

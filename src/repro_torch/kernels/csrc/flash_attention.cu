@@ -6,62 +6,67 @@
 // computes:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] / sqrt(hd)) v[b, j, h / G]
 // over the keys j that row i may see: j <= i (causal), i - window < j <= i
-// (local) or all (full); j >= pad[b] (the row's left pad); j < Sk.  A row
-// that may see no key comes out as zeros.  Softmax and accumulation are
-// float32 whatever the input type; the output has the input type.
+// (local) or all (full); j >= pad[b] (the row's left pad); j < Sk.  Causal
+// compares absolute indices from 0, as the TPU kernel does, so Sq and Sk
+// may differ.  A masked key weighs exactly 0, and a row that may see no key
+// comes out as zeros.  Softmax and accumulation are float32 whatever the
+// input type; the output has the input type.
 //
-// Design.  One block per (query tile, kv head, batch row).  The G = H / KV
-// query heads of a kv head fold into the tile's 64 rows (row r is head
-// r / QB of the group at position q0 + r % QB), so a K/V tile loaded once
-// serves every head that reads it, as on the TPU.  The TPU walked the key
-// tiles as the last, sequential grid axis with m, l and acc in VMEM
-// scratch; here a loop inside the block walks them and each warp keeps the
-// online-softmax state of its 8 rows in registers:
-//   * the Q tile and one 32-key K/V tile sit in shared memory as float32;
-//   * lane j of a warp scores key j against the warp's 8 rows, so the row
-//     max and row sum are warp shuffles and p never leaves registers;
-//   * for P.V each lane owns hd / 32 output columns of the 8 rows and
-//     takes p[r][j] from lane j by shuffle.
-// Key tiles that no row of the block can see (above the causal diagonal,
-// before the window, wholly inside the left pad, past Sk) are never
-// loaded: the loop's bounds skip them, the rule of the TPU kernel's
-// @pl.when.  K and V are bounds-checked against Sk; nothing is padded.
+// Both bodies fold the G = H / KV query heads of a kv head into a block's
+// 64 rows (row r is head r / QB of the group at position q0 + r % QB), so a
+// K/V tile loaded once serves every head that reads it, as on the TPU.  The
+// TPU walked the key tiles on its last, sequential grid axis with m, l and
+// acc in VMEM scratch; here a loop inside the block walks them and the
+// online-softmax state stays in registers.  Key tiles that no row of the
+// block can see (above the causal diagonal, before the window, wholly
+// inside the left pad, past Sk) are never loaded: the loop's bounds skip
+// them, the rule of the TPU kernel's @pl.when.  Nothing is padded.
 //
-// Bound.  Prefill at qwen3-0.6b widths does 4 * hd flops per live (query
-// head, key) pair against 2 bytes per element moved, so it is bounded by
-// operations.  This first kernel multiplies in float32 on the CUDA cores
-// (no tensor cores: float32 inputs must not drop to TF32, and one code path
-// serves both types), so it cannot reach the bf16 tensor-core bound; wgmma
-// tiles are the later speed work.
+// Bound.  Prefill does 4 * hd flops per live (query head, key) pair against
+// 2 bytes per element moved: at qwen3-0.6b's B 2, S 512 it is 2.2 GFLOP
+// against 6.3 MB, so the bf16 tensor cores (989 TFLOP/s) and the bytes
+// (3.35 TB/s) bound it about equally, and the CUDA cores (67 TFLOP/s
+// float32) would bound it at 15x that.  Hence two bodies:
+//
+// * bf16 (every served model): tensor cores.  Each of 4 warps owns 16 rows.
+//   S = Q K^T runs as mma.sync.m16n8k16 (bf16 in, float32 accumulate) with
+//   Q and K fragments taken from shared memory by ldmatrix.  The online
+//   softmax runs on the accumulator fragments in registers (a row's scores
+//   of a tile sit in the 4 lanes of a quad: two shuffles reduce them).  P is
+//   split in registers into two bf16 parts, hi = bf16(p) and lo =
+//   bf16(p - hi), and both become A operands of P V directly (V's B
+//   fragments from ldmatrix.trans), so P never touches shared memory and
+//   P V carries p to about 16 bits, near the reference's float32 p.  With
+//   p rounded to one bf16, qwen3-0.6b's two-layer bf16 prefill logits on
+//   the card left the 2e-2 band around the CPU's (1.21 of it, against 0.92
+//   with float32 arithmetic); lo costs a second mma per P V fragment.
+//   K/V tiles of 32 keys stay bf16 in shared memory, double-buffered with
+//   cp.async (zero-filled past Sk), so the next tile's load overlaps this
+//   tile's math.  At 32 keys a block takes 52 KB of shared memory and 128
+//   registers a thread at hd 128 (254 at hd 256, where the 16 x 256
+//   float32 output fragment alone takes 128), so several blocks share an
+//   SM; 64-key tiles, or Q's fragments held in registers, measured no
+//   faster.  Rows are padded by 16
+//   bytes so the 8 rows an ldmatrix phase reads fall in 8 bank groups.
+//   Interior tiles (no row masks a key) skip the per-element mask.
+// * float32: the CUDA cores.  The reference multiplies in float32 and the
+//   2e-5 tolerance rules out TF32, so this body keeps full float32 FMAs:
+//   8 rows a warp, lane j scores key j of a 32-key tile out of shared
+//   memory, and for P V each lane owns hd / 32 output columns.  It serves
+//   the token-identity and band checks only; no served model runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;   // query rows of a block
-constexpr int kKeys = 32;                      // keys of a tile, one per lane
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRows = 64;                      // query rows of a block
 
 enum Kind { kCausal = 0, kLocal = 1, kAll = 2 };
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -75,6 +80,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The keys [k_begin, k_end) that some row of the tile at q0 may see.
+__device__ __forceinline__ void key_range(int q0, int qb, int sq, int sk,
+                                          int pad_b, int kind, int window,
+                                          int& k_begin, int& k_end) {
+  const int q_last = min(q0 + qb, sq) - 1;
+  k_begin = max(pad_b, 0);
+  if (kind == kLocal) k_begin = max(k_begin, q0 - window + 1);
+  k_end = sk;
+  if (kind != kAll) k_end = min(k_end, q_last + 1);
+}
+
+// -- float32: CUDA cores ------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kWarps = 8;
+constexpr int kRowsPerWarp = 8;
+constexpr int kKeys = 32;                      // keys of a tile, one per lane
+
 template <int HD>
 constexpr int smem_bytes() {
   // Q tile and K tile padded by 4 floats a row (float4 reads without bank
@@ -82,11 +106,11 @@ constexpr int smem_bytes() {
   return (kRows * (HD + 4) + kKeys * (HD + 4) + kKeys * HD) * 4;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ pad,
-             T* __restrict__ out, int sq, int sk, int heads, int kv_heads,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ pad,
+             float* __restrict__ out, int sq, int sk, int heads, int kv_heads,
              int qb, int kind, int window, float scale) {
   constexpr int kCols = HD / 32;     // output columns of a lane
   constexpr int kLd = HD + 4;
@@ -112,7 +136,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int pos = q0 + r % qb;
     if (r < rows_used && pos < sq) {
       const int h = kvh * group + r / qb;
-      x = load4(q + ((static_cast<size_t>(b) * sq + pos) * heads + h) * HD + d);
+      x = *reinterpret_cast<const float4*>(
+          q + ((static_cast<size_t>(b) * sq + pos) * heads + h) * HD + d);
     }
     *reinterpret_cast<float4*>(qs + r * kLd + d) = x;
   }
@@ -128,13 +153,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  // keys any row of this tile can see
-  const int q_last = min(q0 + qb, sq) - 1;
-  int k_begin = pad_b;
-  if (kind == kLocal) k_begin = max(k_begin, q0 - window + 1);
-  k_begin = max(k_begin, 0);
-  int k_end = sk;
-  if (kind != kAll) k_end = min(k_end, q_last + 1);
+  int k_begin, k_end;
+  key_range(q0, qb, sq, sk, pad_b, kind, window, k_begin, k_end);
 
   for (int k0 = k_begin - k_begin % kKeys; k0 < k_end; k0 += kKeys) {
     __syncthreads();   // the previous tile is consumed (and Q is stored)
@@ -143,8 +163,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + j < sk) {
         const size_t off = ((static_cast<size_t>(b) * sk + k0 + j) * kv_heads + kvh) * HD + d;
-        kx = load4(k + off);
-        vx = load4(v + off);
+        kx = *reinterpret_cast<const float4*>(k + off);
+        vx = *reinterpret_cast<const float4*>(v + off);
       }
       *reinterpret_cast<float4*>(ks + j * kLd + d) = kx;
       *reinterpret_cast<float4*>(vs + j * HD + d) = vx;
@@ -206,43 +226,352 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + r / qb;
     // a row that saw no key has l == 0 and acc == 0: it comes out as zeros
     const float denom = fmaxf(l[i], 1e-20f);
-    T* o = out + ((static_cast<size_t>(b) * sq + qpos[i]) * heads + h) * HD;
+    float* o = out + ((static_cast<size_t>(b) * sq + qpos[i]) * heads + h) * HD;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store1(o + lane + 32 * c, acc[i][c] / denom);
+    for (int c = 0; c < kCols; ++c) o[lane + 32 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
                    void* out, int batch, int sq, int sk, int heads,
                    int kv_heads, int kind, int window, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();   // above the 48 KB default
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int group = heads / kv_heads;
-  const int qb = kRows / group;
+  const int qb = kRows / (heads / kv_heads);
   const dim3 grid((sq + qb - 1) / qb, kv_heads, batch);
-  flash_kernel<T, HD><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pad),
-      static_cast<T*>(out), sq, sk, heads, kv_heads, qb, kind, window, scale);
+  flash_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(pad),
+      static_cast<float*>(out), sq, sk, heads, kv_heads, qb, kind, window,
+      scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
+}  // namespace f32
+
+// -- bf16: tensor cores (mma.sync m16n8k16) -----------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 4;                      // 16 rows each
+constexpr int kPad = 8;                        // bf16 of padding a smem row
+
+constexpr int kKeys = 32;                      // keys of a K/V tile
+
+template <int HD>
+constexpr int smem_bytes() {
+  // Q tile, then two stages of K and two of V, rows of HD + kPad bf16
+  return (kRows + 4 * kKeys) * (HD + kPad) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled where !live
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(const void* p, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0,
+                                                  uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));  // registers only
+}
+
+// (x0, x1) as two bf16 pairs: big = bf16(x), small = bf16(x - big)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& big,
+                                           uint32_t& small) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+  const float2 r = __bfloat1622float2(b);
+  const __nv_bfloat162 s = __floats2bfloat162_rn(x0 - r.x, x1 - r.y);
+  big = *reinterpret_cast<const uint32_t*>(&b);
+  small = *reinterpret_cast<const uint32_t*>(&s);
+}
+
+// Fragment layout of mma.m16n8k16 (PTX ISA): lane l holds, of the 16 x 8
+// accumulator tile, rows l / 4 (elements 0, 1) and l / 4 + 8 (elements 2,
+// 3) at columns 2 (l % 4) and 2 (l % 4) + 1.  Two adjacent score tiles of
+// a row are therefore exactly the A fragment of the 16 keys they cover.
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_kernel(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const int* __restrict__ pad,
+             __nv_bfloat16* __restrict__ out, int sq, int sk, int heads,
+             int kv_heads, int qb, int kind, int window, float scale_log2) {
+  constexpr int kLd = HD + kPad;               // a smem row, in bf16
+  constexpr int kChunks = HD / 8;              // 16-byte pieces of a row
+  constexpr int kSt = kKeys / 8;               // score tiles of a warp
+  constexpr int kOt = HD / 8;                  // output tiles of a warp
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* ks = qs + kRows * kLd;        // [2][kKeys][kLd]
+  __nv_bfloat16* vs = ks + 2 * kKeys * kLd;    // [2][kKeys][kLd]
+
+  const int group = heads / kv_heads;
+  const int rows_used = group * qb;
+  const int q0 = blockIdx.x * qb;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pad_b = pad ? pad[b] : 0;
+  const size_t key_stride = static_cast<size_t>(kv_heads) * HD;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * sk * kv_heads + kvh) * HD;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * sk * kv_heads + kvh) * HD;
+
+  // Q tile: row r = (head r / qb of the group, position q0 + r % qb)
+  for (int idx = tid; idx < kRows * kChunks; idx += kWarps * 32) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int pos = q0 + r % qb;
+    const bool live = r < rows_used && pos < sq;
+    const __nv_bfloat16* src = live
+        ? q + ((static_cast<size_t>(b) * sq + pos) * heads + kvh * group + r / qb) * HD + c * 8
+        : q;
+    cp_async16(qs + r * kLd + c * 8, src, live);
+  }
+  cp_async_commit();
+
+  auto load_tile = [&](int t, int stage) {
+    const int k0 = t * kKeys;
+    for (int idx = tid; idx < kKeys * kChunks; idx += kWarps * 32) {
+      const int j = idx / kChunks, c = idx % kChunks;
+      const bool live = k0 + j < sk;
+      const size_t off = live ? (k0 + j) * key_stride + c * 8 : 0;
+      cp_async16(ks + (stage * kKeys + j) * kLd + c * 8, kb + off, live);
+      cp_async16(vs + (stage * kKeys + j) * kLd + c * 8, vb + off, live);
+    }
+  };
+
+  int k_begin, k_end;
+  key_range(q0, qb, sq, sk, pad_b, kind, window, k_begin, k_end);
+  const int t_begin = k_begin / kKeys;
+  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+
+  // this lane's two rows of the warp's 16, and their positions
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int pos_lo = q0 + r_lo % qb;
+  const int pos_hi = q0 + (r_lo + 8) % qb;
+  // ldmatrix row addresses: lane l feeds row l % 8 of matrix l / 8
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_key = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int v_key = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int v_col = (lane >> 4) * 8;
+
+  float o[kOt][4];
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
+
+  if (t_begin < t_end) load_tile(t_begin, 0);
+  cp_async_commit();
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_tile(t + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + stage * kKeys * kLd;
+    const __nv_bfloat16* vt = vs + stage * kKeys * kLd;
+
+    // S = Q K^T for the warp's 16 rows and the tile's keys
+    float s[kSt][4];
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < HD; kd += 16) {
+      uint32_t a0, a1, a2, a3;
+      ldmatrix_x4(qs + a_row * kLd + kd + a_col, a0, a1, a2, a3);
+#pragma unroll
+      for (int n = 0; n < kSt; n += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4(kt + (n * 8 + b_key) * kLd + kd + b_col, b0, b1, b2, b3);
+        mma(s[n], a0, a1, a2, a3, b0, b1);
+        mma(s[n + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+
+    // mask (edge tiles only), then the online softmax on the fragments;
+    // masked keys score -inf: they weigh exactly 0 even while the row has
+    // no valid key (m is then -1e30, never -inf, so no NaN arises)
+    const int k0 = t * kKeys;
+    const bool edge = k0 < pad_b || k0 + kKeys > sk
+        || (kind != kAll && k0 + kKeys - 1 > q0)
+        || (kind == kLocal && k0 <= q0 + qb - 1 - window);
+    float mx_lo = kNeg, mx_hi = kNeg;
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int j = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+          const int pos = e < 2 ? pos_lo : pos_hi;
+          bool ok = j < sk && j >= pad_b;
+          if (kind != kAll) ok = ok && j <= pos;
+          if (kind == kLocal) ok = ok && j > pos - window;
+          x = ok ? x : -INFINITY;
+        }
+        s[n][e] = x;
+        if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, o2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, o2));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+    uint32_t pa[kSt][2], pb[kSt][2];           // P = pa + pb: (row lo, row hi)
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) {
+      const float p0 = exp2f(s[n][0] - mn_lo), p1 = exp2f(s[n][1] - mn_lo);
+      const float p2 = exp2f(s[n][2] - mn_hi), p3 = exp2f(s[n][3] - mn_hi);
+      sum_lo += p0 + p1;
+      sum_hi += p2 + p3;
+      split_bf16(p0, p1, pa[n][0], pb[n][0]);
+      split_bf16(p2, p3, pa[n][1], pb[n][1]);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      sum_lo += __shfl_xor_sync(kFull, sum_lo, o2);
+      sum_hi += __shfl_xor_sync(kFull, sum_hi, o2);
+    }
+    l_lo = l_lo * al_lo + sum_lo;
+    l_hi = l_hi * al_hi + sum_hi;
+#pragma unroll
+    for (int d = 0; d < kOt; ++d) {
+      o[d][0] *= al_lo;
+      o[d][1] *= al_lo;
+      o[d][2] *= al_hi;
+      o[d][3] *= al_hi;
+    }
+
+    // O += P V: V's fragments by ldmatrix.trans, each serving both parts
+    // of P (the mmas on one accumulator two apart)
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint32_t a0 = pa[2 * kk][0], a1 = pa[2 * kk][1];
+      const uint32_t a2 = pa[2 * kk + 1][0], a3 = pa[2 * kk + 1][1];
+      const uint32_t c0 = pb[2 * kk][0], c1 = pb[2 * kk][1];
+      const uint32_t c2 = pb[2 * kk + 1][0], c3 = pb[2 * kk + 1][1];
+#pragma unroll
+      for (int d = 0; d < kOt; d += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(vt + (kk * 16 + v_key) * kLd + d * 8 + v_col,
+                          b0, b1, b2, b3);
+        mma(o[d], a0, a1, a2, a3, b0, b1);
+        mma(o[d + 1], a0, a1, a2, a3, b2, b3);
+        mma(o[d], c0, c1, c2, c3, b0, b1);
+        mma(o[d + 1], c0, c1, c2, c3, b2, b3);
+      }
+    }
+    __syncthreads();   // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();  // Q's copy, where no tile was loaded
+  __syncthreads();
+
+  // a row that saw no key has l == 0 and o == 0: it comes out as zeros.
+  // The warp stages its 16 output rows in its own 16 rows of the Q tile
+  // (no other warp reads them), then stores them 16 bytes a lane.
+  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
+  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  __nv_bfloat16* stage_rows = qs + warp * 16 * kLd;
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) {
+    const int col = d * 8 + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(stage_rows + (lane >> 2) * kLd + col) =
+        __floats2bfloat162_rn(o[d][0] * inv_lo, o[d][1] * inv_lo);
+    *reinterpret_cast<__nv_bfloat162*>(stage_rows + ((lane >> 2) + 8) * kLd + col) =
+        __floats2bfloat162_rn(o[d][2] * inv_hi, o[d][3] * inv_hi);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int rr = idx / kChunks, c = idx % kChunks;
+    const int r = warp * 16 + rr;
+    const int pos = q0 + r % qb;
+    if (r >= rows_used || pos >= sq) continue;
+    *reinterpret_cast<uint4*>(
+        out + ((static_cast<size_t>(b) * sq + pos) * heads + kvh * group + r / qb) * HD + c * 8) =
+        *reinterpret_cast<const uint4*>(stage_rows + rr * kLd + c * 8);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
+                   void* out, int batch, int sq, int sk, int heads,
+                   int kv_heads, int kind, int window, float scale,
+                   cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();   // above the 48 KB default
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int qb = kRows / (heads / kv_heads);
+  const dim3 grid((sq + qb - 1) / qb, kv_heads, batch);
+  flash_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pad),
+      static_cast<__nv_bfloat16*>(out), sq, sk, heads, kv_heads, qb, kind,
+      window, scale * 1.4426950408889634f);   // softmax in base 2
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// bf16 takes the tensor-core body, float32 the CUDA-core one
+template <int HD>
+cudaError_t launch_type(bool bf16, const void* q, const void* k, const void* v,
                         const void* pad, void* out, int batch, int sq, int sk,
                         int heads, int kv_heads, int kind, int window,
                         float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return bf16 ? tc::launch<HD>(q, k, v, pad, out, batch, sq, sk, heads,
+                               kv_heads, kind, window, scale, stream)
+              : f32::launch<HD>(q, k, v, pad, out, batch, sq, sk, heads,
+                                kv_heads, kind, window, scale, stream);
 }
 
 }  // namespace
@@ -260,11 +589,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  switch (hd) {
+    case 32: return launch_type<32>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 64: return launch_type<64>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 128: return launch_type<128>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 256: return launch_type<256>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -2,9 +2,11 @@
 left pad).
 
 The Hopper kernel is ``csrc/flash_attention.cu``; it replaces the TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_pallas``.  It is built
-on first use through ``kernels._build`` and launched on PyTorch's current
-stream.  The plain version is ``kernels.ref.flash_attention_ref``.
+``repro/kernels/flash_attention.py::flash_attention_pallas``.  bf16 inputs
+run on the tensor cores (``mma.sync``), float32 inputs on the CUDA cores in
+full float32.  It is built on first use through ``kernels._build`` and
+launched on PyTorch's current stream.  The plain version is
+``kernels.ref.flash_attention_ref``.
 
 ``flash_attention_cuda.launches`` counts launches: it rises by one each time
 the wrapper launches the kernel, and nowhere else.

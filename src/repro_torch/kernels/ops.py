@@ -55,6 +55,29 @@ def decode_attention(q, k, v, valid_mask):
     return ref.decode_attention_ref(q, k, v, valid_mask)
 
 
+def decode_attention_paged(q, k_pool, v_pool, block_table, seq_lens):
+    """Single-token GQA attention against a paged pool.  q (B, 1, H, hd);
+    pools (n_blocks, bs, KV, hd); block_table (B, M) maps row b's logical
+    blocks to pool blocks; row b sees keys j <= seq_lens[b] of its
+    (B, M * bs) view.  On CUDA the kernel reads the pool through the table
+    (the index tensors go to int32 first); on the CPU the rows are gathered
+    and the plain version runs, as the reference does."""
+    if q.is_cuda:
+        from .decode_attention import decode_attention_paged_cuda
+        return decode_attention_paged_cuda(
+            q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
+            block_table.to(torch.int32).contiguous(),
+            seq_lens.to(torch.int32).contiguous())
+    b, m = block_table.shape
+    bs = k_pool.shape[1]
+    kvh, hd = k_pool.shape[-2:]
+    k_rows = k_pool[block_table].reshape(b, m * bs, kvh, hd)
+    v_rows = v_pool[block_table].reshape(b, m * bs, kvh, hd)
+    valid = (torch.arange(m * bs, device=q.device)[None, :]
+             <= seq_lens[:, None])
+    return ref.decode_attention_ref(q, k_rows, v_rows, valid)
+
+
 def chunk_attention(q, k, v, *, start: int):
     """Chunked-prefill GQA attention: q (B, C, H, hd) holds the tokens at
     positions ``start .. start + C - 1``; k/v (B, S, KV, hd) are dense

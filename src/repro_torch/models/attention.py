@@ -206,10 +206,10 @@ def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,
     * kind "g": ``cache`` is a pool ``KVCache`` (n_blocks, block_size, KV,
       hd); ``block_table`` (B, M) maps row i's logical blocks to pool
       blocks.  The new K/V goes into block ``block_table[i, seq_lens[i] //
-      bs]`` at offset ``seq_lens[i] % bs``; attention gathers each row's
-      blocks into a (B, M * bs) view with positions past ``seq_lens[i]``
-      masked.  Idle rows (seq_lens 0, table all zeros) write into the
-      reserved dummy block 0.
+      bs]`` at offset ``seq_lens[i] % bs``; attention reads each row's
+      blocks through the table as a (B, M * bs) view with positions past
+      ``seq_lens[i]`` masked (``ops.decode_attention_paged``).  Idle rows
+      (seq_lens 0, table all zeros) write into the reserved dummy block 0.
     * kind "l": ``cache`` is a per-slot ``RingCache`` (B, W, KV, hd); row i
       writes ring slot ``seq_lens[i] % W`` (positions are semantic: the
       commit re-slots prefill entries).
@@ -234,17 +234,12 @@ def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,
         out = out.reshape(*x.shape[:-1], -1)
         return out @ p["wo"], cache
     bs = cache.k.shape[1]
-    m = block_table.shape[1]
     rows = torch.arange(b, device=x.device)
     blk = block_table[rows, seq_lens // bs]
     off = seq_lens % bs
     cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
     cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
-    kvh, hd = cache.k.shape[-2:]
-    k_rows = cache.k[block_table].reshape(b, m * bs, kvh, hd)
-    v_rows = cache.v[block_table].reshape(b, m * bs, kvh, hd)
-    valid = (torch.arange(m * bs, device=x.device)[None, :]
-             <= seq_lens[:, None])
-    out = ops.decode_attention(q, k_rows, v_rows, valid)
+    out = ops.decode_attention_paged(q, cache.k, cache.v, block_table,
+                                     seq_lens)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ p["wo"], cache

@@ -165,7 +165,20 @@ def _att_inputs(b, sq, sk, h, kv, hd, dtype, seed):
     (2, 300, 300, 16, 8, 128, "causal", 0, [0, 299]),
     (2, 100, 100, 6, 2, 64, "local", 24, [0, 50]),
     (2, 37, 75, 4, 2, 32, "full", 0, None),
-    (1, 96, 96, 10, 1, 256, "causal", 0, None)])
+    (1, 96, 96, 10, 1, 256, "causal", 0, None),
+    # every kind with left pads, Sq != Sk both ways, odd lengths, G = 2, 3
+    # and 10, hd 32 to 256 (bf16 takes the tensor-core body)
+    (2, 512, 512, 16, 8, 128, "causal", 0, None),
+    (4, 300, 300, 16, 8, 128, "causal", 0, [0, 13, 40, 299]),
+    (3, 77, 77, 16, 8, 128, "local", 24, [0, 5, 70]),
+    (3, 50, 50, 4, 2, 32, "full", 0, [0, 13, 40]),
+    (2, 37, 75, 4, 2, 32, "causal", 0, None),
+    (2, 75, 37, 4, 2, 64, "causal", 0, [0, 9]),
+    (2, 37, 75, 6, 2, 64, "full", 0, None),
+    (2, 192, 192, 6, 2, 64, "local", 96, [0, 100]),
+    (2, 512, 512, 10, 1, 256, "local", 2048, None),
+    (2, 130, 130, 10, 1, 256, "local", 64, [0, 7]),
+    (1, 32, 32, 10, 1, 256, "local", 2048, [5])])
 def test_flash_kernel_matches_plain(dtype, tol, b, sq, sk, h, kv, hd, kind,
                                     window, pad):
     _need_card()
@@ -209,6 +222,81 @@ def test_decode_kernel_matches_plain(dtype, tol, b, s, h, kv, hd):
     torch.testing.assert_close(got.float(),
                                p_ref.decode_attention_ref(q, k, v, valid).float(),
                                rtol=tol, atol=tol)
+
+
+def _split_masks(b, s, seed, *, dead_row, dead_split):
+    """Ragged valid prefixes; optionally a row with no valid key and a row
+    whose second 64-key split is wholly masked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+    if dead_split:
+        valid[0] = True
+        valid[0, 64:128] = False
+    if dead_row:
+        valid[-1] = False
+    return valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,dead_row,dead_split", [
+    (8, 512, 16, 8, 128, False, True),     # qwen3's tick: 8 splits
+    (8, 2048, 10, 1, 256, True, True),     # recurrentgemma's ring
+    (3, 1000, 4, 2, 32, True, False),      # S not a multiple of a split
+    (2, 130, 10, 1, 256, False, True),
+    (1, 77, 40, 2, 64, True, False),       # 20 heads a kv head: 2 groups
+    (2, 5, 4, 2, 32, True, False)])
+def test_split_decode_matches_plain(dtype, tol, b, s, h, kv, hd, dead_row,
+                                    dead_split):
+    _need_card()
+    splits, _ = p_da.decode_splits(b, kv * p_da.head_groups(h // kv), s)
+    if s >= 130:
+        assert splits >= 2
+    q, k, v = _att_inputs(b, 1, s, h, kv, hd, dtype, s + h)
+    valid = _split_masks(b, s, s, dead_row=dead_row, dead_split=dead_split)
+    got = p_da.decode_attention_cuda(q, k, v, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               p_ref.decode_attention_ref(q, k, v, valid).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,m,bs,h,kv,hd,seq_lens", [
+    (8, 32, 16, 16, 8, 128, [0, 15, 16, 511, 100, 300, 1, 64]),
+    (4, 9, 16, 10, 1, 256, [0, 143, 16, 70]),
+    (3, 5, 8, 4, 2, 32, [39, 0, 8])])
+def test_paged_decode_matches_gather_and_plain(dtype, tol, b, m, bs, h, kv,
+                                               hd, seq_lens):
+    """The paged entry on a scattered table against the gather and the
+    plain version; seq_lens of 0, of a block boundary and of the table's
+    end; one launch a call, counted with the dense entry's."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(m * bs)
+    n_blocks = b * m + 3
+    k_pool = torch.randn((n_blocks, bs, kv, hd), generator=g,
+                         device="cuda").to(dtype)
+    v_pool = torch.randn((n_blocks, bs, kv, hd), generator=g,
+                         device="cuda").to(dtype)
+    q = torch.randn((b, 1, h, hd), generator=g, device="cuda").to(dtype)
+    table = torch.randperm(n_blocks, generator=g, device="cuda")[:b * m]
+    table = table.reshape(b, m).to(torch.int32)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    before = p_da.decode_attention_cuda.launches
+    got = p_ops.decode_attention_paged(q, k_pool, v_pool, table, lens)
+    torch.cuda.synchronize()
+    assert p_da.decode_attention_cuda.launches == before + 1
+    k_rows = k_pool[table.long()].reshape(b, m * bs, kv, hd)
+    v_rows = v_pool[table.long()].reshape(b, m * bs, kv, hd)
+    valid = torch.arange(m * bs, device="cuda")[None] <= lens[:, None]
+    torch.testing.assert_close(
+        got.float(), p_ref.decode_attention_ref(q, k_rows, v_rows,
+                                                valid).float(),
+        rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
