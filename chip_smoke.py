@@ -13,8 +13,10 @@ against its plain PyTorch version on the card:
 1. builds the five CUDA kernels from the sources in this checkout, one
    nvcc process per source, all at once;
 2. holds each kernel against its plain version at the main path's shapes
-   and three more -- an LM-shaped fleet (C = 103), a ragged row count and a
-   grid whose cells have their own MEC constants (rtol 1e-4 / atol 1e-3 on
+   and more -- an LM-shaped fleet (C = 103), a ragged row count, a grid
+   whose cells have their own MEC constants, and C = 1, 8, 16, 17, 32, 33
+   (the rows a warp packs: 32, 4, 2, 1) at row counts no block's rows
+   divide (rtol 1e-4 / atol 1e-3 on
    feasible cells, the same infeasible set, argmins equal wherever the plain
    table has no near tie), and times kernel and plain on the device (the
    profiler's kernel durations) and per call with the host issuing (CUDA
@@ -48,12 +50,15 @@ against its plain PyTorch version on the card:
    2-layer bf16 prefill agrees with the port's CPU path;
 7. holds the SSD and RG-LRU scan kernels against their plain versions
    (the reference's kernel test cases, resets mid-tile and on the tile
-   boundary, odd lengths, G = 2 and 3, and the shapes of mamba2's and
-   recurrentgemma's solo prefills and split check; 1e-4 in float32 and for
+   boundary, odd lengths, G = 2 and 3, the SSD's chunk edges S = T - 1, T,
+   T + 1, 3T + 5 with resets at step 0, on a chunk boundary and twice in
+   one chunk, and the shapes of mamba2's and recurrentgemma's solo
+   prefills and split check, in float32 and bf16; 1e-4 in float32 and for
    the SSD state, 2e-2 for an output rounded to bf16) and the attention
    kernels at recurrentgemma's shapes (10 heads over 1 kv head, hd 256, a
    2048 window and a 64 one, a scattered 2048-slot ring), and times both
-   scans at the split check's shape, decode over the ring and flash at
+   scans at the split check's shape and at their engine shapes (a 32-token
+   solo prefill with a left pad of 3), decode over the ring and flash at
    recurrentgemma's prefill shapes;
 8. runs ``serve_partitioned.main`` with ``--arch mamba2-1.3b`` (48 layers,
    bf16): controller, split at the chosen and middle unit, a ragged burst
@@ -74,9 +79,9 @@ against its plain PyTorch version on the card:
    at 1e-4.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
-check fails.  The last lines are the card's name and power limit, one JSON
-line of per-kernel numbers and one JSON status line.  A longer report goes
-to build/chip_smoke.json.
+check fails.  It logs the seconds each phase takes.  The last lines are the
+card's name and power limit, one JSON line of per-kernel numbers and one
+JSON status line.  A longer report goes to build/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -174,7 +179,9 @@ def check_sweep(torch, got, want, label: str) -> float:
         fail(f"{label}: infeasible sets differ")
     srt = torch.sort(want, dim=-1).values
     tol = ATOL + RTOL * srt[..., 0].abs()
-    clear = (srt[..., 1] - srt[..., 0]) > tol
+    # with one cut there is no second best: every row's argmin is clear
+    clear = ((srt[..., 1] - srt[..., 0]) > tol if got.shape[-1] > 1
+             else torch.ones_like(tol, dtype=torch.bool))
     k_arg, p_arg = torch.argmin(got, -1), torch.argmin(want, -1)
     if not bool((k_arg[clear] == p_arg[clear]).all()):
         fail(f"{label}: argmin differs where the plain table has no near tie")
@@ -186,6 +193,112 @@ def check_sweep(torch, got, want, label: str) -> float:
         f"feasible={int(feasible.sum())} near_ties={int((~clear).sum())} "
         f"max_abs_err={err:.3e}")
     return err
+
+
+def random_sweep_args(torch, np, cells: int, ues: int, c: int, seed: int):
+    """(cells, ues, C) sweep inputs drawn from ``seed``, zero past each UE's
+    layer count L (L < C; L = 0 at C = 1), with one row of MEC constants."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    lead = (cells, ues)
+    L = np.minimum(rng.integers(max(1, c // 3), max(c, 2), lead), c - 1)
+    L.reshape(-1)[0] = c - 1
+    live = np.arange(c) <= L[..., None]
+    macs = rng.uniform(1e6, 5e7, lead + (c,)) * live
+    prm = rng.uniform(1e3, 5e6, lead + (c,)) * live
+    macs[..., 0] = prm[..., 0] = 0.0
+    acts = rng.uniform(1e4, 2e6, lead + (c,)) * live
+    psi = np.where(np.arange(c) < L[..., None], acts, 0.0)
+    dev = lambda a, dt=torch.float32: torch.as_tensor(
+        np.asarray(a), dtype=dt, device="cuda").contiguous()
+    return (dev(macs), dev(prm), dev(acts), dev(psi), dev(L, torch.int64),
+            dev(rng.uniform(0.5, 2.5, lead)),
+            dev(rng.exponential(1.0, lead) * 1.6e-11),
+            dev(rng.uniform(0, 50, lead)), dev(rng.uniform(0, 50, lead)),
+            ref.pack_scalars(dict(
+                rho=0.12, kappa=1e-28, p_tx=0.1, w_hz=5e6,
+                n0=10 ** (-17.4) / 1000, f_max_ue=1.5e9, f_max_es=15e9,
+                v=10.0, gamma_ue=0.2, gamma_es=0.8, stability_margin=1e-3),
+                "cuda"))
+
+
+def sweep_cases(torch, grid, rng) -> list:
+    """Phase 2's sweep inputs, (label, batched-entry arguments) each: (a) the
+    main path's grid (``grid``, 4096 x 8, C = 11) with queues drawn from a
+    seed; (b) an LM-shaped fleet (C = 103) drawn from ``rng``; (c) a ragged
+    row count; (d) a
+    grid whose cells have their own Lyapunov weight V; (e) C = 1, 8, 16,
+    17, 32, 33 (32, 4, 2, 1, 1, 1 rows a warp) at row counts that no
+    block's rows divide."""
+    import numpy as np
+    from repro_torch.core import scenarios
+    from repro_torch.core.lyapunov import VirtualQueues
+    from repro_torch.kernels import partition_sweep as ps
+    from repro_torch.kernels import ref
+
+    def with_queues(g, states, seed):
+        gen = g.generator(seed)
+        shape = states.lam.shape
+        q = VirtualQueues(
+            50.0 * torch.rand(shape, generator=gen, device=g.device),
+            5.0 * torch.rand(shape, generator=gen, device=g.device))
+        return dataclasses.replace(states, queues=q)
+
+    def grid_args(g, seed):
+        st = with_queues(g, g.reset(g.generator(seed)), seed + 1)
+        p = g.params
+        return (p.macs, p.param_bytes, p.act_bytes, p.psi, p.L, st.lam,
+                st.gain, st.queues.energy, st.queues.memory, g.sweep_scalars)
+
+    cases = [(f"(a) grid {GRID_CELLS}x{GRID_UES}", grid_args(grid, 1))]
+
+    # (b) the LM-profile fleet's shape: 256 UEs whose layer counts are those
+    # of the repo's ten LM profiles (C = 103), per-layer costs from rng
+    layer_counts = np.array([50, 50, 28, 30, 82, 34, 28, 50, 102, 50])
+    n_lm, c_lm = 256, 103
+    L = layer_counts[np.arange(n_lm) % len(layer_counts)]
+    live = np.arange(c_lm)[None, :] <= L[:, None]
+    macs = rng.uniform(1e7, 5e8, (n_lm, c_lm)) * live
+    prm = rng.uniform(1e6, 5e7, (n_lm, c_lm)) * live
+    macs[:, 0] = prm[:, 0] = 0.0
+    acts = rng.uniform(1e4, 1e6, (n_lm, c_lm)) * live
+    psi = np.where(np.arange(c_lm)[None, :] < L[:, None], acts, 0.0)
+    dev = lambda a, dt=torch.float32: torch.as_tensor(
+        np.asarray(a)[None], dtype=dt, device="cuda").contiguous()
+    cases.append((f"(b) LM-shaped fleet {n_lm}x{c_lm}", (
+        dev(macs), dev(prm), dev(acts), dev(psi), dev(L, torch.int64),
+        dev(rng.uniform(0.5, 2.5, n_lm)),
+        dev(rng.exponential(1.0, n_lm) * 1.6e-11),
+        dev(rng.uniform(0, 50, n_lm)), dev(rng.uniform(0, 50, n_lm)),
+        ref.pack_scalars(dict(
+            rho=0.12, kappa=1e-28, p_tx=0.1, w_hz=5e6,
+            n0=10 ** (-17.4) / 1000, f_max_ue=5e9, f_max_es=200e9,
+            v=10.0, gamma_ue=0.2, gamma_es=0.8, stability_margin=1e-3),
+            "cuda"))))
+
+    # (c) a row count that is not a multiple of a block's 16 rows at C = 11
+    rag = scenarios.ScenarioGrid(scenarios.multicell_grid(cells=13, ues=7,
+                                                          seed=5))
+    cases.append(("(c) ragged 13x7 = 91 rows", grid_args(rag, 3)))
+
+    # (d) cells with their own Lyapunov weight V: one launch, one row of
+    # constants per cell
+    mixed = scenarios.ScenarioGrid(scenarios.multicell_grid(
+        cells=512, ues=GRID_UES, seed=11, uniform_scalars=False))
+    v_col = mixed.sweep_scalars[:, ref.SCALAR_NAMES.index("v")]
+    if int(torch.unique(v_col).numel()) < 2:
+        fail("(d) the mixed grid's cells share V")
+    cases.append((f"(d) per-cell constants 512x{GRID_UES}",
+                  grid_args(mixed, 5)))
+
+    # (e) every width of row packing, at row counts no block's rows divide
+    for cells, ues, cuts in ((37, 3, 1), (19, 5, 8), (23, 3, 16), (7, 9, 17),
+                             (5, 11, 32), (3, 13, 33)):
+        cases.append((f"(e) C={cuts}, {cells}x{ues} = {cells * ues} rows, "
+                      f"{ps.lanes_per_row(cuts)} lanes a row, "
+                      f"{ps.rows_per_block(cuts)} rows a block",
+                      random_sweep_args(torch, np, cells, ues, cuts, cuts)))
+    return cases
 
 
 def profile_grid(torch, grid, slots: int) -> dict:
@@ -752,7 +865,20 @@ SSD_CASES = [
     ("mamba2 solo prefill, pad 3", 1, 32, 64, 64, 1, 128, 32, "bf16", PAD3),
     ("mamba2 split check", 2, 512, 64, 64, 1, 128, 256, "bf16", None),
     ("mamba2 split check", 2, 512, 64, 64, 1, 128, 256, "f32", None),
-]
+    ("mamba2 solo prefill, pad 3", 1, 32, 64, 64, 1, 128, 32, "f32", PAD3),
+] + [
+    # the chunk passes (T = 64 steps a chunk) at their edges, each dtype
+    (label, *shape, dt, at) for dt in ("f32", "bf16") for label, *shape, at in [
+        ("S = T - 1, reset at step 0, G 2", 1, 63, 4, 16, 2, 8, 63, [(0, 0)]),
+        ("S = T, resets twice in one chunk, G 3", 2, 64, 3, 16, 3, 8, 64,
+         [(0, 10), (0, 40), (1, 63)]),
+        ("S = T + 1, reset on the chunk boundary, G 2", 2, 65, 4, 16, 2, 8,
+         65, [(0, 64), (1, 0)]),
+        ("S = 3T + 5, resets on boundaries and twice in a chunk, G 2", 2, 197,
+         4, 32, 2, 16, 197, [(0, 64), (0, 128), (1, 70), (1, 100), (1, 196)]),
+        ("S = 3T + 5 at mamba2's widths, G 2", 1, 197, 8, 64, 2, 128, 197,
+         [(0, 0), (0, 128)]),
+    ]]
 RGLRU_CASES = [
     # (label, B, S, R, dtype, resets)
     ("test_kernels", 2, 128, 64, "f32", None),
@@ -800,6 +926,15 @@ def ssd_inputs(torch, gen, b, s, h, p, g, n, dtype):
 def rglru_inputs(torch, gen, b, s, r, dtype):
     rnd = lambda: torch.randn((b, s, r), generator=gen, device="cuda")
     return (rnd() * 0.3).to(dtype), torch.sigmoid(rnd() + 2.0).to(dtype)
+
+
+def ssd_plan(ssd, b, s, h, p) -> dict:
+    """The SSD call's chunks, column groups of P, blocks a chunk pass and
+    device kernels."""
+    chunks, groups = ssd.plan(b, s, h, p)
+    return {"chunks": chunks, "col_groups": groups,
+            "blocks": chunks * groups * h * b,
+            "kernels_per_call": ssd.kernels_per_call(s)}
 
 
 def scan_tol(torch, dtype) -> float:
@@ -907,6 +1042,19 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
                                                     False), PEAK_BF16_S)
     out["ssd"]["shape"] = (f"B{b} S{s} H{h} P{p} G{g} N{n} bf16 (ops over the "
                            f"bf16 peak)")
+    out["ssd"]["plan"] = ssd_plan(ssd, b, s, h, p)
+    # the engine's shape: a 32-token solo prefill with a left pad of 3
+    b, s = 1, 32
+    args = ssd_inputs(torch, gen, b, s, h, p, g, n, torch.bfloat16)
+    pad = resets_tensor(torch, b, s, PAD3)
+    out["ssd_engine"] = time_kernel(
+        torch, lambda: ssd.ssd_scan_cuda(*args, reset=pad),
+        lambda: ref.ssd_scan_ref(*args, chunk=s, reset=pad), None,
+        ssd.op_count(b, s, h, p, n), ssd.byte_count(b, s, h, p, g, n, 2,
+                                                    True), PEAK_BF16_S)
+    out["ssd_engine"]["shape"] = (f"B{b} S{s} H{h} P{p} G{g} N{n} bf16, pad 3 "
+                                  f"(ops over the bf16 peak)")
+    out["ssd_engine"]["plan"] = ssd_plan(ssd, b, s, h, p)
     b, s, r = 2, 512, 2560
     x, a = rglru_inputs(torch, gen, b, s, r, torch.float32)
     out["rglru"] = time_kernel(
@@ -914,6 +1062,15 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
         None, rg.op_count(b, s, r), rg.byte_count(b, s, r, 4, False),
         PEAK_F32_S)
     out["rglru"]["shape"] = f"B{b} S{s} R{r} float32"
+    # the engine's shape: its gates are float32 (models/rglru.py)
+    b, s = 1, 32
+    x, a = rglru_inputs(torch, gen, b, s, r, torch.float32)
+    pad = resets_tensor(torch, b, s, PAD3)
+    out["rglru_engine"] = time_kernel(
+        torch, lambda: rg.rglru_scan_cuda(x, a, reset=pad),
+        lambda: ref.rglru_scan_ref(x, a, pad), None, rg.op_count(b, s, r),
+        rg.byte_count(b, s, r, 4, True), PEAK_F32_S)
+    out["rglru_engine"]["shape"] = f"B{b} S{s} R{r} float32, pad 3"
     # decode attention at recurrentgemma's decode tick, beside SDPA
     q, k, v, valid = ring_decode_inputs(torch, gen)
     h, n_valid = q.shape[2], int(valid.sum())
@@ -941,8 +1098,11 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
                                         256, [5], window=2048)
     out["flash_rg"] = time_flash(torch, fa, ref, gen, 2, 512, 10, 1, 256,
                                  None, window=2048)
-    for key in ("decode_ring", "flash_rg_engine", "flash_rg", "ssd", "rglru"):
+    for key in ("decode_ring", "flash_rg_engine", "flash_rg", "ssd",
+                "ssd_engine", "rglru", "rglru_engine"):
         log_timed(key, out[key])
+    for key in ("ssd", "ssd_engine"):
+        log(f"    {key} plan: {out[key]['plan']}")
     return out
 
 
@@ -1131,7 +1291,6 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import env as menv
     from repro_torch.core import lymdo, scenarios
-    from repro_torch.core.lyapunov import VirtualQueues
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1162,6 +1321,16 @@ def main() -> int:
     log(f"    {len(libs)} kernels built in {build_s:.1f} s")
     report.update(card=kind, count=count, nvidia_smi=smi, build_s=build_s)
 
+    phase_s = report["phase_s"] = {}
+    clock = [2, time.perf_counter()]
+
+    def phase_done() -> None:
+        """Log and keep the seconds the phase that just ended took."""
+        now = time.perf_counter()
+        phase_s[clock[0]] = now - clock[1]
+        log(f"    phase {clock[0]} took {now - clock[1]:.1f} s")
+        clock[:] = [clock[0] + 1, now]
+
     # -- 2. kernel vs plain on the card --------------------------------------
     log("[2] partition_sweep: CUDA kernel vs plain PyTorch")
     t0 = time.perf_counter()
@@ -1170,71 +1339,14 @@ def main() -> int:
     log(f"    grid {GRID_CELLS}x{GRID_UES} built in "
         f"{time.perf_counter() - t0:.1f} s (C={grid.num_cuts})")
 
-    def with_queues(states, seed):
-        g = grid.generator(seed)
-        shape = states.lam.shape
-        q = VirtualQueues(
-            50.0 * torch.rand(shape, generator=g, device=grid.device),
-            5.0 * torch.rand(shape, generator=g, device=grid.device))
-        return dataclasses.replace(states, queues=q)
-
-    def grid_args(g, states):
-        p = g.params
-        return (p.macs, p.param_bytes, p.act_bytes, p.psi, p.L, states.lam,
-                states.gain, states.queues.energy, states.queues.memory,
-                g.sweep_scalars)
-
-    main_args = grid_args(grid, with_queues(grid.reset(grid.generator(1)), 2))
+    rng = np.random.default_rng(0)     # (b)'s draws, then phase 3's
+    cases = sweep_cases(torch, grid, rng)
+    main_args = cases[0][1]
     main_plain = ref.partition_sweep_batched_ref(*main_args)
-    errs = [check_sweep(torch, ops.partition_sweep_batched(*main_args),
-                        main_plain, f"(a) grid {GRID_CELLS}x{GRID_UES}")]
-
-    # (b) the LM-profile fleet's shape: 256 UEs whose layer counts are those
-    # of the repo's ten LM profiles (C = 103), per-layer costs from a seed
-    rng = np.random.default_rng(0)
-    layer_counts = np.array([50, 50, 28, 30, 82, 34, 28, 50, 102, 50])
-    n_lm, c_lm = 256, 103
-    L = layer_counts[np.arange(n_lm) % len(layer_counts)]
-    live = np.arange(c_lm)[None, :] <= L[:, None]
-    macs = rng.uniform(1e7, 5e8, (n_lm, c_lm)) * live
-    prm = rng.uniform(1e6, 5e7, (n_lm, c_lm)) * live
-    macs[:, 0] = prm[:, 0] = 0.0
-    acts = rng.uniform(1e4, 1e6, (n_lm, c_lm)) * live
-    psi = np.where(np.arange(c_lm)[None, :] < L[:, None], acts, 0.0)
-    dev = lambda a, dt=torch.float32: torch.as_tensor(
-        np.asarray(a)[None], dtype=dt, device="cuda").contiguous()
-    lm_args = (dev(macs), dev(prm), dev(acts), dev(psi),
-               dev(L, torch.int64), dev(rng.uniform(0.5, 2.5, n_lm)),
-               dev(rng.exponential(1.0, n_lm) * 1.6e-11),
-               dev(rng.uniform(0, 50, n_lm)), dev(rng.uniform(0, 50, n_lm)),
-               ref.pack_scalars(dict(
-                   rho=0.12, kappa=1e-28, p_tx=0.1, w_hz=5e6,
-                   n0=10 ** (-17.4) / 1000, f_max_ue=5e9, f_max_es=200e9,
-                   v=10.0, gamma_ue=0.2, gamma_es=0.8, stability_margin=1e-3),
-                   "cuda"))
-    errs.append(check_sweep(torch, ops.partition_sweep_batched(*lm_args),
-                            ref.partition_sweep_batched_ref(*lm_args),
-                            f"(b) LM-shaped fleet {n_lm}x{c_lm}"))
-
-    # (c) a row count that is not a multiple of the 8 rows of a block
-    rag = scenarios.ScenarioGrid(scenarios.multicell_grid(cells=13, ues=7,
-                                                          seed=5))
-    rag_args = grid_args(rag, with_queues(rag.reset(rag.generator(3)), 4))
-    errs.append(check_sweep(torch, ops.partition_sweep_batched(*rag_args),
-                            ref.partition_sweep_batched_ref(*rag_args),
-                            "(c) ragged 13x7 = 91 rows"))
-
-    # (d) cells with their own Lyapunov weight V: one launch, one row of
-    # constants per cell
-    mixed = scenarios.ScenarioGrid(scenarios.multicell_grid(
-        cells=512, ues=GRID_UES, seed=11, uniform_scalars=False))
-    v_col = mixed.sweep_scalars[:, ref.SCALAR_NAMES.index("v")]
-    if int(torch.unique(v_col).numel()) < 2:
-        fail("(d) the mixed grid's cells share V")
-    mix_args = grid_args(mixed, with_queues(mixed.reset(mixed.generator(5)), 6))
-    errs.append(check_sweep(torch, ops.partition_sweep_batched(*mix_args),
-                            ref.partition_sweep_batched_ref(*mix_args),
-                            "(d) per-cell constants 512x8"))
+    errs = [check_sweep(torch, ops.partition_sweep_batched(*args),
+                        main_plain if i == 0 else
+                        ref.partition_sweep_batched_ref(*args), label)
+            for i, (label, args) in enumerate(cases)]
 
     rows, c = GRID_CELLS * GRID_UES, grid.num_cuts
     run_kernel = lambda: ops.partition_sweep_batched(*main_args)
@@ -1256,6 +1368,8 @@ def main() -> int:
         "mbytes": n_bytes / 1e6, "ms": kernel_ms, "plain_ms": plain_ms,
         "call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
         "bound_ms": bound_ms, "max_abs_err": errs}
+
+    phase_done()
 
     # -- 3. main path ----------------------------------------------------------
     log(f"[3] main path: ScenarioGrid {GRID_CELLS}x{GRID_UES}, "
@@ -1327,6 +1441,8 @@ def main() -> int:
         log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<7d} "
             f"{row['name']}")
 
+    phase_done()
+
     # -- 4. single cell --------------------------------------------------------
     log(f"[4] single cell: paper_env @2.5 req/s, run_fixed, {SINGLE_SLOTS} slots")
     env = menv.paper_env(menv.MecConfig(lam_mode=menv.LAM_FIXED))
@@ -1348,14 +1464,20 @@ def main() -> int:
         fail("the oracle scores worse than a fixed baseline")
     report["single_cell"] = single
 
+    phase_done()
     att = attention_phase(torch, fa, da, ref)
+    phase_done()
     report["attention"] = att
     serving = serving_phase(torch)
+    phase_done()
     report["serving"] = serving
     scans = scan_phase(torch, ssd, rg, fa, da, ref)
+    phase_done()
     report["scans"] = scans
     report["mamba2"] = mamba2_phase(torch)
+    phase_done()
     report["recurrentgemma"] = recurrentgemma_phase(torch)
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",

@@ -6,15 +6,22 @@
 // partition_sweep_batched).  The plain version it is held to is
 // repro_torch/kernels/ref.py::partition_sweep_ref.
 //
-// Design.  One warp per UE row, eight rows per 256-thread block.  Lanes
-// stride over the cut axis in chunks of 32, so any cut count C works.
-//   * Prefix sums of MACs and parameter bytes: warp shuffle scans, chunk by
-//     chunk with a carry (the TPU kernel used a triangular ones matmul).
+// Design.  A row of C cuts takes kLanes lanes, the least power of two >= C
+// (capped at 32): 16 lanes a row at C = 11 (two rows a warp), 8 at C <= 8,
+// 1 at C = 1, so at small C no warp runs the search for idle lanes.  Past
+// 32 cuts (the LM fleet's C = 103) a row keeps a whole warp and its lanes
+// stride over the cuts in chunks of 32.  Eight warps a block; a row count
+// that is not a multiple of a block's rows leaves the last warps' dead
+// lanes computing on the last row and writing nothing.
+//   * Prefix sums of MACs and parameter bytes: shuffle scans of width
+//     kLanes (the TPU kernel used a triangular ones matmul), chunk by chunk
+//     with a carry.
 //   * Prefix / suffix running maxima of the masked activations: shuffle
-//     max-scans (the TPU kernel used log2(C) doubling passes).  The suffix
-//     pass runs first, right to left, and parks each lane's exclusive
-//     suffix maximum in its own output element; the forward pass reads it
-//     back from the same address in the same thread, then overwrites it.
+//     max-scans of the same width (the TPU kernel used log2(C) doubling
+//     passes).  The suffix pass runs first, right to left, and parks each
+//     lane's exclusive suffix maximum in its own output element; the
+//     forward pass reads it back from the same address in the same thread,
+//     then overwrites it.
 //   * The suffix sums need the row total first, so a short forward pass of
 //     the same scan code computes it, and the totals equal the prefix the
 //     main pass sees at column C-1 bit for bit.
@@ -31,17 +38,22 @@
 // (kernels/partition_sweep.py counts them, a division or a log2 as one)
 // against about 24 bytes moved, so the card's float32 rate bounds it:
 // about 0.4 GFLOP at 4096 cells x 8 UEs x 11 cuts, a few microseconds at
-// 67 TFLOP/s.  chip_smoke.py measures the kernel against that bound; the
-// search's IEEE divisions (two per evaluation, each a multi-instruction
-// sequence) and idle lanes (at C = 11, 21 of each warp's 32 wait) keep it
-// far above it.  Several rows per warp and cheaper division are the levers
-// to make it fast.
+// 67 TFLOP/s.  On an H100 its time follows the rows (a quarter, half and
+// all of that grid: 0.096, 0.185, 0.359 ms with one row a warp), so it is
+// bound by the instructions it issues, not by one wave's latency: a warp
+// issues each instruction once for all of its lanes, busy or not, and
+// every search step was two objective evaluations of two multi-instruction
+// IEEE divisions each.  Packing two rows a warp at C = 11 halved the time
+// (0.182 ms); one approximate division an evaluation took it to 0.045 ms
+// (PERF.md, section 6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false.
-// No fast math: approximate log2f breaks the tolerance against the plain
-// version.  -fmad=false keeps every a*b+c rounded twice, as PyTorch's
-// elementwise ops round it, so kernel and plain differ only in summation
-// order, libm and the order of the products hoisted out of the search.
+// No fast-math flag: approximate log2f breaks the tolerance against the
+// plain version; the search's division is the one approximate operation,
+// chosen where it is written (p3_obj).  -fmad=false keeps every a*b+c
+// rounded twice, as PyTorch's elementwise ops round it, so kernel and
+// plain differ only in summation order, libm, the order of the products
+// hoisted out of the search and the point the search settles on.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,47 +96,64 @@ __constant__ float kRatioHi[kFibIters] = {
     0.617977499961853f, 0.6181818246841431f, 0.6176470518112183f, 0.6190476417541504f,
     0.6153846383094788f, 0.625f, 0.6000000238418579f, 0.6666666865348816f};
 
-__device__ __forceinline__ float warp_scan_sum(float x, int lane) {
+// Inclusive scans over the kLanes lanes of a row (shuffles of width
+// kLanes); sub is the lane's index within its row.
+template <int kLanes>
+__device__ __forceinline__ float row_scan_sum(float x, int sub) {
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
+  for (int d = 1; d < kLanes; d <<= 1) {
+    const float y = __shfl_up_sync(kFull, x, d, kLanes);
+    if (sub >= d) x += y;
   }
   return x;
 }
 
-__device__ __forceinline__ float warp_scan_max(float x, int lane) {
+template <int kLanes>
+__device__ __forceinline__ float row_scan_max(float x, int sub) {
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x = fmaxf(x, y);
+  for (int d = 1; d < kLanes; d <<= 1) {
+    const float y = __shfl_up_sync(kFull, x, d, kLanes);
+    if (sub >= d) x = fmaxf(x, y);
   }
   return x;
 }
 
-__device__ __forceinline__ float warp_rscan_max(float x, int lane) {
+template <int kLanes>
+__device__ __forceinline__ float row_rscan_max(float x, int sub) {
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_down_sync(kFull, x, d);
-    if (lane + d < 32) x = fmaxf(x, y);
+  for (int d = 1; d < kLanes; d <<= 1) {
+    const float y = __shfl_down_sync(kFull, x, d, kLanes);
+    if (sub + d < kLanes) x = fmaxf(x, y);
   }
   return x;
 }
 
 // Eq. (19), the P3 objective, Q*kappa*f^2*d*lam + V*(d/f + d^2 lam /
 // (2 (f^2 - f d lam))), with the cut's invariants hoisted: e_coef =
-// Q*kappa*d*lam, dl = d*lam, q_coef = d^2 lam / 2.  11 operations.
+// Q*kappa*d*lam, dl = d*lam, q_coef = d^2 lam / 2.  The plain version takes
+// 11 operations with two divisions, d/f and q_coef/denom; here the two
+// fractions share one, (d denom + q_coef f) / (f denom), 13 operations,
+// and that division is the approximate one (__fdividef: a reciprocal and
+// a product, 2 ulp).  An IEEE division is a multi-instruction sequence (a
+// reciprocal, its refinement and a range check with a slow-path call), and
+// the search evaluates this 80 times a cut.  The search only compares
+// values of this function; the f_ue it settles on enters the table through
+// IEEE arithmetic below.  On an H100 at 4096 x 8 x 11, one IEEE division
+// in place of two took the kernel from 0.182 to 0.111 ms and the
+// approximate one to 0.045 ms, each holding the plain table to phase 2's
+// checks (PERF.md, section 6).  __fdividef returns 0 for a divisor above
+// 2^126; f denom <= f_max_ue^3 stays far below it for any UE clock under
+// 10^12 Hz (f >= 1 is the search's lower bound).
 __device__ __forceinline__ float p3_obj(float f, float e_coef, float d_ue,
                                         float dl, float q_coef, float v) {
   f = fmaxf(f, kEps);
   const float ff = f * f;
   const float energy = e_coef * ff;
-  const float proc = d_ue / f;
   const float denom = fmaxf(ff - f * dl, kEps);
-  const float queue = q_coef / denom;
-  return energy + v * (proc + queue);
+  return energy + v * __fdividef(d_ue * denom + q_coef * f, f * denom);
 }
 
+template <int kLanes>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 partition_sweep_kernel(const float* __restrict__ macs,
                        const float* __restrict__ params,
@@ -137,10 +166,15 @@ partition_sweep_kernel(const float* __restrict__ macs,
                        const float* __restrict__ qm_v,
                        const SweepScalars* __restrict__ scalars,
                        float* __restrict__ out, int rows, int C, int n_total) {
+  constexpr int kRowsPerWarp = 32 / kLanes;
   const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
+  const int sub = lane % kLanes;
+  const long long first =
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kRowsPerWarp;
+  if (first >= rows) return;  // the whole warp leaves together
+  // a dead lane (past the last row) computes on the last row, writes nothing
+  const bool live = first + lane / kLanes < rows;
+  const long long row = live ? first + lane / kLanes : rows - 1;
 
   const SweepScalars s = scalars[row / n_total];
   const long long base = row * (long long)C;
@@ -154,19 +188,19 @@ partition_sweep_kernel(const float* __restrict__ macs,
   const float gain = gain_v[row];
   const float qe = qe_v[row];
   const float qm = qm_v[row];
-  const int chunks = (C + 31) / 32;
+  const int chunks = (C + kLanes - 1) / kLanes;
 
   // Pass 1, right to left: exclusive suffix max of the masked activations
   // (layers c+1 .. L), parked in out[c].
   float after = 0.0f;
   for (int k = chunks - 1; k >= 0; --k) {
-    const int c = k * 32 + lane;
+    const int c = k * kLanes + sub;
     const float a = (c < C && c >= 1 && c <= l_n) ? a_row[c] : 0.0f;
-    const float incl = fmaxf(warp_rscan_max(a, lane), after);
-    float excl = __shfl_down_sync(kFull, incl, 1);
-    if (lane == 31) excl = after;
-    if (c < C) o_row[c] = excl;
-    after = __shfl_sync(kFull, incl, 0);
+    const float incl = fmaxf(row_rscan_max<kLanes>(a, sub), after);
+    float excl = __shfl_down_sync(kFull, incl, 1, kLanes);
+    if (sub == kLanes - 1) excl = after;
+    if (c < C && live) o_row[c] = excl;
+    after = __shfl_sync(kFull, incl, 0, kLanes);
   }
 
   // Pass 2: row totals, as the prefix at column C-1 of the pass-3 scan.
@@ -174,14 +208,14 @@ partition_sweep_kernel(const float* __restrict__ macs,
   {
     float carry_m = 0.0f, carry_p = 0.0f;
     for (int k = 0; k < chunks; ++k) {
-      const int c = k * 32 + lane;
-      const float pm = warp_scan_sum(c < C ? m_row[c] : 0.0f, lane) + carry_m;
-      const float pp = warp_scan_sum(c < C ? p_row[c] : 0.0f, lane) + carry_p;
-      carry_m = __shfl_sync(kFull, pm, 31);
-      carry_p = __shfl_sync(kFull, pp, 31);
+      const int c = k * kLanes + sub;
+      const float pm = row_scan_sum<kLanes>(c < C ? m_row[c] : 0.0f, sub) + carry_m;
+      const float pp = row_scan_sum<kLanes>(c < C ? p_row[c] : 0.0f, sub) + carry_p;
+      carry_m = __shfl_sync(kFull, pm, kLanes - 1, kLanes);
+      carry_p = __shfl_sync(kFull, pp, kLanes - 1, kLanes);
       if (k == chunks - 1) {
-        tot_m = __shfl_sync(kFull, pm, (C - 1) & 31);
-        tot_p = __shfl_sync(kFull, pp, (C - 1) & 31);
+        tot_m = __shfl_sync(kFull, pm, (C - 1) % kLanes, kLanes);
+        tot_p = __shfl_sync(kFull, pp, (C - 1) % kLanes, kLanes);
       }
     }
   }
@@ -202,16 +236,16 @@ partition_sweep_kernel(const float* __restrict__ macs,
   // feasible one 1,188 more.
   float carry_m = 0.0f, carry_p = 0.0f, carry_a = 0.0f;
   for (int k = 0; k < chunks; ++k) {
-    const int c = k * 32 + lane;
+    const int c = k * kLanes + sub;
     const bool valid = c < C;
-    const float pm = warp_scan_sum(valid ? m_row[c] : 0.0f, lane) + carry_m;
-    const float pp = warp_scan_sum(valid ? p_row[c] : 0.0f, lane) + carry_p;
+    const float pm = row_scan_sum<kLanes>(valid ? m_row[c] : 0.0f, sub) + carry_m;
+    const float pp = row_scan_sum<kLanes>(valid ? p_row[c] : 0.0f, sub) + carry_p;
     const float xa = (valid && c >= 1 && c <= l_n) ? a_row[c] : 0.0f;
-    const float pmax = fmaxf(warp_scan_max(xa, lane), carry_a);
-    carry_m = __shfl_sync(kFull, pm, 31);
-    carry_p = __shfl_sync(kFull, pp, 31);
-    carry_a = __shfl_sync(kFull, pmax, 31);
-    if (!valid) continue;
+    const float pmax = fmaxf(row_scan_max<kLanes>(xa, sub), carry_a);
+    carry_m = __shfl_sync(kFull, pm, kLanes - 1, kLanes);
+    carry_p = __shfl_sync(kFull, pp, kLanes - 1, kLanes);
+    carry_a = __shfl_sync(kFull, pmax, kLanes - 1, kLanes);
+    if (!valid || !live) continue;
 
     const float d_ue = s.rho * pm;
     const float dl = d_ue * lam;
@@ -266,6 +300,21 @@ partition_sweep_kernel(const float* __restrict__ macs,
   }
 }
 
+template <int kLanes>
+cudaError_t launch_rows(const float* macs, const float* params,
+                        const float* acts, const float* psi, const int64_t* L,
+                        const float* lam, const float* gain,
+                        const float* q_energy, const float* q_memory,
+                        const SweepScalars* scalars, float* out, int rows,
+                        int C, int n_total, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / kLanes);
+  const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  partition_sweep_kernel<kLanes><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(
+      macs, params, acts, psi, L, lam, gain, q_energy, q_memory, scalars, out,
+      rows, C, n_total);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int partition_sweep_launch(
@@ -277,12 +326,14 @@ extern "C" int partition_sweep_launch(
   if (err != cudaSuccess) return (int)err;
   if (rows == 0 || C == 0) return 0;
   if (n_total <= 0 || rows % n_total != 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  partition_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      macs, params, acts, psi, L, lam, gain, q_energy, q_memory,
-      reinterpret_cast<const SweepScalars*>(scalars), out, rows, C, n_total);
-  return (int)cudaGetLastError();
+  const SweepScalars* sc = reinterpret_cast<const SweepScalars*>(scalars);
+  const cudaStream_t s = (cudaStream_t)stream;
+  // lanes a row: the least power of two >= C, at most 32
+  const auto run = C <= 1 ? launch_rows<1> : C <= 2 ? launch_rows<2>
+                 : C <= 4 ? launch_rows<4> : C <= 8 ? launch_rows<8>
+                 : C <= 16 ? launch_rows<16> : launch_rows<32>;
+  return (int)run(macs, params, acts, psi, L, lam, gain, q_energy, q_memory,
+                  sc, out, rows, C, n_total, s);
 }
 
 extern "C" const char* partition_sweep_error_string(int code) {

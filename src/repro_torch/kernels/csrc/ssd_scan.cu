@@ -9,37 +9,66 @@
 // returning y (B, S, H, P) in x's type and the final M (B, H, N, P) float32.
 //
 // Design.  The TPU kernel carried M across a sequential grid axis in VMEM.
-// Hopper blocks run in no order, so one block of 256 threads owns one
-// (head, batch row) and walks the sequence in order, kTile steps at a time,
-// with M in shared memory.  Per tile, in the chunked (dual) form:
-//   W[q][r] = (c_q . b_r) exp(cum_q - cum_r) dt_r   for r <= q, same segment
-//   y[q]    = sum_r W[q][r] x_r + [no reset yet] exp(cum_q) c_q M + D x_q
-//   M       = [no reset in tile] exp(total) M + sum_r [no later reset]
-//             exp(total - cum_r) dt_r b_r x_r^T
-// where cum is the in-tile prefix sum of A dt and the segment id of a step
-// counts the in-tile resets up to it.  Resets stay in the linear domain, as
-// in the TPU kernel: a log-domain -inf would be absorbed by the prefix sum.
-// The mask is applied before the exp, so no positive exponent is formed.
-// cum and its differences are float64: at mamba2's decays (A dt down to
-// about -13 a step) cum reaches -800 within a tile, where a float32
-// difference would lose 6e-5 of a decay factor; the plain version does the
-// same, and the tile length then barely moves the result.
-// The tile length is a tiling choice, not part of the result: a chunk of
-// 256 steps in float32 would need 320 KB of shared memory; a tile of 64
-// needs 135 KB at N 128, P 64.  Head h reads B/C group h / (H / G) in place
-// (the TPU wrapper materialised the repeat).  Any S: the last tile is
-// shorter, and its missing rows are zeros.  Arithmetic is float32 on the
-// CUDA cores: the TPU kernel computes in float32, and TF32 would not hold
-// the reference's 1e-4.  Each product is a 4 x 4 register tile fed by
-// float4 shared-memory reads; B and C rows are padded by 4 floats so that
-// eight rows read at once fall in eight different bank groups.
+// Hopper blocks run in no order, so the sequence is cut into chunks of kT
+// steps and split over blocks with the SSD "dual" decomposition of Mamba2
+// (arXiv:2405.21060, section 6).  Per chunk, with cum the in-chunk prefix
+// sum of A dt and seg the in-chunk count of resets up to a step:
+//   W[q][r]  = (c_q . b_r) exp(cum_q - cum_r) dt_r   for r <= q, same seg
+//   S_c      = sum_r [seg_r = seg_end] exp(total - cum_r) dt_r b_r x_r^T
+//   carry_c  = [no reset in the chunk] exp(total)
+//   inter_q  = [seg_q = 0] exp(cum_q)
+// and across chunks M_c = carry_c M_{c-1} + S_c, y_q = sum_r W[q][r] x_r +
+// inter_q c_q M_{c-1} + D x_q.  A call issues:
+//   * one kernel where S <= kT (every solo prefill and first chunk of the
+//     served model): chunk_kernel<kOne> computes y and writes S_0 as the
+//     final state, one block per (column group of P, head, batch row);
+//   * three kernels otherwise: (a) chunk_kernel<kState> writes S_c and
+//     carry_c to float32 scratch, one block per (chunk, column group,
+//     head, batch row); (b) state_pass walks the chunks of each (head,
+//     batch row) in order, four state elements a thread, writes the state
+//     entering chunk c (for bf16 x as the hi and lo bf16 parts the tensor
+//     cores take) and the final state; (c) chunk_kernel<kScan> computes y
+//     with the entering state.  The output
+//     pass is fused with the chunk's own term, as Mamba2's chunk_scan is,
+//     so y is written once, in its own type: a separate output pass would
+//     move y twice more in float32, while (c) only recomputes the prefix
+//     sums and C.B^T, which are cheap.
+// Resets stay in the linear domain, as in the TPU kernel: a log-domain -inf
+// would be absorbed by the prefix sum.  The mask is applied before the exp,
+// so no positive exponent is formed.  cum and its differences are float64:
+// at mamba2's decays (A dt down to about -13 a step) cum reaches -800
+// within a chunk, where a float32 difference would lose 6e-5 of a decay
+// factor; the plain version does the same.  Head h reads B/C group
+// h / (H / G) in place.  Any S: the last chunk is shorter and its missing
+// rows are zeros.  Inputs may start at any element offset: a tile is
+// copied 16 bytes a thread where its rows are 16-byte aligned, else element
+// by element.
 //
-// Bound.  At mamba2's H 64, P 64, N 128 the chunked form does about
-// 3.8 GFLOP at B 2, S 512 (tile 64) against 21.8 MB of bf16 inputs and
-// outputs: over the bf16 peak the bytes bound it; over the float32
-// CUDA-core peak the operations would.  B x H blocks (64 for a solo prefill,
-// 128 at B 2) are one wave or less on 132 SMs: splitting the sequence over
-// blocks (a second pass for the carried states) is the later speed work.
+// Arithmetic.  bf16 inputs run the four products on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, float32 accumulate, ldmatrix operands), 16
+// rows a warp: C.B^T (both operands bf16: exact products), W.x (W is
+// float32), C.M (M is float32) and B^T.(coef x) (coef x is float32).  A
+// float32 operand goes in as two bf16 parts, hi = bf16(v) and lo =
+// bf16(v - hi), which carry about 16 bits; one bf16 would not hold the
+// float32 state to 1e-4.  float32 inputs keep the CUDA cores (4 x 4
+// register tiles): TF32 would not hold the reference's 1e-4.
+//
+// Bound.  At mamba2's H 64, P 64, N 128, B 2, S 512 the function moves
+// 21.8 MB of bf16 inputs and outputs; over the bf16 tensor-core rate its
+// 3 GFLOP take a quarter of that time, so the bytes bound it (0.0065 ms).
+// The chunk states' round trip through scratch (16.8 MB of float32 states
+// written and read, the entering states written and read as hi + lo) is
+// the design's own cost.  On an H100 the three kernels take 0.028, 0.020
+// and 0.052 ms there (PERF.md, section 6): a block is a short chain of
+// dependent phases (loads, prefix sums, products, stores), the blocks of a
+// wave run them in step, and every block of a chunk reads its group's B
+// and C tiles again from L2, so latency and L2 traffic, not the device
+// memory's bytes, bound the passes.  At a solo prefill (B 1, S 32) the
+// 2.1 MB final state is most of the bytes (0.0008 ms): the one-chunk path
+// spreads it over 4 column groups of P (256 blocks), and each lane stores
+// its accumulator pairs straight from the fragments, a quad filling one
+// 32-byte sector (a build that staged them for 16-byte stores measured the
+// same there and held 35 KB more shared memory a block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,14 +76,376 @@
 
 namespace {
 
-constexpr int kTile = 64;        // steps per tile
-constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kT = 64;           // steps per chunk
+constexpr int kThreads = 128;    // 4 warps; a warp owns 16 rows of a product
+constexpr unsigned kFull = 0xffffffffu;
+enum Mode { kOne = 0, kState = 1, kScan = 2 };
+
+struct Params {
+  const void* x;
+  const float* dt;
+  const float* a_log;
+  const void* b;
+  const void* c;
+  const float* d_skip;
+  const uint8_t* reset;
+  void* y;
+  float* state;          // (B, H, N, P) final
+  float* chunk_states;   // (B, H, chunks, N, P) scratch, or null
+  bf16* entering;        // (B, H, chunks, 2, N, P) hi / lo scratch (bf16 x)
+  float* carry;          // (B, H, chunks) scratch, or null
+  int s_len, heads, groups, n, p, chunks, col_groups;
+};
+
+// Byte offsets of a block's shared memory, by type and mode, for a column
+// group of pw columns (kernels/ssd_scan.py::shared_bytes mirrors it).
+struct Layout {
+  int ldx, ldb;          // row strides of the x and B/C tiles
+  size_t cum, dts, inter, coef, seg, xs, bs, cs, xh, xl, mh, ml, w, m, bytes;
+};
+
+__host__ __device__ inline int up16(int v) { return (v + 15) & ~15; }
+
+__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
+  const size_t start = at;
+  at = (at + bytes + 15) & ~static_cast<size_t>(15);
+  return start;
+}
+
+template <typename T>
+__host__ __device__ inline Layout layout(int mode, int n, int pw) {
+  Layout L{};
+  size_t o = 0;
+  L.cum = take(o, kT * 8);
+  L.dts = take(o, kT * 4);
+  L.inter = take(o, kT * 4);
+  L.coef = take(o, kT * 4);
+  L.seg = take(o, kT * 4);
+  if (sizeof(T) == 2) {           // bf16: tiles padded to 16, rows by 8
+    const int np = up16(n), pp = up16(pw);
+    L.ldx = pp + 8;
+    L.ldb = np + 8;
+    L.xs = take(o, kT * L.ldx * 2);
+    if (mode == kScan) {   // the entering state replaces B's tile after C.B^T
+      const size_t m_bytes = static_cast<size_t>(np) * L.ldx * 2;
+      const size_t b_bytes = static_cast<size_t>(kT) * L.ldb * 2;
+      L.bs = take(o, b_bytes > 2 * m_bytes ? b_bytes : 2 * m_bytes);
+      L.mh = L.bs;
+      L.ml = L.bs + m_bytes;
+    } else {
+      L.bs = take(o, kT * L.ldb * 2);
+    }
+    if (mode != kState) L.cs = take(o, kT * L.ldb * 2);
+    if (mode != kScan) {
+      L.xh = take(o, kT * L.ldx * 2);
+      L.xl = take(o, kT * L.ldx * 2);
+    }
+  } else {                        // float32: rows of B/C padded by 4
+    L.ldx = pw;
+    L.ldb = n + 4;
+    L.xs = take(o, kT * pw * 4);
+    L.bs = take(o, kT * L.ldb * 4);
+    if (mode != kState) {
+      L.cs = take(o, kT * L.ldb * 4);
+      L.w = take(o, kT * (kT + 4) * 4);
+    }
+    if (mode == kScan) L.m = take(o, static_cast<size_t>(n) * pw * 4);
+  }
+  L.bytes = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled where !live
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
+
+// dst[r][j] = src[r * stride + j] for r < rows, j < width; zeros elsewhere
+// up to rows_pad rows and width_pad columns.  Where the source rows are
+// 16-byte aligned, by cp.async, 16 bytes a thread, every copy of the tile in
+// flight at once (the caller waits with cp_async_wait<0> before its
+// barrier); else element by element.
+template <typename T>
+__device__ void load_tile(T* dst, int ld, int rows_pad, int width_pad,
+                          const T* src, size_t stride, int rows, int width) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   stride % kVec == 0 && width % kVec == 0 &&
+                   width_pad % kVec == 0;
+  if (vec) {
+    const int per_row = width_pad / kVec;
+    for (int i = threadIdx.x; i < rows_pad * per_row; i += kThreads) {
+      const int r = i / per_row, j = (i - r * per_row) * kVec;
+      const bool live = r < rows && j < width;
+      cp_async16(dst + r * ld + j, live ? src + r * stride + j : src, live);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < rows_pad * width_pad; i += kThreads) {
+      const int r = i / width_pad, j = i - r * width_pad;
+      dst[r * ld + j] = (r < rows && j < width) ? src[r * stride + j] : zero<T>();
+    }
+  }
+}
+
+// -- bf16: tensor cores (mma.sync m16n8k16) -----------------------------------
+
+namespace tc {
+
+__device__ __forceinline__ void ldmatrix_x4(const void* p, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0,
+                                                  uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+  const float2 r = __bfloat1622float2(b);
+  const __nv_bfloat162 s = __floats2bfloat162_rn(x0 - r.x, x1 - r.y);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
+  lo = *reinterpret_cast<const uint32_t*>(&s);
+}
+
+// Fragment layout of mma.m16n8k16 (PTX ISA): lane l holds, of the 16 x 8
+// accumulator tile, rows l / 4 (elements 0, 1) and l / 4 + 8 (elements 2,
+// 3) at columns 2 (l % 4) and 2 (l % 4) + 1; two adjacent accumulator
+// tiles of a row are the A fragment of the 16 columns they cover.  The
+// ldmatrix lanes below feed row (lane % 8) of matrix lane / 8:
+//   a_*: an A tile stored [m][k]  (and a B tile stored [k][n], .trans)
+//   b_*: a B tile stored [n][k]   (and an A tile stored [k][m], .trans)
+struct Lanes {
+  int a_row, a_col, b_row, b_col;
+  __device__ Lanes(int lane)
+      : a_row((lane & 7) + ((lane >> 3) & 1) * 8), a_col((lane >> 4) * 8),
+        b_row((lane & 7) + (lane >> 4) * 8), b_col(((lane >> 3) & 1) * 8) {}
+};
+
+// S (np x pp) = B^T (coef x), B^T from bs by ldmatrix.trans, coef x as hi +
+// lo parts; warp w takes the 16-row tiles w, w + 4, ...  Each lane stores
+// its accumulator pairs straight to out (row stride p): a quad's four
+// float2 fill one 32-byte sector.
+__device__ void state_product(const Layout& L, const bf16* bs, const bf16* xh,
+                              const bf16* xl, int n, int pw, int len,
+                              float* out, int p) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Lanes ln(lane);
+  const int np = up16(n), pp = up16(pw);
+  const int ksteps = (len + 15) / 16;
+  for (int mt = warp; mt < np / 16; mt += kThreads / 32) {
+    for (int pc = 0; pc < pp; pc += 64) {
+      const int nt = min(8, (pp - pc) / 8);
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t a0, a1, a2, a3;
+        ldmatrix_x4_trans(bs + (ks * 16 + ln.b_row) * L.ldb + mt * 16 + ln.b_col,
+                          a0, a1, a2, a3);
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          if (j >= nt) break;
+          const int off = (ks * 16 + ln.a_row) * L.ldx + pc + j * 8 + ln.a_col;
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4_trans(xh + off, b0, b1, b2, b3);
+          mma(acc[j], a0, a1, a2, a3, b0, b1);
+          mma(acc[j + 1], a0, a1, a2, a3, b2, b3);
+          ldmatrix_x4_trans(xl + off, b0, b1, b2, b3);
+          mma(acc[j], a0, a1, a2, a3, b0, b1);
+          mma(acc[j + 1], a0, a1, a2, a3, b2, b3);
+        }
+      }
+      const int r0 = mt * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nt) break;
+        const int col = pc + j * 8 + 2 * (lane & 3);
+        if (col >= pw) continue;
+        if (r0 < n)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(r0) * p + col) =
+              make_float2(acc[j][0], acc[j][1]);
+        if (r0 + 8 < n)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(r0 + 8) * p + col) =
+              make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+// The warp's rows q0 .. q0 + 15 of C B^T, key tiles 0 .. 2 (w + 1) - 1
+// (keys past the warp's last row are never needed), in sc.
+__device__ __forceinline__ void cb_product(const Layout& L, const bf16* cs,
+                                           const bf16* bs, float (&sc)[8][4],
+                                           int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Lanes ln(lane);
+  const int q0 = warp * 16, npair = warp + 1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  for (int kd = 0; kd < up16(n); kd += 16) {
+    uint32_t a0, a1, a2, a3;
+    ldmatrix_x4(cs + (q0 + ln.a_row) * L.ldb + kd + ln.a_col, a0, a1, a2, a3);
+#pragma unroll
+    for (int pr = 0; pr < 4; ++pr) {
+      if (pr >= npair) break;
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4(bs + (pr * 16 + ln.b_row) * L.ldb + kd + ln.b_col, b0, b1, b2, b3);
+      mma(sc[2 * pr], a0, a1, a2, a3, b0, b1);
+      mma(sc[2 * pr + 1], a0, a1, a2, a3, b2, b3);
+    }
+  }
+}
+
+// W = (C B^T) exp(cum_q - cum_r) dt_r on r <= q < len, same segment
+__device__ __forceinline__ void decay_mask(float (&sc)[8][4], const double* cum,
+                                           const float* dts, const int* seg,
+                                           int len) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = warp * 16, npair = warp + 1;
+  const int g = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= 2 * npair) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + g + (e >= 2 ? 8 : 0);
+      const int r = j * 8 + 2 * cq + (e & 1);
+      const bool keep = r <= q && q < len && seg[q] == seg[r];
+      sc[j][e] = keep ? sc[j][e] * expf(static_cast<float>(cum[q] - cum[r])) * dts[r] : 0.f;
+    }
+  }
+}
+
+// y rows of the warp for the block's pw columns: y = inter (C M) + W x +
+// D x, with W in sc, stored straight from the fragments, two bf16 a lane.
+__device__ __forceinline__ void y_out(const Layout& L, const bf16* xs,
+                                      const bf16* cs, const bf16* mh,
+                                      const bf16* ml, const float (&sc)[8][4],
+                                      const float* inter, bool has_prev,
+                                      float dskip, int n, int pw, int len,
+                                      bf16* y, size_t y_stride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Lanes ln(lane);
+  const int q0 = warp * 16, npair = warp + 1;
+  const int np = up16(n), pp = up16(pw);
+  const int g = lane >> 2, cq = lane & 3;
+  const float in_lo = inter[q0 + g], in_hi = inter[q0 + g + 8];
+
+  for (int pc = 0; pc < pp; pc += 64) {
+    const int nt = min(8, (pp - pc) / 8);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    if (has_prev) {
+      // inter_q c_q M: C from cs, M as hi + lo parts
+      for (int kd = 0; kd < np; kd += 16) {
+        uint32_t a0, a1, a2, a3;
+        ldmatrix_x4(cs + (q0 + ln.a_row) * L.ldb + kd + ln.a_col, a0, a1, a2, a3);
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          if (j >= nt) break;
+          const int off = (kd + ln.a_row) * L.ldx + pc + j * 8 + ln.a_col;
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4_trans(mh + off, b0, b1, b2, b3);
+          mma(acc[j], a0, a1, a2, a3, b0, b1);
+          mma(acc[j + 1], a0, a1, a2, a3, b2, b3);
+          ldmatrix_x4_trans(ml + off, b0, b1, b2, b3);
+          mma(acc[j], a0, a1, a2, a3, b0, b1);
+          mma(acc[j + 1], a0, a1, a2, a3, b2, b3);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] *= in_lo;
+        acc[j][1] *= in_lo;
+        acc[j][2] *= in_hi;
+        acc[j][3] *= in_hi;
+      }
+    }
+    // W x: W's A fragments from the score registers, as hi + lo parts
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk >= npair) break;
+      uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], h0, l0);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], h1, l1);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], h2, l2);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], h3, l3);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        if (j >= nt) break;
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(xs + (kk * 16 + ln.a_row) * L.ldx + pc + j * 8 + ln.a_col,
+                          b0, b1, b2, b3);
+        mma(acc[j], h0, h1, h2, h3, b0, b1);
+        mma(acc[j + 1], h0, h1, h2, h3, b2, b3);
+        mma(acc[j], l0, l1, l2, l3, b0, b1);
+        mma(acc[j + 1], l0, l1, l2, l3, b2, b3);
+      }
+    }
+    // + D x, stored straight from the fragments, two bf16 a lane
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= nt) break;
+      const int col = pc + j * 8 + 2 * cq;
+      if (col >= pw) continue;
+      const int lo_r = q0 + g, hi_r = q0 + g + 8;
+      const float2 xlo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + lo_r * L.ldx + col));
+      const float2 xhi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + hi_r * L.ldx + col));
+      if (lo_r < len)
+        *reinterpret_cast<__nv_bfloat162*>(y + lo_r * y_stride + col) =
+            __floats2bfloat162_rn(acc[j][0] + dskip * xlo.x, acc[j][1] + dskip * xlo.y);
+      if (hi_r < len)
+        *reinterpret_cast<__nv_bfloat162*>(y + hi_r * y_stride + col) =
+            __floats2bfloat162_rn(acc[j][2] + dskip * xhi.x, acc[j][3] + dskip * xhi.y);
+    }
+  }
+}
+
+}  // namespace tc
+
+// -- float32: CUDA cores ------------------------------------------------------
+
+namespace f32 {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -64,154 +455,104 @@ __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a_log, const T* __restrict__ bmat,
-           const T* __restrict__ cmat, const float* __restrict__ d_skip,
-           const uint8_t* __restrict__ reset, T* __restrict__ y,
-           float* __restrict__ state, int s_len, int heads, int groups,
-           int n, int p) {
-  extern __shared__ float4 smem4[];
-  const int ns = n + 4;          // padded B/C row
-  const int ws = kTile + 4;      // padded W row
-  float* m = reinterpret_cast<float*>(smem4);   // n x p
-  float* xs = m + n * p;                        // kTile x p
-  float* bs = xs + kTile * p;                   // kTile x ns
-  float* cs = bs + kTile * ns;                  // kTile x ns
-  float* w = cs + kTile * ns;                   // kTile x ws
-  double* cum = reinterpret_cast<double*>(w + kTile * ws);   // 8-byte aligned
-  float* dts = reinterpret_cast<float*>(cum + kTile);
-  float* inter = dts + kTile;
-  float* coef = inter + kTile;
-  int* seg = reinterpret_cast<int*>(coef + kTile);
-
-  const int h = blockIdx.x;
-  const int bb = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int g = h / (heads / groups);
-  const float a = -expf(a_log[h]);
-  const float dskip = d_skip[h];
-  const int pt = p / 4;
-
-  for (int i = tid; i < n * p; i += kThreads) m[i] = 0.f;
-
-  for (int t0 = 0; t0 < s_len; t0 += kTile) {
-    const int len = min(kTile, s_len - t0);
-    const size_t row0 = static_cast<size_t>(bb) * s_len + t0;
-
-    // 1. the tile's x, B, C, dt and resets; rows past len are zeros
-    for (int i = tid; i < kTile * p; i += kThreads) {
-      const int q = i / p;
-      xs[i] = q < len ? load1(x + ((row0 + q) * heads + h) * p + (i - q * p)) : 0.f;
-    }
-    for (int i = tid; i < kTile * n; i += kThreads) {
-      const int q = i / n, c = i - q * n;
-      float bv = 0.f, cv = 0.f;
-      if (q < len) {
-        const size_t off = ((row0 + q) * groups + g) * n + c;
-        bv = load1(bmat + off);
-        cv = load1(cmat + off);
-      }
-      bs[q * ns + c] = bv;
-      cs[q * ns + c] = cv;
-    }
-    if (tid < kTile) {
-      dts[tid] = tid < len ? dt[(row0 + tid) * heads + h] : 0.f;
-      seg[tid] = (reset != nullptr && tid < len) ? (reset[row0 + tid] != 0) : 0;
-    }
-    __syncthreads();
-
-    // 2. in-tile prefix sums of A dt (float64) and of the resets (one warp,
-    //    2 steps a lane)
-    if (tid < 32) {
-      const int i0 = 2 * tid, i1 = i0 + 1;
-      const double v0 = a * dts[i0], v1 = a * dts[i1];
-      const int r0 = seg[i0], r1 = seg[i1];
-      double sv = v0 + v1;
-      int sr = r0 + r1;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double tv = __shfl_up_sync(kFull, sv, o);
-        const int tr = __shfl_up_sync(kFull, sr, o);
-        if (tid >= o) { sv += tv; sr += tr; }
-      }
-      double ev = __shfl_up_sync(kFull, sv, 1);
-      int er = __shfl_up_sync(kFull, sr, 1);
-      if (tid == 0) { ev = 0.0; er = 0; }
-      cum[i0] = ev + v0;
-      cum[i1] = (ev + v0) + v1;
-      seg[i0] = er + r0;
-      seg[i1] = er + r0 + r1;
-    }
-    __syncthreads();
-
-    const double total = cum[len - 1];
-    const int seg_end = seg[len - 1];
-    if (tid < kTile) {
-      const bool live = tid < len;
-      inter[tid] = (live && seg[tid] == 0) ? expf(static_cast<float>(cum[tid])) : 0.f;
-      coef[tid] = (live && seg[tid] == seg_end)
-                      ? expf(static_cast<float>(total - cum[tid])) * dts[tid] : 0.f;
-    }
-
-    // 3. W: thread (qi, rj) takes rows 4 qi + i and columns rj + 16 j
-    for (int tile = tid; tile < (kTile / 4) * 16; tile += kThreads) {
-      const int q0 = (tile / 16) * 4, rj = tile % 16;
-      float acc[4][4] = {};
-      if (rj <= q0 + 3 && q0 < len) {
-        for (int c = 0; c < n; c += 4) {
-          float4 cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = ld4(cs + (q0 + i) * ns + c);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = ld4(bs + (rj + 16 * j) * ns + c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] += cv[i].x * bv[j].x + cv[i].y * bv[j].y +
-                           cv[i].z * bv[j].z + cv[i].w * bv[j].w;
-        }
-      }
+// S (n x pw) = sum_r coef_r b_r x_r^T into out (row stride p), 4 x 4
+// register tiles
+__device__ void state_product(const Layout& L, const float* xs, const float* bs,
+                              const float* coef, int n, int pw, int len,
+                              float* out, int p) {
+  const int pt = pw / 4;
+  for (int tile = threadIdx.x; tile < (n / 4) * pt; tile += kThreads) {
+    const int n0 = (tile / pt) * 4, c0 = (tile % pt) * 4;
+    float acc[4][4] = {};
+    for (int r = 0; r < len; ++r) {
+      const float cf = coef[r];
+      const float4 bv = ld4(bs + r * L.ldb + n0);
+      const float4 xv = ld4(xs + r * pw + c0);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int q = q0 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = rj + 16 * j;
-          float wv = 0.f;
-          if (r <= q && q < len && seg[q] == seg[r])
-            wv = acc[i][j] * expf(static_cast<float>(cum[q] - cum[r])) * dts[r];
-          w[q * ws + r] = wv;
-        }
+        const float bi = at(bv, i) * cf;
+        acc[i][0] += bi * xv.x;
+        acc[i][1] += bi * xv.y;
+        acc[i][2] += bi * xv.z;
+        acc[i][3] += bi * xv.w;
       }
     }
-    __syncthreads();
-
-    // 4. y = W x + inter (C M) + D x, from the state entering the tile
-    for (int tile = tid; tile < (kTile / 4) * pt; tile += kThreads) {
-      const int q0 = (tile / pt) * 4, p0 = (tile % pt) * 4;
-      if (q0 >= len) continue;
-      float acc[4][4] = {}, acc2[4][4] = {};
-      const int rmax = min(q0 + 4, len);
-      for (int r = 0; r < rmax; ++r) {
-        const float4 xv = ld4(xs + r * p + p0);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float wv = w[(q0 + i) * ws + r];
-          acc[i][0] += wv * xv.x;
-          acc[i][1] += wv * xv.y;
-          acc[i][2] += wv * xv.z;
-          acc[i][3] += wv * xv.w;
-        }
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(n0 + i) * p + c0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// W into shared memory: thread (qi, rj) takes rows 4 qi + i and columns
+// rj + 16 j
+__device__ void w_product(const Layout& L, const float* bs, const float* cs,
+                          float* w, const double* cum, const float* dts,
+                          const int* seg, int n, int len) {
+  constexpr int ws = kT + 4;
+  for (int tile = threadIdx.x; tile < (kT / 4) * 16; tile += kThreads) {
+    const int q0 = (tile / 16) * 4, rj = tile % 16;
+    float acc[4][4] = {};
+    if (rj <= q0 + 3 && q0 < len) {
+      for (int c = 0; c < n; c += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cv[i] = ld4(cs + (q0 + i) * L.ldb + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = ld4(bs + (rj + 16 * j) * L.ldb + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] += cv[i].x * bv[j].x + cv[i].y * bv[j].y +
+                         cv[i].z * bv[j].z + cv[i].w * bv[j].w;
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = rj + 16 * j;
+        float wv = 0.f;
+        if (r <= q && q < len && seg[q] == seg[r])
+          wv = acc[i][j] * expf(static_cast<float>(cum[q] - cum[r])) * dts[r];
+        w[q * ws + r] = wv;
+      }
+    }
+  }
+}
+
+// y = W x + inter (C M) + D x for the block's pw columns
+__device__ void y_product(const Layout& L, const float* xs, const float* cs,
+                          const float* w, const float* m, const float* inter,
+                          bool has_prev, float dskip, int n, int pw, int len,
+                          float* y, size_t y_stride) {
+  constexpr int ws = kT + 4;
+  const int pt = pw / 4;
+  for (int tile = threadIdx.x; tile < (kT / 4) * pt; tile += kThreads) {
+    const int q0 = (tile / pt) * 4, c0 = (tile % pt) * 4;
+    if (q0 >= len) continue;
+    float acc[4][4] = {}, acc2[4][4] = {};
+    const int rmax = min(q0 + 4, len);
+    for (int r = 0; r < rmax; ++r) {
+      const float4 xv = ld4(xs + r * pw + c0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float wv = w[(q0 + i) * ws + r];
+        acc[i][0] += wv * xv.x;
+        acc[i][1] += wv * xv.y;
+        acc[i][2] += wv * xv.z;
+        acc[i][3] += wv * xv.w;
+      }
+    }
+    if (has_prev) {
       for (int c = 0; c < n; c += 4) {
         float4 cv[4], mv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = ld4(cs + (q0 + i) * ns + c);
+        for (int i = 0; i < 4; ++i) cv[i] = ld4(cs + (q0 + i) * L.ldb + c);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) mv[k] = ld4(m + (c + k) * p + p0);
+        for (int k = 0; k < 4; ++k) mv[k] = ld4(m + (c + k) * pw + c0);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -223,107 +564,314 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             acc2[i][3] += cik * mv[k].w;
           }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + i;
-        if (q >= len) break;
-        const float f = inter[q];
-        T* out = y + ((row0 + q) * heads + h) * p + p0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          store1(out + j, acc[i][j] + f * acc2[i][j] + dskip * xs[q * p + p0 + j]);
-      }
     }
-    __syncthreads();
-
-    // 5. M = carry M + sum_r coef_r b_r x_r^T
-    const float carry = seg_end == 0 ? expf(static_cast<float>(total)) : 0.f;
-    for (int tile = tid; tile < (n / 4) * pt; tile += kThreads) {
-      const int n0 = (tile / pt) * 4, p0 = (tile % pt) * 4;
-      float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 mv = ld4(m + (n0 + i) * p + p0);
-        acc[i][0] = carry * mv.x;
-        acc[i][1] = carry * mv.y;
-        acc[i][2] = carry * mv.z;
-        acc[i][3] = carry * mv.w;
-      }
-      for (int r = 0; r < len; ++r) {
-        const float cf = coef[r];
-        const float4 bv = ld4(bs + r * ns + n0);
-        const float4 xv = ld4(xs + r * p + p0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float bi = at(bv, i) * cf;
-          acc[i][0] += bi * xv.x;
-          acc[i][1] += bi * xv.y;
-          acc[i][2] += bi * xv.z;
-          acc[i][3] += bi * xv.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(m + (n0 + i) * p + p0) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + i;
+      if (q >= len) break;
+      const float f = inter[q];
+      const float4 xv = ld4(xs + q * pw + c0);
+      *reinterpret_cast<float4*>(y + q * y_stride + c0) = make_float4(
+          acc[i][0] + f * acc2[i][0] + dskip * xv.x,
+          acc[i][1] + f * acc2[i][1] + dskip * xv.y,
+          acc[i][2] + f * acc2[i][2] + dskip * xv.z,
+          acc[i][3] + f * acc2[i][3] + dskip * xv.w);
     }
-    __syncthreads();
   }
-
-  float* out = state + (static_cast<size_t>(bb) * heads + h) * n * p;
-  for (int i = tid; i < n * p; i += kThreads) out[i] = m[i];
 }
 
-size_t smem_bytes(int n, int p) {
-  return sizeof(float) * (static_cast<size_t>(n) * p + kTile * p +
-                          2 * kTile * (n + 4) + kTile * (kTile + 4) + 6 * kTile);
+}  // namespace f32
+
+// One block per (chunk x column group, head, batch row).  kOne: y and the
+// final state of a one-chunk sequence; kState: the chunk's state and carry;
+// kScan: y from the state entering the chunk.  Every global load is issued
+// before the first barrier: the scalars, the per-step dt and resets, and
+// the tiles (cp.async), so their latencies overlap.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+chunk_kernel(const Params a) {
+  extern __shared__ uint4 smem16[];
+  char* base = reinterpret_cast<char*>(smem16);
+  const int cgs = a.col_groups;
+  const int ch = blockIdx.x / cgs, cg = blockIdx.x % cgs;
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int n = a.n, p = a.p, heads = a.heads;
+  const int pw = p / cgs, p0 = cg * pw;
+  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
+  const int grp = h / (heads / a.groups);
+  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
+  const size_t bh = static_cast<size_t>(bb) * heads + h;
+  const Layout L = layout<T>(kMode, n, pw);
+  constexpr bool kTensor = sizeof(T) == 2;
+  double* cum = reinterpret_cast<double*>(base + L.cum);
+  float* dts = reinterpret_cast<float*>(base + L.dts);
+  float* inter = reinterpret_cast<float*>(base + L.inter);
+  float* coef = reinterpret_cast<float*>(base + L.coef);
+  int* seg = reinterpret_cast<int*>(base + L.seg);
+  T* xs = reinterpret_cast<T*>(base + L.xs);
+  T* bs = reinterpret_cast<T*>(base + L.bs);
+  T* cs = reinterpret_cast<T*>(base + L.cs);
+
+  // 1. the head's scalars, the chunk's dt and resets, and its x, B, C
+  //    tiles (and, for float32 kScan, the entering state); rows past len
+  //    and padding columns are zeros
+  const float av = -expf(a.a_log[h]);
+  const float dskip = a.d_skip[h];
+  if (tid < kT) {
+    const bool live = tid < len;
+    dts[tid] = live ? a.dt[(row0 + tid) * heads + h] : 0.f;
+    seg[tid] = (a.reset != nullptr && live) ? (a.reset[row0 + tid] != 0) : 0;
+  }
+  const int xpad = kTensor ? up16(pw) : pw;
+  const int npad = kTensor ? up16(n) : n;
+  load_tile<T>(xs, L.ldx, kT, xpad,
+               static_cast<const T*>(a.x) + (row0 * heads + h) * p + p0,
+               static_cast<size_t>(heads) * p, len, pw);
+  const size_t bc_off = (row0 * a.groups + grp) * n;
+  const size_t bc_stride = static_cast<size_t>(a.groups) * n;
+  load_tile<T>(bs, L.ldb, kT, npad, static_cast<const T*>(a.b) + bc_off,
+               bc_stride, len, n);
+  if (kMode != kState)
+    load_tile<T>(cs, L.ldb, kT, npad, static_cast<const T*>(a.c) + bc_off,
+                 bc_stride, len, n);
+  const bool has_prev = kMode == kScan && ch > 0;
+  const size_t slot = (bh * a.chunks + ch) * n * p;   // of the entering state
+  if (!kTensor && has_prev)
+    load_tile<float>(reinterpret_cast<float*>(base + L.m), pw, n, pw,
+                     a.chunk_states + slot + p0, p, n, pw);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. one warp, 2 steps a lane: in-chunk prefix sums of A dt (float64) and
+  //    of the resets, then the per-step factors inter (entering state) and
+  //    coef (the chunk's state), and the chunk's carry
+  if (tid < 32) {
+    const int i0 = 2 * tid, i1 = i0 + 1;
+    const float dt0 = dts[i0], dt1 = dts[i1];
+    const double v0 = av * dt0, v1 = av * dt1;
+    const int r0 = seg[i0], r1 = seg[i1];
+    double sv = v0 + v1;
+    int sr = r0 + r1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double tv = __shfl_up_sync(kFull, sv, o);
+      const int tr = __shfl_up_sync(kFull, sr, o);
+      if (tid >= o) { sv += tv; sr += tr; }
+    }
+    double ev = __shfl_up_sync(kFull, sv, 1);
+    int er = __shfl_up_sync(kFull, sr, 1);
+    if (tid == 0) { ev = 0.0; er = 0; }
+    const double c0 = ev + v0, c1 = (ev + v0) + v1;
+    const int s0 = er + r0, s1 = er + r0 + r1;
+    const int last = len - 1;
+    const double total = __shfl_sync(kFull, (last & 1) ? c1 : c0, last >> 1);
+    const int seg_end = __shfl_sync(kFull, (last & 1) ? s1 : s0, last >> 1);
+    cum[i0] = c0;
+    cum[i1] = c1;
+    seg[i0] = s0;
+    seg[i1] = s1;
+    inter[i0] = (i0 < len && s0 == 0) ? expf(static_cast<float>(c0)) : 0.f;
+    inter[i1] = (i1 < len && s1 == 0) ? expf(static_cast<float>(c1)) : 0.f;
+    coef[i0] = (i0 < len && s0 == seg_end)
+                   ? expf(static_cast<float>(total - c0)) * dt0 : 0.f;
+    coef[i1] = (i1 < len && s1 == seg_end)
+                   ? expf(static_cast<float>(total - c1)) * dt1 : 0.f;
+    if (kMode == kState && tid == 0 && cg == 0)
+      a.carry[bh * a.chunks + ch] =
+          seg_end == 0 ? expf(static_cast<float>(total)) : 0.f;
+  }
+  __syncthreads();
+
+  // 3. the chunk's state (kOne: the final state; kState: scratch)
+  if (kMode != kScan) {
+    float* out = kMode == kOne ? a.state + bh * n * p + p0
+                               : a.chunk_states + (bh * a.chunks + ch) * n * p + p0;
+    if constexpr (kTensor) {
+      bf16* xh = reinterpret_cast<bf16*>(base + L.xh);
+      bf16* xl = reinterpret_cast<bf16*>(base + L.xl);
+      const bf16* xb = reinterpret_cast<const bf16*>(xs);
+      const int pp = up16(pw);
+      for (int i = tid; i < kT * (pp / 2); i += kThreads) {
+        const int r = i / (pp / 2), j = (i % (pp / 2)) * 2;
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xb + r * L.ldx + j));
+        uint32_t hi, lo;
+        tc::split_bf16(coef[r] * v.x, coef[r] * v.y, hi, lo);
+        *reinterpret_cast<uint32_t*>(xh + r * L.ldx + j) = hi;
+        *reinterpret_cast<uint32_t*>(xl + r * L.ldx + j) = lo;
+      }
+      __syncthreads();
+      tc::state_product(L, reinterpret_cast<const bf16*>(bs), xh, xl, n, pw,
+                        len, out, p);
+    } else {
+      f32::state_product(L, reinterpret_cast<const float*>(xs),
+                         reinterpret_cast<const float*>(bs), coef, n, pw, len,
+                         out, p);
+    }
+  }
+
+  // 4. y
+  if (kMode != kState) {
+    const size_t y_stride = static_cast<size_t>(heads) * p;
+    T* yb = static_cast<T*>(a.y) + (row0 * heads + h) * p + p0;
+    if constexpr (kTensor) {
+      // C.B^T, then (kScan) the entering state's hi and lo parts are copied
+      // over B's tile while the decay mask is applied, then y
+      const bool rows = (tid >> 5) * 16 < len;   // the warp has live rows
+      bf16* mh = reinterpret_cast<bf16*>(base + L.mh);
+      bf16* ml = reinterpret_cast<bf16*>(base + L.ml);
+      float sc[8][4];
+      if (rows)
+        tc::cb_product(L, reinterpret_cast<const bf16*>(cs),
+                       reinterpret_cast<const bf16*>(bs), sc, n);
+      if (kMode == kScan) {
+        __syncthreads();   // every warp is done with B's tile
+        if (has_prev) {
+          load_tile<bf16>(mh, L.ldx, npad, xpad, a.entering + 2 * slot + p0,
+                          p, n, pw);
+          load_tile<bf16>(ml, L.ldx, npad, xpad,
+                          a.entering + 2 * slot + static_cast<size_t>(n) * p + p0,
+                          p, n, pw);
+        }
+      }
+      if (rows) tc::decay_mask(sc, cum, dts, seg, len);
+      if (kMode == kScan) {
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (rows)
+        tc::y_out(L, reinterpret_cast<const bf16*>(xs),
+                  reinterpret_cast<const bf16*>(cs), mh, ml, sc, inter,
+                  has_prev, dskip, n, pw, len, reinterpret_cast<bf16*>(yb),
+                  y_stride);
+    } else {
+      float* w = reinterpret_cast<float*>(base + L.w);
+      f32::w_product(L, reinterpret_cast<const float*>(bs),
+                     reinterpret_cast<const float*>(cs), w, cum, dts, seg, n,
+                     len);
+      __syncthreads();
+      f32::y_product(L, reinterpret_cast<const float*>(xs),
+                     reinterpret_cast<const float*>(cs), w,
+                     reinterpret_cast<const float*>(base + L.m), inter,
+                     has_prev, dskip, n, pw, len, reinterpret_cast<float*>(yb),
+                     y_stride);
+    }
+  }
+}
+
+// The state pass: per (head, batch row), M_c = carry_c M_{c-1} + S_c over
+// the chunks in order, four elements a thread; the last M is the final
+// state.  The state entering chunk c >= 1 goes where the output pass reads
+// it: for bf16 x, split into hi and lo bf16 parts (slot c of entering,
+// the layout the tensor cores take, so the output pass copies it with
+// cp.async); for float32 x, in place of S_c.  Loads run 8 chunks ahead of
+// the chain.
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads)
+state_pass(const float* __restrict__ carry, float* chunk_states,
+           bf16* __restrict__ entering, float* __restrict__ state, int chunks,
+           int np4) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= np4) return;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const size_t np = static_cast<size_t>(np4) * 4;
+  const float* cr = carry + bh * chunks;
+  float4* s = reinterpret_cast<float4*>(chunk_states) + bh * chunks * np4 + e;
+  float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < chunks; c0 += 8) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c0 + i < chunks) v[i] = s[static_cast<size_t>(c0 + i) * np4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 + i;
+      if (c >= chunks) break;
+      if (c > 0) {
+        if constexpr (kSplit) {
+          uint32_t h0, l0, h1, l1;
+          tc::split_bf16(m.x, m.y, h0, l0);
+          tc::split_bf16(m.z, m.w, h1, l1);
+          bf16* slot = entering + (bh * chunks + c) * 2 * np + 4 * static_cast<size_t>(e);
+          *reinterpret_cast<uint2*>(slot) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(slot + np) = make_uint2(l0, l1);
+        } else {
+          s[static_cast<size_t>(c) * np4] = m;
+        }
+      }
+      const float k = cr[c];
+      m = make_float4(k * m.x + v[i].x, k * m.y + v[i].y, k * m.z + v[i].z,
+                      k * m.w + v[i].w);
+    }
+  }
+  reinterpret_cast<float4*>(state)[bh * np4 + e] = m;
+}
+
+template <typename T, int kMode>
+cudaError_t launch_chunk(const Params& a, int batch, cudaStream_t stream) {
+  const int pw = a.p / a.col_groups;
+  const size_t bytes = layout<T>(kMode, a.n, pw).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.chunks * a.col_groups, a.heads, batch);
+  chunk_kernel<T, kMode><<<grid, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* dt, const void* a_log,
-                   const void* b, const void* c, const void* d_skip,
-                   const void* reset, void* y, void* state, int batch,
-                   int s_len, int heads, int groups, int n, int p,
-                   cudaStream_t stream) {
-  const size_t bytes = smem_bytes(n, p);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+cudaError_t launch(const Params& a, int batch, cudaStream_t stream) {
+  if (a.chunks == 1) return launch_chunk<T, kOne>(a, batch, stream);
+  cudaError_t err = launch_chunk<T, kState>(a, batch, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid(heads, batch);
-  ssd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a_log), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const float*>(d_skip),
-      static_cast<const uint8_t*>(reset), static_cast<T*>(y),
-      static_cast<float*>(state), s_len, heads, groups, n, p);
-  return cudaGetLastError();
+  const int np4 = a.n * a.p / 4;
+  const dim3 grid((np4 + kThreads - 1) / kThreads, a.heads, batch);
+  state_pass<sizeof(T) == 2><<<grid, kThreads, 0, stream>>>(
+      a.carry, a.chunk_states, a.entering, a.state, a.chunks, np4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_chunk<T, kScan>(a, batch, stream);
 }
 
 }  // namespace
 
 // x (B, S, H, P), b and c (B, S, G, N) and y (B, S, H, P) of one type
 // (dtype 0: float32, 1: bfloat16); dt (B, S, H), a_log and d_skip (H,) and
-// state (B, H, N, P) float32; reset (B, S) bool or null.  All contiguous;
-// N and P multiples of 4, G dividing H.  Returns the launch's CUDA error.
+// state (B, H, N, P) float32; reset (B, S) bool or null.  Where chunks =
+// ceil(S / 64) > 1: chunk_states (B, H, chunks, N, P) and carry (B, H,
+// chunks) float32 scratch, and for bf16 entering (B, H, chunks, 2, N, P)
+// bf16 scratch; null otherwise.  P is split into col_groups groups of
+// columns (each a multiple of 16 where there is more than one).  All
+// contiguous; N and P multiples of 4, G dividing H.  Returns the first
+// CUDA error of the call's launches.
 extern "C" int ssd_scan_launch(const void* x, const void* dt,
                                const void* a_log, const void* b,
                                const void* c, const void* d_skip,
                                const void* reset, void* y, void* state,
-                               int batch, int s_len, int heads, int groups,
-                               int n, int p, int dtype, int device,
-                               void* stream) {
+                               void* chunk_states, void* entering,
+                               void* carry, int batch, int s_len, int heads,
+                               int groups, int n, int p, int col_groups,
+                               int dtype, int device, void* stream) {
+  const int chunks = (s_len + kT - 1) / kT;
   if (groups <= 0 || heads % groups != 0 || n % 4 != 0 || p % 4 != 0 ||
-      s_len <= 0)
+      s_len <= 0 || col_groups <= 0 || p % col_groups != 0 ||
+      (col_groups > 1 && (p / col_groups) % 16 != 0) || dtype < 0 ||
+      dtype > 1 ||
+      (chunks > 1 && (chunk_states == nullptr || carry == nullptr ||
+                      (dtype == 1 && entering == nullptr))))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const Params a{x, static_cast<const float*>(dt),
+                 static_cast<const float*>(a_log), b, c,
+                 static_cast<const float*>(d_skip),
+                 static_cast<const uint8_t*>(reset), y,
+                 static_cast<float*>(state), static_cast<float*>(chunk_states),
+                 static_cast<bf16*>(entering), static_cast<float*>(carry),
+                 s_len, heads, groups, n, p, chunks, col_groups};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, a_log, b, c, d_skip, reset, y, state, batch, s_len, heads, groups, n, p, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, a_log, b, c, d_skip, reset, y, state, batch, s_len, heads, groups, n, p, s);
-  return cudaErrorInvalidValue;
+  return dtype == 0 ? launch<float>(a, batch, s) : launch<bf16>(a, batch, s);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

@@ -4,7 +4,10 @@ The Hopper kernel is ``csrc/partition_sweep.cu``; it replaces the TPU kernel
 ``repro/kernels/partition_sweep.py::_kernel``.  This module builds it on
 first use through ``kernels._build`` (``nvcc`` into ``build/``, keyed by a
 hash of the source, loaded with ``ctypes``) and launches it on PyTorch's
-current stream.  Nothing is compiled or loaded at import time.
+current stream.  Nothing is compiled or loaded at import time.  A UE row
+of C cuts takes ``lanes_per_row(C)`` lanes of a warp (the least power of
+two >= C, at most 32), so ``rows_per_block(C)`` rows share a block of 8
+warps; past 32 cuts a row's lanes stride over them in chunks of 32.
 
 ``partition_sweep_cuda.launches`` counts launches: it rises by one each
 time the wrapper launches the kernel, and nowhere else.
@@ -18,9 +21,12 @@ import torch
 from . import _build
 
 N_SCALARS = 11
+WARPS_PER_BLOCK = 8            # csrc kWarpsPerBlock
 
-# Float32 operations of the sweep, counted from the kernel body (a division
-# or a log2 as one): per row, the even split's rate and edge share and the
+# Float32 operations of the sweep's function, counted from the plain
+# version's arithmetic (a division or a log2 as one; the kernel evaluates
+# the P3 objective in 13 operations with one division where the plain
+# version takes 11 with two, and the bound counts the function's): per row, the even split's rate and edge share and the
 # search's row constants; per cut, the four scan steps, d_ue and the
 # feasibility test; per feasible cut, the 40-step Fibonacci search (28 a
 # step: span, two probes, two 11-operation objective evaluations, compare),
@@ -29,6 +35,19 @@ N_SCALARS = 11
 OPS_PER_ROW = 13
 OPS_PER_CUT = 9
 OPS_PER_FEASIBLE_CUT = 40 * 28 + 25 + 6 + 37
+
+
+def lanes_per_row(cols: int) -> int:
+    """Lanes of a warp one UE row takes (csrc partition_sweep_launch)."""
+    lanes = 1
+    while lanes < min(cols, 32):
+        lanes *= 2
+    return lanes
+
+
+def rows_per_block(cols: int) -> int:
+    """UE rows one block of WARPS_PER_BLOCK warps holds."""
+    return WARPS_PER_BLOCK * (32 // lanes_per_row(cols))
 
 
 def op_count(rows: int, cols: int, feasible: int) -> int:

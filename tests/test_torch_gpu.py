@@ -52,7 +52,8 @@ def random_sweep_inputs(lead, c, device, seed=0):
     """Raw per-layer tables (lead..., C) zero-padded past each row's L, and
     per-row vectors, as the grid feeds the kernel."""
     rng = np.random.default_rng(seed)
-    L = rng.integers(max(1, c // 3), c, lead)
+    # C = 1 (one cut, L = 0) draws as C = 2 does, then clips
+    L = np.minimum(rng.integers(max(1, c // 3), max(c, 2), lead), c - 1)
     L.reshape(-1)[0] = c - 1
     live = np.arange(c) <= L[..., None]
     macs = rng.uniform(1e6, 5e7, lead + (c,)) * live
@@ -74,7 +75,13 @@ def random_sweep_inputs(lead, c, device, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lead,c", [((4096, 8), 11), ((1, 256), 103),
-                                    ((1, 37), 11), ((2, 3), 70)])
+                                    ((1, 37), 11), ((2, 3), 70),
+                                    # rows packed 32 / 4 / 2 / 1 to a warp
+                                    # at C = 1 / 8 / 16 / 17, 32, 33, and
+                                    # row counts no block's rows divide
+                                    ((37, 3), 1), ((19, 5), 8), ((23, 3), 16),
+                                    ((7, 9), 17), ((5, 11), 32),
+                                    ((3, 13), 33)])
 def test_cuda_kernel_matches_plain(lead, c):
     """On the card: the CUDA sweep (through the batched entry point) against
     the plain version on the same inputs, with ragged row counts and C past
@@ -93,7 +100,8 @@ def test_cuda_kernel_matches_plain(lead, c):
     assert ((g > BIG) == ~feasible).all()
     # argmin: equal wherever the plain best and second best are apart
     srt = np.sort(w, -1)
-    gap = srt[..., 1] - srt[..., 0] > 1e-3 + 1e-4 * np.abs(srt[..., 0])
+    gap = (srt[..., 1] - srt[..., 0] > 1e-3 + 1e-4 * np.abs(srt[..., 0])
+           if c > 1 else np.ones(srt.shape[:-1], bool))   # one cut: no tie
     assert (np.argmin(g, -1)[gap] == np.argmin(w, -1)[gap]).all()
     picked = np.take_along_axis(w, np.argmin(g, -1)[..., None], -1)[..., 0]
     assert (picked <= srt[..., 0] + 1e-3 + 1e-4 * np.abs(srt[..., 0])).all()
@@ -375,6 +383,16 @@ def resets(b, s, at, device):
     (2, 160, 3, 8, 1, 4, 16, ((0, 5), (0, 64), (0, 100), (1, 127))),
     (1, 13, 2, 8, 1, 4, 1, None),              # odd length
     (1, 32, 64, 64, 1, 128, 32, ((0, 0), (0, 1), (0, 2))),   # mamba2 prefill
+    # the chunk passes (64 steps a chunk) at their edges: one launch a call
+    # whether the call issues one device kernel or three
+    (1, 63, 4, 16, 2, 8, 63, ((0, 0),)),       # S = T - 1, reset at step 0
+    (2, 64, 3, 16, 3, 8, 64, ((0, 10), (0, 40), (1, 63))),   # twice a chunk
+    (2, 65, 4, 16, 2, 8, 65, ((0, 64), (1, 0))),   # S = T + 1, on the edge
+    (2, 197, 4, 32, 2, 16, 197,
+     ((0, 64), (0, 128), (1, 70), (1, 100), (1, 196))),
+    (1, 197, 8, 64, 2, 128, 197, ((0, 0), (0, 128))),     # mamba2's widths
+    (1, 32, 64, 64, 1, 128, 32, ((0, 0), (0, 1), (0, 2), (0, 3))),  # pad 3
+    (2, 512, 64, 64, 1, 128, 256, None),       # the split check's shape
 ])
 def test_ssd_kernel_matches_plain(dtype, b, s, h, p, g, n, chunk, reset_at):
     _need_card()

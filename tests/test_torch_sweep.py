@@ -193,3 +193,35 @@ def test_random_sweep_inputs_plain_matches_reference():
         *[jnp.asarray(_np(a)) for a in args], scalars)
     assert_sweep_close(p_ref.partition_sweep_batched_ref(
         *args, p_ref.pack_scalars(scalars)), want)
+
+
+@pytest.mark.parametrize("c", [1, 8, 16, 17, 32, 33])
+def test_plain_sweep_at_every_row_packing_matches_reference(c):
+    """The widths the kernel packs 32, 4, 2, 1, 1 and 1 rows to a warp:
+    the port's plain sweep against the jnp reference on the card test's
+    inputs (C = 1 is one cut, L = 0, for every row)."""
+    args, scalars = random_sweep_inputs((3, 5), c, "cpu", seed=c)
+    want = r_ref.partition_sweep_batched_ref(
+        *[jnp.asarray(_np(a)) for a in args], scalars)
+    got = p_ref.partition_sweep_batched_ref(*args, p_ref.pack_scalars(scalars))
+    assert got.shape == (3, 5, c)
+    assert_sweep_close(got, want)
+
+
+def test_sweep_lanes_per_row_and_rows_per_block():
+    """A row takes the least power of two >= C lanes, at most 32; a block of
+    8 warps holds 32 / lanes rows a warp; the launch picks the same."""
+    want = {1: (1, 256), 2: (2, 128), 3: (4, 64), 8: (8, 32), 11: (16, 16),
+            16: (16, 16), 17: (32, 8), 32: (32, 8), 33: (32, 8),
+            103: (32, 8)}
+    for c in range(1, 104):
+        lanes = p_ps.lanes_per_row(c)
+        assert lanes >= min(c, 32) and lanes & (lanes - 1) == 0
+        assert lanes == 1 or lanes // 2 < c
+        assert p_ps.rows_per_block(c) * lanes == 8 * 32
+        if c in want:
+            assert (lanes, p_ps.rows_per_block(c)) == want[c]
+    src = " ".join(p_ps.LIBRARY.source.read_text().split())
+    for lanes in (1, 2, 4, 8, 16):
+        assert f"C <= {lanes} ? launch_rows<{lanes}>" in src
+    assert ": launch_rows<32>;" in src
