@@ -53,13 +53,17 @@ against its plain PyTorch version on the card:
    boundary, odd lengths, G = 2 and 3, the SSD's chunk edges S = T - 1, T,
    T + 1, 3T + 5 with resets at step 0, on a chunk boundary and twice in
    one chunk, and the shapes of mamba2's and recurrentgemma's solo
-   prefills and split check, in float32 and bf16; 1e-4 in float32 and for
-   the SSD state, 2e-2 for an output rounded to bf16) and the attention
-   kernels at recurrentgemma's shapes (10 heads over 1 kv head, hd 256, a
+   prefills and split check, in float32 and bf16; the RG-LRU kernel's
+   segment and tile edges: S = 1, odd S, resets on a segment's first and
+   last step, on a tile boundary and twice in one segment, R not a
+   multiple of its channel tile; 1e-4 in float32 and for the SSD state,
+   2e-2 for an output rounded to bf16) and the attention kernels at
+   recurrentgemma's shapes (10 heads over 1 kv head, hd 256, a
    2048 window and a 64 one, a scattered 2048-slot ring), and times both
    scans at the split check's shape and at their engine shapes (a 32-token
-   solo prefill with a left pad of 3), decode over the ring and flash at
-   recurrentgemma's prefill shapes;
+   solo prefill with a left pad of 3), the RG-LRU at the split shape once
+   more with the L2 flushed before each call, decode over the ring and
+   flash at recurrentgemma's prefill shapes;
 8. runs ``serve_partitioned.main`` with ``--arch mamba2-1.3b`` (48 layers,
    bf16): controller, split at the chosen and middle unit, a ragged burst
    of 12 requests; SSD launches must be exactly 48 per monolithic or split
@@ -158,13 +162,53 @@ def profiled(torch, run):
     fail("the profiler recorded no device time in three tries")
 
 
+def flushed_device_ms(torch, fn, iters: int, name: str) -> float:
+    """Device time per call of the kernels whose name holds ``name``, each
+    call after a FLUSH_BYTES write that pushes its inputs out of the 50 MB
+    L2 (the write's own kernel is not counted)."""
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def run():
+        for _ in range(iters):
+            scratch.fill_(1.0)
+            fn()
+    run()
+    torch.cuda.synchronize()
+    rows, _ = profiled(torch, run)
+    picked = [e for e in rows if name in e.key]
+    if not picked:
+        fail(f"no kernel named like {name!r} in the flushed profile")
+    return per_call_ms(picked, iters)
+
+
+def per_call_ms(rows, iters: int) -> float:
+    """Device ms per call from the kernel rows of a profile of ``iters``
+    identical calls: each kernel's mean duration per record times its
+    launches per call, ceil(records / iters).  After a large profile
+    (phase 3's), later torch.profiler sessions in the same process drop
+    kernel records (on an H100: 2 of 50 after 100,000 profiled kernels,
+    up to 25 of 50 in phases 5-9), so the records' sum over ``iters``
+    under-reads the time; the mean of the kept records does not.  The
+    launches per call come out exact while a kernel launched k times a
+    call keeps more than (k - 1) x iters of its k x iters records."""
+    total, kept, launched = 0.0, 0, 0
+    for e in rows:
+        per_call = -(-e.count // iters)
+        total += e.device_time_total / e.count * per_call
+        kept, launched = kept + e.count, launched + per_call * iters
+    if kept < launched:
+        log(f"    (the profiler kept {kept} of {launched} kernel records; "
+            f"time per call from the kept records' means)")
+    return total / 1e3
+
+
 def device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the summed duration of the CUDA kernels that
-    ``iters`` calls launch, from torch.profiler, after a warm-up."""
+    """Device time per call of the CUDA kernels that ``iters`` calls
+    launch, from torch.profiler, after a warm-up (``per_call_ms``)."""
     fn()
     torch.cuda.synchronize()
     rows, _ = profiled(torch, lambda: [fn() for _ in range(iters)])
-    return sum(e.device_time_total for e in rows) / 1e3 / iters
+    return per_call_ms(rows, iters)
 
 
 def check_sweep(torch, got, want, label: str) -> float:
@@ -891,7 +935,20 @@ RGLRU_CASES = [
     ("recurrentgemma solo prefill, pad 3", 1, 32, 2560, "f32", PAD3),
     ("recurrentgemma split shape", 2, 512, 2560, "f32", None),
     ("recurrentgemma split shape", 2, 512, 2560, "bf16", None),
-]
+    ("recurrentgemma solo prefill, pad 3", 1, 32, 2560, "bf16", PAD3),
+] + [
+    # the segmented kernel's edges (rglru_scan.plan: 16-channel tiles, 4
+    # steps a segment up to S = 64, tiles of 16 x 8 steps above), each dtype
+    (label, *shape, dt, at) for dt in ("f32", "bf16") for label, *shape, at in [
+        ("S = 1", 2, 1, 16, [(1, 0)]),
+        ("resets on segments' first and last steps, R 37", 2, 32, 37,
+         [(0, 4), (0, 7), (1, 11), (1, 12)]),
+        ("S = 197: a tile boundary, twice in a segment, R 37", 2, 197, 37,
+         [(0, 8), (0, 15), (0, 128), (1, 127), (1, 130), (1, 133)]),
+        ("S = 300: step 0, a tile boundary, the last step, R 40", 1, 300, 40,
+         [(0, 0), (0, 256), (0, 299)]),
+    ]]
+FLUSH_BYTES = 64 << 20          # written before each call to empty the 50 MB L2
 RG_FLASH_CASES = [
     # recurrentgemma's "l" prefill: 10 query heads over 1 kv head, hd 256
     ("recurrentgemma, window 2048", 2, 512, 512, 10, 1, 256, "bf16", "local",
@@ -986,7 +1043,7 @@ def check_rglru(torch, rg, ref, gen, case) -> float:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"rglru {label}: outside {tol} (max abs err {err:.3e})")
     log(f"  rglru  {dt:4s} B{b} S{s} R{r} resets={at}: ok, max abs err "
-        f"{err:.3e} (tol {tol}) ({label})")
+        f"{err:.3e} (tol {tol}) ({label}; plan {rg.plan(b, s, r)})")
     return err
 
 
@@ -1062,6 +1119,9 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
         None, rg.op_count(b, s, r), rg.byte_count(b, s, r, 4, False),
         PEAK_F32_S)
     out["rglru"]["shape"] = f"B{b} S{s} R{r} float32"
+    out["rglru"]["plan"] = rg.plan(b, s, r)
+    out["rglru"]["l2_flushed_ms"] = flushed_device_ms(
+        torch, lambda: rg.rglru_scan_cuda(x, a), 50, "rglru")
     # the engine's shape: its gates are float32 (models/rglru.py)
     b, s = 1, 32
     x, a = rglru_inputs(torch, gen, b, s, r, torch.float32)
@@ -1071,6 +1131,7 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
         lambda: ref.rglru_scan_ref(x, a, pad), None, rg.op_count(b, s, r),
         rg.byte_count(b, s, r, 4, True), PEAK_F32_S)
     out["rglru_engine"]["shape"] = f"B{b} S{s} R{r} float32, pad 3"
+    out["rglru_engine"]["plan"] = rg.plan(b, s, r)
     # decode attention at recurrentgemma's decode tick, beside SDPA
     q, k, v, valid = ring_decode_inputs(torch, gen)
     h, n_valid = q.shape[2], int(valid.sum())
@@ -1101,8 +1162,11 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
     for key in ("decode_ring", "flash_rg_engine", "flash_rg", "ssd",
                 "ssd_engine", "rglru", "rglru_engine"):
         log_timed(key, out[key])
-    for key in ("ssd", "ssd_engine"):
+    for key in ("ssd", "ssd_engine", "rglru", "rglru_engine"):
         log(f"    {key} plan: {out[key]['plan']}")
+    log(f"    rglru at {out['rglru']['shape']}, L2 flushed before each call "
+        f"({FLUSH_BYTES >> 20} MB written): device "
+        f"{out['rglru']['l2_flushed_ms']:.4f} ms")
     return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..kernels.partition_sweep import check_scalar_rows
 from ..kernels.ref import SCALAR_NAMES
 from . import convex, energymem, queueing
 
@@ -86,20 +87,32 @@ def objective_table_p(params, state):
         stability_margin=cell(params.stability_margin))
 
 
-def scalar_rows_p(params) -> torch.Tensor:
-    """The sweep kernel's (..., 11) float32 rows of MEC constants, one per
-    cell, in ``kernels.ref.SCALAR_NAMES`` order."""
+def _stack_scalars(params) -> torch.Tensor:
     return torch.stack([getattr(params, k) for k in SCALAR_NAMES],
                        dim=-1).to(torch.float32).contiguous()
+
+
+def scalar_rows_p(params) -> torch.Tensor:
+    """The sweep kernel's (..., 11) float32 rows of MEC constants, one per
+    cell, in ``kernels.ref.SCALAR_NAMES`` order.  A grid or a run builds
+    them once; on CUDA tensors they are checked then against the kernel's
+    range (``partition_sweep.check_scalar_rows``: one read of the rows,
+    raises ValueError), on CPU ones not (the plain sweep has no limit)."""
+    rows = _stack_scalars(params)
+    if rows.is_cuda:
+        check_scalar_rows(rows)
+    return rows
 
 
 def kernel_table_p(params, state, scalars=None):
     """``objective_table_p`` through ``kernels.ops``: one partition-sweep
     kernel launch for a cell or a whole (B, ...) grid on CUDA tensors, the
     plain version on CPU ones.  ``scalars`` is ``scalar_rows_p(params)``,
-    which a caller deciding many slots builds once."""
+    which a caller deciding many slots builds once (and which checks the
+    rows); built here, per call, they are not checked, since that would
+    read the device every slot."""
     if scalars is None:
-        scalars = scalar_rows_p(params)
+        scalars = _stack_scalars(params)
     args = (params.macs, params.param_bytes, params.act_bytes, params.psi,
             params.L, state.lam, state.gain, state.queues.energy,
             state.queues.memory, scalars)

@@ -142,8 +142,10 @@ __device__ __forceinline__ float row_rscan_max(float x, int sub) {
 // in place of two took the kernel from 0.182 to 0.111 ms and the
 // approximate one to 0.045 ms, each holding the plain table to phase 2's
 // checks (PERF.md, section 6).  __fdividef returns 0 for a divisor above
-// 2^126; f denom <= f_max_ue^3 stays far below it for any UE clock under
-// 10^12 Hz (f >= 1 is the search's lower bound).
+// 2^126; f denom <= f_max_ue^3 stays below it (about 2^119.6 at most)
+// because the host refuses rows with f_max_ue above 10^12 Hz
+// (partition_sweep.py F_MAX_UE_LIMIT, checked where a grid or a run builds
+// its rows; f >= 1 is the search's lower bound).
 __device__ __forceinline__ float p3_obj(float f, float e_coef, float d_ue,
                                         float dl, float q_coef, float v) {
   f = fmaxf(f, kEps);

@@ -8,18 +8,40 @@
 //
 // Design.  The TPU kernel cut S into chunks carried in VMEM and ran a
 // log2(chunk) doubling scan inside each, to keep the vector unit's lanes
-// busy.  Here one thread owns one (batch row, channel) with h in a register
-// and walks S in order: one FMA a step, no padding, any S.  Neighbouring
-// threads take neighbouring channels, so every load and store is coalesced
-// along R.  The loop runs kUnroll steps at a time and issues all their
-// loads first: they do not depend on h, so they are in flight while the
-// serial FMA chain runs.  float32 or bf16 inputs, float32 arithmetic.
+// busy.  Here a block owns a tile of `channels` contiguous channels (16 or
+// 32: a warp's loads along R stay coalesced) of one batch row and splits S
+// over `segments` groups of those threads: thread (segment w, channel c)
+// takes kSteps consecutive steps of each tile of segments x kSteps steps.
+// Per tile, one kernel at any S:
+//   1. the thread's kSteps values of x, a and the reset were loaded in one
+//      round (all loads issued before any FMA); it reduces them to the
+//      segment's composite pair, A = prod a_t and X = the segment's scan
+//      from h = 0 (a reset's a_t = 0 makes A = 0: nothing crosses it);
+//   2. the pairs go to shared memory; after one barrier every thread runs
+//      the serial scan over the segments of its channel, h <- X + A h, from
+//      the h the last tile left, keeping the h entering its own segment
+//      and the h leaving the tile (the carry, in a register);
+//   3. the next tile's loads are issued into a second set of registers,
+//      then the thread replays its steps from its entering h and stores
+//      them, so the loads of tile k + 1 are in flight during tile k's scan,
+//      replay and stores.
+// The pairs are double-buffered by tile parity, so one barrier a tile is
+// enough.  make_plan (mirrored by rglru_scan.py plan) picks the shape:
+// 160 blocks of 16 x 8 threads at a recurrentgemma solo prefill (B1 S32
+// R2560, one tile of 8 x 4 steps), 320 blocks of 16 x 16 at B2 S512 (four
+// tiles of 128 steps).  float32 or bf16 inputs, float32 arithmetic.  The
+// scan over segments reassociates the recurrence, as the reference's own
+// kernel and plain version (both log-doubling) do.
 //
-// Bound.  Three values of 4 bytes a step (x and a in, h out) and one FMA:
-// the bytes bound it (31.5 MB at B 2, S 512, R 2560 in float32).  With
-// B x R threads (2,560-5,120 at recurrentgemma's width) the card holds too
-// few loads in flight to reach its memory rate, so it is latency-bound; a
-// two-pass chunked scan across blocks is the later speed work.
+// Bound.  Three values a step (x and a in, h out) and one FMA: the bytes
+// bound it (31.5 MB at B 2, S 512, R 2560 in float32, 0.0094 ms at 3.35
+// TB/s; 1 MB and 0.00029 ms at B1 S32).  Measured on an NVIDIA H100 80GB
+// HBM3 at a 700 W limit (torch.profiler, in turns with the one-thread-a-
+// channel kernel this replaces; PERF.md, section 6): B1 S32 with a left
+// pad of 3, 0.0017 ms (was 0.0061), one load round trip and the launch,
+// 6x the byte bound; B2 S512, 0.0104 ms (was 0.0484) with the inputs in
+// L2 and 0.0165 (was 0.0726) with the L2 flushed before each call, about
+// 5 MB of loads in flight across the card (16 a thread, 82k threads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,56 +49,134 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 8;
+constexpr int kMaxThreads = 256;
+constexpr int kSMs = 132;
+
+struct Plan {
+  int channels, segments, steps;
+};
+
+// Mirrored by kernels/rglru_scan.py plan(); keep the two in step.
+Plan make_plan(int batch, int s_len, int width) {
+  Plan p;
+  p.channels = batch * ((width + 31) / 32) >= 2 * kSMs ? 32 : 16;
+  p.steps = s_len <= 4 * (kMaxThreads / p.channels) ? 4 : 8;
+  const int need = (s_len + p.steps - 1) / p.steps;
+  p.segments = need < kMaxThreads / p.channels ? need : kMaxThreads / p.channels;
+  return p;
+}
 
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One thread's kSteps steps from t0: x and a (a = 0 at a reset); past S or
+// past R, x = 0 and a = 1, which leave h as it is.
+template <typename T, int kSteps>
+__device__ __forceinline__ void load_steps(const T* __restrict__ x,
+                                           const T* __restrict__ a,
+                                           const uint8_t* __restrict__ rs,
+                                           size_t base, int t0, int s_len,
+                                           int width, bool live,
+                                           float (&xv)[kSteps],
+                                           float (&av)[kSteps]) {
+  bool cut[kSteps];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int t = t0 + u;
+    const bool in = live && t < s_len;
+    const size_t off = base + static_cast<size_t>(t) * width;
+    xv[u] = in ? load1(x + off) : 0.f;
+    av[u] = in ? load1(a + off) : 1.f;
+    cut[u] = rs != nullptr && t < s_len && rs[t] != 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    if (cut[u]) av[u] = 0.f;
+  }
+}
+
+template <typename T, int kSteps>
+__global__ void __launch_bounds__(kMaxThreads)
 rglru_kernel(const T* __restrict__ x, const T* __restrict__ a,
              const uint8_t* __restrict__ reset, T* __restrict__ out,
-             int s_len, int width) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+             int s_len, int width, int channels, int segments) {
+  // [tile parity][A, X][segment * channels + channel]
+  __shared__ float pairs[2][2][kMaxThreads];
+  const int c = threadIdx.x % channels;
+  const int w = threadIdx.x / channels;
+  const int r = blockIdx.x * channels + c;
   const int bb = blockIdx.y;
-  if (r >= width) return;
-  const size_t base = static_cast<size_t>(bb) * s_len * width + r;
+  const bool live = r < width;
+  const size_t base = static_cast<size_t>(bb) * s_len * width + (live ? r : 0);
   const uint8_t* rs = reset == nullptr ? nullptr : reset + static_cast<size_t>(bb) * s_len;
-  float h = 0.f;
-  int t = 0;
-  for (; t + kUnroll <= s_len; t += kUnroll) {
-    float xv[kUnroll], av[kUnroll];
+  const int tile = segments * kSteps;
+  const int n_tiles = (s_len + tile - 1) / tile;
+
+  float xv[kSteps], av[kSteps], xn[kSteps], an[kSteps];
+  load_steps<T, kSteps>(x, a, rs, base, w * kSteps, s_len, width, live, xv, av);
+  float carry = 0.f;
+  for (int k = 0; k < n_tiles; ++k) {
+    const int t0 = k * tile + w * kSteps;
+    // 1. the segment's composite pair
+    float pa = 1.f, px = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t off = base + static_cast<size_t>(t + u) * width;
-      xv[u] = load1(x + off);
-      av[u] = load1(a + off);
-      if (rs != nullptr && rs[t + u]) av[u] = 0.f;
+    for (int u = 0; u < kSteps; ++u) {
+      px = fmaf(av[u], px, xv[u]);
+      pa *= av[u];
     }
+    float* sa = pairs[k & 1][0];
+    float* sx = pairs[k & 1][1];
+    sa[threadIdx.x] = pa;
+    sx[threadIdx.x] = px;
+    __syncthreads();
+    // 3 (issued early). the next tile's loads
+    if (k + 1 < n_tiles) {
+      load_steps<T, kSteps>(x, a, rs, base, t0 + tile, s_len, width, live, xn, an);
+    } else {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kSteps; ++u) { xn[u] = 0.f; an[u] = 1.f; }
+    }
+    // 2. the h entering this segment, and the carry out of the tile
+    float h = carry, h_in = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < segments; ++j) {
+      h_in = j == w ? h : h_in;
+      h = fmaf(sa[j * channels + c], h, sx[j * channels + c]);
+    }
+    carry = h;
+    // 3. the replay
+    h = h_in;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
       h = fmaf(av[u], h, xv[u]);
-      store1(out + base + static_cast<size_t>(t + u) * width, h);
+      if (live && t0 + u < s_len) {
+        store1(out + base + static_cast<size_t>(t0 + u) * width, h);
+      }
     }
-  }
-  for (; t < s_len; ++t) {
-    const size_t off = base + static_cast<size_t>(t) * width;
-    const float at = (rs != nullptr && rs[t]) ? 0.f : load1(a + off);
-    h = fmaf(at, h, load1(x + off));
-    store1(out + off, h);
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) { xv[u] = xn[u]; av[u] = an[u]; }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* a, const void* reset, void* out,
                    int batch, int s_len, int width, cudaStream_t stream) {
-  const dim3 grid((width + kThreads - 1) / kThreads, batch);
-  rglru_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<const uint8_t*>(reset), static_cast<T*>(out), s_len, width);
+  const Plan p = make_plan(batch, s_len, width);
+  const dim3 grid((width + p.channels - 1) / p.channels, batch);
+  const int threads = p.channels * p.segments;
+  const T* xp = static_cast<const T*>(x);
+  const T* ap = static_cast<const T*>(a);
+  const uint8_t* rp = static_cast<const uint8_t*>(reset);
+  T* op = static_cast<T*>(out);
+  if (p.steps == 4) {
+    rglru_kernel<T, 4><<<grid, threads, 0, stream>>>(xp, ap, rp, op, s_len, width,
+                                                     p.channels, p.segments);
+  } else {
+    rglru_kernel<T, 8><<<grid, threads, 0, stream>>>(xp, ap, rp, op, s_len, width,
+                                                     p.channels, p.segments);
+  }
   return cudaGetLastError();
 }
 

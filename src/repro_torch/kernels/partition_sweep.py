@@ -19,9 +19,14 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import SCALAR_NAMES
 
 N_SCALARS = 11
 WARPS_PER_BLOCK = 8            # csrc kWarpsPerBlock
+# The largest UE clock (Hz) the kernel takes.  Its P3 search divides with
+# __fdividef, which returns 0 for a divisor above 2^126; the divisor grows
+# as f_max_ue^3 (csrc p3_obj), to about 2^119.6 at this limit.
+F_MAX_UE_LIMIT = 1e12
 
 # Float32 operations of the sweep's function, counted from the plain
 # version's arithmetic (a division or a log2 as one; the kernel evaluates
@@ -62,6 +67,21 @@ def byte_count(rows: int, cols: int, cells: int) -> int:
     rows, the float32 table out)."""
     return (4 * rows * cols * 4 + rows * 8 + 4 * rows * 4
             + cells * N_SCALARS * 4 + rows * cols * 4)
+
+
+def check_scalar_rows(scalars: torch.Tensor) -> None:
+    """Refuse scalar rows the kernel would score wrongly: any cell whose
+    ``f_max_ue`` is above ``F_MAX_UE_LIMIT``.  It reads the rows once on
+    the host, so it belongs where a grid or a run builds its rows for the
+    kernel (``core.sweep.scalar_rows_p`` on CUDA tensors), never beside a
+    launch.  The plain version keeps the reference's semantics, which have
+    no such limit: rows for the CPU are deliberately not checked."""
+    f_max_ue = float(scalars[..., SCALAR_NAMES.index("f_max_ue")].max())
+    if f_max_ue > F_MAX_UE_LIMIT:
+        raise ValueError(
+            f"f_max_ue = {f_max_ue:.4g} Hz is above the CUDA partition "
+            f"sweep's F_MAX_UE_LIMIT = {F_MAX_UE_LIMIT:.0e} Hz (its P3 "
+            f"search's approximate division leaves its range there)")
 
 
 def _bind(lib) -> None:

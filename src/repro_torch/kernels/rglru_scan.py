@@ -3,8 +3,17 @@
 The Hopper kernel is ``csrc/rglru_scan.cu``; it replaces the TPU kernel
 ``repro/kernels/rglru_scan.py::rglru_scan_pallas``.  It is built on first
 use through ``kernels._build`` and launched on PyTorch's current stream.
-The plain version is ``kernels.ref.rglru_scan_ref``.  One thread walks one
-(batch row, channel) in order; any S is taken as it is.
+The plain version is ``kernels.ref.rglru_scan_ref``.
+
+One device kernel a call at any S.  A block owns a tile of channels and
+splits S over its threads: a tile of ``segments`` x ``steps`` steps, each
+thread one segment of ``steps`` steps of one channel (``plan``).  Each
+thread reduces its segment to a composite pair (A = prod a, X = the
+segment's scan from 0), the block scans the pairs over the segments to get
+the h entering each one, and each thread replays its steps from that h.
+Longer S is walked tile by tile, h carried across.  ``rglru_scan_segmented``
+is a plain-torch mirror of those composites, carries and tiles, used by no
+path: the CPU tests hold it against the reference.
 
 ``rglru_scan_cuda.launches`` counts launches: it rises by one each time the
 wrapper launches the kernel, and nowhere else.
@@ -18,6 +27,73 @@ import torch
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_THREADS = 256              # threads a block at most (csrc kMaxThreads)
+SMS = 132                      # an H100's SMs
+
+
+def plan(batch: int, s: int, width: int) -> tuple[int, int, int]:
+    """(channels, segments, steps) of a block: the kernel launches
+    ceil(R / channels) x B blocks of channels x segments threads, each
+    thread taking ``steps`` steps of a tile of segments x steps.  16
+    channels a block (a warp's loads: two rows of 64 contiguous bytes in
+    float32) unless that would give more than two blocks an SM anyway;
+    4 steps a thread where one tile of them covers S, else 8; as many
+    segments as S needs, up to MAX_THREADS threads.  A recurrentgemma solo
+    prefill, B1 S32 R2560: 160 blocks of 16 x 8 threads, one tile; B2
+    S512: 320 blocks of 16 x 16, four tiles of 128 steps.  csrc
+    ``make_plan`` computes the same; keep the two in step."""
+    channels = 32 if batch * -(-width // 32) >= 2 * SMS else 16
+    steps = 4 if s <= 4 * (MAX_THREADS // channels) else 8
+    segments = min(MAX_THREADS // channels, -(-s // steps))
+    return channels, segments, steps
+
+
+def blocks(batch: int, s: int, width: int) -> int:
+    """Blocks one launch takes."""
+    return -(-width // plan(batch, s, width)[0]) * batch
+
+
+def rglru_scan_segmented(x, a, reset=None, *, segments: int, steps: int):
+    """Plain torch mirror of the kernel's algebra at ``segments`` x
+    ``steps`` steps a tile, any S (steps past S are x = 0, a = 1, which
+    leave h as it is).  Per tile: (1) each segment's composite, A = prod
+    a_t and X = its scan from h = 0, with a_t = 0 at a reset, so that no
+    history crosses one; (2) serially over the segments, the h entering
+    each, h <- X + A h from the h the last tile left; (3) each segment's
+    steps replayed from its entering h.  Returns h in x's dtype."""
+    bsz, s, r = x.shape
+    a32, x32 = a.float(), x.float()
+    if reset is not None:
+        a32 = torch.where(reset[:, :, None], 0.0, a32)
+    tile = segments * steps
+    n_tiles = -(-s // tile)
+    pad = n_tiles * tile - s
+    x32 = torch.cat([x32, x32.new_zeros(bsz, pad, r)], 1)
+    a32 = torch.cat([a32, a32.new_ones(bsz, pad, r)], 1)
+    xs = x32.reshape(bsz, n_tiles, segments, steps, r)
+    as_ = a32.reshape(bsz, n_tiles, segments, steps, r)
+    out = torch.empty_like(xs)
+    carry = x32.new_zeros(bsz, r)
+    for k in range(n_tiles):
+        xt, at = xs[:, k], as_[:, k]                       # (B, W, T, R)
+        # (1) the composites of the tile's segments
+        comp_a = x32.new_ones(bsz, segments, r)
+        comp_x = x32.new_zeros(bsz, segments, r)
+        for u in range(steps):
+            comp_x = at[:, :, u] * comp_x + xt[:, :, u]
+            comp_a = at[:, :, u] * comp_a
+        # (2) the h entering each segment
+        h, entering = carry, []
+        for j in range(segments):
+            entering.append(h)
+            h = comp_a[:, j] * h + comp_x[:, j]
+        carry = h
+        # (3) the replay
+        h = torch.stack(entering, 1)
+        for u in range(steps):
+            h = at[:, :, u] * h + xt[:, :, u]
+            out[:, k, :, u] = h
+    return out.reshape(bsz, n_tiles * tile, r)[:, :s].to(x.dtype)
 
 
 def op_count(batch: int, s: int, width: int) -> int:

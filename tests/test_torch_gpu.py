@@ -417,6 +417,16 @@ def test_ssd_kernel_matches_plain(dtype, b, s, h, p, g, n, chunk, reset_at):
     (2, 64, 16, ((0, 5), (0, 16), (1, 37))),
     (2, 37, 16, ((0, 20), (1, 20))),            # odd length
     (2, 512, 2560, ((1, 0), (1, 1), (1, 2))),   # recurrentgemma's width
+    # the segmented kernel's edges (plan: 4 steps a segment up to S = 64,
+    # 8 above; tiles of 16 x 8 steps from S = 65): resets at step 0, on a
+    # segment's first and last step, on a tile boundary, twice in one
+    # segment; S = 1, odd S, S not a multiple of the tile; R not a
+    # multiple of the 16-channel tile
+    (1, 32, 2560, ((0, 0), (0, 1), (0, 2))),    # engine shape, pad 3
+    (2, 1, 16, ((1, 0),)),
+    (2, 32, 37, ((0, 4), (0, 7), (1, 11), (1, 12))),
+    (2, 197, 37, ((0, 8), (0, 15), (0, 128), (1, 130), (1, 133), (1, 127))),
+    (1, 300, 40, ((0, 0), (0, 256), (0, 299))),
 ])
 def test_rglru_kernel_matches_plain(dtype, b, s, r, reset_at):
     _need_card()
@@ -436,6 +446,20 @@ def test_rglru_kernel_matches_plain(dtype, b, s, r, reset_at):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(_np(got.float()), _np(want.float()), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.gpu
+def test_grid_refuses_a_clock_the_sweep_kernel_cannot_take():
+    """A CUDA grid with a cell whose f_max_ue is above the kernel's limit
+    raises once, when it is built; the same cell on the CPU is taken."""
+    _need_card()
+    from repro_torch.core.env import MecConfig
+    fast = p_sc.paper_table1(cfg=MecConfig(f_max_ue=5e12))
+    with pytest.raises(ValueError, match="F_MAX_UE_LIMIT"):
+        p_sc.ScenarioGrid([p_sc.paper_table1(), fast])
+    p_sc.ScenarioGrid([fast], device="cpu")
+    p_sc.ScenarioGrid([p_sc.paper_table1(
+        cfg=MecConfig(f_max_ue=p_ps.F_MAX_UE_LIMIT))])
 
 
 @pytest.mark.gpu

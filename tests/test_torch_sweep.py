@@ -225,3 +225,34 @@ def test_sweep_lanes_per_row_and_rows_per_block():
     for lanes in (1, 2, 4, 8, 16):
         assert f"C <= {lanes} ? launch_rows<{lanes}>" in src
     assert ": launch_rows<32>;" in src
+
+
+def test_rows_above_the_kernel_clock_limit_are_refused_for_the_card_only():
+    """A cell with f_max_ue = 5e12 Hz, above ``F_MAX_UE_LIMIT``: the check
+    the CUDA-path builder (``core.sweep.scalar_rows_p`` on CUDA tensors)
+    runs refuses its rows, naming the field and the limit; on the CPU the
+    grid builds them unchecked and the plain sweep scores the cell as the
+    reference's plain sweep does (the reference has no limit)."""
+    from repro.core import env as r_env
+    from repro_torch.core import env as p_env
+    from repro_torch.core import scenarios as p_sc
+    grid = p_sc.ScenarioGrid(
+        [p_sc.paper_table1(cfg=p_env.MecConfig(f_max_ue=5e12))], device="cpu")
+    f_col = p_ref.SCALAR_NAMES.index("f_max_ue")
+    assert float(grid.sweep_scalars[0, f_col]) == pytest.approx(5e12)
+    with pytest.raises(ValueError, match=r"f_max_ue .* F_MAX_UE_LIMIT = 1e\+12"):
+        p_ps.check_scalar_rows(grid.sweep_scalars)
+    p_ps.check_scalar_rows(p_sc.ScenarioGrid(
+        [p_sc.paper_table1()], device="cpu").sweep_scalars)
+
+    ref_grid = r_sc.ScenarioGrid(
+        [r_sc.paper_table1(cfg=r_env.MecConfig(f_max_ue=5e12))])
+    st = ref_grid.reset(jax.random.PRNGKey(0))
+    p = ref_grid.params
+    args = [np.asarray(a) for a in (p.macs, p.param_bytes, p.act_bytes,
+                                    p.psi, p.L, st.lam, st.gain,
+                                    st.queues.energy, st.queues.memory)]
+    want = r_ref.partition_sweep_batched_ref(
+        *[jnp.asarray(a) for a in args], ref_grid.sweep_scalars)
+    got = p_ops.partition_sweep_batched(*_to_torch(args), grid.sweep_scalars)
+    assert_sweep_close(got, want)
