@@ -5,16 +5,19 @@
 
 Drives the port's main paths through their public entry points -- the
 LyMDO controller deciding and scoring slots for a 4096-cell x 8-UE grid
-(32,768 UEs), and three LMs served at full width on the ES tier:
-qwen3-0.6b and mamba2-1.3b through the partitioned server, recurrentgemma-2b
-through the serving launcher -- and checks every kernel of those paths
-against its plain PyTorch version on the card:
+(32,768 UEs), its PPO agent training and evaluating, and three LMs served
+at full width on the ES tier: qwen3-0.6b and mamba2-1.3b through the
+partitioned server, recurrentgemma-2b through the serving launcher -- and
+checks every kernel of those paths against its plain PyTorch version on
+the card:
 
 1. builds the five CUDA kernels from the sources in this checkout, one
    nvcc process per source, all at once;
 2. holds each kernel against its plain version at the main path's shapes
-   and more -- an LM-shaped fleet (C = 103), a ragged row count, a grid
-   whose cells have their own MEC constants, and C = 1, 8, 16, 17, 32, 33
+   and more -- the learning loop's one-cell Oracle (5 UEs, through the
+   one-cell entry) and its 4096 x 5 grid of Fig. 4 cells, an LM-shaped
+   fleet (C = 103), a ragged row count, a grid whose cells have their own
+   MEC constants, and C = 1, 8, 16, 17, 32, 33
    (the rows a warp packs: 32, 4, 2, 1) at row counts no block's rows
    divide (rtol 1e-4 / atol 1e-3 on
    feasible cells, the same infeasible set, argmins equal wherever the plain
@@ -27,8 +30,20 @@ against its plain PyTorch version on the card:
    port's CPU path on the same draws, and profiles PROFILE_SLOTS Oracle
    slots with torch.profiler (device-busy share of the window, device ops
    per slot, the kernels that take the most device time);
-4. runs the single-cell paper scenario with the four baseline cut
-   functions and prints the quickstart comparison;
+4. runs the learning loop: ``python -m repro_torch.quickstart``'s ``main``
+   (``QS_ARGS``: PPO with the categorical head trains on the paper scenario
+   for 2 episodes of 64 slots, is evaluated at 2.5 req/s, and the Local,
+   Edge, Random and Oracle baselines run beside it; the sweep's launches
+   must equal the Oracle's slots, Adam's step epochs x episodes, the
+   metrics finite and the Oracle no worse than Local or Edge), joint mode
+   (the paper's "PPO" baseline) for 2 episodes at K = 200, one PPO update
+   at K = 200 on the card against the same update on the CPU (each head),
+   the trained agent through ``eval_policy_batched`` beside the Oracle on
+   a 4096-cell grid of Fig. 4's fixed rates for 20 slots (the Oracle also
+   on a CPU copy of that grid on the same draws, held as phase 3 holds
+   its small grid), and profiles of 3 rollout slots and of one K = 200
+   update, composed into a training slot (a rollout slot and 1/K of an
+   update);
 5. holds the flash and decode attention kernels against their plain
    versions at the serving path's shapes and at the reference's own kernel
    test cases, each float32 case with a bf16 twin for flash's tensor-core
@@ -102,8 +117,10 @@ ATT_TOL_F32, ATT_TOL_BF16 = 2e-5, 2e-2   # the attention tolerances of the same 
 BIG = 1e29
 GRID_CELLS, GRID_UES = 4096, 8
 MAIN_SLOTS = 50
-SINGLE_SLOTS = 50
 SMALL_CELLS, SMALL_SLOTS = 8, 20
+# card against the port's CPU path on the same draws: the P3/P5 minimizers
+# are flat to float32 rounding, so cuts may differ in a few places
+SAME_CUT_MIN, SUMMARY_RTOL = 0.95, 1e-2
 PROFILE_SLOTS = 3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -267,15 +284,19 @@ def random_sweep_args(torch, np, cells: int, ues: int, c: int, seed: int):
 
 
 def sweep_cases(torch, grid, rng) -> list:
-    """Phase 2's sweep inputs, (label, batched-entry arguments) each: (a) the
-    main path's grid (``grid``, 4096 x 8, C = 11) with queues drawn from a
-    seed; (b) an LM-shaped fleet (C = 103) drawn from ``rng``; (c) a ragged
-    row count; (d) a
+    """Phase 2's sweep inputs, (label, entry arguments) each, (B, N, C)
+    tables for the batched entry and (N, C) ones for the one-cell entry:
+    (a) the main path's grid (``grid``, 4096 x 8, C = 11) with queues drawn
+    from a seed; (b) an LM-shaped fleet (C = 103) drawn from ``rng``; (c) a
+    ragged row count; (d) a
     grid whose cells have their own Lyapunov weight V; (e) C = 1, 8, 16,
     17, 32, 33 (32, 4, 2, 1, 1, 1 rows a warp) at row counts that no
-    block's rows divide."""
+    block's rows divide; (f) phase 4's one-cell Oracle, the quickstart's
+    evaluation cell (5 UEs, C = 11); (g) phase 4's grid of EVAL_CELLS
+    fixed_rate cells (5 UEs each)."""
     import numpy as np
-    from repro_torch.core import scenarios
+    from repro_torch.core import env as menv
+    from repro_torch.core import scenarios, sweep
     from repro_torch.core.lyapunov import VirtualQueues
     from repro_torch.kernels import partition_sweep as ps
     from repro_torch.kernels import ref
@@ -342,7 +363,55 @@ def sweep_cases(torch, grid, rng) -> list:
                       f"{ps.lanes_per_row(cuts)} lanes a row, "
                       f"{ps.rows_per_block(cuts)} rows a block",
                       random_sweep_args(torch, np, cells, ues, cuts, cuts)))
+
+    # (f) and (g): the shapes the learning loop's Oracles give the kernel
+    env = menv.paper_env(menv.MecConfig(lam_mode=menv.LAM_FIXED))
+    st = with_queues(env, env.reset(env.generator(7)), 8)
+    p = env.params
+    cases.append((f"(f) the quickstart's cell, {env.n_ue} UEs, one-cell entry",
+                  (p.macs, p.param_bytes, p.act_bytes, p.psi, p.L, st.lam,
+                   st.gain, st.queues.energy, st.queues.memory,
+                   sweep.scalar_rows_p(p))))
+    fig4, _ = fig4_grid()
+    cases.append((f"(g) {EVAL_CELLS} fixed_rate cells x {env.n_ue} UEs",
+                  grid_args(fig4, 9)))
     return cases
+
+
+def fig4_grid(device=None):
+    """(a ScenarioGrid of EVAL_CELLS fixed_rate cells at Fig. 4's rates,
+    repeated; each cell's rate)."""
+    import numpy as np
+    from repro_torch.core import scenarios
+    rates = [FIG4_RATES[b % len(FIG4_RATES)] for b in range(EVAL_CELLS)]
+    grid = scenarios.ScenarioGrid([scenarios.fixed_rate(rate=r)
+                                   for r in rates], device=device)
+    return grid, np.asarray(rates)
+
+
+def compare_rollouts(torch, grids, policy: str, slots: int, draws):
+    """``policy``'s rollout on a card grid and on its CPU copy, on the same
+    ``draws``: (share of equal cuts, worst relative difference of the
+    reward, delay, energy and memory summaries)."""
+    outs = [g.make_rollout(policy, slots, draws=draws)(0) for g in grids]
+    (_, r_gpu, s_gpu), (_, r_cpu, s_cpu) = outs
+    same_cut = float((r_gpu.cut.cpu() == r_cpu.cut).float().mean())
+    worst = max(float(((s_gpu[k].cpu() - s_cpu[k]).abs()
+                       / s_cpu[k].abs().clamp_min(1e-12)).max())
+                for k in ("reward", "delay", "energy", "mem"))
+    return same_cut, worst
+
+
+def grid_draws(np, grid, slots: int, rng):
+    """(gains, lams), each (slots + 1, B, N), for ``make_rollout(draws=)``:
+    exponential fading about each cell's mean gain from ``rng``, and the
+    arrival process's rates."""
+    mean_gain = grid.params.mean_gain.cpu().numpy()[None, :, None]
+    gains = (rng.exponential(1.0, (slots + 1,) + tuple(grid.params.L.shape))
+             * mean_gain).astype(np.float32)
+    lams = np.stack([grid.params.arrival(None, t).cpu().numpy()
+                     for t in range(slots + 1)])
+    return gains, lams
 
 
 def profile_grid(torch, grid, slots: int) -> dict:
@@ -366,6 +435,262 @@ def profile_grid(torch, grid, slots: int) -> dict:
                  "device_ms": e.device_time_total / 1e3} for e in top],
     }
 
+
+
+# -- phase 4: the learning loop ----------------------------------------------
+
+# the quickstart twin at the paper's widths and batch shape; the episode
+# counts are cut (the reference's 60 x 200 training slots and 3 x 200
+# evaluation slots per method would take over an hour of eager slots)
+QS_ARGS = ["--episodes", "2", "--steps", "64", "--eval-episodes", "1"]
+JOINT_EPISODES, PAPER_K = 2, 200
+EVAL_CELLS, EVAL_SLOTS = 4096, 20
+FIG4_RATES = (0.5, 1.0, 1.5, 2.0, 2.5)     # req/s, Fig. 4's sweep
+UPDATE_RTOL, UPDATE_ATOL = 1e-4, 1e-5     # tests/test_torch_ppo.py's update band
+UPDATE_ITERS = 5
+
+
+def finite_tree(torch, tree) -> bool:
+    from repro_torch import _tree
+    return all(bool(torch.isfinite(x).all()) for x in _tree.leaves(tree))
+
+
+def window(torch, run, calls: int) -> dict:
+    """Per call of ``run()``, which makes ``calls`` calls (slots, updates):
+    wall ms, device ms, device ops and the busy share under torch.profiler,
+    and the kernels that take the most device time over the window."""
+    rows, wall_s = profiled(torch, run)
+    device_ms = sum(e.device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
+    return {"calls": calls, "wall_ms": wall_s * 1e3 / calls,
+            "device_ms": device_ms / calls,
+            "device_ops": sum(e.count for e in rows) / calls,
+            "device_busy_share": device_ms / (wall_s * 1e3),
+            "top": [{"name": e.key[:80], "count": e.count,
+                     "device_ms": e.device_time_total / 1e3} for e in top]}
+
+
+def check_update(torch, label, agents, state, traj) -> dict:
+    """One PPO update on the card and on the CPU from the same parameters
+    and trajectory; metrics within rtol UPDATE_RTOL, parameters within
+    UPDATE_ATOL (+ UPDATE_RTOL); then the card's update timed."""
+    from repro_torch import _tree
+    card, cpu = agents
+    got_state, got = card.update(state, traj)
+    want_state, want = cpu.update(_tree.to_device(state, "cpu"),
+                                  _tree.to_device(traj, "cpu"))
+    worst = {}
+    for name in want:
+        g, w = float(got[name]), float(want[name])
+        worst[name] = abs(g - w) / max(abs(w), 1e-12)
+        if not (abs(g - w) <= 1e-6 + UPDATE_RTOL * abs(w)):
+            fail(f"{label}: update {name} {g} on the card, {w} on the CPU")
+    err = 0.0
+    for a, b in zip(_tree.leaves(got_state.params),
+                    _tree.leaves(want_state.params)):
+        d = (a.cpu() - b).abs()
+        err = max(err, float(d.max()))
+        if bool((d > UPDATE_ATOL + UPDATE_RTOL * b.abs()).any()):
+            fail(f"{label}: updated parameters differ, card against CPU, "
+                 f"by up to {float(d.max()):.3e}")
+    if int(got_state.opt_state.step) != int(state.opt_state.step) + card.cfg.epochs:
+        fail(f"{label}: Adam step {int(got_state.opt_state.step)}")
+    ms = call_ms(torch, lambda: card.update(state, traj), UPDATE_ITERS)
+    log(f"    (c) {label}: update at K={traj.reward.shape[0]}, "
+        f"{card.cfg.epochs} epochs: card vs CPU metrics rel diff "
+        f"{max(worst.values()):.2e}, params max abs diff {err:.2e}; "
+        f"{ms:.2f} ms an update on the card")
+    return {"ms": ms, "params_max_abs_diff": err, "metrics_rel_diff": worst}
+
+
+def learning_phase(torch, smi) -> dict:
+    """Phase 4: the quickstart twin trains and evaluates LyMDO and runs the
+    four baselines; joint mode trains at K = 200; one PPO update, card
+    against CPU; the trained agent and the Oracle on a 4096-cell grid, the
+    Oracle also against the CPU path; a profile of a rollout and an update,
+    composed into a training slot."""
+    import numpy as np
+    from repro_torch import _tree, quickstart
+    from repro_torch.core import env as menv
+    from repro_torch.core import lymdo
+    from repro_torch.core.policies import CategoricalPolicy, JointGaussianPolicy
+    from repro_torch.core.ppo import PPO, Trajectory
+    from repro_torch.kernels import partition_sweep as ps
+
+    out: dict = {"card": smi}
+    # (a) the quickstart twin, with the sweep's launches counted over it
+    log(f"[4] (a) python -m repro_torch.quickstart {' '.join(QS_ARGS)}")
+    ps.partition_sweep_cuda.launches = 0
+    t0 = time.perf_counter()
+    rep = quickstart.main(QS_ARGS)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = ps.partition_sweep_cuda.launches
+    episodes, steps = rep["episodes"], rep["steps"]
+    oracle_slots = rep["eval_episodes"] * steps
+    if launches != oracle_slots:
+        fail(f"partition_sweep launched {launches} times over the quickstart, "
+             f"expected one per Oracle slot ({oracle_slots})")
+    methods = {"LyMDO": rep["lymdo"], **rep["baselines"]}
+    for name, m in methods.items():
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"quickstart {name}: non-finite metrics")
+        if rep["shapes"][name] != [steps, 5]:
+            fail(f"quickstart {name}: result shape {rep['shapes'][name]}")
+    b = rep["baselines"]
+    if b["Oracle"]["reward"] < max(b["Local"]["reward"],
+                                   b["Edge"]["reward"]) - 1e-3:
+        fail("the oracle scores worse than a fixed baseline")
+    agent, state = rep["agent"], rep["train_state"]
+    if int(state.opt_state.step) != agent.cfg.epochs * episodes:
+        fail(f"Adam step {int(state.opt_state.step)}, expected "
+             f"{agent.cfg.epochs} x {episodes}")
+    for name in ("loss", "actor_loss", "critic_loss", "ratio_max", "reward"):
+        h = np.asarray(rep["history"][name])
+        if h.shape != (episodes,) or not np.isfinite(h).all():
+            fail(f"training history {name}: {h}")
+    init = agent.init(torch.Generator(device="cuda").manual_seed(rep["seed"]))
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(_tree.leaves(state.params), _tree.leaves(init.params)))
+    if not moved > 0 or not finite_tree(torch, state.params):
+        fail(f"trained parameters: moved {moved}, or not finite")
+    train_slot_ms = rep["train_s"] / (episodes * steps) * 1e3
+    log(f"    {main_s:.1f} s: trained {episodes} x {steps} slots in "
+        f"{rep['train_s']:.1f} s ({train_slot_ms:.1f} ms a slot, updates "
+        f"included), evaluated in {rep['eval_s']:.1f} s, baselines "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in rep["baseline_s"].items())
+        + f"; partition_sweep launches {launches} (= Oracle slots); "
+        f"parameters moved by up to {moved:.3e} ({smi})")
+    out["quickstart"] = {k: v for k, v in rep.items()
+                         if k not in quickstart.OBJECTS}
+    out.update(main_s=main_s, sweep_launches=launches,
+               oracle_slots=oracle_slots, train_slot_ms=train_slot_ms,
+               adam_step=int(state.opt_state.step), params_moved=moved)
+
+    # (b) joint mode at the paper's K
+    env = menv.paper_env()
+    joint = PPO(JointGaussianPolicy(env.obs_dim, env.L, env.cfg.f_max_ue,
+                                    env.cfg.f_max_es), env.obs_dim)
+    runner = lymdo.Runner(env, joint, steps=PAPER_K, mode="joint")
+    t0 = time.perf_counter()
+    j_state, j_hist = runner.train(lymdo.RunConfig(
+        episodes=JOINT_EPISODES, steps=PAPER_K, chunk=1, log=False))
+    torch.cuda.synchronize()
+    joint_s = time.perf_counter() - t0
+    if int(j_state.opt_state.step) != joint.cfg.epochs * JOINT_EPISODES or not all(
+            np.isfinite(v).all() for v in j_hist.values()):
+        fail("joint-mode training: Adam step or a non-finite history")
+    joint_slot_ms = joint_s / (JOINT_EPISODES * PAPER_K) * 1e3
+    log(f"    (b) joint mode: {JOINT_EPISODES} x {PAPER_K} slots in "
+        f"{joint_s:.2f} s ({joint_slot_ms:.2f} ms a slot, updates included); "
+        f"last reward {j_hist['reward'][-1]:.3f}, delay "
+        f"{j_hist['delay'][-1] * 1e3:.1f} ms ({smi})")
+    out["joint"] = {"slot_ms": joint_slot_ms, "s": joint_s,
+                    "history": {k: v.tolist() for k, v in j_hist.items()}}
+
+    # (c) one PPO update at K = 200, card against CPU: the joint head on a
+    # trajectory of its own, and the quickstart's head on a K = 200 batch
+    # of its own actions at drawn observations
+    j_cpu = PPO(JointGaussianPolicy(env.obs_dim, env.L.cpu(), env.cfg.f_max_ue,
+                                    env.cfg.f_max_es), env.obs_dim)
+    traj, _, _ = runner.episode(j_state.params, env.generator(5))
+    out["update_joint"] = check_update(torch, "joint head", (joint, j_cpu),
+                                       j_state, traj)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    obs = torch.randn((PAPER_K, env.obs_dim), generator=gen, device="cuda")
+    with torch.no_grad():
+        action, logp, value = agent.act(state.params, obs, gen)
+    traj = Trajectory(obs=obs, action=action, logp=logp,
+                      reward=-30.0 * torch.rand(PAPER_K, generator=gen,
+                                                device="cuda"),
+                      value=value, last_value=value[-1])
+    c_cpu = PPO(CategoricalPolicy(env.obs_dim, env.L.cpu()), env.obs_dim)
+    out["update_categorical"] = check_update(
+        torch, "categorical head", (agent, c_cpu), state, traj)
+
+    # (d) the trained agent and the Oracle on a 4096-cell Fig. 4 grid
+    t0 = time.perf_counter()
+    grid, rates = fig4_grid()
+    log(f"    (d) grid of {EVAL_CELLS} fixed_rate cells built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    delays, slot_ms = {}, {}
+    for name, run in (
+            ("LyMDO", lambda: lymdo.eval_policy_batched(
+                grid, agent, state, episodes=1, steps=EVAL_SLOTS)),
+            ("Oracle", lambda: lymdo.run_fixed_batched(
+                grid, "oracle", episodes=1, steps=EVAL_SLOTS))):
+        ps.partition_sweep_cuda.launches = 0
+        t0 = time.perf_counter()
+        m, res = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = EVAL_SLOTS if name == "Oracle" else 0
+        if ps.partition_sweep_cuda.launches != want:
+            fail(f"{name} on the grid: {ps.partition_sweep_cuda.launches} "
+                 f"partition_sweep launches, expected {want}")
+        if res.delay.shape != (EVAL_SLOTS, EVAL_CELLS, 5):
+            fail(f"{name} on the grid: result shape {tuple(res.delay.shape)}")
+        if not all(np.isfinite(v).all() for v in m.values()):
+            fail(f"{name} on the grid: non-finite metrics")
+        if not bool(((res.cut >= 0) & (res.cut <= grid.params.L)).all()):
+            fail(f"{name} on the grid: cut outside [0, L]")
+        slot_ms[name] = dt / EVAL_SLOTS * 1e3
+        delays[name] = {str(r): float(m["delay"][rates == r].mean()) * 1e3
+                        for r in FIG4_RATES}
+        log(f"      {name:6s} {slot_ms[name]:.1f} ms a grid slot; delay ms at "
+            + ", ".join(f"{r} req/s {d:.1f}" for r, d in delays[name].items())
+            + f" ({smi})")
+    # the Oracle on this grid on the card and on a CPU copy, same draws
+    t0 = time.perf_counter()
+    grids = (grid, fig4_grid("cpu")[0])
+    same_cut, worst = compare_rollouts(
+        torch, grids, "oracle", EVAL_SLOTS,
+        grid_draws(np, grids[1], EVAL_SLOTS, np.random.default_rng(12)))
+    log(f"      Oracle card vs the port's CPU path, {EVAL_SLOTS} slots on the "
+        f"same draws: same cuts {same_cut:.4f}, worst summary rel diff "
+        f"{worst:.2e} ({time.perf_counter() - t0:.1f} s)")
+    if same_cut < SAME_CUT_MIN or worst > SUMMARY_RTOL:
+        fail("the Oracle on the Fig. 4 grid: card and CPU paths disagree")
+    out["grid"] = {"cells": EVAL_CELLS, "slots": EVAL_SLOTS,
+                   "slot_ms": slot_ms, "delay_ms": delays,
+                   "oracle_vs_cpu": {"same_cut": same_cut,
+                                     "summary_rel_diff": worst}}
+
+    # (e) where a training slot's time goes: a rollout of PROFILE_SLOTS
+    # slots and (c)'s K = 200 update of the quickstart's head, each under
+    # the profiler; a training slot is a rollout slot and 1/K of an update
+    train_env = menv.paper_env()
+    probe = lymdo.Runner(train_env, agent, steps=PROFILE_SLOTS)
+    probe.episode(state.params, train_env.generator(7))
+    torch.cuda.synchronize()
+    prof = {
+        "rollout": window(torch, lambda: probe.episode(
+            state.params, train_env.generator(7)), PROFILE_SLOTS),
+        "update": window(torch, lambda: agent.update(state, traj), 1)}
+    roll, upd = prof["rollout"], prof["update"]
+    slot = prof["training_slot"] = {
+        k: roll[k] + upd[k] / PAPER_K
+        for k in ("wall_ms", "device_ms", "device_ops")}
+    slot["device_busy_share"] = slot["device_ms"] / slot["wall_ms"]
+    out["profile"] = prof
+    for name, w in (("rollout slot", roll), (f"PPO update at K={PAPER_K}", upd)):
+        log(f"    (e) profiler, {name}: wall {w['wall_ms']:.2f} ms, device "
+            f"{w['device_ms']:.2f} ms (busy {w['device_busy_share']:.3f}), "
+            f"{w['device_ops']:.0f} device ops ({smi})")
+        for row in w["top"]:
+            log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<7d} "
+                f"{row['name']}")
+    log(f"    (e) a training slot at K={PAPER_K} (rollout slot + update / K): "
+        f"wall {slot['wall_ms']:.2f} ms, device {slot['device_ms']:.2f} ms, "
+        f"busy {slot['device_busy_share']:.3f}, {slot['device_ops']:.0f} "
+        f"device ops ({smi})")
+    log(f"    timings ({smi}): training slot {train_slot_ms:.1f} ms (lymdo), "
+        f"{joint_slot_ms:.2f} ms (joint); PPO update at K={PAPER_K} "
+        f"{out['update_joint']['ms']:.1f} ms (joint), "
+        f"{out['update_categorical']['ms']:.1f} ms (categorical); grid "
+        f"evaluation slot {slot_ms['LyMDO']:.1f} ms (LyMDO), "
+        f"{slot_ms['Oracle']:.1f} ms (Oracle)")
+    return out
 
 
 # -- phase 5: the attention kernels ------------------------------------------
@@ -1353,8 +1678,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.core import env as menv
-    from repro_torch.core import lymdo, scenarios
+    from repro_torch.core import scenarios
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1407,10 +1731,13 @@ def main() -> int:
     cases = sweep_cases(torch, grid, rng)
     main_args = cases[0][1]
     main_plain = ref.partition_sweep_batched_ref(*main_args)
-    errs = [check_sweep(torch, ops.partition_sweep_batched(*args),
-                        main_plain if i == 0 else
-                        ref.partition_sweep_batched_ref(*args), label)
-            for i, (label, args) in enumerate(cases)]
+    errs = []
+    for i, (label, args) in enumerate(cases):
+        one = args[0].dim() == 2
+        got = (ops.partition_sweep if one else ops.partition_sweep_batched)(*args)
+        want = main_plain if i == 0 else (
+            ref.partition_sweep_ref if one else ref.partition_sweep_batched_ref)(*args)
+        errs.append(check_sweep(torch, got, want, label))
 
     rows, c = GRID_CELLS * GRID_UES, grid.num_cuts
     run_kernel = lambda: ops.partition_sweep_batched(*main_args)
@@ -1474,24 +1801,15 @@ def main() -> int:
     log(f"    card vs the port's CPU path: {SMALL_CELLS}x{GRID_UES} grid, "
         f"{SMALL_SLOTS} slots on the same draws")
     cells = scenarios.multicell_grid(cells=SMALL_CELLS, ues=GRID_UES, seed=9)
-    g_gpu = scenarios.ScenarioGrid(cells)
-    g_cpu = scenarios.ScenarioGrid(cells, device="cpu")
-    mean_gain = g_cpu.params.mean_gain.numpy()[None, :, None]
-    gains = (rng.exponential(1.0, (SMALL_SLOTS + 1, SMALL_CELLS, GRID_UES))
-             * mean_gain).astype(np.float32)
-    lams = np.stack([g_cpu.params.arrival(None, t).numpy()
-                     for t in range(SMALL_SLOTS + 1)])
+    grids = (scenarios.ScenarioGrid(cells),
+             scenarios.ScenarioGrid(cells, device="cpu"))
+    draws = grid_draws(np, grids[1], SMALL_SLOTS, rng)
     for policy in ("oracle", "local", "edge"):
-        outs = [g.make_rollout(policy, SMALL_SLOTS, draws=(gains, lams))(0)
-                for g in (g_gpu, g_cpu)]
-        (_, r_gpu, s_gpu), (_, r_cpu, s_cpu) = outs
-        same_cut = float((r_gpu.cut.cpu() == r_cpu.cut).float().mean())
-        worst = max(float(((s_gpu[k].cpu() - s_cpu[k]).abs()
-                           / s_cpu[k].abs().clamp_min(1e-12)).max())
-                    for k in ("reward", "delay", "energy", "mem"))
+        same_cut, worst = compare_rollouts(torch, grids, policy, SMALL_SLOTS,
+                                           draws)
         log(f"      {policy:7s} same cuts {same_cut:.3f}, worst summary rel "
             f"diff {worst:.2e}")
-        if same_cut < 0.95 or worst > 1e-2:
+        if same_cut < SAME_CUT_MIN or worst > SUMMARY_RTOL:
             fail(f"{policy}: card and CPU paths disagree")
 
     prof = profile_grid(torch, grid, PROFILE_SLOTS)
@@ -1507,26 +1825,10 @@ def main() -> int:
 
     phase_done()
 
-    # -- 4. single cell --------------------------------------------------------
-    log(f"[4] single cell: paper_env @2.5 req/s, run_fixed, {SINGLE_SLOTS} slots")
-    env = menv.paper_env(menv.MecConfig(lam_mode=menv.LAM_FIXED))
-    single = {}
-    for name, fn in [("Local", lymdo.local_cut_fn(env)),
-                     ("Edge", lymdo.edge_cut_fn(env)),
-                     ("Random", lymdo.random_cut_fn(env)),
-                     ("Oracle", lymdo.oracle_cut_fn(env))]:
-        m, res = lymdo.run_fixed(env, fn, episodes=1, steps=SINGLE_SLOTS)
-        if not all(np.isfinite(v) for v in m.values()):
-            fail(f"single cell {name}: non-finite metrics")
-        if res.delay.shape != (SINGLE_SLOTS, env.n_ue):
-            fail(f"single cell {name}: result shape {tuple(res.delay.shape)}")
-        single[name] = m
-        log(f"{name:7s} @2.5req/s: delay {m['delay'] * 1e3:7.1f} ms  "
-            f"energy {m['energy'] * 1e3:5.1f} mJ  reward {m['reward']:8.2f}")
-    if single["Oracle"]["reward"] < max(single["Local"]["reward"],
-                                        single["Edge"]["reward"]) - 1e-3:
-        fail("the oracle scores worse than a fixed baseline")
-    report["single_cell"] = single
+    # -- 4. the learning loop ------------------------------------------------
+    learning = learning_phase(torch, smi)
+    report["learning"] = learning
+    report["single_cell"] = learning["quickstart"]["baselines"]
 
     phase_done()
     att = attention_phase(torch, fa, da, ref)

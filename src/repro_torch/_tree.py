@@ -6,12 +6,14 @@ This is what ``jax.tree.map`` does for the reference's pytrees: it stacks B
 cells into one batch, moves a whole parameter set to a device, and slices
 one cell back out.  Fields that are neither tensors nor containers (the
 ``edge_queueing`` flag, a ``torch.Generator``) are static and pass through
-from the first argument.
+from the first argument.  ``from_numpy`` carries another implementation's
+nested dicts and lists of arrays across as tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -45,3 +47,36 @@ def to_device(tree, device):
 def index(tree, i):
     """Select entry ``i`` of every leaf's leading axis."""
     return map_tensors(lambda x: x[i], tree)
+
+
+def leaves(tree) -> list:
+    """The tensors of ``tree`` in ``map_tensors``' order."""
+    out = []
+    map_tensors(lambda x: out.append(x) or x, tree)
+    return out
+
+
+def unflatten(tree, xs):
+    """``tree`` with its tensors replaced, in ``leaves`` order, by ``xs``."""
+    it = iter(xs)
+    return map_tensors(lambda _: next(it), tree)
+
+
+def from_numpy(tree, device, dtype=None):
+    """Nested dicts, lists and tuples of numpy arrays as the same nesting of
+    tensors on ``device`` (tuples become lists).  With ``dtype`` every leaf
+    is cast to it; without, bfloat16 (ml_dtypes) leaves stay bfloat16, other
+    floating leaves become float32 and the rest keep their type."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_numpy(v, device, dtype) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    elif a.dtype.kind == "f":
+        t = torch.from_numpy(np.array(a, np.float32))
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)

@@ -25,7 +25,6 @@ slot against the engine's pool).  Caches are updated in place.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import _tree
@@ -101,32 +100,13 @@ def init_params(seed, cfg, device=None) -> dict:
     return params
 
 
-def _leaf_from_numpy(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes.bfloat16
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    if a.dtype.kind == "f":
-        return torch.from_numpy(np.array(a, np.float32)).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
 def params_from_reference(tree, cfg, device=None) -> dict:
     """The reference's parameter pytree, as nested dicts and lists of numpy
     arrays (float32 or ml_dtypes bfloat16 leaves; ``units`` leaves stacked
     with a leading ``n_units`` axis, ``tail`` a list of per-layer dicts), as
     the port's parameters on ``device``."""
     check_servable(cfg)
-    device = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        return _leaf_from_numpy(node, device)
-
-    params = conv(tree)
+    params = _tree.from_numpy(tree, resolve_device(device))
     lead = {t.shape[0] for t in _leaves(params["units"])}
     if lead != {cfg.n_units}:
         raise ValueError(f"units leaves lead with {sorted(lead)}, expected "

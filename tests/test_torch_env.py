@@ -22,8 +22,11 @@ import torch
 from repro.core import env as r_env
 from repro.core import scenarios as r_sc
 from repro.core.lyapunov import VirtualQueues as RQueues
-from repro_torch import _tree
+from repro_torch import _tree, quickstart
 from repro_torch.core import env as p_env
+from repro_torch.core import networks as p_net
+from repro_torch.core import policies as p_pol
+from repro_torch.core import ppo as p_ppo
 from repro_torch.core import scenarios as p_sc
 from repro_torch.core import sweep as p_sweep
 from repro_torch.kernels import ref as p_ref
@@ -290,11 +293,20 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         lambda: p_sc.ScenarioGrid(p_sc.multicell_grid(2, 3)),
         lambda: p_sc.grid_from_names(["paper_table1"]),
         lambda: p_env.state_from_numpy(0, [1.0], [1.0], [0.0], [0.0]),
+        lambda: quickstart.main([]),
+        lambda: p_net.mlp_init(torch.Generator(), (4, 2)),
+        lambda: p_ppo.train_state_from_reference(None, None),
+        lambda: p_pol.CategoricalPolicy(8, [8] * 5),
+        lambda: p_pol.GaussianTanhPolicy(8, np.full(5, 8)),
+        lambda: p_pol.JointGaussianPolicy(8, [8] * 5, 1.5e9, 15e9),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert p_env.paper_env(device="cpu").device.type == "cpu"
+    # a head takes the device it is given, else its layer-count tensor's
+    assert p_pol.CategoricalPolicy(8, [8] * 5, device="cpu").device.type == "cpu"
+    assert p_pol.GaussianTanhPolicy(8, torch.full((5,), 8)).device.type == "cpu"
 
 
 def _port_sources():
@@ -305,7 +317,8 @@ def _port_sources():
 
 def test_import_guard_covers_the_serving_slice():
     """The guard below globs the whole package: the modules of the served
-    LM path and the kernel sources' wrappers are among its files."""
+    LM path, the kernel sources' wrappers and the learning loop are among
+    its files."""
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in _port_sources()[:-1]}
     for mod in ("configs/base.py", "kernels/_build.py",
@@ -315,7 +328,8 @@ def test_import_guard_covers_the_serving_slice():
                 "serving/partitioned.py", "profiling/lmprofiles.py",
                 "serve_partitioned.py", "kernels/ssd_scan.py",
                 "kernels/rglru_scan.py", "models/ssm.py", "models/rglru.py",
-                "launch/serve.py"):
+                "launch/serve.py", "core/networks.py", "core/policies.py",
+                "core/ppo.py", "optim/adam.py", "quickstart.py"):
         assert mod in names, mod
 
 

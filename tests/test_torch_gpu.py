@@ -1,6 +1,7 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
 plain PyTorch version, the grid's Oracle path launching the partition
-sweep, and the serving engine launching the attention kernels.
+sweep, the serving engine launching the attention kernels, and the
+learning loop (a training episode; a PPO update, card against CPU).
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch:
@@ -23,6 +24,10 @@ import pytest
 import torch
 
 from repro_torch import _tree
+from repro_torch.core import env as p_env
+from repro_torch.core import lymdo as p_lymdo
+from repro_torch.core import policies as p_pol
+from repro_torch.core import ppo as p_ppo
 from repro_torch.core import scenarios as p_sc
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import decode_attention as p_da
@@ -538,3 +543,83 @@ def test_engine_on_card_serves_ring_and_recurrent_stacks(arch, pattern,
     for k in kernels:
         assert _WRAPPERS[k].launches > before[k], k
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The learning loop on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_training_episode_on_card():
+    """One K = 16 training episode of the quickstart's agent on the card:
+    a CUDA generator, Adam's step count, finite metrics, moved parameters,
+    and the Oracle baseline through the sweep kernel."""
+    _need_card()
+    env = p_env.paper_env()
+    agent = p_ppo.PPO(p_pol.CategoricalPolicy(env.obs_dim, env.L),
+                      env.obs_dim)
+    runner = p_lymdo.Runner(env, agent, steps=16)
+    assert env.generator(0).device.type == "cuda"
+    init = agent.init(env.generator(0))
+    state, hist = runner.train(p_lymdo.RunConfig(episodes=1, steps=16,
+                                                 chunk=1, log=False))
+    assert int(state.opt_state.step) == agent.cfg.epochs
+    assert all(x.is_cuda for x in _tree.leaves(state.params))
+    assert all(v.shape == (1,) and np.isfinite(v).all() for v in hist.values())
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(_tree.leaves(state.params), _tree.leaves(init.params)))
+    assert moved > 0
+    before = p_ps.partition_sweep_cuda.launches
+    m, _ = p_lymdo.run_fixed(env, p_lymdo.oracle_cut_fn(env), episodes=1,
+                             steps=4)
+    assert p_ps.partition_sweep_cuda.launches == before + 4
+    assert all(np.isfinite(v) for v in m.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["categorical", "joint"])
+def test_ppo_update_card_matches_cpu(head):
+    """One 8-epoch update from the same parameters on the same trajectory
+    (collected on the CPU), card against CPU, at the CPU parity tests'
+    update tolerance: metrics rtol 1e-4, parameters atol 1e-5."""
+    _need_card()
+    env = p_env.paper_env(device="cpu")
+
+    def make(device):
+        L = env.L.to(device)
+        pol = (p_pol.JointGaussianPolicy(env.obs_dim, L, env.cfg.f_max_ue,
+                                         env.cfg.f_max_es) if head == "joint"
+               else p_pol.CategoricalPolicy(env.obs_dim, L))
+        return p_ppo.PPO(pol, env.obs_dim)
+
+    agent, card = make("cpu"), make("cuda")
+    state = agent.init(env.generator(0))
+    traj, _, _ = p_lymdo.Runner(env, agent, steps=16,
+                                mode="joint" if head == "joint" else "lymdo"
+                                ).episode(state.params, env.generator(1))
+    want_state, want = agent.update(state, traj)
+    got_state, got = card.update(_tree.to_device(state, "cuda"),
+                                 _tree.to_device(traj, "cuda"))
+    for name in want:
+        np.testing.assert_allclose(_np(got[name]), _np(want[name]),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    for a, b in zip(_tree.leaves(got_state.params),
+                    _tree.leaves(want_state.params)):
+        assert a.is_cuda
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-5)
+    assert int(got_state.opt_state.step) == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["gaussian", "categorical", "joint"])
+def test_head_from_layer_list_lives_on_card(head):
+    """A head given its layer counts as a list and no device lives on the
+    card, and so does the PPO state it initialises."""
+    _need_card()
+    L = [8, 8, 18, 18, 18]
+    pol = {"gaussian": lambda: p_pol.GaussianTanhPolicy(12, L),
+           "categorical": lambda: p_pol.CategoricalPolicy(12, L),
+           "joint": lambda: p_pol.JointGaussianPolicy(12, L, 1.5e9, 15e9)}[head]()
+    assert pol.device.type == "cuda"
+    state = p_ppo.PPO(pol, 12).init(torch.Generator(device="cuda").manual_seed(0))
+    assert all(x.is_cuda for x in _tree.leaves(state))

@@ -21,11 +21,11 @@ from repro.configs.base import reduced as r_reduced
 from repro.models import attention as r_attn
 from repro.models import rglru as r_rglru
 from repro.models import ssm as r_ssm
+from repro_torch import _tree
 from repro_torch.configs import base as p_base
 from repro_torch.models import attention as p_attn
 from repro_torch.models import rglru as p_rglru
 from repro_torch.models import ssm as p_ssm
-from repro_torch.models import transformer as p_tf
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -39,8 +39,8 @@ def _np(x):
 
 def _params(tree):
     """A reference parameter dict as the port's (float32 on the CPU)."""
-    return {k: p_tf._leaf_from_numpy(np.asarray(v), "cpu")
-            for k, v in tree.items()}
+    return _tree.from_numpy({k: np.asarray(v) for k, v in tree.items()},
+                            "cpu")
 
 
 def _configs(name):
