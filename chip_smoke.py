@@ -47,8 +47,10 @@ the card:
 5. holds the flash and decode attention kernels against their plain
    versions at the serving path's shapes and at the reference's own kernel
    test cases, each float32 case with a bf16 twin for flash's tensor-core
-   body (2e-5 in float32, 2e-2 in bf16; rows of a left pad, which see no
-   key, are compared only for being finite and zero), split-K decode with a
+   body, and at phase 10's sync waves (flash at B8 with a pad per row, the
+   dense decode under the wave's pad mask) in both types (2e-5 in
+   float32, 2e-2 in bf16; rows of a left pad, which see no key, are
+   compared only for being finite and zero), split-K decode with a
    row whose keys are all masked and a split whose keys are, and the paged
    decode entry against the gather and the plain version over a scattered
    block table; and times each at the main path's shape: device time, wall
@@ -74,7 +76,10 @@ the card:
    multiple of its channel tile; 1e-4 in float32 and for the SSD state,
    2e-2 for an output rounded to bf16) and the attention kernels at
    recurrentgemma's shapes (10 heads over 1 kv head, hd 256, a
-   2048 window and a 64 one, a scattered 2048-slot ring), and times both
+   2048 window and a 64 one, a scattered 2048-slot ring), the RG-LRU scan
+   and hd-256 flash at phase 10 (d)'s sync waves (B8 R2560 with each
+   row's pad-reset run; a pad per row) and the ring decode under a wave's
+   pad mask, and times both
    scans at the split check's shape and at their engine shapes (a 32-token
    solo prefill with a left pad of 3), the RG-LRU at the split shape once
    more with the L2 flushed before each call, decode over the ring and
@@ -95,7 +100,29 @@ the card:
    layers, and card against CPU: two bf16 evaluations of this stack part
    by more than the 2e-2 band, so the card's bf16 logits are held by their
    distance from a float32 evaluation, and its float32 logits to the CPU's
-   at 1e-4.
+   at 1e-4;
+10. drives the engine's other modes and the traffic loop: (a) qwen3-0.6b at
+   full width through the sync engine that ``traffic_demo --sync`` builds
+   (telemetry and a traffic recorder; phase 6's mix of 16 requests), its
+   float32 tokens at 4 layers held to solo runs; (b) the same mix on the
+   continuous engine with telemetry and the sanitizer, then the
+   sanitizer's flash crowd (3 slots, 7 blocks: preemption must fire) on
+   the same model and ``python -m repro_torch.analysis --sanitize``; (c)
+   (a)'s recorded trace replayed on a 16-cell ``trace_replay`` grid under
+   the Oracle and read back by ``python -m repro_torch.traffic --show``;
+   (d) recurrentgemma-2b through ``launch.serve --sync-batching`` and
+   phase 9's burst through a sync engine, its float32 tokens at 5 layers
+   held to solo runs; every wave (a) and (d) prefill must be one that
+   phases 5 and 7 held the kernels at; (e) ``train_lymdo`` killed
+   after its first chunk and resumed, against an uninterrupted run
+   (parameters within 1e-5); (f) ``train_compare`` at 1 episode x 16
+   slots per agent; (g) ``python -m repro_torch.obs --overhead`` (the
+   hooks' own time a tick within 5 % of the disabled tick p50).  Kernel
+   launches are held to exact counts (flash 28 per wave prefill and
+   decode attention 28 per decode tick in (a); the sweep one per Oracle
+   slot in (c) and (f); RG-LRU 18 per wave prefill in (d));
+   every request's delay-breakdown stages sum to its E2E ticks, the
+   Prometheus text parses and the Chrome trace round-trips.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -695,6 +722,17 @@ def learning_phase(torch, smi) -> dict:
 
 # -- phase 5: the attention kernels ------------------------------------------
 
+# phase 10's sync waves (B, width, each row's left pad; None where no row is
+# padded), as the sync engine builds them from (a)'s mix on qwen3-0.6b and
+# from (d)'s burst and launcher run on recurrentgemma-2b: the kernels are
+# held to their plain versions at these shapes, and phase 10 fails if its
+# engines prefill a wave that is not listed here
+QWEN3_WAVES = [(8, 275, [18, 39, 0, 27, 255, 181, 229, 129]),
+               (8, 274, [135, 115, 0, 67, 189, 125, 31, 99])]
+RG_WAVES = [(8, 144, [6, 120, 72, 8, 0, 16, 109, 74]),
+            (8, 128, [67, 94, 116, 14, 67, 67, 67, 67]),
+            (2, 16, None)]
+
 FLASH_CASES = [
     # (label, B, Sq, Sk, H, KV, hd, dtype, kind, window, pad)
     ("engine solo prefill, 27-token prompt in the 32 bucket",
@@ -723,6 +761,9 @@ FLASH_CASES = [
 # bf16 twins of the float32 cases: the tensor-core body covered as widely
 FLASH_CASES += [(c[0] + ", bf16 twin", *c[1:7], "bf16", *c[8:])
                 for c in FLASH_CASES if c[7] == "f32"]
+FLASH_CASES += [("sync wave of phase 10 (a)", b, s, s, 16, 8, 128, dt,
+                 "causal", 0, pad)
+                for b, s, pad in QWEN3_WAVES for dt in ("bf16", "f32")]
 DECODE_CASES = [
     # (label, B, S, H, KV, hd, dtype, all-invalid row?)
     ("engine tick: 8 slots x table width 32 x 16", 8, 512, 16, 8, 128, "bf16",
@@ -740,7 +781,15 @@ DECODE_CASES = [
     ("recurrentgemma's ring shape", 8, 2048, 10, 1, 256, "bf16", True),
     ("recurrentgemma's ring shape", 8, 2048, 10, 1, 256, "f32", True),
     ("G 20: two head groups", 1, 777, 40, 2, 64, "f32", True),
-]
+] + [
+    # (..., left pads): the sync decode under its wave's pad mask, dense
+    # (a) and on recurrentgemma's ring (d)
+    (label, *shape, dt, False, pad) for dt in ("bf16", "f32")
+    for label, *shape, pad in [
+        ("sync decode of phase 10 (a)", 8, 512, 16, 8, 128, QWEN3_WAVES[0][2]),
+        ("sync decode of phase 10 (d), the ring", 8, 2048, 10, 1, 256,
+         RG_WAVES[0][2]),
+    ]]
 PAGED_CASES = [
     # (label, B, M, bs, H, KV, hd, dtype, seq_lens): lengths of 0, of a
     # block boundary and of the table's end, over a scattered table
@@ -791,12 +840,19 @@ def check_flash(torch, fa, ref, gen, case) -> float:
 
 
 def check_decode(torch, da, ref, gen, case) -> float:
-    label, b, s, h, kv, hd, dt, dead_row = case
+    label, b, s, h, kv, hd, dt, dead_row, *pad = case
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
-    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
-    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
-    if s >= 192:
+    keys = torch.arange(s, device="cuda")[None, :]
+    if pad:                      # a sync wave: keys below its pads masked
+        pad_t = torch.tensor(pad[0], device="cuda")[:, None]
+        lens = torch.randint(int(pad_t.max()) + 1, s + 1, (b, 1),
+                             generator=gen, device="cuda")
+        valid = (keys >= pad_t) & (keys < lens)
+    else:
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+        valid = keys < lens[:, None]
+    if s >= 192 and not pad:
         valid[0] = True          # a real row whose second split is all masked
         valid[0, 64:128] = False
     if dead_row:
@@ -809,7 +865,8 @@ def check_decode(torch, da, ref, gen, case) -> float:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"decode {label}: outside {tol} (max abs err {err:.3e})")
     log(f"  decode {dt:4s} B{b} S{s} H{h}/{kv} hd{hd}"
-        f"{' all-invalid row' if dead_row else ''}: ok, max abs err "
+        f"{' all-invalid row' if dead_row else ''}"
+        f"{f' pad={pad[0]}' if pad else ''}: ok, max abs err "
         f"{err:.3e} ({label})")
     return err
 
@@ -1060,17 +1117,18 @@ def log_profile(t: dict, slots: int) -> None:
             f"{row['device_ms_per_tick']:.4f} ms a tick  {row['name']}")
 
 
-def f32_identity(torch, cfg32) -> dict:
+def f32_identity(torch, cfg32, sync: bool = False) -> dict:
     """float32 at full width and a cut depth: the engine's tokens are each
     request's solo tokens (prefill + decode_step) through chunked prefill,
     buckets and preemption (a pool of 11 allocatable blocks of 16 for 3
-    slots)."""
+    slots); with ``sync``, the sync engine's, through left-padded waves."""
     from repro_torch import serve_partitioned as sp
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServingEngine
 
     p32 = transformer.init_params(7, cfg32, "cuda")
-    eng = ServingEngine(cfg32, p32, slots=3, s_max=256, kv_blocks=12)
+    eng = ServingEngine(cfg32, p32, slots=3, s_max=256, kv_blocks=12,
+                        sync_batching=sync)
     reqs = sp.make_requests(cfg32, 8, 5, 150, 12, 3)
     for r in reqs:
         eng.submit(r)
@@ -1082,13 +1140,13 @@ def f32_identity(torch, cfg32) -> dict:
         if solo != r.out:
             bad.append({"rid": r.rid, "len": len(r.prompt),
                         "min_top2_gap": min(gaps)})
-    log(f"    float32 engine vs solo, {cfg32.name} at {cfg32.n_layers} "
-        f"layers: {len(reqs) - len(bad)}/{len(reqs)} requests identical "
-        f"({eng.preemptions} preemptions, {eng.prefill_steps} prefills and "
-        f"chunks)")
+    log(f"    float32 {'sync ' if sync else ''}engine vs solo, {cfg32.name} "
+        f"at {cfg32.n_layers} layers: {len(reqs) - len(bad)}/{len(reqs)} "
+        f"requests identical ({eng.preemptions} preemptions, "
+        f"{eng.prefill_steps} prefills and chunks)")
     if bad:
         fail(f"float32 engine tokens differ from the solo runs: {bad}")
-    if eng.preemptions == 0:
+    if eng.preemptions == 0 and not sync:
         fail("the pool sized to force preemption preempted nothing")
     return {"f32_identical": len(reqs), "f32_preemptions": eng.preemptions}
 
@@ -1273,6 +1331,13 @@ RGLRU_CASES = [
         ("S = 300: step 0, a tile boundary, the last step, R 40", 1, 300, 40,
          [(0, 0), (0, 256), (0, 299)]),
     ]]
+RGLRU_CASES += [
+    # phase 10 (d)'s sync waves: resets through each row's pad and on its
+    # first real token (models.common.pad_reset); 32-channel blocks at B8
+    ("sync wave of phase 10 (d)", b, s, 2560, dt,
+     None if pad is None else [(i, t) for i, p in enumerate(pad) if p
+                               for t in range(p + 1)])
+    for b, s, pad in RG_WAVES for dt in ("f32", "bf16")]
 FLUSH_BYTES = 64 << 20          # written before each call to empty the 50 MB L2
 RG_FLASH_CASES = [
     # recurrentgemma's "l" prefill: 10 query heads over 1 kv head, hd 256
@@ -1282,7 +1347,8 @@ RG_FLASH_CASES = [
      "bf16", "local", 64, None),
     ("recurrentgemma solo prefill", 1, 32, 32, 10, 1, 256, "bf16", "local",
      2048, [5]),
-]
+] + [("sync wave of phase 10 (d)", b, s, s, 10, 1, 256, dt, "local", 2048, pad)
+     for b, s, pad in RG_WAVES for dt in ("bf16", "f32")]
 
 
 def resets_tensor(torch, b, s, at):
@@ -1367,7 +1433,8 @@ def check_rglru(torch, rg, ref, gen, case) -> float:
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"rglru {label}: outside {tol} (max abs err {err:.3e})")
-    log(f"  rglru  {dt:4s} B{b} S{s} R{r} resets={at}: ok, max abs err "
+    shown = at if at is None or len(at) <= 8 else f"{len(at)} steps"
+    log(f"  rglru  {dt:4s} B{b} S{s} R{r} resets={shown}: ok, max abs err "
         f"{err:.3e} (tol {tol}) ({label}; plan {rg.plan(b, s, r)})")
     return err
 
@@ -1671,6 +1738,325 @@ def recurrentgemma_phase(torch) -> dict:
     return rep
 
 
+# -- phase 10: the engine's modes and the traffic loop -----------------------
+
+SYNC_MIX = dict(n=16, lo=8, hi=300, max_new=32, slots=8, s_max=512)  # phase 6's
+TRACE_CELLS, TRACE_STEPS = 16, 20
+TL_ARGS = ["--chunk", "1", "--steps", "16", "--eval-episodes", "1"]
+TC_STEPS = 16                  # slots per episode; 1 episode each
+TC_ARGS = ["--episodes", "1", "--steps", str(TC_STEPS), "--eval-episodes",
+           "1"]
+CHECKPOINT_ATOL = 1e-5
+OVERHEAD_ARGS = ["--overhead", "--repeats", "4"]     # gate 5 %, the CLI's
+
+
+def sweep_launches() -> int:
+    from repro_torch.kernels import partition_sweep as ps
+    return ps.partition_sweep_cuda.launches
+
+
+def zero_all_counts() -> None:
+    from repro_torch.kernels import partition_sweep as ps
+    zero_counts()
+    ps.partition_sweep_cuda.launches = 0
+
+
+def check_prometheus(text: str) -> int:
+    """The exposition parses: every sample line is ``series value`` with a
+    number, and every metric name has one HELP and one TYPE line.  Returns
+    the number of names."""
+    helps, types = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            seen = helps if line.startswith("# HELP") else types
+            name = line.split()[2]
+            seen[name] = seen.get(name, 0) + 1
+            continue
+        float(line.rsplit(" ", 1)[1])
+    if set(helps) != set(types) or any(
+            n != 1 for n in (*helps.values(), *types.values())):
+        fail(f"prometheus: HELP {helps} / TYPE {types} not one per name")
+    return len(types)
+
+
+def check_observed(label: str, eng, n: int, max_new: int) -> dict:
+    """Every request completed with its tokens; each breakdown's stage sum
+    is its E2E ticks; the Prometheus text parses; the Chrome trace
+    round-trips through a file."""
+    import numpy as np
+    from repro_torch.obs import SpanTracer
+    rec, tel = eng.recorder, eng.obs.tracer
+    bds = rec.delay_breakdowns()
+    if len(bds) != n:
+        fail(f"{label}: {len(bds)} breakdowns for {n} requests")
+    for rid, b in bds.items():
+        ev = rec.events[rid]
+        if b.e2e != ev.complete - ev.submit or min(
+                b.queue_wait, b.prefill, b.decode, b.preempted) < 0:
+            fail(f"{label}: request {rid}'s stages {b.as_dict()} do not sum "
+                 f"to its E2E ticks {ev.complete - ev.submit}")
+    names = check_prometheus(eng.obs.metrics.to_prometheus())
+    path = ROOT / "build" / f"phase10_{label}_trace.json"
+    tel.export_chrome(path)
+    if SpanTracer.load_chrome(path) != tel.events():
+        fail(f"{label}: the Chrome trace did not round-trip")
+    snap = eng.obs.metrics.snapshot()
+    mode = "sync" if eng.sync_batching else "continuous"
+    if snap[f'serving_completed_total{{engine="{mode}"}}'] != n or snap[
+            f'serving_tokens_total{{engine="{mode}"}}'] != n * max_new:
+        fail(f"{label}: completion and token counters disagree")
+    return {"breakdowns": len(bds), "metric_names": names,
+            "trace_events": len(tel.events()),
+            "e2e_ticks_p50": float(np.median([b.e2e for b in bds.values()]))}
+
+
+def check_waves(label: str, shapes, waves) -> None:
+    """Every wave the run prefilled, (B, width, padded?), is one whose
+    shape phases 5 and 7 held its kernels at."""
+    held = {(b, s, pad is not None) for b, s, pad in waves}
+    missed = set(map(tuple, shapes)) - held
+    if missed:
+        fail(f"{label}: waves {sorted(missed)} were not held to the plain "
+             f"kernels (QWEN3_WAVES / RG_WAVES list {sorted(held)})")
+
+
+def sync_vs_continuous(label: str, sync: dict, cont: dict) -> dict:
+    keys = ("decode_tick_ms_p50", "decode_tick_ms_p99", "prefill_tick_ms_p50",
+            "prefill_tick_ms_p99", "tokens_per_s")
+    log(f"    {label}, sync against continuous: " + "; ".join(
+        f"{k} {sync[k]:.2f} / {cont[k]:.2f}" for k in keys))
+    return {k: {"sync": sync[k], "continuous": cont[k]} for k in keys}
+
+
+def engines_phase(torch, report: dict, smi: str) -> dict:
+    """Phase 10: the sync engine with telemetry and a recorder, the
+    continuous engine with telemetry and the sanitizer, the recorded trace
+    replayed under the Oracle, recurrentgemma through the launcher's sync
+    mode, the training entry points and the telemetry overhead gate."""
+    import shutil
+
+    import numpy as np
+    from repro_torch import _tree
+    from repro_torch import serve_partitioned as sp
+    from repro_torch import traffic_demo, train_compare, train_lymdo
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.sanitize import run_sanitize
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as ls
+    from repro_torch.models import transformer
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.traffic import TrafficRecorder
+    from repro_torch.traffic.__main__ import main as traffic_main
+
+    out: dict = {"card": smi}
+    m = SYNC_MIX
+    cfg = sp.model_config(layers=None)
+    layers = cfg.n_layers
+    params = transformer.init_params(sp.SEED, cfg, "cuda")   # phase 6's
+
+    # (a) the sync engine, as traffic_demo --sync builds it
+    log(f"[10] (a) {cfg.name} ({layers} layers, bf16) through "
+        f"ServingEngine(sync_batching=True, telemetry=, recorder=): "
+        f"{m['n']} requests of {m['lo']}-{m['hi']} prompt tokens, "
+        f"{m['max_new']} new, {m['slots']} slots, s_max {m['s_max']}")
+    eng = traffic_demo.make_engine(cfg, params, sync=True, slots=m["slots"],
+                                   s_max=m["s_max"])
+    reqs = sp.make_requests(cfg, m["n"], m["lo"], m["hi"], m["max_new"],
+                            sp.SEED)
+    zero_all_counts()
+    stats = sp.serve(eng, reqs, torch.cuda.synchronize)
+    got = {**read_counts(), "partition_sweep": sweep_launches()}
+    if stats["completed"] != m["n"] or any(
+            len(o) != m["max_new"] for o in stats["out"].values()):
+        fail("sync engine: a request did not complete with its tokens")
+    check_counts("the sync engine's run", got, stats,
+                 per_prefill={"flash_attention": layers},
+                 per_tick={"decode_attention": layers})
+    log_serving("sync engine", stats)
+    check_waves("the sync engine's run", eng._prefill_shapes, QWEN3_WAVES)
+    out["sync"] = {**stats, "launches": got,
+                   "prefill_shapes": sorted(eng._prefill_shapes),
+                   **check_observed("sync", eng, m["n"], m["max_new"])}
+    out["sync_vs_continuous"] = sync_vs_continuous(
+        "qwen3", stats, report["serving"]["serving"])
+    sync_rec = eng.recorder
+    parted = []
+    for r in reqs[:4]:
+        solo, gaps = solo_tokens(torch, transformer, params, cfg, r.prompt,
+                                 m["max_new"], m["s_max"])
+        if solo != r.out:
+            i = next(j for j, (a, b) in enumerate(zip(solo, r.out)) if a != b)
+            parted.append({"rid": r.rid, "step": i, "top2_gap": gaps[i]})
+    out["sync"]["bf16_parted_from_solo"] = parted
+    log(f"    bf16 sync engine vs solo on 4 requests: {len(parted)} parted "
+        f"{parted}")
+    out["sync"].update(f32_identity(torch, sp.model_config(
+        layers=4, dtype="float32"), sync=True))
+
+    # (b) the continuous engine with telemetry and the sanitizer, then the
+    # sanitizer's flash crowd on the same model
+    log("    (b) the same mix on ServingEngine(telemetry=, sanitize=True)")
+    eng = ServingEngine(cfg, params, slots=m["slots"], s_max=m["s_max"],
+                        recorder=TrafficRecorder(),
+                        telemetry=Telemetry(sample_every=1), sanitize=True)
+    reqs = sp.make_requests(cfg, m["n"], m["lo"], m["hi"], m["max_new"],
+                            sp.SEED)
+    zero_all_counts()
+    stats = sp.serve(eng, reqs, torch.cuda.synchronize)
+    got = {**read_counts(), "partition_sweep": sweep_launches()}
+    if stats["completed"] != m["n"]:
+        fail("sanitized engine: a request did not complete")
+    check_counts("the sanitized engine's run", got, stats,
+                 per_prefill={"flash_attention": layers},
+                 per_tick={"decode_attention": layers})
+    log_serving("sanitized continuous engine", stats)
+    out["sanitized"] = {**stats, "launches": got,
+                        **check_observed("sanitized", eng, m["n"],
+                                         m["max_new"])}
+    rep = run_sanitize(cfg=cfg, params=params)
+    log(f"    run_sanitize's flash crowd at full width: {rep.ticks} ticks, "
+        f"{rep.requests} requests, {rep.preemptions} preemptions, "
+        f"{rep.block_churn} block events, {len(rep.failures)} failures "
+        f"in {rep.elapsed_s:.1f} s")
+    if not rep.ok or rep.preemptions == 0 or rep.requests != 10:
+        fail(f"run_sanitize at full width: {[f.render() for f in rep.failures]}"
+             f", {rep.preemptions} preemptions")
+    out["flash_crowd"] = {"ticks": rep.ticks, "preemptions": rep.preemptions,
+                          "block_churn": rep.block_churn,
+                          "s": rep.elapsed_s}
+    log("    python -m repro_torch.analysis --sanitize")
+    if analysis_main(["--sanitize"]) != 0:
+        fail("python -m repro_torch.analysis --sanitize reported failures")
+    del eng
+
+    # (c) the recorder of (a) -> trace -> the Oracle on a trace_replay grid
+    trace = sync_rec.to_trace(n_ue=4, bin_ticks=4, which="complete")
+    path = ROOT / "build" / "phase10_trace.npz"
+    trace.save(path)
+    log(f"    (c) trace of (a)'s completions: T={trace.n_slots} x "
+        f"N={trace.n_ue}; {TRACE_CELLS}-cell trace_replay grid under the "
+        f"Oracle, {TRACE_STEPS} slots")
+    zero_all_counts()
+    t0 = time.perf_counter()
+    rp = traffic_demo.replay(str(path), TRACE_CELLS, TRACE_STEPS, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sweep_launches() != TRACE_STEPS:
+        fail(f"trace replay: {sweep_launches()} partition_sweep launches, "
+             f"expected one per Oracle slot ({TRACE_STEPS})")
+    if not all(np.isfinite(v).all() for v in rp["metrics"].values()):
+        fail("trace replay: non-finite metrics")
+    if traffic_main(["--show", str(path)]) != 0:
+        fail("python -m repro_torch.traffic --show failed")
+    out["replay"] = {"slots": TRACE_STEPS, "cells": TRACE_CELLS,
+                     "slot_ms": dt / TRACE_STEPS * 1e3,
+                     "sweep_launches": TRACE_STEPS,
+                     "delay_ms": float(np.mean(rp["metrics"]["delay"])) * 1e3}
+    del params
+
+    # (d) recurrentgemma through the launcher's sync mode, then phase 9's
+    # burst through a sync engine built as the launcher builds it
+    per = dict(per_prefill={"rglru_scan": 18, "flash_attention": 8},
+               per_tick={"decode_attention": 8})
+    log("    (d) python -m repro_torch.launch.serve " + " ".join(RG_ARGS)
+        + " --sync-batching")
+    zero_all_counts()
+    rep = ls.main(RG_ARGS + ["--sync-batching"])
+    torch.cuda.synchronize()
+    got = {**read_counts(), "partition_sweep": sweep_launches()}
+    if rep["mode"] != "sync" or len(rep["out"]) != 6 or any(
+            len(o) != 8 for o in rep["out"].values()):
+        fail("recurrentgemma sync: a request did not get its 8 tokens")
+    check_counts("the launcher's sync run", got, rep, **per)
+    check_waves("the launcher's sync run", rep["prefill_shapes"], RG_WAVES)
+    out["rg_launcher"] = {"launches": got, "prefill_steps": rep["prefill_steps"],
+                          "decode_steps": rep["decode_steps"]}
+    rg_cfg = get_config("recurrentgemma-2b")
+    rg_params = transformer.init_params(ls.SEED, rg_cfg, "cuda")
+    b = RG_BURST
+    eng = ls.make_engine(rg_cfg, rg_params, slots=b["slots"],
+                         prompt_len=b["hi"], max_new=b["max_new"],
+                         sync_batching=True)
+    zero_all_counts()
+    stats = sp.serve(eng, sp.make_requests(rg_cfg, b["n"], b["lo"], b["hi"],
+                                           b["max_new"], sp.SEED),
+                     torch.cuda.synchronize)
+    got = {**read_counts(), "partition_sweep": sweep_launches()}
+    if stats["completed"] != b["n"]:
+        fail("recurrentgemma sync burst did not complete")
+    check_counts("the recurrentgemma sync burst", got, stats, **per)
+    check_waves("the recurrentgemma sync burst", eng._prefill_shapes,
+                RG_WAVES)
+    log_serving("recurrentgemma sync burst", stats)
+    out["rg_sync_burst"] = {**stats, "launches": got}
+    out["rg_sync_vs_continuous"] = sync_vs_continuous(
+        "recurrentgemma burst", stats, report["recurrentgemma"]["burst"])
+    del rg_params, eng
+    out["rg_sync_burst"].update(f32_identity(torch, dataclasses.replace(
+        rg_cfg, n_layers=5, param_dtype="float32", compute_dtype="float32"),
+        sync=True))
+
+    # (e) train_lymdo killed after its first chunk and resumed, against an
+    # uninterrupted run
+    dirs = [ROOT / "build" / f"phase10_ckpt_{x}" for x in "ab"]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    log("    (e) python -m repro_torch.train_lymdo " + " ".join(TL_ARGS)
+        + ": --episodes 1, then 2 resumed, against 2 in one run")
+    zero_all_counts()
+    t0 = time.perf_counter()
+    runs = [train_lymdo.main(TL_ARGS + ["--episodes", str(n), "--ckpt-dir",
+                                        str(d)])
+            for n, d in ((1, dirs[0]), (2, dirs[0]), (2, dirs[1]))]
+    torch.cuda.synchronize()
+    tl_s = time.perf_counter() - t0
+    if [r["resumed_from"] for r in runs] != [0, 1, 0] or sweep_launches():
+        fail(f"train_lymdo: resumed from {[r['resumed_from'] for r in runs]}")
+    worst = max(float((a - c).abs().max()) for a, c in zip(
+        _tree.leaves(runs[1]["train_state"]),
+        _tree.leaves(runs[2]["train_state"])))
+    log(f"    resumed vs uninterrupted parameters: max abs diff {worst:.3e} "
+        f"(atol {CHECKPOINT_ATOL}); {tl_s:.1f} s for the three runs")
+    if worst > CHECKPOINT_ATOL:
+        fail("train_lymdo: the resumed run's parameters differ")
+    out["train_lymdo"] = {"max_abs_diff": worst, "s": tl_s,
+                          "eval": runs[2]["eval"]}
+
+    # (f) train_compare at 1 episode x 16 slots per agent
+    art_path = ROOT / "build" / "phase10_paper_artifacts.json"
+    log("    (f) python -m repro_torch.train_compare " + " ".join(TC_ARGS))
+    zero_all_counts()
+    t0 = time.perf_counter()
+    art = train_compare.main(TC_ARGS + ["--out", str(art_path)])
+    torch.cuda.synchronize()
+    tc_s = time.perf_counter() - t0
+    written = json.loads(art_path.read_text())
+    if set(written) != set(art) - {"agents"} or len(written) != 9:
+        fail(f"train_compare wrote keys {sorted(written)}")
+    if sweep_launches() != TC_STEPS:
+        fail(f"train_compare: {sweep_launches()} partition_sweep launches, "
+             f"expected one per Oracle slot ({TC_STEPS})")
+    for rate, row in written["fig4"].items():
+        if row["oracle"]["reward"] < max(row["local"]["reward"],
+                                         row["edge"]["reward"]) - 1e-3:
+            fail(f"train_compare: the Oracle scores worse than a fixed "
+                 f"baseline at {rate} req/s")
+    log(f"    {tc_s:.1f} s; headline {written['headline_delay_reduction_vs_ppo']:.3f}"
+        f"; Oracle delay ms " + ", ".join(
+            f"{r} {row['oracle']['delay'] * 1e3:.1f}"
+            for r, row in written["fig4"].items()))
+    out["train_compare"] = {"s": tc_s, "keys": sorted(written),
+                            "sweep_launches": TC_STEPS}
+
+    # (g) the telemetry overhead gate at the CLI's depth
+    log("    (g) python -m repro_torch.obs " + " ".join(OVERHEAD_ARGS))
+    if obs_main(OVERHEAD_ARGS) != 0:
+        fail("the telemetry overhead gate failed")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1843,6 +2229,8 @@ def main() -> int:
     report["mamba2"] = mamba2_phase(torch)
     phase_done()
     report["recurrentgemma"] = recurrentgemma_phase(torch)
+    phase_done()
+    report["engines"] = engines_phase(torch, report, smi)
     phase_done()
 
     kernels = [{

@@ -98,6 +98,15 @@ def make(name: str, **knobs) -> Scenario:
     return ctor(**knobs)
 
 
+def describe() -> str:
+    """One line per registered scenario (the --list catalogue)."""
+    lines = []
+    for name in names():
+        doc = (_REGISTRY[name].__doc__ or "").strip().splitlines()
+        lines.append(f"{name}: {doc[0] if doc else ''}")
+    return "\n".join(lines)
+
+
 # ---------------------------------------------------------------------------
 # Built-in scenario constructors
 # ---------------------------------------------------------------------------
@@ -465,9 +474,35 @@ class ScenarioGrid:
         return rollout
 
     def rollout(self, policy: str | Callable = "oracle", steps: int = 200,
-                seed: int = 0):
-        """Convenience one-shot: build + run the rollout."""
-        return self.make_rollout(policy, steps)(seed)
+                seed: int = 0, telemetry=None):
+        """Convenience one-shot: build + run the rollout.
+
+        ``telemetry=`` (a :class:`repro_torch.obs.Telemetry`) wraps the run
+        in a ``grid_rollout`` span and records throughput gauges --
+        ``grid_slots_per_s`` (one slot = one (cell, time-slot) advance of
+        all N UEs) and ``grid_cells_per_s`` -- from one host-side timing
+        around the whole run, between two device synchronizations.
+        """
+        fn = self.make_rollout(policy, steps)
+        if telemetry is None:
+            return fn(seed)
+        import time
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        m = telemetry.metrics
+        with telemetry.tracer.span("grid_rollout", device=True,
+                                   cells=self.b, steps=steps):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(seed)
+            sync()
+            dt = time.perf_counter() - t0
+        m.counter("grid_rollouts_total", "jitted grid rollouts run").inc()
+        m.gauge("grid_slots_per_s", "cell x time-slot advances per second "
+                "(all N UEs), last rollout").set(self.b * steps / dt)
+        m.gauge("grid_cells_per_s", "whole-episode cell throughput, last "
+                "rollout").set(self.b / dt)
+        return out
 
 
 def grid_from_names(specs: Sequence[str | tuple[str, dict]],

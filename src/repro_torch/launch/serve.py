@@ -1,15 +1,17 @@
-"""Serving launcher: the ES-side continuous-batching engine on one device.
+"""Serving launcher: the ES-side serving engine on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
         [--smoke] [--device cpu] [--requests 6] [--slots 2]
-        [--prompt-len 16] [--max-new 8]
+        [--prompt-len 16] [--max-new 8] [--sync-batching]
 
 Builds ``--arch`` from a seeded random init (``--smoke``: the reduced
-config of the same family, float32) and serves ``--requests`` synthetic
-prompts of ``--prompt-len`` tokens, ``--max-new`` tokens each, printing
-each request's latency.  Port of ``repro/launch/serve.py`` for one device,
-on CUDA unless ``--device cpu``; the production mesh (``--multi-pod``) and
-the synchronized-batch engine (``--sync-batching``) come with later slices.
+config of the same family, float32; on CUDA its heads widen from 16 to
+the attention kernels' smallest head dim, 32) and serves ``--requests``
+synthetic prompts of ``--prompt-len`` tokens, ``--max-new`` tokens each,
+printing each request's latency, through the continuous-batching engine
+or, with ``--sync-batching``, the synchronized-batch engine.  Port of
+``repro/launch/serve.py`` for one device, on CUDA unless ``--device cpu``;
+the production mesh (``--multi-pod``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -27,12 +29,25 @@ from ..serving.engine import Request, ServingEngine
 SEED = 0
 
 
+def kernel_head_dim(device) -> dict:
+    """The ``reduced`` override that a reduced config needs to run on
+    ``device``: on CUDA the attention kernels' smallest head dim (the
+    reduced configs' 16 is below it), printed; nothing on the CPU."""
+    from ..kernels.flash_attention import HEAD_DIMS
+    if torch.device(device).type != "cuda":
+        return {}
+    print(f"[reduced] head dim widened from 16 to {min(HEAD_DIMS)} on "
+          f"{device}: the attention kernels take {HEAD_DIMS}")
+    return {"head_dim": min(HEAD_DIMS)}
+
+
 def make_engine(cfg, params, *, slots: int, prompt_len: int,
-                max_new: int) -> ServingEngine:
+                max_new: int, sync_batching: bool = False) -> ServingEngine:
     """The engine the launcher serves with: ``s_max`` leaves room for a
     ``prompt_len`` prompt, ``max_new`` tokens and 8 more."""
     return ServingEngine(cfg, params, slots=slots,
-                         s_max=prompt_len + max_new + 8)
+                         s_max=prompt_len + max_new + 8,
+                         sync_batching=sync_batching)
 
 
 def parse_args(argv=None):
@@ -48,7 +63,7 @@ def parse_args(argv=None):
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported yet (the production mesh)")
     ap.add_argument("--sync-batching", action="store_true",
-                    help="not ported yet (the synchronized-batch engine)")
+                    help="the synchronized-batch compat engine")
     return ap.parse_args(argv)
 
 
@@ -58,17 +73,13 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--multi-pod (the production mesh) is not ported yet; it comes "
             "with a later slice (the mesh)")
-    if args.sync_batching:
-        raise NotImplementedError(
-            "--sync-batching is not ported yet; it comes with a later slice "
-            "(the engine's synchronized-batch mode)")
+    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
-        cfg = reduced(cfg)
+        cfg = reduced(cfg, **kernel_head_dim(device))
     if cfg.enc_layers:
         raise SystemExit("enc-dec serving needs source embeddings; the "
                          "launcher serves decoder stacks")
-    device = resolve_device(args.device)
     params = transformer.init_params(SEED, cfg, device)
     n_params = transformer.param_count(params)
     print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params "
@@ -76,7 +87,8 @@ def main(argv=None) -> dict:
           f"{args.slots} slots")
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     eng = make_engine(cfg, params, slots=args.slots,
-                      prompt_len=args.prompt_len, max_new=args.max_new)
+                      prompt_len=args.prompt_len, max_new=args.max_new,
+                      sync_batching=args.sync_batching)
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len)
                     .astype(np.int32), max_new=args.max_new)
@@ -98,17 +110,20 @@ def main(argv=None) -> dict:
                           - t_submit[r.rid]) * 1e3
         print(f"  req {r.rid}: {len(r.out)} tokens, {latency[r.rid]:7.1f} ms, "
               f"out[:4]={r.out[:4]}")
+    mode = "sync" if args.sync_batching else "continuous"
     print(f"[serve] {len(reqs)} requests in {eng.clock} engine steps "
-          f"(continuous: {eng.decode_steps} decode dispatches, "
+          f"({mode}: {eng.decode_steps} decode dispatches, "
           f"{eng.prefill_steps} prefills and chunks, "
+          f"{eng.prefill_compiles} prefill shapes, "
           f"{eng.preemptions} preemptions)")
-    return {"arch": cfg.name, "layers": cfg.n_layers,
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mode": mode,
             "dtype": cfg.param_dtype, "device": str(device),
             "params": n_params, "ticks": eng.clock,
             "decode_steps": eng.decode_steps,
             "prefill_steps": eng.prefill_steps,
             "chunk_steps": eng.chunk_steps, "chunk_tokens": eng.chunk_tokens,
             "preemptions": eng.preemptions,
+            "prefill_shapes": sorted(eng._prefill_shapes),
             "out": {r.rid: list(r.out) for r in reqs},
             "latency_ms": latency}
 

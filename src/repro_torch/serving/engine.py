@@ -1,8 +1,8 @@
 """Serving engine for the edge tier: continuous batching over a paged KV
-cache.
+cache, with the synchronized-batch engine kept as a compat mode.
 
-Port of the continuous mode of ``repro/serving/engine.py``.  Requests
-arrive continuously (the paper's serial queuing model), so the engine
+Port of ``repro/serving/engine.py`` for one device.  Requests arrive
+continuously (the paper's serial queuing model), so the default engine
 admits per tick: a queued request prefills SOLO into a free decode slot
 (batch 1, left-padded to its bucket width) while the other slots keep
 decoding, and its KV lands in blocks handed out by
@@ -11,6 +11,11 @@ decoding, and its KV lands in blocks handed out by
 slot outgrows its blocks and the pool is dry, the youngest admitted request
 is preempted back to the front of the queue; greedy decode is
 deterministic, so re-admission gives the same tokens.
+
+``sync_batching=True`` is the old engine: admission waits for ALL slots to
+drain, the next wave of prompts prefills as one left-padded batch whose pad
+vector rides in a dense (slots, s_max) cache, and ``transformer.
+decode_step`` advances the wave.  Kept for A/B latency baselines.
 
 Prompts longer than ``prefill_chunk`` ("auto": 32 when ``s_max > 32``)
 stream through ``transformer.prefill_chunk`` one chunk per tick, each chunk
@@ -24,10 +29,13 @@ request there (or its stream's next chunk) overwrites whole.
 
 There is no jit and no donation: the pool is updated in place.  Greedy
 argmax runs on the device, so only the (B,) token ids reach the host each
-tick.  A recorder (duck-typed, like ``repro.traffic.recorder``) sees
+tick.  A recorder (duck-typed, like ``repro_torch.traffic.recorder``) sees
 submit / admit / prefill-done / preempt / complete in ticks of the step
-clock.  ``sync_batching=True``, ``mesh=``, ``telemetry=`` and
-``sanitize=True`` come with later slices and raise here.
+clock.  ``telemetry=`` (a :class:`repro_torch.obs.Telemetry`) adds metrics
+and spans at every lifecycle edge and per-tick gauges; ``sanitize=True``
+adds the KV-pool shadow ownership checks and the dispatch guards of
+``repro_torch.analysis.sanitize``.  Off, each costs one ``is None`` check
+per site.  ``mesh=`` comes with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -65,29 +73,36 @@ def _bucket_ladder(s_max: int, lo: int = 8) -> tuple[int, ...]:
 
 
 class ServingEngine:
-    """Continuous batching: per-tick admission into free slots, paged KV
-    (``kv_block`` tokens per block, ``kv_blocks`` pool blocks, by default
-    enough for every slot to reach ``s_max``), youngest-request preemption
-    when the pool runs dry, chunked prefill of long prompts.  Runs on the
-    device that holds ``params``."""
+    """``sync_batching=False`` (default): continuous batching -- per-tick
+    admission into free slots, paged KV (``kv_block`` tokens per block,
+    ``kv_blocks`` pool blocks, by default enough for every slot to reach
+    ``s_max``), youngest-request preemption when the pool runs dry, chunked
+    prefill of long prompts.  ``sync_batching=True``: the synchronized-batch
+    compat engine.  Runs on the device that holds ``params``.
+
+    ``sanitize=True`` (debug; ``python -m repro_torch.analysis --sanitize``)
+    shadows every block handoff with an ``analysis.sanitize.KVSanitizer``
+    and guards every dispatch: block ids, commit ids and ``seq_lens`` are
+    checked on the host before a dispatch that reads or writes the pool (an
+    out-of-range block id would reach the paged decode kernel as an illegal
+    address), and the logits are checked for NaN after each dispatch (one
+    sync each).  Either guard raises ``SanitizerError`` at the dispatch.
+    """
 
     def __init__(self, cfg, params, *, slots: int = 4, s_max: int = 128,
                  prefill_buckets=None, recorder=None, mesh=None,
                  sync_batching: bool = False, kv_block: int = 16,
                  kv_blocks: int | None = None, telemetry=None,
                  sanitize: bool = False, prefill_chunk="auto"):
-        for name, on in (("sync_batching=True", sync_batching),
-                         ("mesh=", mesh is not None),
-                         ("telemetry=", telemetry is not None),
-                         ("sanitize=True", sanitize)):
-            if on:
-                raise NotImplementedError(
-                    f"ServingEngine({name}) is not ported yet; it comes "
-                    f"with {LATER}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"ServingEngine(mesh=) is not ported yet; it comes with "
+                f"{LATER}")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.slots = slots
         self.s_max = s_max
+        self.sync_batching = sync_batching
         self.prefill_buckets = tuple(sorted(
             _bucket_ladder(s_max) if prefill_buckets is None
             else prefill_buckets))
@@ -108,13 +123,27 @@ class ServingEngine:
         self._completed: list[Request] = []
         self.remaining = np.zeros(slots, np.int32)
         self.decode_steps = 0                # decode dispatches
-        self.prefill_steps = 0               # solo prefills and chunks
+        self.prefill_steps = 0               # prefills (solo or wave), chunks
         self.chunk_steps = 0                 # chunks after a stream's first
         self.chunk_tokens = 0                # prompt tokens of those chunks
-        self.preemptions = 0
-        # (batch, width, ragged?) prefill shapes run so far: the reference
-        # compiles one program for each
+        self.preemptions = 0                 # continuous mode only
+        self.cache = None                    # sync mode's dense cache
+        # (batch, width, ragged?) prefill shapes and the decode signatures
+        # run so far: the reference compiles one program for each
         self._prefill_shapes: set[tuple] = set()
+        self._decode_shapes: set[tuple] = set()
+        self.obs = None
+        if telemetry is not None:
+            from ..obs.enginehooks import EngineHooks
+            self.obs = EngineHooks(telemetry, self)
+        self.sanitize = sanitize
+        self._san = None                     # KVSanitizer (continuous mode)
+        self._guards = None                  # the dispatch guards' module
+        if sanitize:
+            from ..analysis import sanitize as guards
+            self._guards = guards
+        if sync_batching:
+            return
 
         self.kv_block = kv_block
         self.table_width = -(-s_max // kv_block)            # blocks per slot
@@ -135,6 +164,14 @@ class ServingEngine:
         self._stream_cache = None            # device {units, tail} scratch
         self._stream_done = 0                # prompt tokens advanced so far
         self._stream_ids = None              # device (table_width,) block row
+        if sanitize:
+            self._san = self._guards.KVSanitizer(self)
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill signatures run so far: one per (batch, bucket
+        width, ragged-or-not) combination, the reference's compilations."""
+        return len(self._prefill_shapes)
 
     def _tensor(self, a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -151,6 +188,8 @@ class ServingEngine:
         self.queue.append(req)
         if self.recorder is not None:
             self.recorder.record_submit(req.rid, self.clock, ue=req.ue)
+        if self.obs is not None:
+            self.obs.on_submit(req, self.clock)
 
     def _bucket_width(self, width: int, max_new: int) -> int:
         """Smallest bucket >= width that still leaves ``max_new`` tokens;
@@ -172,19 +211,33 @@ class ServingEngine:
         self._completed.append(req)
         if self.recorder is not None:
             self.recorder.record_complete(req.rid, self.clock)
+        if self.obs is not None:
+            self.obs.on_complete(req, self.clock)
 
     def _record_prefill_done(self, rid: int):
         rec = getattr(self.recorder, "record_prefill_done", None)
         if rec is not None:
             rec(rid, self.clock)
+        if self.obs is not None:
+            self.obs.on_prefill_done(rid, self.clock)
 
     def _complete_at_admission(self, req: Request):
         """max_new <= 1: the one token (if any) came from the prefill, so
         the request completes at its admission tick without a slot."""
-        if self.recorder is not None:
-            self.recorder.record_admit(req.rid, self.clock)
+        self._record_admit(req)
         self._record_prefill_done(req.rid)
         self._complete(req)
+
+    def _record_admit(self, req: Request):
+        if self.recorder is not None:
+            self.recorder.record_admit(req.rid, self.clock)
+        if self.obs is not None:
+            self.obs.on_admit(req, self.clock)
+
+    def _finite(self, what: str, logits):
+        """Sanitize mode's NaN guard on a dispatch's logits."""
+        if self._guards is not None:
+            self._guards.guard_finite(what, logits)
 
     def _solo_prefill(self, req: Request):
         """Batch-1 bucketed prefill.  Returns (next token, cache, pad)."""
@@ -194,12 +247,16 @@ class ServingEngine:
         pad = width - n
         pad_arg = self._tensor([pad], torch.int32) if pad else None
         self._prefill_shapes.add((1, width, pad_arg is not None))
+        t0 = self.obs.now() if self.obs is not None else 0.0
         logits, cache = transformer.prefill(
             self.params, self.cfg, {"tokens": self._tensor(toks)},
             s_max=self.s_max, pad=pad_arg)
         self.prefill_steps += 1
+        self._finite("prefill", logits)
         # admission's one sync: a single token id
         nxt = int(torch.argmax(logits[0], -1))
+        if self.obs is not None:
+            self.obs.on_prefill(self, t0, batch=1, width=width)
         return nxt, {"units": cache["units"], "tail": cache["tail"]}, pad
 
     def _admit_continuous(self):
@@ -249,12 +306,13 @@ class ServingEngine:
             width = n + pad
             ids = np.zeros(-(-width // self.kv_block), np.int64)
             ids[:len(blocks)] = blocks       # slack blocks -> dummy block 0
+            if self._guards is not None:
+                self._guards.guard_blocks(self, "commit_prefill", ids)
             kvpool.commit_prefill(self._pool_state, cache, pad, slot,
                                   self._tensor(ids), block_size=self.kv_block)
             req.out.append(nxt)
             self._occupy(slot, req, blocks, seq_len=n, last=nxt)
-            if self.recorder is not None:
-                self.recorder.record_admit(req.rid, self.clock)
+            self._record_admit(req)
             self._record_prefill_done(req.rid)
 
     def _occupy(self, slot: int, req: Request, blocks, *, seq_len: int,
@@ -268,6 +326,8 @@ class ServingEngine:
         self.remaining[slot] = req.max_new - 1
         self._admit_seq[slot] = self._admit_counter
         self._admit_counter += 1
+        if self._san is not None:
+            self._san.on_alloc(slot, blocks)
 
     def _start_stream(self, req: Request, slot: int, blocks):
         """Begin a chunked prefill: chunk 1 is a plain batch-1 prefill at the
@@ -278,21 +338,26 @@ class ServingEngine:
         c = self.prefill_chunk
         toks = np.asarray(req.prompt, np.int32)[None, :c]
         self._prefill_shapes.add((1, c, False))
-        _, cache = transformer.prefill(self.params, self.cfg,
-                                       {"tokens": self._tensor(toks)},
-                                       s_max=self.s_max)
+        t0 = self.obs.now() if self.obs is not None else 0.0
+        logits, cache = transformer.prefill(self.params, self.cfg,
+                                            {"tokens": self._tensor(toks)},
+                                            s_max=self.s_max)
         self.prefill_steps += 1
+        self._finite("prefill", logits)
         cache = {"units": cache["units"], "tail": cache["tail"]}
+        if self.obs is not None:
+            self.obs.on_prefill(self, t0, batch=1, width=c, chunked=True)
         ids = np.zeros(self.table_width, np.int64)
         ids[:len(blocks)] = blocks
+        if self._guards is not None:
+            self._guards.guard_blocks(self, "commit_chunk", ids, [c - 1])
         self._stream_ids = self._tensor(ids)
         kvpool.commit_chunk(self._pool_state, cache, 0, c, slot,
                             self._stream_ids, block_size=self.kv_block)
         self._stream_req, self._stream_slot = req, slot
         self._stream_cache, self._stream_done = cache, c
         self._occupy(slot, req, blocks, seq_len=0, last=0)
-        if self.recorder is not None:
-            self.recorder.record_admit(req.rid, self.clock)
+        self._record_admit(req)
 
     def _advance_stream(self):
         """One chunk of the streaming request's prefill; the last chunk's
@@ -304,14 +369,21 @@ class ServingEngine:
         n_valid = min(c, n - start)
         chunk = np.zeros((1, c), np.int64)
         chunk[0, :n_valid] = req.prompt[start:start + n_valid]
+        t0 = self.obs.now() if self.obs is not None else 0.0
         logits, cache = transformer.prefill_chunk(
             self.params, self.cfg, self._stream_cache, self._tensor(chunk),
             start, n_valid)
         self.prefill_steps += 1
         self.chunk_steps += 1
         self.chunk_tokens += n_valid
+        self._finite("prefill_chunk", logits)
+        if self._guards is not None:
+            self._guards.guard_blocks(self, "commit_chunk", self._stream_ids,
+                                      [start + n_valid - 1])
         kvpool.commit_chunk(self._pool_state, cache, start, n_valid, slot,
                             self._stream_ids, block_size=self.kv_block)
+        if self.obs is not None:
+            self.obs.on_prefill(self, t0, batch=1, width=c, chunked=True)
         self._stream_cache = cache
         self._stream_done = start + n_valid
         if self._stream_done < n:
@@ -329,6 +401,8 @@ class ServingEngine:
         self._stream_ids = None
 
     def _release_slot(self, slot: int):
+        if self._san is not None:
+            self._san.on_free(slot, self.owned[slot])
         self.allocator.free(self.owned[slot])
         self.owned[slot] = []
         self.block_tables[slot, :] = 0
@@ -351,6 +425,8 @@ class ServingEngine:
         rec_preempt = getattr(self.recorder, "record_preempt", None)
         if rec_preempt is not None:
             rec_preempt(req.rid, self.clock)
+        if self.obs is not None:
+            self.obs.on_preempt(req, self.clock)
 
     def _grow_blocks(self):
         """Before a decode tick, give every active slot the block its next
@@ -369,6 +445,10 @@ class ServingEngine:
                 if got is not None:
                     self.owned[slot].append(got[0])
                     self.block_tables[slot, bidx] = got[0]
+                    if self._san is not None:
+                        self._san.on_alloc(slot, got)
+                    if self.obs is not None:
+                        self.obs.on_block_grow()
                     break
                 victim = max(
                     (j for j, r in enumerate(self.active) if r is not None),
@@ -382,21 +462,35 @@ class ServingEngine:
         self._grow_blocks()
         live = [i for i, r in enumerate(self.active)
                 if r is not None and i != self._stream_slot]
+        # per-tick telemetry is sampled by clock stride, inline, so that
+        # ticks off the stride make no call at all
+        obs = self.obs
+        sampled = obs is not None and self.clock % obs.sample_every == 0
+        if sampled:                      # host-state gauges (queue, KV pool)
+            obs.sample(self)
         if not live:
             return self._stream_req is not None or bool(self.queue)
+        t0 = obs.now() if sampled else 0.0
         table = self.block_tables
         if self._stream_req is not None:
             # the mid-prefill slot rides the dispatch as an idle row whose
             # zeroed table row sends its writes to the dummy block 0
             table = table.copy()
             table[self._stream_slot] = 0
+        if self._guards is not None:
+            self._guards.guard_blocks(self, "decode_step_paged", table,
+                                      self.seq_lens)
+        self._decode_shapes.add(table.shape)
         logits, self._pool_state = transformer.decode_step_paged(
             self.params, self.cfg, self._pool_state,
             self._tensor(self.last_tokens), self._tensor(table),
             self._tensor(self.seq_lens))
         self.decode_steps += 1
+        self._finite("decode_step_paged", logits)
         # the tick's one sync: (slots,) token ids
         nxt = torch.argmax(logits, -1).cpu().numpy()
+        if sampled:
+            obs.on_decode_tick(self, t0, len(live))
         for i in live:
             req = self.active[i]
             self.seq_lens[i] += 1
@@ -406,14 +500,117 @@ class ServingEngine:
             if self.remaining[i] <= 0:
                 self._release_slot(i)
                 self._complete(req)
+        if self._san is not None:
+            self._san.check_tick()
+        return True
+
+    # -- synchronized-batch compat mode ---------------------------------------
+
+    def _admit_sync(self):
+        """Compat-mode admission: wait until ALL slots are free, then
+        prefill the next wave as one left-padded batch (the pad vector
+        rides in the cache, so decode keeps masking it)."""
+        if any(r is not None for r in self.active) or not self.queue:
+            return
+        # Greedy wave build under PER-REQUEST budgets: the shared width w
+        # must cover every prompt and leave each member its decode room
+        # (w + max_new - 1 <= s_max); a request joins the wave only while
+        # such a width exists, and otherwise starts the next wave.
+        batch = []
+        need, cap = 0, self.s_max + 1
+        while self.queue and len(batch) < self.slots:
+            r = self.queue[0]
+            r_need = max(need, len(r.prompt))
+            r_cap = min(cap, self.s_max + 1 - max(r.max_new, 1))
+            if batch and r_need > r_cap:
+                break                        # r starts the next wave
+            batch.append(self.queue.popleft())
+            need, cap = r_need, r_cap
+        while len(batch) < self.slots:       # pad with a copy (masked out)
+            batch.append(Request(rid=-1, prompt=batch[0].prompt, max_new=0))
+        width = self._bucket_width(need, self.s_max + 1 - cap)
+        toks = np.stack([np.pad(np.asarray(r.prompt), (width - len(r.prompt), 0))
+                         for r in batch])    # left-pad to the bucket width
+        pad = np.asarray([width - len(r.prompt) for r in batch], np.int32)
+        # a pad-free wave takes no mask, and its cache carries no "pad"
+        pad_arg = self._tensor(pad, torch.int32) if pad.any() else None
+        self._prefill_shapes.add(toks.shape + (pad_arg is not None,))
+        t0 = self.obs.now() if self.obs is not None else 0.0
+        logits, self.cache = transformer.prefill(
+            self.params, self.cfg, {"tokens": self._tensor(toks)},
+            s_max=self.s_max, pad=pad_arg)
+        self.prefill_steps += 1
+        self._finite("prefill", logits)
+        # admission's one sync: (slots,) token ids
+        nxt = torch.argmax(logits, -1).cpu().numpy()
+        if self.obs is not None:
+            self.obs.on_prefill(self, t0, batch=len(batch), width=width)
+        for i, r in enumerate(batch):
+            self.active[i] = r if r.rid >= 0 else None
+            self.remaining[i] = r.max_new
+            if r.rid < 0:
+                continue
+            self._record_admit(r)
+            self._record_prefill_done(r.rid)
+            if r.max_new > 0:
+                r.out.append(int(nxt[i]))
+                self.remaining[i] -= 1
+            if self.remaining[i] <= 0:
+                # budget used up by the prefill logits alone: complete at
+                # the admission tick, without a decode step
+                self.active[i] = None
+                self._complete(r)
+        self._last = nxt
+
+    def _step_sync(self) -> bool:
+        self._admit_sync()
+        obs = self.obs                   # sampled, as in _step_continuous
+        sampled = obs is not None and self.clock % obs.sample_every == 0
+        if sampled:
+            obs.sample(self)
+        if self.cache is None or all(r is None for r in self.active):
+            self.cache = None
+            return bool(self.queue)
+        live = sum(1 for r in self.active if r is not None)
+        t0 = obs.now() if sampled else 0.0
+        self._decode_shapes.add((self.slots, "pad" in self.cache))
+        logits, self.cache = transformer.decode_step(
+            self.params, self.cfg, self.cache, self._tensor(self._last))
+        self.decode_steps += 1
+        self._finite("decode_step", logits)
+        # the tick's one sync: (slots,) token ids
+        nxt = torch.argmax(logits, -1).cpu().numpy()
+        if sampled:
+            obs.on_decode_tick(self, t0, live)
+        self._last = nxt
+        alive = False
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            if self.remaining[i] > 0:
+                r.out.append(int(nxt[i]))
+                self.remaining[i] -= 1
+            if self.remaining[i] <= 0:
+                self.active[i] = None
+                self._complete(r)
+            else:
+                alive = True
+        if not alive and not self.queue:
+            self.cache = None
         return True
 
     # -- stepping the engine --------------------------------------------------
 
     def step(self) -> bool:
-        """One engine tick.  Returns False when idle."""
+        """One engine tick.  Returns False when idle.  The clock advances on
+        every call, idle ticks included."""
         self.clock += 1
-        return self._step_continuous()
+        if self.sync_batching:
+            return self._step_sync()
+        alive = self._step_continuous()
+        if self._san is not None and not alive:
+            self._san.check_drain()         # idle engine: pool fully drained
+        return alive
 
     def pop_completed(self) -> list[Request]:
         """Drain and return the requests finished since the last drain."""

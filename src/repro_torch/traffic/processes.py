@@ -241,3 +241,11 @@ def materialize(process, horizon: int, generator=None) -> np.ndarray:
     rates = torch.stack([process(generator, t) for t in range(horizon)])
     return rates.to(torch.float32).cpu().numpy()
 
+
+def describe() -> str:
+    """One line per registered process (the --list catalogue)."""
+    lines = []
+    for name in sorted(PROCESSES):
+        doc = (PROCESSES[name].__doc__ or "").strip().splitlines()
+        lines.append(f"{name}: {doc[0] if doc else ''}")
+    return "\n".join(lines)

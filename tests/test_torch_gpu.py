@@ -1,7 +1,8 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
 plain PyTorch version, the grid's Oracle path launching the partition
-sweep, the serving engine launching the attention kernels, and the
-learning loop (a training episode; a PPO update, card against CPU).
+sweep, the serving engine launching the attention kernels (both modes),
+the sanitizer's guards, checkpoints, and the learning loop (a training
+episode; a PPO update, card against CPU).
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch:
@@ -543,6 +544,158 @@ def test_engine_on_card_serves_ring_and_recurrent_stacks(arch, pattern,
     for k in kernels:
         assert _WRAPPERS[k].launches > before[k], k
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The engine's sync mode, sanitizer and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_sync_wave_shapes_match_plain(dtype, tol):
+    """The sync engine's shapes: a wave prefill of 8 left-padded rows (flash
+    with a per-row pad at B = 8) and its decode against the dense
+    (8, 512) cache under the pad mask (the dense decode entry, keys below
+    each row's pad masked)."""
+    _need_card()
+    pads = [0, 13, 40, 299, 7, 150, 1, 290]
+    q, k, v = _att_inputs(8, 300, 300, 16, 8, 128, dtype, 300)
+    pad_t = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    keys = torch.arange(300, device="cuda")
+    got = p_ops.flash_attention(q, k, v, kind="causal",
+                                pad_mask=keys[None] >= pad_t[:, None])
+    want = p_ref.flash_attention_ref(q, k, v, kind="causal", pad=pad_t)
+    for i, p0 in enumerate(pads):
+        torch.testing.assert_close(got[i, p0:].float(), want[i, p0:].float(),
+                                   rtol=tol, atol=tol)
+        assert (got[i, :p0] == 0).all()
+    q, k, v = _att_inputs(8, 1, 512, 16, 8, 128, dtype, 512)
+    slots = torch.arange(512, device="cuda")
+    valid = (slots <= 330)[None] & (slots[None] >= pad_t[:, None])
+    before = p_da.decode_attention_cuda.launches
+    got = p_ops.decode_attention(q, k, v, valid)
+    assert p_da.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), p_ref.decode_attention_ref(q, k, v, valid).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,scan_tol", [(torch.float32, 2e-5, 1e-4),
+                                                (torch.bfloat16, 2e-2, 2e-2)])
+def test_recurrentgemma_sync_wave_shapes_match_plain(dtype, tol, scan_tol):
+    """recurrentgemma-2b's sync wave at full width: the RG-LRU scan at B8
+    R2560 (32-channel blocks) with each row's pad-reset run, its "l"
+    prefill (10 heads over 1, hd 256, window 2048) with a per-row pad, and
+    the decode over the 2048-slot ring under the pad mask."""
+    _need_card()
+    pads = [6, 120, 72, 8, 0, 16, 109, 74]
+    b, s = len(pads), 144
+    pad_t = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    keys = torch.arange(s, device="cuda")
+    pad_mask = keys[None] >= pad_t[:, None]
+    prev = torch.cat([torch.zeros_like(pad_mask[:, :1]), ~pad_mask[:, :-1]], 1)
+    reset = ~pad_mask | prev                      # models.common.pad_reset
+    assert p_rg.plan(b, s, 2560)[0] == 32
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor((rng.standard_normal((b, s, 2560)) * 0.3)
+                        .astype(np.float32), device="cuda").to(dtype)
+    a = torch.sigmoid(torch.as_tensor(rng.standard_normal((b, s, 2560))
+                                      .astype(np.float32), device="cuda")
+                      + 2.0).to(dtype)
+    before = p_rg.rglru_scan_cuda.launches
+    got = p_ops.rglru_scan(x, a, reset)
+    assert p_rg.rglru_scan_cuda.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), p_ref.rglru_scan_ref(x, a, reset).float(),
+        rtol=scan_tol, atol=scan_tol)
+    q, k, v = _att_inputs(b, s, s, 10, 1, 256, dtype, 144)
+    got = p_ops.flash_attention(q, k, v, kind="local", window=2048,
+                                pad_mask=pad_mask)
+    want = p_ref.flash_attention_ref(q, k, v, kind="local", window=2048,
+                                     pad=pad_t)
+    for i, p0 in enumerate(pads):
+        torch.testing.assert_close(got[i, p0:].float(), want[i, p0:].float(),
+                                   rtol=tol, atol=tol)
+        assert (got[i, :p0] == 0).all()
+    q, k, v = _att_inputs(b, 1, 2048, 10, 1, 256, dtype, 2048)
+    slots = torch.arange(2048, device="cuda")
+    valid = (slots <= s + 20)[None] & (slots[None] >= pad_t[:, None])
+    got = p_ops.decode_attention(q, k, v, valid)
+    torch.testing.assert_close(
+        got.float(), p_ref.decode_attention_ref(q, k, v, valid).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernels", [
+    ("qwen3-0.6b", ("flash", "decode")),
+    ("recurrentgemma-2b", ("rglru", "flash", "decode")),
+    ("mamba2-1.3b", ("ssd",))])
+def test_sync_engine_on_card_gives_the_cpu_engines_tokens(arch, kernels):
+    """float32, reduced stacks with 32-wide heads: the sync engine on the
+    card launches each of its stack's kernels and serves the CPU's sync
+    engine's tokens over ragged waves."""
+    _need_card()
+    cfg = reduced(get_config(arch), head_dim=32)
+    cpu = p_tf.init_params(0, cfg, "cpu")
+    gpu = _tree.to_device(cpu, "cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 40, 9, 70, 17)]
+    outs = []
+    for params in (cpu, gpu):
+        eng = p_engine.ServingEngine(cfg, params, slots=3, s_max=96,
+                                     sync_batching=True)
+        reqs = [p_engine.Request(rid=i, prompt=pr, max_new=6)
+                for i, pr in enumerate(prompts)]
+        before = {k: _WRAPPERS[k].launches for k in kernels}
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        outs.append([r.out for r in reqs])
+    for k in kernels:
+        assert _WRAPPERS[k].launches > before[k], k
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+def test_sanitizer_on_card_is_clean_and_guards_the_paged_decode():
+    """The flash-crowd run is clean on the card; an out-of-range table
+    entry is refused before it reaches the paged decode kernel."""
+    _need_card()
+    from repro_torch.analysis.sanitize import GuardError, run_sanitize
+    rep = run_sanitize(device="cuda", head_dim=32)
+    assert rep.ok and rep.preemptions > 0, [f.render() for f in rep.failures]
+    cfg = reduced(get_config("qwen3-0.6b"), n_layers=1, head_dim=32)
+    eng = p_engine.ServingEngine(cfg, p_tf.init_params(0, cfg, "cuda"),
+                                 slots=2, s_max=32, sanitize=True)
+    eng.submit(p_engine.Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                                max_new=8))
+    assert eng.step()
+    (slot,) = [i for i, r in enumerate(eng.active) if r is not None]
+    eng.block_tables[slot, 0] = eng.allocator.n_blocks + 5
+    before = p_da.decode_attention_cuda.launches
+    with pytest.raises(GuardError, match="block id"):
+        eng.step()
+    assert p_da.decode_attention_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(tmp_path):
+    _need_card()
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    env = p_env.paper_env(device="cuda")
+    agent = p_ppo.PPO(p_pol.GaussianTanhPolicy(env.obs_dim, env.L),
+                      env.obs_dim, p_ppo.PPOConfig())
+    state = agent.init(env.generator(0))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    mgr.wait()
+    back, _ = mgr.restore(agent.init(env.generator(1)))
+    for a, b in zip(_tree.leaves(back), _tree.leaves(state)):
+        assert a.device == b.device and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

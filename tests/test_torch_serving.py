@@ -323,10 +323,21 @@ def test_es_engine_full_offload_only(model):
                                     dict(telemetry=object()),
                                     dict(sanitize=True)])
 def test_unported_engine_options_raise(model, option):
+    """``mesh=`` is the one engine option still unported, and it raises;
+    the sync mode, telemetry and the sanitizer are ported and build."""
     _, p_cfg, _, p_params = model
     name = next(iter(option))
-    with pytest.raises(NotImplementedError, match=name):
-        p_engine.ServingEngine(p_cfg, p_params, slots=1, s_max=32, **option)
+    if name == "mesh":
+        with pytest.raises(NotImplementedError, match=name):
+            p_engine.ServingEngine(p_cfg, p_params, slots=1, s_max=32,
+                                   **option)
+        return
+    if name == "telemetry":
+        from repro_torch.obs import Telemetry
+        option = dict(telemetry=Telemetry())
+    eng = p_engine.ServingEngine(p_cfg, p_params, slots=1, s_max=32, **option)
+    assert (eng.sync_batching, eng.obs is not None, eng.sanitize) == (
+        name == "sync_batching", name == "telemetry", name == "sanitize")
 
 
 def test_engine_admission_rules_match_reference(model):

@@ -110,10 +110,25 @@ def test_launch_serve_engine_and_refusals():
     params = p_tf.init_params(0, cfg, "cpu")
     eng = p_serve.make_engine(cfg, params, slots=3, prompt_len=40, max_new=6)
     assert (eng.slots, eng.s_max, eng.prefill_chunk) == (3, 54, 32)
-    for flag in ("--multi-pod", "--sync-batching"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            p_serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
-                          "cpu", flag])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        p_serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+                      "--multi-pod"])
+    sync = p_serve.make_engine(cfg, params, slots=3, prompt_len=40,
+                               max_new=6, sync_batching=True)
+    assert sync.sync_batching and sync.s_max == 54
     with pytest.raises(SystemExit):
         p_serve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
                       "--device", "cpu"])
+
+
+def test_smoke_configs_widen_heads_only_for_the_kernels(capsys):
+    """The reduced configs keep the reference's 16-wide heads on the CPU;
+    on CUDA the CLIs widen them to the attention kernels' smallest head
+    dim, and say so."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert p_serve.kernel_head_dim(torch.device("cpu")) == {}
+    assert capsys.readouterr().out == ""
+    assert p_serve.kernel_head_dim("cuda") == {"head_dim": min(HEAD_DIMS)}
+    assert f"from 16 to {min(HEAD_DIMS)}" in capsys.readouterr().out
+    cfg = p_base.reduced(p_base.get_config("qwen3-0.6b"))
+    assert cfg.head_dim == r_reduced(r_get_config("qwen3-0.6b")).head_dim
