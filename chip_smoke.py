@@ -5,9 +5,11 @@
 
 Drives the port's main paths through their public entry points -- the
 LyMDO controller deciding and scoring slots for a 4096-cell x 8-UE grid
-(32,768 UEs), its PPO agent training and evaluating, and three LMs served
-at full width on the ES tier: qwen3-0.6b and mamba2-1.3b through the
-partitioned server, recurrentgemma-2b through the serving launcher -- and
+(32,768 UEs), its PPO agent training and evaluating, and LMs served at
+full width on the ES tier: qwen3-0.6b, mamba2-1.3b and the MoE
+moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
+through the serving launcher, and llama4-maverick, llama-3.2-vision and
+seamless-m4t through the model's entry points -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
@@ -32,21 +34,21 @@ the card:
    per slot, the kernels that take the most device time);
 4. runs the learning loop: ``python -m repro_torch.quickstart``'s ``main``
    (``QS_ARGS``: PPO with the categorical head trains on the paper scenario
-   for 2 episodes of 64 slots, is evaluated at 2.5 req/s, and the Local,
+   for 2 episodes of 32 slots, is evaluated at 2.5 req/s, and the Local,
    Edge, Random and Oracle baselines run beside it; the sweep's launches
    must equal the Oracle's slots, Adam's step epochs x episodes, the
    metrics finite and the Oracle no worse than Local or Edge), joint mode
    (the paper's "PPO" baseline) for 2 episodes at K = 200, one PPO update
    at K = 200 on the card against the same update on the CPU (each head),
    the trained agent through ``eval_policy_batched`` beside the Oracle on
-   a 4096-cell grid of Fig. 4's fixed rates for 20 slots (the Oracle also
+   a 4096-cell grid of Fig. 4's fixed rates for 10 slots (the Oracle also
    on a CPU copy of that grid on the same draws, held as phase 3 holds
    its small grid), and profiles of 3 rollout slots and of one K = 200
    update, composed into a training slot (a rollout slot and 1/K of an
    update);
 5. holds the flash and decode attention kernels against their plain
-   versions at the serving path's shapes and at the reference's own kernel
-   test cases, each float32 case with a bf16 twin for flash's tensor-core
+   versions at the serving path's shapes (phase 11's among them) and at
+   the reference's own kernel test cases, each float32 case with a bf16 twin for flash's tensor-core
    body, and at phase 10's sync waves (flash at B8 with a pad per row, the
    dense decode under the wave's pad mask) in both types (2e-5 in
    float32, 2e-2 in bf16; rows of a left pad, which see no key, are
@@ -115,14 +117,31 @@ the card:
    held to solo runs; every wave (a) and (d) prefill must be one that
    phases 5 and 7 held the kernels at; (e) ``train_lymdo`` killed
    after its first chunk and resumed, against an uninterrupted run
-   (parameters within 1e-5); (f) ``train_compare`` at 1 episode x 16
+   (parameters within 1e-5); (f) ``train_compare`` at 1 episode x 8
    slots per agent; (g) ``python -m repro_torch.obs --overhead`` (the
    hooks' own time a tick within 5 % of the disabled tick p50).  Kernel
    launches are held to exact counts (flash 28 per wave prefill and
    decode attention 28 per decode tick in (a); the sweep one per Oracle
    slot in (c) and (f); RG-LRU 18 per wave prefill in (d));
    every request's delay-breakdown stages sum to its E2E ticks, the
-   Prometheus text parses and the Chrome trace round-trips.
+   Prometheus text parses and the Chrome trace round-trips;
+11. drives the remaining layer kinds at full width: (a) moonshot-v1-16b-a3b
+   (48 "m" layers, 56.3 GB in bf16) through ``serve_partitioned.main``
+   (``MOON_ARGS``: controller, split, 16 requests with whole-prompt
+   prefill; its init may peak at the parameters plus one layer) and the
+   same burst through the sync engine ``launch.serve --sync-batching``
+   builds, a profile of 3 decode ticks, float32 engine tokens == solo
+   tokens at 4 layers (with preemption, at the no-drop capacity factor),
+   card against CPU in bf16 at 2 layers with the MoE routes compared
+   first; (b) llama4-maverick, one unit (g, m), (c) llama-3.2-vision, two
+   units (g g g g x) with 1,024 image embeddings, and (d) seamless-m4t,
+   24 encoder + 24 decoder layers over 512 source frames, each through
+   ``prefill`` (B4, 128 tokens) and greedy ``decode_step``s, with
+   float32 greedy == teacher-forced tokens and card against CPU.  Flash
+   and decode launches are held to exact counts (moonshot 48 a prefill
+   and a tick; llama4 2 and 2; vision 10 and 10; seamless 72 and 48), and
+   the phase fails if it launches either kernel at a shape phase 5 did
+   not hold.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -131,6 +150,7 @@ JSON status line.  A longer report goes to build/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -143,7 +163,7 @@ RTOL, ATOL = 1e-4, 1e-3          # the sweep tolerance of the reference's tests
 ATT_TOL_F32, ATT_TOL_BF16 = 2e-5, 2e-2   # the attention tolerances of the same tests
 BIG = 1e29
 GRID_CELLS, GRID_UES = 4096, 8
-MAIN_SLOTS = 50
+MAIN_SLOTS = 25
 SMALL_CELLS, SMALL_SLOTS = 8, 20
 # card against the port's CPU path on the same draws: the P3/P5 minimizers
 # are flat to float32 rounding, so cuts may differ in a few places
@@ -468,10 +488,12 @@ def profile_grid(torch, grid, slots: int) -> dict:
 
 # the quickstart twin at the paper's widths and batch shape; the episode
 # counts are cut (the reference's 60 x 200 training slots and 3 x 200
-# evaluation slots per method would take over an hour of eager slots)
-QS_ARGS = ["--episodes", "2", "--steps", "64", "--eval-episodes", "1"]
+# evaluation slots per method would take over an hour of eager slots), and
+# so are phases 3, 4 and 10's slot counts, to keep the smoke inside its
+# time limit on a slow host (PERF.md lists the cuts)
+QS_ARGS = ["--episodes", "2", "--steps", "32", "--eval-episodes", "1"]
 JOINT_EPISODES, PAPER_K = 2, 200
-EVAL_CELLS, EVAL_SLOTS = 4096, 20
+EVAL_CELLS, EVAL_SLOTS = 4096, 10
 FIG4_RATES = (0.5, 1.0, 1.5, 2.0, 2.5)     # req/s, Fig. 4's sweep
 UPDATE_RTOL, UPDATE_ATOL = 1e-4, 1e-5     # tests/test_torch_ppo.py's update band
 UPDATE_ITERS = 5
@@ -802,6 +824,74 @@ PAGED_CASES = [
 ]
 
 
+# phase 11's shapes: the flash and decode kernels at every shape the
+# remaining layer kinds launch them at on phase 11's main runs, each in
+# bf16 and float32 -- moonshot's solo prefills (G 1, the burst's bucket
+# widths, as MOON_ARGS' requests fill them), its split check and sync waves,
+# its paged and sync decode; llama4's G 5, vision's G 8 causal and cross
+# (Sq 128, Sk 1024), seamless's encoder (full, hd 64), causal and cross
+# self-attention; decode over the 1,024- and 512-key contexts.  Phase 11
+# fails if it launches either kernel at a shape that is not held here.
+MOON_SOLO = [64, 128, 256]                 # each with a left pad
+MOON_WAVES = [(8, 256, [37, 203, 43, 41, 159, 163, 67, 158]),
+              (8, 256, [26, 32, 105, 204, 132, 52, 27, 74])]
+MOON_SYNC_S_MAX = 256 + 32 + 8           # launch.serve's: prompt + new + 8
+KINDS_B = 4
+LLAMA4_PAD = [0, 51, 96, 27]             # (b)'s prompts, left-padded to 128
+VISION_PAD = [0, 96, 38, 71]             # (c)'s
+KINDS_PROMPT, IMAGE_TOKENS, SRC_FRAMES = 128, 1024, 512
+LLAMA4_STEPS, KINDS_STEPS = 16, 32
+KINDS_FLASH = (
+    [(f"moonshot solo prefill at bucket {w}", 1, w, w, 16, 16, 128, "causal",
+      0, [w // 3]) for w in MOON_SOLO]
+    + [("moonshot split check", 2, 512, 512, 16, 16, 128, "causal", 0, None)]
+    + [("moonshot sync wave", b, w, w, 16, 16, 128, "causal", 0, pad)
+       for b, w, pad in MOON_WAVES[:1]]
+    + [("llama4 G 5, left-padded prefill", KINDS_B, KINDS_PROMPT,
+        KINDS_PROMPT, 40, 8, 128, "causal", 0, LLAMA4_PAD),
+       ("vision G 8, left-padded prefill", KINDS_B, KINDS_PROMPT,
+        KINDS_PROMPT, 64, 8, 128, "causal", 0, VISION_PAD),
+       ("vision cross-attention", KINDS_B, KINDS_PROMPT, IMAGE_TOKENS, 64, 8,
+        128, "full", 0, None),
+       ("seamless encoder", KINDS_B, SRC_FRAMES, SRC_FRAMES, 16, 16, 64,
+        "full", 0, None),
+       ("seamless decoder self-attention", KINDS_B, KINDS_PROMPT,
+        KINDS_PROMPT, 16, 16, 64, "causal", 0, None),
+       ("seamless cross-attention", KINDS_B, KINDS_PROMPT, SRC_FRAMES, 16,
+        16, 64, "full", 0, None)])
+KINDS_DECODE = [
+    # (label, B, S, H, KV, hd, left pads, or "all" for an all-valid context)
+    ("moonshot sync decode", 8, MOON_SYNC_S_MAX, 16, 16, 128,
+     MOON_WAVES[0][2]),
+    ("llama4 decode", KINDS_B, KINDS_PROMPT + LLAMA4_STEPS, 40, 8, 128,
+     LLAMA4_PAD),
+    ("vision self decode", KINDS_B, KINDS_PROMPT + KINDS_STEPS, 64, 8, 128,
+     VISION_PAD),
+    ("vision cross decode, 1,024-key context", KINDS_B, IMAGE_TOKENS, 64, 8,
+     128, "all"),
+    ("seamless self decode", KINDS_B, KINDS_PROMPT + KINDS_STEPS, 16, 16, 64,
+     [0] * KINDS_B),
+    ("seamless cross decode, 512-key context", KINDS_B, SRC_FRAMES, 16, 16,
+     64, "all")]
+FLASH_CASES += [(label, *shape, dt, kind, window, pad) for dt in ("bf16", "f32")
+                for label, *shape, kind, window, pad in KINDS_FLASH]
+DECODE_CASES += [(label, *shape, dt, False, pad) for dt in ("bf16", "f32")
+                 for label, *shape, pad in KINDS_DECODE]
+PAGED_CASES += [
+    ("moonshot engine tick: 8 slots x 32 blocks of 16, H16/KV16", 8, 32, 16,
+     16, 16, 128, dt, [0, 15, 16, 511, 100, 300, 1, 64])
+    for dt in ("bf16", "f32")]
+
+
+def held_shapes() -> set:
+    """The launch keys (``launch_key``) of every phase-5 case."""
+    held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
+            for _, b, sq, sk, h, kv, hd, dt, kind, _, pad in FLASH_CASES}
+    held |= {("decode", c[6], *c[1:6]) for c in DECODE_CASES}
+    held |= {("paged", c[7], *c[1:7]) for c in PAGED_CASES}
+    return held
+
+
 def att_tol(torch, dtype) -> float:
     return ATT_TOL_F32 if dtype == torch.float32 else ATT_TOL_BF16
 
@@ -844,7 +934,9 @@ def check_decode(torch, da, ref, gen, case) -> float:
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
     keys = torch.arange(s, device="cuda")[None, :]
-    if pad:                      # a sync wave: keys below its pads masked
+    if pad and pad[0] == "all":  # a cross-attention context: every key
+        valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    elif pad:                    # a sync wave: keys below its pads masked
         pad_t = torch.tensor(pad[0], device="cuda")[:, None]
         lens = torch.randint(int(pad_t.max()) + 1, s + 1, (b, 1),
                              generator=gen, device="cuda")
@@ -966,56 +1058,51 @@ def time_flash(torch, fa, ref, gen, b, s, h, kv, hd, pad, window=0) -> dict:
     return t
 
 
-def log_timed(key: str, t: dict) -> None:
-    lib = ("no single PyTorch call" if t["library_ms"] is None else
-           f"sdpa {t['library_ms']:.4f} ms device, "
-           f"{t['library_call_ms']:.4f} wall")
-    log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
-        f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
-        f"{t['plain_call_ms']:.4f} wall; {lib}; bound {t['bound_ms']:.5f} ms "
-        f"({t['bound_by']}: {t['gflop']:.4f} GFLOP, {t['mbytes']:.3f} MB)")
-
-
-def attention_phase(torch, fa, da, ref) -> dict:
+def time_flash_full(torch, fa, ref, gen, b, sq, sk, h, kv, hd) -> dict:
+    """Flash in bf16 of kind "full" (every query sees every key; Sq may
+    differ from Sk: the encoder and cross-attention), beside SDPA and the
+    bound."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    log("[5] attention kernels vs plain PyTorch on the card")
-    flash_errs = [check_flash(torch, fa, ref, gen, c) for c in FLASH_CASES]
-    decode_errs = [check_decode(torch, da, ref, gen, c) for c in DECODE_CASES]
-    paged_errs = [check_paged(torch, da, ref, gen, c) for c in PAGED_CASES]
-    out = {"flash_max_abs_err": max(flash_errs),
-           "decode_max_abs_err": max(decode_errs + paged_errs)}
+    q = attention_inputs(torch, gen, b, sq, 1, h, kv, hd, torch.bfloat16)[0]
+    _, k, v = attention_inputs(torch, gen, b, 1, sk, h, kv, hd, torch.bfloat16)
+    kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
+        q.transpose(1, 2).contiguous()
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    t = time_kernel(
+        torch, lambda: fa.flash_attention_cuda(q, k, v, kind="full"),
+        lambda: ref.flash_attention_ref(q, k, v, kind="full"),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        4 * h * hd * fa.live_pairs(b, sq, sk, "full"), n_bytes, PEAK_BF16_S)
+    t["shape"] = f"B{b} Sq{sq} Sk{sk} H{h}/{kv} hd{hd} bf16 full"
+    return t
 
-    # flash at the split check's shape and at the engine's solo prefill
-    out["flash"] = time_flash(torch, fa, ref, gen, 2, 512, 16, 8, 128, None)
-    out["flash_engine"] = time_flash(torch, fa, ref, gen, 1, 32, 16, 8, 128,
-                                     [5])
 
-    # decode at the engine tick's shape: 8 slots, the gathered 512 keys,
-    # cache lengths of prompts of 8-300 tokens plus up to 32 new ones
-    b, s, h, kv, hd = 8, 512, 16, 8, 128
+def time_decode(torch, da, ref, gen, b, s, h, kv, hd, valid, label) -> dict:
+    """Dense decode in bf16 under ``valid`` (B, S), beside SDPA and the
+    bound of the valid keys' bytes."""
+    import torch.nn.functional as F
     q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, torch.bfloat16)
-    lens = torch.randint(8, 333, (b,), generator=gen, device="cuda")
-    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
     kt, vt, qt = to_heads(torch, k, h // kv), to_heads(torch, v, h // kv), \
         q.transpose(1, 2).contiguous()
     mask4 = valid[:, None, None, :]
     n_valid = int(valid.sum())
     n_bytes = (2 * q.numel() + 2 * n_valid * kv * hd) * 2 + valid.numel()
-    out["decode"] = time_kernel(
+    t = time_kernel(
         torch, lambda: da.decode_attention_cuda(q, k, v, valid),
         lambda: ref.decode_attention_ref(q, k, v, valid),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4),
         4 * h * hd * n_valid, n_bytes, PEAK_BF16_S)
-    out["decode"]["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16, "
-                              f"{n_valid} valid keys")
+    t["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16, {n_valid} valid keys"
+                  f" ({label})")
+    return t
 
-    # the paged entry at the same tick: 8 slots x 32 blocks of 16 over a
-    # scattered table, beside the gather + dense kernel it replaces and SDPA
-    m, bs = 32, 16
+
+def time_paged(torch, da, ref, gen, b, m, bs, h, kv, hd, lens) -> dict:
+    """The paged entry in bf16 over a scattered table (row b sees keys 0 ..
+    lens[b]), beside the gather + dense kernel it replaces and SDPA."""
+    import torch.nn.functional as F
     q, kp, vp, table = paged_inputs(torch, gen, b, m, bs, h, kv, hd,
                                     torch.bfloat16)
-    lens = (lens - 1).to(torch.int32)            # keys 0 .. seq_lens[b]
     valid = paged_valid(torch, table, bs, lens)
     rows = lambda: (gather_rows(torch, kp, table), gather_rows(torch, vp, table))
     kr, vr = rows()
@@ -1035,12 +1122,76 @@ def attention_phase(torch, fa, da, ref) -> dict:
     t["gather_dense_call_ms"] = call_ms(torch, gather_dense, 50)
     t["shape"] = (f"B{b} M{m} bs{bs} H{h}/{kv} hd{hd} bf16 paged, {n_valid} "
                   f"valid keys")
-    out["decode_paged"] = t
+    return t
+
+
+def log_timed(key: str, t: dict) -> None:
+    lib = ("no single PyTorch call" if t["library_ms"] is None else
+           f"sdpa {t['library_ms']:.4f} ms device, "
+           f"{t['library_call_ms']:.4f} wall")
+    log(f"    {key} at {t['shape']}: device {t['ms']:.4f} ms, wall "
+        f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms device, "
+        f"{t['plain_call_ms']:.4f} wall; {lib}; bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}: {t['gflop']:.4f} GFLOP, {t['mbytes']:.3f} MB)")
+
+
+def attention_phase(torch, fa, da, ref) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    log("[5] attention kernels vs plain PyTorch on the card")
+    flash_errs = [check_flash(torch, fa, ref, gen, c) for c in FLASH_CASES]
+    decode_errs = [check_decode(torch, da, ref, gen, c) for c in DECODE_CASES]
+    paged_errs = [check_paged(torch, da, ref, gen, c) for c in PAGED_CASES]
+    out = {"flash_max_abs_err": max(flash_errs),
+           "decode_max_abs_err": max(decode_errs + paged_errs)}
+
+    # flash at the split check's shape and at the engine's solo prefill
+    out["flash"] = time_flash(torch, fa, ref, gen, 2, 512, 16, 8, 128, None)
+    out["flash_engine"] = time_flash(torch, fa, ref, gen, 1, 32, 16, 8, 128,
+                                     [5])
+
+    # decode at the engine tick's shape: 8 slots, the gathered 512 keys,
+    # cache lengths of prompts of 8-300 tokens plus up to 32 new ones
+    b, s, h, kv, hd = 8, 512, 16, 8, 128
+    lens = torch.randint(8, 333, (b,), generator=gen, device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    out["decode"] = time_decode(torch, da, ref, gen, b, s, h, kv, hd, valid,
+                                "qwen3's engine tick")
+    # the paged entry at the same tick: 8 slots x 32 blocks of 16 over a
+    # scattered table, beside the gather + dense kernel it replaces and SDPA
+    lens = (lens - 1).to(torch.int32)            # keys 0 .. seq_lens[b]
+    out["decode_paged"] = t = time_paged(torch, da, ref, gen, b, 32, 16, h,
+                                         kv, hd, lens)
     for key in ("flash", "flash_engine", "decode", "decode_paged"):
         log_timed(key, out[key])
     log(f"    gather + dense kernel at the paged shape: device "
         f"{t['gather_dense_ms']:.4f} ms, wall {t['gather_dense_call_ms']:.4f} "
         f"ms")
+
+    # phase 11's new shapes: the encoder and cross-attention (full), GQA
+    # groups of 1, 5 and 8, decode over a 1,024-key context, moonshot's
+    # paged tick (H16/KV16)
+    all_valid = torch.ones(KINDS_B, IMAGE_TOKENS, dtype=torch.bool,
+                           device="cuda")
+    moon_lens = torch.randint(7, 288, (8,), generator=gen, device="cuda"
+                              ).to(torch.int32)
+    out["kinds"] = kinds = {
+        "flash_encoder": time_flash_full(torch, fa, ref, gen, KINDS_B,
+                                         SRC_FRAMES, SRC_FRAMES, 16, 16, 64),
+        "flash_cross": time_flash_full(torch, fa, ref, gen, KINDS_B,
+                                       KINDS_PROMPT, IMAGE_TOKENS, 64, 8, 128),
+        "flash_g1_solo": time_flash(torch, fa, ref, gen, 1, 256, 16, 16, 128,
+                                    [85]),
+        "flash_g5": time_flash(torch, fa, ref, gen, KINDS_B, KINDS_PROMPT, 40,
+                               8, 128, LLAMA4_PAD),
+        "flash_g8": time_flash(torch, fa, ref, gen, KINDS_B, KINDS_PROMPT, 64,
+                               8, 128, VISION_PAD),
+        "decode_cross": time_decode(torch, da, ref, gen, KINDS_B,
+                                    IMAGE_TOKENS, 64, 8, 128, all_valid,
+                                    "vision's cross decode"),
+        "decode_paged_g1": time_paged(torch, da, ref, gen, 8, 32, 16, 16, 16,
+                                      128, moon_lens)}
+    for key, t in kinds.items():
+        log_timed(key, t)
     return out
 
 
@@ -1151,7 +1302,8 @@ def f32_identity(torch, cfg32, sync: bool = False) -> dict:
     return {"f32_identical": len(reqs), "f32_preemptions": eng.preemptions}
 
 
-def card_vs_cpu(torch, cfg2, bf16_check: bool = True) -> dict:
+def card_vs_cpu(torch, cfg2, bf16_check: bool = True,
+                context: bool = False) -> dict:
     """The card against the port's CPU path: the same bf16 weights, a
     ragged batch of 2 x 64 tokens (left pad 20) through ``prefill``, and a
     float32 evaluation of the same weights on the CPU that each bf16 path
@@ -1160,7 +1312,9 @@ def card_vs_cpu(torch, cfg2, bf16_check: bool = True) -> dict:
     and must agree with the CPU's within 2e-2.  Where ``bf16_check`` is
     False (two bf16 evaluations of the stack part by more than that band,
     both as far from float32), the band is replaced by the card's float32
-    prefill held to the CPU's at 1e-4."""
+    prefill held to the CPU's at 1e-4.  With ``context``, the batch
+    carries the stack's image embeddings or source frames
+    (``kinds_batch``)."""
     from repro_torch import _tree
     from repro_torch.models import transformer
 
@@ -1168,11 +1322,14 @@ def card_vs_cpu(torch, cfg2, bf16_check: bool = True) -> dict:
     g = torch.Generator().manual_seed(0)
     toks = torch.randint(0, cfg2.vocab, (2, 64), generator=g)
     pad = torch.tensor([0, 20], dtype=torch.int32)
+    batch = kinds_batch(torch, cfg2, 2, 1, 5, "cpu") if context else {}
+    batch["tokens"] = toks
 
     def logits(params, cfg, device):
-        lg, _ = transformer.prefill(_tree.to_device(params, device), cfg,
-                                    {"tokens": toks.to(device)}, s_max=64,
-                                    pad=pad.to(device))
+        lg, _ = transformer.prefill(
+            _tree.to_device(params, device), cfg,
+            {k: v.to(device) for k, v in batch.items()}, s_max=64,
+            pad=pad.to(device))
         return lg.cpu()
 
     lg_cpu = logits(p_cpu, cfg2, "cpu")
@@ -1742,8 +1899,8 @@ def recurrentgemma_phase(torch) -> dict:
 
 SYNC_MIX = dict(n=16, lo=8, hi=300, max_new=32, slots=8, s_max=512)  # phase 6's
 TRACE_CELLS, TRACE_STEPS = 16, 20
-TL_ARGS = ["--chunk", "1", "--steps", "16", "--eval-episodes", "1"]
-TC_STEPS = 16                  # slots per episode; 1 episode each
+TL_ARGS = ["--chunk", "1", "--steps", "8", "--eval-episodes", "1"]
+TC_STEPS = 8                  # slots per episode; 1 episode each
 TC_ARGS = ["--episodes", "1", "--steps", str(TC_STEPS), "--eval-episodes",
            "1"]
 CHECKPOINT_ATOL = 1e-5
@@ -2024,7 +2181,7 @@ def engines_phase(torch, report: dict, smi: str) -> dict:
     out["train_lymdo"] = {"max_abs_diff": worst, "s": tl_s,
                           "eval": runs[2]["eval"]}
 
-    # (f) train_compare at 1 episode x 16 slots per agent
+    # (f) train_compare at 1 episode x TC_STEPS slots per agent
     art_path = ROOT / "build" / "phase10_paper_artifacts.json"
     log("    (f) python -m repro_torch.train_compare " + " ".join(TC_ARGS))
     zero_all_counts()
@@ -2055,6 +2212,395 @@ def engines_phase(torch, report: dict, smi: str) -> dict:
     if obs_main(OVERHEAD_ARGS) != 0:
         fail("the telemetry overhead gate failed")
     return out
+
+
+# -- phase 11: the remaining layer kinds -------------------------------------
+
+MOON_ARGS = ["--arch", "moonshot-v1-16b-a3b", "--split-seq", "512",
+             "--prompt-max", "256"]   # full width, 48 layers, bf16, 16 requests
+MOON_BURST = dict(n=16, lo=8, hi=256, max_new=32, slots=8)   # MOON_ARGS'
+INIT_SLACK = 256 << 20        # temporaries beside the stack and one layer
+F32_STEPS = 8                 # greedy steps of the float32 token checks
+SEED_KINDS = 0                # (b)-(d)'s weights
+
+
+@contextlib.contextmanager
+def recorded_launches(seen: set):
+    """Add to ``seen`` the key of every flash, decode and paged-decode call
+    the model makes through ``kernels.ops`` while the block runs: on CUDA
+    each call launches its kernel once (the launch counts stay with the
+    kernels' wrappers).  The keys are those ``held_shapes`` makes of the
+    phase-5 cases."""
+    import torch
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in
+             ("flash_attention", "decode_attention", "decode_attention_paged")}
+    dt = lambda t: "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+    def flash(q, k, v, *, kind="causal", window=0, pad_mask=None):
+        seen.add(("flash", dt(q), q.shape[0], q.shape[1], k.shape[1],
+                  q.shape[2], k.shape[2], q.shape[3], kind,
+                  pad_mask is not None))
+        return saved["flash_attention"](q, k, v, kind=kind, window=window,
+                                        pad_mask=pad_mask)
+
+    def decode(q, k, v, valid_mask):
+        seen.add(("decode", dt(q), q.shape[0], k.shape[1], q.shape[2],
+                  k.shape[2], q.shape[3]))
+        return saved["decode_attention"](q, k, v, valid_mask)
+
+    def paged(q, k_pool, v_pool, block_table, seq_lens):
+        seen.add(("paged", dt(q), q.shape[0], block_table.shape[1],
+                  k_pool.shape[1], q.shape[2], k_pool.shape[2], q.shape[3]))
+        return saved["decode_attention_paged"](q, k_pool, v_pool,
+                                               block_table, seq_lens)
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    ops.decode_attention_paged = paged
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def captured_routes(routes: list):
+    """Append to ``routes``, for every MoE layer call while the block runs,
+    the (tokens, E) mask of the experts each token was routed to and kept
+    at (from ``models.ffn.route``), on the CPU."""
+    from repro_torch.models import ffn
+    route = ffn.route
+
+    def spy(*args):
+        out = route(*args)
+        kept = out[0].sum(-1) > 0
+        routes.append(kept.reshape(-1, kept.shape[-1]).cpu())
+        return out
+    ffn.route = spy
+    try:
+        yield routes
+    finally:
+        ffn.route = route
+
+
+def kinds_batch(torch, cfg, b: int, s: int, seed: int, device="cuda"):
+    """Tokens (b, s) and the context a stack needs: 1,024 image embeddings
+    (vision) or ``SRC_FRAMES`` source frames (an encoder), float32 normal
+    draws from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g)}
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = torch.randn(b, IMAGE_TOKENS, cfg.d_model,
+                                            generator=g)
+    elif cfg.enc_layers:
+        batch["src_embeds"] = torch.randn(b, SRC_FRAMES, cfg.d_model,
+                                          generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def greedy_vs_teacher(torch, cfg32, b: int, s: int) -> dict:
+    """float32 on the card: greedy prefill + decode_step tokens equal the
+    argmax of the teacher-forced ``forward_train`` logits over the prompt
+    and those tokens (the reference's own serving invariant)."""
+    from repro_torch.models import transformer
+    params = transformer.init_params(7, cfg32, "cuda")
+    batch = kinds_batch(torch, cfg32, b, s, 3)
+    lg, cache = transformer.prefill(params, cfg32, batch, s_max=s + F32_STEPS)
+    out = [torch.argmax(lg, -1)]
+    for _ in range(F32_STEPS - 1):
+        lg, cache = transformer.decode_step(params, cfg32, cache, out[-1])
+        out.append(torch.argmax(lg, -1))
+    got = torch.stack(out, 1)
+    full = dict(batch, tokens=torch.cat([batch["tokens"], got[:, :-1]], 1))
+    tf, _ = transformer.forward_train(params, cfg32, full)
+    tf = tf[:, s - 1:]
+    want = torch.argmax(tf, -1)
+    same = int((want == got).sum())
+    log(f"    float32 greedy decode vs teacher forcing, {cfg32.name} at "
+        f"{cfg32.n_layers} layers{f' + {cfg32.enc_layers} encoder' if cfg32.enc_layers else ''}"
+        f"{f', {cfg32.n_experts} experts at capacity factor {cfg32.capacity_factor:g}' if cfg32.n_experts else ''}: "
+        f"{same}/{got.numel()} tokens equal")
+    if same != got.numel():
+        top = torch.topk(tf, 2, dim=-1).values
+        gaps = (top[..., 0] - top[..., 1])[want != got]
+        fail(f"{cfg32.name}: greedy decode parts from teacher forcing "
+             f"(top-2 gaps there {gaps.tolist()})")
+    del params
+    return {"f32_tokens_equal": same}
+
+
+def moe_card_vs_cpu(torch, cfg2) -> dict:
+    """The card against the port's CPU path on an MoE stack, bf16, through
+    ``forward_train`` on 4 x 64 tokens, beside a float32 evaluation of the
+    same weights on the CPU.  The routes come first: a near tie in the
+    float32 router flips an expert between two evaluations and moves that
+    token's output far beyond any rounding band, so each token's kept
+    expert set at every MoE layer is compared across the three runs, the
+    share that differs is logged, and the drift (the card's bf16 logits at
+    most ``BF16_DRIFT`` times as far from float32 as the CPU's) is held on
+    the tokens whose routes agree in all three."""
+    from repro_torch import _tree
+    from repro_torch.models import transformer
+    params = transformer.init_params(11, cfg2, "cuda")
+    p_cpu = _tree.to_device(params, "cpu")
+    del params
+    toks = torch.randint(0, cfg2.vocab, (4, 64),
+                         generator=torch.Generator().manual_seed(0))
+
+    def run(params, cfg, device):
+        routes = []
+        with captured_routes(routes):
+            lg, _ = transformer.forward_train(_tree.to_device(params, device),
+                                              cfg, {"tokens": toks.to(device)})
+        return lg.cpu().reshape(-1, lg.shape[-1]), routes
+
+    lg_gpu, r_gpu = run(p_cpu, cfg2, "cuda")
+    lg_cpu, r_cpu = run(p_cpu, cfg2, "cpu")
+    cfg32 = dataclasses.replace(cfg2, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = _tree.map_tensors(
+        lambda t: t.float() if t.is_floating_point() else t, p_cpu)
+    del p_cpu
+    lg_f32, r_f32 = run(p32, cfg32, "cpu")
+    del p32
+    flip = lambda a, b: torch.stack([(x != y).any(-1) for x, y in zip(a, b)])
+    card_cpu = flip(r_gpu, r_cpu)                       # (layers, tokens)
+    clean = ~(card_cpu | flip(r_gpu, r_f32) | flip(r_cpu, r_f32)).any(0)
+    out = {"route_differ_card_cpu": float(card_cpu.float().mean()),
+           "route_differ_bf16_f32": float(flip(r_cpu, r_f32).float().mean()),
+           "clean_tokens": int(clean.sum()), "tokens": clean.numel()}
+    if not clean.any():
+        fail(f"{cfg2.name}: no token keeps its routes in all three runs")
+    d_gpu = (lg_gpu - lg_f32).abs()[clean]
+    d_cpu = (lg_cpu - lg_f32).abs()[clean]
+    out.update(card_bf16_vs_f32=float(d_gpu.max()),
+               cpu_bf16_vs_f32=float(d_cpu.max()),
+               card_vs_cpu_max_abs_err=float(
+                   (lg_gpu - lg_cpu).abs()[clean].max()))
+    out["bf16_drift"] = out["card_bf16_vs_f32"] / out["cpu_bf16_vs_f32"]
+    log(f"    card vs CPU, {cfg2.name} at {cfg2.n_layers} layers bf16: "
+        f"expert sets differ for {out['route_differ_card_cpu']:.4f} of "
+        f"(token, layer) routes card vs CPU, "
+        f"{out['route_differ_bf16_f32']:.4f} bf16 vs float32; on the "
+        f"{out['clean_tokens']}/{out['tokens']} tokens whose routes agree in "
+        f"all three: card vs CPU max abs err "
+        f"{out['card_vs_cpu_max_abs_err']:.3e}, from float32 card "
+        f"{out['card_bf16_vs_f32']:.3e}, CPU {out['cpu_bf16_vs_f32']:.3e}, "
+        f"{out['bf16_drift']:.3f} of the CPU's (limit {BF16_DRIFT})")
+    if out["bf16_drift"] > BF16_DRIFT:
+        fail(f"{cfg2.name}: the card's bf16 logits stand further from "
+             f"float32 than {BF16_DRIFT} x the CPU's")
+    return out
+
+
+def kinds_run(torch, cfg, pad, steps: int, seen: set, per_prefill: int,
+              per_step: int) -> dict:
+    """(b)-(d): ``cfg`` at full width from a seeded init; a prefill of
+    ``KINDS_B`` prompts of ``KINDS_PROMPT`` tokens (left pads ``pad``) with
+    the stack's context, then ``steps`` greedy ``decode_step``s, each timed
+    on the host around a sync; flash and decode launches held exactly."""
+    import numpy as np
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = kinds_batch(torch, cfg, KINDS_B, KINDS_PROMPT, 1)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    with recorded_launches(seen):
+        zero_counts()
+        t0 = time.perf_counter()
+        lg, cache = transformer.prefill(params, cfg, batch,
+                                        s_max=KINDS_PROMPT + steps, pad=pad_t)
+        tok = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_ms, finite = [], bool(torch.isfinite(lg).all())
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = transformer.decode_step(params, cfg, cache, tok)
+            tok = torch.argmax(lg, -1)
+            finite = finite and bool(torch.isfinite(lg).all())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = read_counts()
+    want = {name: 0 for name in got}
+    want.update(flash_attention=per_prefill, decode_attention=per_step * steps)
+    out = {"params": transformer.param_count(params), "init_s": init_s,
+           "prefill_ms": prefill_ms,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "tokens_per_s": KINDS_B * steps / (sum(step_ms) / 1e3),
+           "launches": got}
+    log(f"    {cfg.name} ({cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}, "
+        f"{out['params'] / 1e9:.2f} B parameters, init {init_s:.1f} s): "
+        f"prefill B{KINDS_B} S{KINDS_PROMPT} pad={pad} {prefill_ms:.1f} ms; "
+        f"{steps} decode steps p50 {out['step_ms_p50']:.2f} ms p99 "
+        f"{out['step_ms_p99']:.2f} ms, {out['tokens_per_s']:.1f} tokens/s; "
+        f"launches {got}")
+    if not finite:
+        fail(f"{cfg.name}: non-finite logits")
+    if got != want:
+        fail(f"{cfg.name}: kernel launches {got}, expected {want}")
+    del params, cache
+    return out
+
+
+def kinds_phase(torch) -> dict:
+    """Phase 11: moonshot-v1-16b-a3b through ``serve_partitioned`` and a
+    sync engine, llama4-maverick (one unit), llama-3.2-vision (two units)
+    and seamless-m4t (full depth) through the model's entry points, the
+    float32 token checks and card against CPU."""
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as ls
+    from repro_torch.models import transformer
+
+    out: dict = {}
+    seen: set = set()
+    total = {"flash_attention": 0, "decode_attention": 0}
+
+    def add(counts):
+        for name in total:
+            total[name] += counts[name]
+
+    # (a) moonshot at full width and depth: controller, split, burst
+    log("[11] (a) moonshot-v1-16b-a3b: python -m repro_torch.serve_partitioned "
+        + " ".join(MOON_ARGS) + " (full width, 48 layers, bf16)")
+    with recorded_launches(seen):
+        rep = run_partitioned(torch, MOON_ARGS, MOON_BURST["n"])
+    layers, srv = rep["layers"], rep["serving"]
+    check_counts("the moonshot run", rep["launches"], srv,
+                 per_prefill={"flash_attention": layers},
+                 per_tick={"decode_attention": layers},
+                 extra={"flash_attention": layers * (1 + len(rep["split"]))})
+    add(rep["launches"])
+    if srv["chunk_steps"] or srv["prefill_steps"] != MOON_BURST["n"]:
+        fail(f"moonshot: {srv['prefill_steps']} prefills and "
+             f"{srv['chunk_steps']} chunks for {MOON_BURST['n']} requests: "
+             f"MoE stacks prefill whole prompts")
+    cfg = sp.model_config("moonshot-v1-16b-a3b")
+    embed_bytes = cfg.vocab * cfg.d_model * 2
+    layer_bytes = (rep["param_bytes"] - embed_bytes - cfg.d_model * 2) // layers
+    limit = rep["param_bytes"] + layer_bytes + INIT_SLACK
+    log(f"    init peak {rep['init_peak_bytes'] / 1e9:.3f} GB allocated for "
+        f"{rep['param_bytes'] / 1e9:.3f} GB of parameters (limit: those, "
+        f"one layer of {layer_bytes / 1e9:.3f} GB and "
+        f"{INIT_SLACK >> 20} MiB)")
+    if rep["init_peak_bytes"] > limit:
+        fail("moonshot's init peaked above its parameters and one layer")
+    out["moonshot"] = rep
+
+    params = transformer.init_params(sp.SEED, cfg, "cuda")   # main()'s
+    m = MOON_BURST
+    eng = ls.make_engine(cfg, params, slots=m["slots"], prompt_len=m["hi"],
+                         max_new=m["max_new"], sync_batching=True)
+    log(f"    the same burst through the sync engine launch.serve "
+        f"--sync-batching builds (s_max {eng.s_max})")
+    reqs = sp.make_requests(cfg, m["n"], m["lo"], m["hi"], m["max_new"],
+                            sp.SEED)
+    with recorded_launches(seen):
+        zero_counts()
+        stats = sp.serve(eng, reqs, torch.cuda.synchronize)
+        got = read_counts()
+    if stats["completed"] != m["n"] or any(
+            len(o) != m["max_new"] for o in stats["out"].values()):
+        fail("moonshot sync: a request did not complete with its tokens")
+    check_counts("the moonshot sync run", got, stats,
+                 per_prefill={"flash_attention": layers},
+                 per_tick={"decode_attention": layers})
+    add(got)
+    check_waves("the moonshot sync run", eng._prefill_shapes, MOON_WAVES)
+    log_serving("moonshot sync engine", stats)
+    out["moonshot_sync"] = {**stats, "launches": got,
+                            "prefill_shapes": sorted(eng._prefill_shapes)}
+    out["moonshot_sync_vs_continuous"] = sync_vs_continuous(
+        "moonshot", stats, srv)
+    del eng
+    out["moonshot_tick_profile"] = decoding_profile(torch, cfg, params,
+                                                    DECODE_KERNELS)
+    del params
+    torch.cuda.empty_cache()
+    out["moonshot_f32"] = f32_identity(torch, no_drop(
+        sp.model_config("moonshot-v1-16b-a3b", layers=4, dtype="float32")))
+    out["moonshot_card_vs_cpu"] = moe_card_vs_cpu(
+        torch, sp.model_config("moonshot-v1-16b-a3b", layers=2))
+    torch.cuda.empty_cache()
+
+    # (b) llama4-maverick, one unit (g, m) at full width
+    log("    (b) llama4-maverick-400b-a17b, one unit (g, m), full width")
+    l4 = get_config("llama4-maverick-400b-a17b")
+    out["llama4"] = kinds_run(torch, dataclasses.replace(l4, n_layers=2),
+                              LLAMA4_PAD, LLAMA4_STEPS, seen, 2, 2)
+    add(out["llama4"]["launches"])
+    torch.cuda.empty_cache()
+    out["llama4"].update(greedy_vs_teacher(torch, no_drop(dataclasses.replace(
+        l4, n_layers=2, n_experts=16, param_dtype="float32",
+        compute_dtype="float32")), KINDS_B, 32))
+    out["llama4"].update(moe_card_vs_cpu(torch, reduced_for_card(l4)))
+    torch.cuda.empty_cache()
+
+    # (c) llama-3.2-vision, two units (8 "g" + 2 "x") at full width
+    log("    (c) llama-3.2-vision-90b, two units (g g g g x), full width, "
+        f"{IMAGE_TOKENS} image embeddings")
+    vi = get_config("llama-3.2-vision-90b")
+    out["vision"] = kinds_run(torch, dataclasses.replace(vi, n_layers=10),
+                              VISION_PAD, KINDS_STEPS, seen, 10, 10)
+    add(out["vision"]["launches"])
+    torch.cuda.empty_cache()
+    out["vision"].update(greedy_vs_teacher(torch, dataclasses.replace(
+        vi, n_layers=5, param_dtype="float32", compute_dtype="float32"),
+        KINDS_B, 32))
+    out["vision"].update(card_vs_cpu(torch, reduced_for_card(vi),
+                                     context=True))
+    torch.cuda.empty_cache()
+
+    # (d) seamless-m4t at full width and depth: 24 "e" + 24 "d"
+    log(f"    (d) seamless-m4t-large-v2, 24 encoder + 24 decoder layers, "
+        f"{SRC_FRAMES} source frames, prompts of {KINDS_PROMPT}")
+    se = get_config("seamless-m4t-large-v2")
+    out["seamless"] = kinds_run(torch, se, None, KINDS_STEPS, seen, 72, 48)
+    add(out["seamless"]["launches"])
+    out["seamless"].update(greedy_vs_teacher(torch, dataclasses.replace(
+        se, n_layers=4, enc_layers=4, param_dtype="float32",
+        compute_dtype="float32"), KINDS_B, 32))
+    out["seamless"].update(card_vs_cpu(
+        torch, dataclasses.replace(se, n_layers=2, enc_layers=2),
+        context=True))
+
+    missed = seen - held_shapes()
+    log(f"    phase 11 launched the attention kernels at {len(seen)} shapes; "
+        f"{len(seen) - len(missed)} held in phase 5")
+    if missed:
+        fail(f"phase 11 launched kernels at shapes phase 5 did not hold: "
+             f"{sorted(missed)}")
+    out["shapes"] = sorted(map(list, seen))
+    out["launches"] = total
+    return out
+
+
+def no_drop(cfg):
+    """``cfg`` at the smallest integer capacity factor, ceil(E / k), at
+    which an expert can take its whole group: cap = ceil(g k / E) x factor
+    >= g, so no token drops whatever the routing and a token's output does
+    not depend on the rest of its group.  (8, which the reference's own
+    no-drop test uses for the reduced configs' 8 experts, leaves
+    moonshot's 64 at 0.75 of a group: a bucketed prefill's identical pad
+    tokens, first in token order, then take the slots of real tokens.)"""
+    return dataclasses.replace(
+        cfg, capacity_factor=float(-(-cfg.n_experts // cfg.top_k)))
+
+
+def reduced_for_card(cfg):
+    """The reduced config of ``cfg`` in bf16 with the attention kernels'
+    smallest head dim (its own 16 is below it), as the CLIs build it on
+    CUDA."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.serve import kernel_head_dim
+    return reduced(cfg, param_dtype="bfloat16", compute_dtype="bfloat16",
+                   **kernel_head_dim("cuda"))
 
 
 def main() -> int:
@@ -2232,6 +2778,8 @@ def main() -> int:
     phase_done()
     report["engines"] = engines_phase(torch, report, smi)
     phase_done()
+    report["kinds"] = kinds = kinds_phase(torch)
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
@@ -2252,7 +2800,8 @@ def main() -> int:
         t = att[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": serving["launches"][name],
+            "replaces": replaces,
+            "launches": serving["launches"][name] + kinds["launches"][name],
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -9,7 +9,9 @@ config of the same family, float32; on CUDA its heads widen from 16 to
 the attention kernels' smallest head dim, 32) and serves ``--requests``
 synthetic prompts of ``--prompt-len`` tokens, ``--max-new`` tokens each,
 printing each request's latency, through the continuous-batching engine
-or, with ``--sync-batching``, the synchronized-batch engine.  Port of
+or, with ``--sync-batching``, the synchronized-batch engine.  It serves
+stacks of g/l/m/r/s layers (MoE stacks with whole-prompt prefill); it
+refuses encoder stacks and the engine refuses "x" stacks.  Port of
 ``repro/launch/serve.py`` for one device, on CUDA unless ``--device cpu``;
 the production mesh (``--multi-pod``) comes with a later slice.
 """
@@ -24,6 +26,7 @@ import torch
 from ..configs.base import get_config, reduced
 from ..device import resolve_device
 from ..models import transformer
+from ..serving import kvpool
 from ..serving.engine import Request, ServingEngine
 
 SEED = 0
@@ -80,6 +83,9 @@ def main(argv=None) -> dict:
     if cfg.enc_layers:
         raise SystemExit("enc-dec serving needs source embeddings; the "
                          "launcher serves decoder stacks")
+    # the engine's own check, made before the weights exist: an "x" stack
+    # is refused here rather than after a full-width init
+    kvpool.check_pattern(cfg, sync=args.sync_batching)
     params = transformer.init_params(SEED, cfg, device)
     n_params = transformer.param_count(params)
     print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params "

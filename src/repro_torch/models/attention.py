@@ -1,8 +1,10 @@
 """GQA attention: init, projections, the prefill / decode / chunk / paged
 paths, the global KV cache and the sliding-window ring cache.
 
-Port of ``repro/models/attention.py`` (self-attention kinds "g", global,
-and "l", sliding window).  The attention itself goes through
+Port of ``repro/models/attention.py``: self-attention of the kinds "g"
+(global), "l" (sliding window) and "e" (the encoder's, over every key), and
+cross-attention against a context's K/V (no RoPE, no qk-norm) for the "x"
+and "d" kinds.  The attention itself goes through
 ``kernels.ops``: on CUDA tensors the flash and decode kernels, on the CPU
 their plain versions.  Where the reference returns an updated cache, the
 port writes into the cache it was given and returns that same cache: a
@@ -93,6 +95,33 @@ def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
                               pad_mask=pad_mask)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ p["wo"], (k, v)
+
+
+def cross_attention(p, cfg, x, context_kv):
+    """Cross-attention of x (B, S, D) against precomputed context K/V
+    (B, Sk, KV, hd): every query sees every context key, no RoPE."""
+    q = _project_q(p, cfg, x)
+    k, v = context_kv
+    out = ops.flash_attention(q, k, v, kind="full")
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"]
+
+
+def context_kv(p, cfg, context):
+    """The cross-attention K/V of context embeddings (B, Sk, D), once per
+    prefill: a ``KVCache`` (k, v), each (B, Sk, KV, hd)."""
+    return KVCache(*_project_kv(p, cfg, context))
+
+
+def decode_cross_attention(p, cfg, x, context_cache):
+    """One token's cross-attention against the prefill's context K/V, every
+    key valid."""
+    q = _project_q(p, cfg, x)
+    k, v = context_cache
+    valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    out = ops.decode_attention(q, k, v, valid)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"]
 
 
 def init_kv_cache(cfg, batch: int, s_max: int, dtype, device=None) -> KVCache:

@@ -19,9 +19,27 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def dense_init(gen, shape, dtype, scale: float | None = None, device=None):
-    """Truncated-normal (at +-2 sigma) fan-in init, cast to ``dtype``."""
+    """Truncated-normal (at +-2 sigma) fan-in init, cast to ``dtype``.
+
+    A leaf of three or more axes (the MoE experts' (E, D, F)) is drawn one
+    (D, F) slice at a time into the ``dtype`` result, so no float32 copy of
+    the whole leaf exists; each slice draws a standard normal and redraws
+    only the entries outside +-2, the same distribution at a fraction of
+    ``trunc_normal_``'s draws."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
+    if len(shape) >= 3:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        w = torch.empty(shape[-2:], dtype=torch.float32, device=device)
+        for part in out.view(-1, *shape[-2:]):
+            w.normal_(generator=gen)
+            bad = w.abs() > 2.0
+            while n := int(bad.sum()):
+                w[bad] = torch.empty(n, dtype=torch.float32,
+                                     device=device).normal_(generator=gen)
+                bad = w.abs() > 2.0
+            part.copy_(w * std)
+        return out
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * std).to(dtype)

@@ -1,27 +1,37 @@
-"""Decoder-stack entry points of the port.
+"""Layer-stack entry points of the port.
 
-Port of ``repro/models/transformer.py`` for the layer kinds the continuous
-engine serves: "g" (global attention), "l" (sliding-window attention on a
-ring cache), "r" (RG-LRU recurrent block) and "s" (Mamba2 SSD block), as
-repetitions of ``cfg.block_pattern`` plus a ``cfg.tail_pattern``
-(qwen3-0.6b, recurrentgemma-2b, mamba2-1.3b, gemma3-1b, ...).  The other
-kinds raise ``NotImplementedError`` naming the slice that brings them.
+Port of ``repro/models/transformer.py`` for every layer kind of the
+registry: "g" (global attention), "l" (sliding-window attention on a ring
+cache), "m" (global attention and the MoE mixer), "x" (cross-attention to
+a context, dense FFN), "r" (RG-LRU recurrent block), "s" (Mamba2 SSD
+block), "e" (the encoder's bidirectional self-attention) and "d" (the
+enc-dec decoder layer: causal self-attention, then cross-attention), as
+repetitions of ``cfg.block_pattern`` plus a ``cfg.tail_pattern``.  The
+context of "x" and "d" layers is ``batch["image_embeds"]`` (a vision
+frontend) or the encoder stack's output over ``batch["src_embeds"]``
+(``cfg.enc_layers`` layers of "e").
 
 Parameters are plain dicts of tensors with the reference's structure:
-``{"embed", "units": {"slot{i}": {...}}, "tail": [{...}], "final_norm"}``,
-where every leaf under ``units`` has a leading ``n_units`` axis and
-``tail`` holds one dict per tail layer.  ``params_from_reference`` carries
-the reference's parameters across.  Caches are dicts too:
-``{"units": {"slot{i}": cache}, "tail": [cache], "pos", ["pad"]}``, where a
-unit cache is the kind's cache with a leading units axis: ``KVCache``
-(U, B, S_max, KV, hd) for "g", ``RingCache`` (U, B, W, ...) for "l",
-``RglruCache`` and ``SsmCache`` of recurrent state for "r" and "s".
+``{"embed", "units": {"slot{i}": {...}}, "tail": [{...}], "final_norm",
+["head"], ["encoder": {"units": {"slot0": {...}}, "final_norm"}]}``, where
+every leaf under a ``units`` has a leading layer axis (``n_units``, or
+``enc_layers`` in the encoder) and ``tail`` holds one dict per tail layer.
+``params_from_reference`` carries the reference's parameters across.
+Caches are dicts too: ``{"units": {"slot{i}": cache}, "tail": [cache],
+"pos", ["pad"]}``, where a unit cache is the kind's cache with a leading
+units axis: ``KVCache`` (U, B, S_max, KV, hd) for "g" and "m",
+``RingCache`` (U, B, W, ...) for "l", ``RglruCache`` and ``SsmCache`` of
+recurrent state for "r" and "s", ``{"ctx_kv": KVCache}`` of the context's
+K/V (U, B, S_ctx, KV, hd) for "x", and ``{"self": KVCache, "ctx_kv":
+KVCache}`` for "d".
 
-Entry points: ``forward_train`` (teacher-forced logits), ``prefill`` (the
-serving cache and last-token logits; ``pad`` for left-padded rows),
-``decode_step`` (one token against that cache), ``prefill_chunk`` (one
-chunk of a resumable prefill) and ``decode_step_paged`` (one token per
-slot against the engine's pool).  Caches are updated in place.
+Entry points: ``forward_train`` (teacher-forced logits and the summed MoE
+aux loss), ``prefill`` (the serving cache and last-token logits; ``pad``
+for left-padded rows), ``decode_step`` (one token against that cache),
+``prefill_chunk`` (one chunk of a resumable prefill; g/l/r/s only) and
+``decode_step_paged`` (one token per slot against the engine's pool; the
+kinds ``serving.kvpool.check_pattern`` admits).  Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -35,27 +45,7 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import dtype_of, embed_init, rms_norm, dense_init
 
-SERVED = ("g", "l", "r", "s")
-_LATER = {
-    "m": "a later slice (the MoE mixer)",
-    "x": "a later slice (cross-attention and encoder kinds)",
-    "e": "a later slice (cross-attention and encoder kinds)",
-    "d": "a later slice (cross-attention and encoder kinds)",
-}
-
-
-def check_servable(cfg) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is of a
-    kind the port serves (g, l, r, s: what the reference's continuous
-    engine serves, less the MoE mixer) and it has no encoder."""
-    for kind in (*cfg.block_pattern, *cfg.tail_pattern):
-        if kind not in SERVED:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet; it "
-                f"comes with {_LATER.get(kind, 'a later slice')}")
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder stacks come with {_LATER['e']}")
+CHUNKED = ("g", "l", "r", "s")     # the kinds prefill_chunk runs
 
 
 # ---------------------------------------------------------------------------
@@ -67,28 +57,56 @@ def _init_layer(gen, cfg, kind, device) -> dict:
     d = cfg.d_model
     if kind == "s":
         return {"ssm": ssm_mod.init_ssm(gen, cfg, device=device)}
-    mixer = ({"rglru": rglru_mod.init_rglru(gen, cfg, device=device)}
-             if kind == "r" else
-             {"attn": attn.init_attention(gen, cfg, device=device)})
-    return {"norm1": torch.zeros(d, dtype=dt, device=device), **mixer,
-            "norm2": torch.zeros(d, dtype=dt, device=device),
-            "ffn": ffn_mod.init_ffn(gen, cfg, device=device)}
+    norm = lambda: torch.zeros(d, dtype=dt, device=device)
+    if kind == "r":
+        mixer = {"rglru": rglru_mod.init_rglru(gen, cfg, device=device)}
+    elif kind == "x":
+        mixer = {"xattn": attn.init_attention(gen, cfg, cross=True,
+                                              device=device)}
+    elif kind == "d":
+        mixer = {"attn": attn.init_attention(gen, cfg, device=device),
+                 "norm_x": norm(),
+                 "xattn": attn.init_attention(gen, cfg, cross=True,
+                                              device=device)}
+    else:                                   # "g" | "l" | "m" | "e"
+        mixer = {"attn": attn.init_attention(gen, cfg, device=device)}
+    channel = ({"moe": ffn_mod.init_moe(gen, cfg, device=device)}
+               if kind == "m" else
+               {"ffn": ffn_mod.init_ffn(gen, cfg, device=device)})
+    return {"norm1": norm(), **mixer, "norm2": norm(), **channel}
+
+
+def _init_stack(gen, cfg, pattern, n: int, device) -> dict:
+    """{"slot{i}": the n layers of kind pattern[i], stacked}.  Each leaf is
+    allocated stacked and filled one layer at a time, in the order the
+    layers are drawn, so only one layer exists beside the stack."""
+    out = {}
+    for i, kind in enumerate(pattern):
+        stacked = None
+        for u in range(n):
+            layer = _init_layer(gen, cfg, kind, device)
+            if stacked is None:
+                stacked = _tree.map_tensors(
+                    lambda t: t.new_empty((n, *t.shape)), layer)
+            _tree.map_tensors(lambda dst, src: dst[u].copy_(src), stacked,
+                              layer)
+            del layer
+        out[f"slot{i}"] = stacked
+    return out
 
 
 def init_params(seed, cfg, device=None) -> dict:
     """Random parameters from ``seed`` (an int, or a ``torch.Generator`` on
     the target device).  Not the reference's numbers: parity tests use
     ``params_from_reference``."""
-    check_servable(cfg)
     device = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=device).manual_seed(int(seed))
     dt = dtype_of(cfg.param_dtype)
     params = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dt, device=device),
-        "units": {f"slot{i}": _tree.stack([_init_layer(gen, cfg, kind, device)
-                                           for _ in range(cfg.n_units)])
-                  for i, kind in enumerate(cfg.block_pattern)},
+        "units": _init_stack(gen, cfg, cfg.block_pattern, cfg.n_units,
+                             device),
         "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=device),
     }
     if cfg.tail_pattern:
@@ -97,20 +115,29 @@ def init_params(seed, cfg, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt,
                                     device=device)
+    if cfg.enc_layers:
+        params["encoder"] = {
+            "units": _init_stack(gen, cfg, ("e",), cfg.enc_layers, device),
+            "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=device)}
     return params
 
 
 def params_from_reference(tree, cfg, device=None) -> dict:
     """The reference's parameter pytree, as nested dicts and lists of numpy
     arrays (float32 or ml_dtypes bfloat16 leaves; ``units`` leaves stacked
-    with a leading ``n_units`` axis, ``tail`` a list of per-layer dicts), as
-    the port's parameters on ``device``."""
-    check_servable(cfg)
+    with a leading ``n_units`` axis, the encoder's with ``enc_layers``,
+    ``tail`` a list of per-layer dicts), as the port's parameters on
+    ``device``."""
     params = _tree.from_numpy(tree, resolve_device(device))
-    lead = {t.shape[0] for t in _leaves(params["units"])}
-    if lead != {cfg.n_units}:
-        raise ValueError(f"units leaves lead with {sorted(lead)}, expected "
-                         f"n_units={cfg.n_units}")
+    stacks = [(params["units"], cfg.n_units, "n_units")]
+    if cfg.enc_layers:
+        stacks.append((params["encoder"]["units"], cfg.enc_layers,
+                       "enc_layers"))
+    for units, n, name in stacks:
+        lead = {t.shape[0] for t in _leaves(units)}
+        if lead != {n}:
+            raise ValueError(f"units leaves lead with {sorted(lead)}, "
+                             f"expected {name}={n}")
     if len(params.get("tail", [])) != len(cfg.tail_pattern):
         raise ValueError(f"{len(params.get('tail', []))} tail layers, "
                          f"expected {len(cfg.tail_pattern)}")
@@ -140,9 +167,10 @@ def _unit(params, u: int) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
-def new_cache(cfg, kind: str, lead, s_max: int, device):
+def new_cache(cfg, kind: str, lead, s_max: int, device, ctx_len: int = 0):
     """A zeroed cache of one layer of ``kind`` with leading dims ``lead``
-    ((rows,) or (units, rows)), as ``prefill`` fills it."""
+    ((rows,) or (units, rows)), as ``prefill`` fills it; ``ctx_len`` sizes
+    the context K/V of "x" and "d" layers."""
     dt = dtype_of(cfg.compute_dtype)
     if kind == "s":
         return ssm_mod.init_ssm_cache(cfg, lead, dt, device)
@@ -150,31 +178,49 @@ def new_cache(cfg, kind: str, lead, s_max: int, device):
         return rglru_mod.init_rglru_cache(cfg, lead, dt, device)
     if kind == "l":
         return attn.init_ring_cache(cfg, lead, dt, device)
-    shape = (*lead, s_max, cfg.n_kv, cfg.resolved_head_dim)
-    return attn.KVCache(torch.zeros(shape, dtype=dt, device=device),
-                        torch.zeros(shape, dtype=dt, device=device))
+
+    def kv(length):
+        shape = (*lead, length, cfg.n_kv, cfg.resolved_head_dim)
+        return attn.KVCache(torch.zeros(shape, dtype=dt, device=device),
+                            torch.zeros(shape, dtype=dt, device=device))
+
+    if kind == "x":
+        return {"ctx_kv": kv(ctx_len)}
+    if kind == "d":
+        return {"self": kv(s_max), "ctx_kv": kv(ctx_len)}
+    return kv(s_max)
 
 
-def _init_caches(cfg, batch: int, s_max: int, device) -> dict:
+def _init_caches(cfg, batch: int, s_max: int, device, ctx_len: int = 0):
     return {"units": {f"slot{i}": new_cache(cfg, kind, (cfg.n_units, batch),
-                                            s_max, device)
+                                            s_max, device, ctx_len)
                       for i, kind in enumerate(cfg.block_pattern)},
-            "tail": [new_cache(cfg, kind, (batch,), s_max, device)
+            "tail": [new_cache(cfg, kind, (batch,), s_max, device, ctx_len)
                      for kind in cfg.tail_pattern]}
+
+
+def _copy(dst, src) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _fill(kind, cache, out) -> None:
     """Write one layer's prefill result ``out`` into its cache, in place:
-    K/V at positions 0.. ("g"), the last window of K/V at their ring slots
-    ("l"), the recurrent state ("r", "s")."""
-    if kind == "g":
+    K/V at positions 0.. ("g", "m"), the last window of K/V at their ring
+    slots ("l"), the context's K/V ("x"; with the self K/V, "d"), the
+    recurrent state ("r", "s")."""
+    if kind in ("g", "m"):
         attn.prefill_into_kv(cache, *out)
     elif kind == "l":
         k, v = out
         attn.prefill_into_ring(cache, k, v, k.shape[1])
+    elif kind == "x":
+        _copy(cache["ctx_kv"], out)
+    elif kind == "d":
+        attn.prefill_into_kv(cache["self"], *out[0])
+        _copy(cache["ctx_kv"], out[1])
     else:
-        for dst, src in zip(cache, out):
-            dst.copy_(src)
+        _copy(cache, out)
 
 
 # ---------------------------------------------------------------------------
@@ -182,53 +228,113 @@ def _fill(kind, cache, out) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_full(p, cfg, kind, x, positions, pad_mask=None,
-                want_cache: bool = False):
-    """One layer over a full sequence: (x, what its cache needs or None).
+                want_cache: bool = False, ctx=None):
+    """One layer over a full sequence: (x, aux, what its cache needs).
 
-    ``pad_mask`` (B, S) marks the valid (non-left-pad) positions, and every
-    kind honours it: attention masks pad keys, the recurrent kinds zero pad
-    inputs ahead of their convs and reset their scans, so a left-padded row
-    equals its solo run."""
+    ``aux`` is the MoE load-balance loss of an "m" layer, else None; the
+    cache part is None where ``want_cache`` is False (the K/V of attention
+    kinds is returned all the same).  ``ctx`` (B, S_ctx, D) is the context
+    of "x" and "d" layers.  ``pad_mask`` (B, S) marks the valid
+    (non-left-pad) positions, and every kind honours it: self-attention
+    masks pad keys, the recurrent kinds zero pad inputs ahead of their convs
+    and reset their scans, so a left-padded row equals its solo run;
+    cross-attention sees the whole context."""
     if kind == "s":
         y = ssm_mod.apply_ssm(p["ssm"], cfg, x, want_cache, pad_mask)
         y, extra = y if want_cache else (y, None)
-        return x + y, extra
+        return x + y, None, extra
     normed = rms_norm(x, p["norm1"])
+    aux = None
     if kind == "r":
         h = rglru_mod.apply_rglru(p["rglru"], cfg, normed, want_cache,
                                   pad_mask)
         h, extra = h if want_cache else (h, None)
-    else:
+        x = x + h
+    elif kind == "x":
+        extra = attn.context_kv(p["xattn"], cfg, ctx)
+        x = x + attn.cross_attention(p["xattn"], cfg, normed, extra)
+    elif kind == "d":
+        h, kv = attn.self_attention(p["attn"], cfg, normed, positions,
+                                    kind="g", pad_mask=pad_mask)
+        x = x + h
+        ctx_kv = attn.context_kv(p["xattn"], cfg, ctx)
+        x = x + attn.cross_attention(p["xattn"], cfg,
+                                     rms_norm(x, p["norm_x"]), ctx_kv)
+        extra = (kv, ctx_kv)
+    else:                                   # "g" | "l" | "m" | "e"
+        akind = kind if kind in ("l", "e") else "g"
         h, extra = attn.self_attention(p["attn"], cfg, normed, positions,
-                                       kind=kind, pad_mask=pad_mask)
-    x = x + h
-    x = x + ffn_mod.apply_ffn(p["ffn"], cfg, rms_norm(x, p["norm2"]))
-    return x, extra
+                                       kind=akind, pad_mask=pad_mask)
+        x = x + h
+    if kind == "m":
+        y, aux = ffn_mod.apply_moe(p["moe"], cfg, rms_norm(x, p["norm2"]))
+        x = x + y
+    else:
+        x = x + ffn_mod.apply_ffn(p["ffn"], cfg, rms_norm(x, p["norm2"]))
+    return x, aux, extra
 
 
-def run_units(units, cfg, x, positions, caches=None, pad_mask=None):
-    """Apply every unit of ``units`` (leaves stacked over units) to x.  With
-    ``caches`` ({"slot{i}": unit-stacked cache}), each layer's cache is
-    filled in place."""
+def _add(total, aux):
+    """``total + aux`` where either may be None (no MoE layer yet)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def run_units(units, cfg, x, positions, caches=None, pad_mask=None,
+              ctx=None, pattern=None):
+    """Apply every unit of ``units`` (leaves stacked over units; each unit
+    the layers of ``pattern``, by default ``cfg.block_pattern``) to x.
+    With ``caches`` ({"slot{i}": unit-stacked cache}), each layer's cache
+    is filled in place.  Returns (x, the units' summed MoE aux loss, or
+    None where the pattern has no "m")."""
+    pattern = cfg.block_pattern if pattern is None else pattern
     n = next(_leaves(units)).shape[0]
+    total = None
     for u in range(n):
         unit_p = _tree.index(units, u)
-        for i, kind in enumerate(cfg.block_pattern):
-            x, out = _layer_full(unit_p[f"slot{i}"], cfg, kind, x, positions,
-                                 pad_mask, want_cache=caches is not None)
+        unit_aux = None
+        for i, kind in enumerate(pattern):
+            x, aux, out = _layer_full(unit_p[f"slot{i}"], cfg, kind, x,
+                                      positions, pad_mask,
+                                      want_cache=caches is not None, ctx=ctx)
+            unit_aux = _add(unit_aux, aux)
             if caches is not None:
                 _fill(kind, _tree.index(caches[f"slot{i}"], u), out)
-    return x
+        total = _add(total, unit_aux)
+    return x, total
 
 
-def run_tail(tail, cfg, x, positions, caches=None, pad_mask=None):
-    """Apply the tail layers, filling their caches in place if given."""
+def run_tail(tail, cfg, x, positions, caches=None, pad_mask=None, ctx=None):
+    """Apply the tail layers, filling their caches in place if given.
+    Returns (x, their summed MoE aux loss or None)."""
+    total = None
     for j, (p, kind) in enumerate(zip(tail, cfg.tail_pattern)):
-        x, out = _layer_full(p, cfg, kind, x, positions, pad_mask,
-                             want_cache=caches is not None)
+        x, aux, out = _layer_full(p, cfg, kind, x, positions, pad_mask,
+                                  want_cache=caches is not None, ctx=ctx)
+        total = _add(total, aux)
         if caches is not None:
             _fill(kind, caches[j], out)
-    return x
+    return x, total
+
+
+def _encode(params, cfg, src_embeds):
+    """The bidirectional encoder stack over frame embeddings (B, S, D)."""
+    enc = params["encoder"]
+    x = src_embeds.to(dtype_of(cfg.compute_dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = run_units(enc["units"], cfg, x, positions, pattern=("e",))
+    return rms_norm(x, enc["final_norm"])
+
+
+def _context(params, cfg, batch):
+    """The context of "x" / "d" layers: image embeddings (a vision
+    frontend) or the encoder's output; None for other stacks."""
+    if cfg.frontend == "vision":
+        return batch["image_embeds"].to(dtype_of(cfg.compute_dtype))
+    if cfg.enc_layers:
+        return _encode(params, cfg, batch["src_embeds"])
+    return None
 
 
 def _logits(params, cfg, x):
@@ -241,34 +347,49 @@ def _embed(params, cfg, tokens):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
 
 
+def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None):
+    x, aux = run_units(params["units"], cfg, x, positions,
+                       None if caches is None else caches["units"], pad_mask,
+                       ctx)
+    x, tail_aux = run_tail(params.get("tail", []), cfg, x, positions,
+                           None if caches is None else caches["tail"],
+                           pad_mask, ctx)
+    return x, _add(aux, tail_aux)
+
+
 def forward_train(params, cfg, batch):
-    """Teacher-forced logits.  batch: {"tokens": (B, S)}.  Returns
-    (logits (B, S, V) float32, aux) with aux = 0 (no MoE here)."""
-    check_servable(cfg)
+    """Teacher-forced logits.  batch: {"tokens": (B, S)} plus
+    ``image_embeds`` (vision) or ``src_embeds`` (an encoder's frames),
+    each (B, S_ctx, D).  Returns (logits (B, S, V) float32, the summed MoE
+    aux loss, float32)."""
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
+    ctx = _context(params, cfg, batch)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = run_units(params["units"], cfg, x, positions)
-    x = run_tail(params.get("tail", []), cfg, x, positions)
-    return _logits(params, cfg, x), torch.zeros((), device=tokens.device)
+    x, aux = _run_stack(params, cfg, x, positions, ctx)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params, cfg, batch, s_max: int, pad=None):
-    """Build the serving cache from a prompt.  Returns (last-token logits
-    (B, V), caches); ``s_max`` sizes the global KV buffers.
+    """Build the serving cache from a prompt (and the batch's context, as
+    ``forward_train`` takes it).  Returns (last-token logits (B, V),
+    caches); ``s_max`` sizes the global KV buffers, the context's length
+    the context K/V.
 
-    ``pad`` (B,) gives each row's LEFT-pad count: attention masks the pad
-    keys and RoPE uses the per-row positions ``max(arange(S) - pad, 0)``;
-    recurrent layers zero pad inputs and reset their scans at the pad
+    ``pad`` (B,) gives each row's LEFT-pad count: self-attention masks the
+    pad keys and RoPE uses the per-row positions ``max(arange(S) - pad,
+    0)``; recurrent layers zero pad inputs and reset their scans at the pad
     boundary.  A padded row's logits and cache equal its solo run.  The pad
     vector rides in the cache (``caches["pad"]``) so ``decode_step`` keeps
     masking.
     """
-    check_servable(cfg)
     tokens = batch["tokens"]
     device = tokens.device
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
+    ctx = _context(params, cfg, batch)
     if pad is None:
         positions = torch.arange(s, device=device)
         pad_mask = None
@@ -277,11 +398,9 @@ def prefill(params, cfg, batch, s_max: int, pad=None):
         ar = torch.arange(s, device=device)[None, :]
         positions = torch.clamp(ar - pad[:, None], min=0)
         pad_mask = ar >= pad[:, None]
-    caches = _init_caches(cfg, b, s_max, device)
-    x = run_units(params["units"], cfg, x, positions, caches["units"],
-                  pad_mask)
-    x = run_tail(params.get("tail", []), cfg, x, positions, caches["tail"],
-                 pad_mask)
+    caches = _init_caches(cfg, b, s_max, device,
+                          0 if ctx is None else ctx.shape[1])
+    x, _ = _run_stack(params, cfg, x, positions, ctx, caches, pad_mask)
     caches["pos"] = s
     if pad is not None:
         caches["pad"] = pad
@@ -295,6 +414,16 @@ def _ffn_residual(p, cfg, x, h):
     return x + ffn_mod.apply_ffn(p["ffn"], cfg, rms_norm(x, p["norm2"]))
 
 
+def _channel_residual(p, cfg, kind, x, h):
+    """x + h, then the layer's channel mixer: the MoE for "m" (its aux
+    loss is dropped, as the reference drops it outside training), else the
+    dense FFN."""
+    if kind != "m":
+        return _ffn_residual(p, cfg, x, h)
+    x = x + h
+    return x + ffn_mod.apply_moe(p["moe"], cfg, rms_norm(x, p["norm2"]))[0]
+
+
 def _layer_decode(p, cfg, kind, x, cache, pos, pad=None):
     """One token through one layer, its cache stepped in place."""
     if kind == "s":
@@ -302,10 +431,22 @@ def _layer_decode(p, cfg, kind, x, cache, pos, pad=None):
     normed = rms_norm(x, p["norm1"])
     if kind == "r":
         h, _ = rglru_mod.apply_rglru_decode(p["rglru"], cfg, normed, cache)
+    elif kind == "x":
+        h = attn.decode_cross_attention(p["xattn"], cfg, normed,
+                                        cache["ctx_kv"])
+    elif kind == "d":
+        h, _ = attn.decode_self_attention(p["attn"], cfg, normed,
+                                          cache["self"], pos, kind="g",
+                                          pad=pad)
+        x = x + h
+        h = attn.decode_cross_attention(p["xattn"], cfg,
+                                        rms_norm(x, p["norm_x"]),
+                                        cache["ctx_kv"])
     else:
         h, _ = attn.decode_self_attention(p["attn"], cfg, normed, cache, pos,
-                                          kind=kind, pad=pad)
-    return _ffn_residual(p, cfg, x, h)
+                                          kind="l" if kind == "l" else "g",
+                                          pad=pad)
+    return _channel_residual(p, cfg, kind, x, h)
 
 
 def _each_layer(params, cfg, caches):
@@ -345,7 +486,14 @@ def _layer_chunk(p, cfg, kind, x, cache, start: int, positions,
     kinds ("l", "r", "s") replay their single-token decode step over the
     chunk's real tokens, as the reference does; the right-pad rows of a
     final partial chunk take no step, so the state does not move past the
-    prompt (their outputs are zeros and nothing reads them)."""
+    prompt (their outputs are zeros and nothing reads them).  The other
+    kinds are refused, as the reference refuses them: capacity routing
+    couples every token of an "m" dispatch group, so a chunk-local pass
+    cannot give the whole-prompt routing, and "x", "d" and "e" are not
+    served by the engine at all."""
+    if kind not in CHUNKED:
+        raise NotImplementedError(
+            f"chunked prefill does not serve kind {kind!r}")
     if kind == "g":
         normed = rms_norm(x, p["norm1"])
         out, _ = attn.chunk_self_attention(p["attn"], cfg, normed, cache,
@@ -393,9 +541,10 @@ def _layer_decode_paged(p, cfg, kind, x, cache, block_table, seq_lens):
     if kind in ("s", "r"):
         return _layer_decode(p, cfg, kind, x, cache, None)
     out, _ = attn.decode_self_attention_paged(
-        p["attn"], cfg, rms_norm(x, p["norm1"]), cache, kind=kind,
-        block_table=block_table, seq_lens=seq_lens)
-    return _ffn_residual(p, cfg, x, out)
+        p["attn"], cfg, rms_norm(x, p["norm1"]), cache,
+        kind="l" if kind == "l" else "g", block_table=block_table,
+        seq_lens=seq_lens)
+    return _channel_residual(p, cfg, kind, x, out)
 
 
 def decode_step_paged(params, cfg, caches, tokens, block_table, seq_lens):

@@ -9,7 +9,8 @@ partition cut with the Oracle for 3 slots; a ``PartitionedLM`` runs the
 split at the chosen unit cut and at the middle unit, each checked against
 the monolithic forward pass; then the ES tier serves a burst of requests
 through the continuous-batching engine.  The model (``--arch``: a config
-that ``PartitionedLM`` takes, qwen3-0.6b by default, or mamba2-1.3b) runs
+that ``PartitionedLM`` takes: qwen3-0.6b by default, mamba2-1.3b, or the
+MoE stacks moonshot-v1-16b-a3b and llama4-maverick-400b-a17b) runs
 at full width from a seeded random init (its full depth unless
 ``--layers`` cuts it), in bf16, on CUDA unless ``--device cpu``.  Port of
 ``examples/serve_partitioned.py``, which runs a reduced qwen3 on JAX.
@@ -30,6 +31,7 @@ from .core.env import MecConfig, MecEnv
 from .device import resolve_device
 from .models import transformer
 from .profiling.lmprofiles import lm_profile
+from .serving import kvpool
 from .serving.engine import Request
 from .serving.partitioned import PartitionedLM, layer_cut_to_unit
 
@@ -43,10 +45,10 @@ SEED = 0               # weights, controller state, split tokens, prompts
 
 def partitionable() -> list[str]:
     """The configs ``PartitionedLM`` takes: plain stacks (no tail, no
-    encoder) of the layer kinds the port serves."""
+    encoder) of the layer kinds the engine serves (g/l/m/r/s)."""
     return sorted(name for name, cfg in load_all().items()
                   if not cfg.tail_pattern and not cfg.enc_layers
-                  and set(cfg.block_pattern) <= set(transformer.SERVED))
+                  and set(cfg.block_pattern) <= set(kvpool.SERVED))
 
 
 def model_config(arch: str = DEFAULT_ARCH, layers: int | None = None,
@@ -130,14 +132,26 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg_full = get_config(args.arch)
     cfg = model_config(args.arch, args.layers)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     params = transformer.init_params(SEED, cfg, device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     report = {"arch": cfg.name, "layers": cfg.n_layers,
               "dtype": cfg.param_dtype, "device": str(device),
-              "params": transformer.param_count(params)}
+              "params": transformer.param_count(params),
+              "param_bytes": sum(t.numel() * t.element_size()
+                                 for t in transformer._leaves(params))}
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{report['params'] / 1e6:.1f}M parameters in {cfg.param_dtype} "
           f"on {device}")
+    if cuda:
+        report["init_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                                     - base)
+        print(f"init: peak {report['init_peak_bytes'] / 1e9:.2f} GB "
+              f"allocated for {report['param_bytes'] / 1e9:.2f} GB of "
+              f"parameters")
 
     # -- the LyMDO controller over the full arch's layer profile -------------
     profile = lm_profile(cfg_full, prompt_tokens=64)

@@ -20,7 +20,10 @@ decode_step`` advances the wave.  Kept for A/B latency baselines.
 Prompts longer than ``prefill_chunk`` ("auto": 32 when ``s_max > 32``)
 stream through ``transformer.prefill_chunk`` one chunk per tick, each chunk
 committed into the slot's blocks (``kvpool.commit_chunk``), so a long prompt
-never stalls the decoding slots for more than a chunk.
+never stalls the decoding slots for more than a chunk.  Stacks with MoE
+("m") layers prefill whole prompts: capacity routing couples the tokens of
+a dispatch group.  Both modes serve g/l/m/r/s stacks (``kvpool.
+check_pattern``): requests carry tokens, not the context of "x"/"d".
 
 Sliding-window ("l") and recurrent ("r", "s") layers keep one row of ring
 or state per slot: every decode tick steps all rows, so an idle or
@@ -98,6 +101,8 @@ class ServingEngine:
             raise NotImplementedError(
                 f"ServingEngine(mesh=) is not ported yet; it comes with "
                 f"{LATER}")
+        # token requests carry no context: both modes serve g/l/m/r/s only
+        kvpool.check_pattern(cfg, sync=sync_batching)
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.slots = slots
@@ -114,6 +119,11 @@ class ServingEngine:
         if prefill_chunk is not None and not 0 < int(prefill_chunk) <= s_max:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be in "
                              f"[1, s_max={s_max}], None, or 'auto'")
+        if "m" in (*cfg.block_pattern, *cfg.tail_pattern):
+            # capacity routing couples every token of a dispatch group, so a
+            # chunk-local pass cannot give the whole-prompt routing: MoE
+            # stacks keep whole-prompt prefill (transformer._layer_chunk)
+            prefill_chunk = None
         self.prefill_chunk = None if prefill_chunk is None \
             else int(prefill_chunk)
         self.recorder = recorder

@@ -1,7 +1,7 @@
 """Paged KV-cache pool for continuous-batching serving.
 
 Port of ``repro/serving/kvpool.py``.  The KV cache of every unit-stacked
-"g" layer lives in a block pool
+"g" or "m" layer lives in a block pool
 ``(U, n_blocks, block_size, KV, hd)``; a host-side :class:`BlockAllocator`
 hands out blocks, and block 0 is a reserved dummy that idle decode rows
 write into.  Each slot's block table maps its logical blocks to pool
@@ -122,19 +122,38 @@ def pool_stats(allocator: BlockAllocator, seq_lens, owned) -> dict:
     }
 
 
+SERVED = ("g", "l", "m", "r", "s")
+
+
+def check_pattern(cfg, sync: bool = False) -> None:
+    """Raise a ``ValueError`` unless ``cfg`` is a plain decoder stack of
+    the kinds the engine serves (g/l/m/r/s): the cross-attention kinds need
+    a context that token requests do not carry, and an encoder needs source
+    frames.  The continuous engine's message is the reference's; the sync
+    engine, which the reference lets fail at its first prefill, says why."""
+    bad = set("xde") & (set(cfg.block_pattern) | set(cfg.tail_pattern or ()))
+    if bad or cfg.enc_layers:
+        hint = ("the sync engine passes tokens only, no image or source "
+                "embeddings" if sync else
+                "use ServingEngine(sync_batching=True)")
+        raise ValueError(
+            f"continuous batching serves plain decoder stacks (g/l/m/r/s); "
+            f"{cfg.name} has {sorted(bad) or 'encoder layers'} -- {hint}")
+
+
 def init_decode_state(cfg, params, slots: int, n_blocks: int,
                       block_size: int) -> dict:
     """The zeroed continuous-decode state on the parameters' device, with
     the structure of a ``transformer.prefill`` cache (no ``pos``/``pad``):
-    each "g" layer's KV as a block pool ``(U, n_blocks, block_size, KV,
-    hd)`` (tail layers without the U axis), and each ring ("l") and
-    recurrent ("r", "s") cache with one row per decode slot."""
-    transformer.check_servable(cfg)
+    each "g" and "m" layer's KV as a block pool ``(U, n_blocks,
+    block_size, KV, hd)`` (tail layers without the U axis), and each ring
+    ("l") and recurrent ("r", "s") cache with one row per decode slot."""
+    check_pattern(cfg)
     device = params["embed"].device
     dt = dtype_of(cfg.compute_dtype)
 
     def build(kind, lead):
-        if kind != "g":
+        if kind not in ("g", "m"):
             return transformer.new_cache(cfg, kind, (*lead, slots), 0, device)
         shape = (*lead, n_blocks, block_size, cfg.n_kv,
                  cfg.resolved_head_dim)

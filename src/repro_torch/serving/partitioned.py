@@ -1,8 +1,8 @@
 """Partitioned-model execution: the paper's Fig. 1 on the LM stack.
 
 Port of ``repro/serving/partitioned.py`` (without ``mesh=``, which comes
-with a later slice).  A ``PartitionedLM`` splits a decoder-only stack (every
-served layer kind: g, l, r, s; no tail, as in the reference) at a *unit*
+with a later slice).  A ``PartitionedLM`` splits a decoder-only stack (the
+served layer kinds: g, l, m, r, s; no tail, as in the reference) at a *unit*
 boundary: units ``0..cut_unit-1`` run on the device tier (UE), the
 rest on the edge tier (ES), and the boundary hidden state (psi in the
 paper) crosses between.  The LyMDO controller picks the cut per slot from
@@ -18,6 +18,7 @@ from .. import _tree
 from ..configs.base import ArchConfig
 from ..models import transformer
 from ..models.common import dtype_of
+from . import kvpool
 
 
 def split_params(params, cut_unit: int):
@@ -39,9 +40,11 @@ def layer_cut_to_unit(cfg: ArchConfig, layer_cut: int) -> int:
 
 
 class PartitionedLM:
-    """Two-tier forward pass for plain decoder stacks of any served kind
-    (g, l, r, s); like the reference, it refuses stacks with tail layers or
-    an encoder, whose cuts would not fall on unit boundaries."""
+    """Two-tier forward pass for plain decoder stacks of the served kinds
+    (g, l, m, r, s).  Like the reference, it refuses stacks with tail
+    layers or an encoder, whose cuts would not fall on unit boundaries; it
+    also refuses "x" stacks, whose layers need a context that the halves
+    are not given (the reference fails on them at the first pass)."""
 
     def __init__(self, cfg: ArchConfig, params, cut_unit: int, *, mesh=None):
         if mesh is not None:
@@ -52,7 +55,11 @@ class PartitionedLM:
             raise ValueError(
                 f"{cfg.name}: the partitioned model takes plain stacks, "
                 f"without tail layers or an encoder (as the reference)")
-        transformer.check_servable(cfg)
+        if not set(cfg.block_pattern) <= set(kvpool.SERVED):
+            raise ValueError(
+                f"{cfg.name}: the partitioned model takes the kinds "
+                f"{'/'.join(kvpool.SERVED)}; {cfg.block_pattern} needs a "
+                f"context its halves are not given")
         self.cfg = cfg
         self.cut_unit = int(cut_unit)
         self.mesh = None
@@ -62,12 +69,12 @@ class PartitionedLM:
         x = transformer._embed(self.ue_params, self.cfg, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         return transformer.run_units(self.ue_params["units"], self.cfg, x,
-                                     positions)
+                                     positions)[0]
 
     def _es_half(self, hidden):
         positions = torch.arange(hidden.shape[1], device=hidden.device)
-        x = transformer.run_units(self.es_params["units"], self.cfg, hidden,
-                                  positions)
+        x, _ = transformer.run_units(self.es_params["units"], self.cfg,
+                                     hidden, positions)
         return transformer._logits(self.es_params, self.cfg, x)
 
     def boundary_bytes(self, batch: int, seq: int) -> int:

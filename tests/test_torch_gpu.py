@@ -20,6 +20,8 @@ Scans: 1e-4 in float32 (the reference's scan tolerance), 2e-2 for an SSD y
 or RG-LRU h that comes out in bf16, 1e-4 for the SSD state, which is
 float32 from the same inputs either way.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -776,3 +778,148 @@ def test_head_from_layer_list_lives_on_card(head):
     assert pol.device.type == "cuda"
     state = p_ppo.PPO(pol, 12).init(torch.Generator(device="cuda").manual_seed(0))
     assert all(x.is_cuda for x in _tree.leaves(state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,kind,pad", [
+    (4, 512, 512, 16, 16, 64, "full", None),       # seamless's encoder
+    (4, 128, 512, 16, 16, 64, "full", None),       # seamless's cross
+    (4, 128, 1024, 64, 8, 128, "full", None),      # vision's cross
+    (4, 128, 128, 40, 8, 128, "causal", [0, 51, 96, 27]),   # llama4, G 5
+    (4, 128, 128, 64, 8, 128, "causal", [0, 96, 38, 71]),   # vision, G 8
+    (1, 256, 256, 16, 16, 128, "causal", [85])])   # moonshot solo, G 1
+def test_flash_at_the_remaining_kinds_shapes_matches_plain(
+        dtype, tol, b, sq, sk, h, kv, hd, kind, pad):
+    """Flash at the shapes the "m", "x", "e" and "d" kinds give it: full
+    attention with Sq != Sk, GQA groups of 1, 5 and 8."""
+    _need_card()
+    q, k, v = _att_inputs(b, sq, sk, h, kv, hd, dtype, sq + sk)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    before = p_fa.flash_attention_cuda.launches
+    got = p_ops.flash_attention(q, k, v, kind=kind, pad_mask=None if pad is None
+                                else torch.arange(sk, device="cuda")[None]
+                                >= pad_t[:, None])
+    torch.cuda.synchronize()
+    assert p_fa.flash_attention_cuda.launches == before + 1
+    want = p_ref.flash_attention_ref(q, k, v, kind=kind, pad=pad_t)
+    for i in range(b):
+        p0 = 0 if pad is None else pad[i]
+        torch.testing.assert_close(got[i, p0:].float(), want[i, p0:].float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(4, 1024, 64, 8, 128),
+                                         (4, 512, 16, 16, 64)])
+def test_cross_decode_over_a_whole_context_matches_plain(dtype, tol, b, s, h,
+                                                         kv, hd):
+    """Cross-attention decode: every key of the 1,024- or 512-key context
+    valid."""
+    _need_card()
+    q, k, v = _att_inputs(b, 1, s, h, kv, hd, dtype, s)
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    got = p_ops.decode_attention(q, k, v, valid)
+    torch.testing.assert_close(
+        got.float(), p_ref.decode_attention_ref(q, k, v, valid).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_at_moonshots_heads_matches_plain(dtype, tol):
+    """The paged entry at moonshot's 16 heads over 16 kv heads (G 1)."""
+    _need_card()
+    b, m, bs, h, kv, hd = 8, 32, 16, 16, 16, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    n_blocks = b * m + 1
+    q, kp, vp = rnd(b, 1, h, hd), rnd(n_blocks, bs, kv, hd), rnd(n_blocks, bs, kv, hd)
+    table = torch.randperm(n_blocks, generator=g, device="cuda")[:b * m]
+    table = table.reshape(b, m).to(torch.int32)
+    lens = torch.tensor([0, 15, 16, 511, 100, 300, 1, 64], dtype=torch.int32,
+                        device="cuda")
+    got = p_ops.decode_attention_paged(q, kp, vp, table, lens)
+    rows = lambda pool: pool[table.long()].reshape(b, m * bs, kv, hd)
+    valid = torch.arange(m * bs, device="cuda")[None] <= lens[:, None]
+    torch.testing.assert_close(
+        got.float(), p_ref.decode_attention_ref(q, rows(kp), rows(vp),
+                                                valid).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_engine_on_card_serves_moe_stacks_with_the_cpu_engines_tokens(arch):
+    """float32, reduced MoE stacks with 32-wide heads at the no-drop
+    capacity factor ceil(E / k): both engine modes on the card launch the
+    attention kernels, prefill whole prompts and serve the CPU engines'
+    tokens.  (At the configs' 1.25 a bucketed prefill's left-pad tokens
+    compete for capacity, and a pad row, which sees no key, is zeros from
+    the flash kernel but the uniform average from the plain version: the
+    two engines may then drop different tokens.)"""
+    _need_card()
+    cfg = reduced(get_config(arch), head_dim=32)
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=float(-(-cfg.n_experts // cfg.top_k)))
+    cpu = p_tf.init_params(0, cfg, "cpu")
+    gpu = _tree.to_device(cpu, "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 40, 9, 70)]
+    for sync in (False, True):
+        outs = []
+        for params in (cpu, gpu):
+            eng = p_engine.ServingEngine(cfg, params, slots=2, s_max=128,
+                                         sync_batching=sync)
+            assert eng.prefill_chunk is None
+            reqs = [p_engine.Request(rid=i, prompt=pr, max_new=6)
+                    for i, pr in enumerate(prompts)]
+            before = p_da.decode_attention_cuda.launches
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            outs.append([r.out for r in reqs])
+        assert p_da.decode_attention_cuda.launches == (
+            before + eng.decode_steps * cfg.n_layers)
+        assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_cross_attention_stacks_on_card_match_the_cpu(arch):
+    """float32, reduced vision and seamless with 32-wide heads: prefill
+    (left-padded) and three decode steps on the card give the CPU's logits
+    at 1e-4, launching flash for the encoder and cross-attention and the
+    decode kernel over the context."""
+    _need_card()
+    cfg = reduced(get_config(arch), head_dim=32)
+    cpu = p_tf.init_params(0, cfg, "cpu")
+    gpu = _tree.to_device(cpu, "cuda")
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g)}
+    key = "image_embeds" if cfg.frontend == "vision" else "src_embeds"
+    batch[key] = torch.randn(2, 24, cfg.d_model, generator=g)
+    pad = torch.tensor([0, 3], dtype=torch.int32)
+    logits = []
+    for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = p_fa.flash_attention_cuda.launches
+        lg, cache = p_tf.prefill(params, cfg, b, s_max=16, pad=pad.to(dev))
+        out = [lg.cpu()]
+        for t in range(3):
+            lg, cache = p_tf.decode_step(params, cfg, cache,
+                                         b["tokens"][:, t])
+            out.append(lg.cpu())
+        logits.append(torch.stack(out))
+    assert p_fa.flash_attention_cuda.launches - before == (
+        cfg.n_layers + cfg.enc_layers + sum(k == "d" for k in cfg.block_pattern)
+        * cfg.n_units)
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)

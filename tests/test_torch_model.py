@@ -315,11 +315,29 @@ def test_decode_step_paged_matches_reference(model):
     ("llama-3.2-vision-90b", "cross-attention"),
     ("seamless-m4t-large-v2", "cross-attention")])
 def test_unported_layer_kinds_raise_naming_their_slice(arch, slice_word):
+    """The kinds an earlier slice refused ("m"; "x", "e", "d") are ported:
+    the port's own ``init_params`` gives the reference's structure and
+    shapes (the encoder's units lead with ``enc_layers``), with the MoE
+    block or the cross-attention block the slice named, and
+    ``params_from_reference`` carries every leaf across unchanged."""
     cfg = p_base.reduced(p_base.get_config(arch))
-    with pytest.raises(NotImplementedError, match=slice_word):
-        p_tf.init_params(0, cfg, "cpu")
-    for name in ("qwen3-0.6b", "qwen1.5-110b", "starcoder2-7b"):
-        p_tf.check_servable(p_base.get_config(name))
+    p = p_tf.init_params(0, cfg, "cpu")
+    r = r_tf.init_params(jax.random.PRNGKey(0), cfg_r(cfg))
+    shapes = lambda t: sorted((jax.tree_util.keystr(k), tuple(v.shape))
+                              for k, v in jax.tree_util.tree_leaves_with_path(t))
+    assert shapes(jax.tree.map(lambda t: np.zeros(t.shape), p)) == shapes(r)
+    block = "moe" if slice_word == "MoE" else "xattn"
+    assert any(block in layer for layer in p["units"].values())
+    if cfg.enc_layers:
+        assert {t.shape[0] for t in p_tf._leaves(p["encoder"]["units"])} \
+            == {cfg.enc_layers}
+    carried = p_tf.params_from_reference(jax.tree.map(np.asarray, r), cfg,
+                                         "cpu")
+    for (path, want), got in zip(jax.tree_util.tree_leaves_with_path(r),
+                                 jax.tree.leaves(jax.tree.map(
+                                     lambda t: t.numpy(), carried))):
+        np.testing.assert_array_equal(got, np.asarray(want),
+                                      err_msg=jax.tree_util.keystr(path))
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b",
@@ -328,7 +346,7 @@ def test_ring_and_recurrent_stacks_are_servable(arch):
     """The "l", "r" and "s" kinds (and tail stacks) are served: the port's
     own init gives the reference's parameter structure and shapes."""
     cfg = p_base.reduced(p_base.get_config(arch))
-    p_tf.check_servable(cfg)
+    p_kvpool.check_pattern(cfg)
     p = p_tf.init_params(0, cfg, "cpu")
     r = jax.eval_shape(lambda k: r_tf.init_params(k, cfg_r(cfg)),
                        jax.random.PRNGKey(0))
@@ -336,6 +354,34 @@ def test_ring_and_recurrent_stacks_are_servable(arch):
                               for k, v in jax.tree_util.tree_leaves_with_path(t))
     assert shapes(jax.tree.map(lambda t: np.zeros(t.shape), p)) == shapes(r)
     assert len(p.get("tail", [])) == len(cfg.tail_pattern)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-2b"])
+def test_init_params_fills_stacks_bit_identical_to_stacking(arch):
+    """``init_params`` fills each unit-stacked leaf one layer at a time in
+    the draw order of the earlier build, which drew every layer and then
+    stacked them: the seeded weights are bit-identical."""
+    from repro_torch import _tree
+    from repro_torch.models.common import dense_init, dtype_of, embed_init
+    cfg = p_base.reduced(p_base.get_config(arch), param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(5)
+    dt = dtype_of(cfg.param_dtype)
+    old = {"embed": embed_init(gen, (cfg.vocab, cfg.d_model), dt),
+           "units": {f"slot{i}": _tree.stack(
+               [p_tf._init_layer(gen, cfg, kind, "cpu")
+                for _ in range(cfg.n_units)])
+               for i, kind in enumerate(cfg.block_pattern)},
+           "final_norm": torch.zeros(cfg.d_model, dtype=dt)}
+    if cfg.tail_pattern:
+        old["tail"] = [p_tf._init_layer(gen, cfg, kind, "cpu")
+                       for kind in cfg.tail_pattern]
+    if not cfg.tie_embeddings:
+        old["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt)
+    new = p_tf.init_params(5, cfg, "cpu")
+    assert _tree.leaves(new) and len(_tree.leaves(new)) == len(
+        _tree.leaves(old))
+    for a, b in zip(_tree.leaves(new), _tree.leaves(old)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_init_params_shapes_dtypes_and_device_rule():

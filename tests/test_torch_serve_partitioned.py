@@ -1,6 +1,7 @@
 """The partitioned server, ``python -m repro_torch.serve_partitioned``, on
 the CPU at full width and 2 layers: controller, split and ES engine, for
-qwen3-0.6b (the default) and mamba2-1.3b (``--arch``)."""
+qwen3-0.6b (the default) and mamba2-1.3b (``--arch``); moonshot-v1-16b-a3b,
+the MoE stack, at 1 layer (its init draws 0.9 B parameters a layer)."""
 import math
 
 import pytest
@@ -59,9 +60,33 @@ def test_main_serves_mamba2_on_cpu():
     assert srv["prefill_steps"] - srv["chunk_steps"] == 3
 
 
+def test_main_serves_moonshot_on_cpu():
+    """``--arch moonshot-v1-16b-a3b``: the controller decides over
+    moonshot's 50-layer profile, the split equals the monolithic pass (the
+    same MoE groups on the same tokens) and the ES engine prefills whole
+    prompts (no chunks for "m")."""
+    rep = sp.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu",
+                   "--layers", "1", "--requests", "2", "--prompt-max", "40",
+                   "--max-new", "2", "--slots", "2", "--s-max", "64",
+                   "--split-seq", "8"])
+    assert (rep["arch"], rep["layers"], rep["dtype"]) == (
+        "moonshot-v1-16b-a3b", 1, "bfloat16")
+    assert len(rep["controller_cuts"]) == sp.CTRL_SLOTS
+    for row in rep["split"]:
+        assert row["finite"] and row["max_abs_err"] == 0.0, row
+    srv = rep["serving"]
+    assert srv["completed"] == 2 and srv["chunk_steps"] == 0
+    assert srv["prefill_steps"] == 2
+    assert all(len(o) == 2 for o in srv["out"].values())
+
+
 def test_arch_choices_are_the_partitionable_configs():
-    assert sp.partitionable() == ["mamba2-1.3b", "qwen1.5-110b",
+    assert sp.partitionable() == ["llama4-maverick-400b-a17b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b", "qwen1.5-110b",
                                   "qwen3-0.6b", "starcoder2-7b"]
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-large-v2"):
+        with pytest.raises(SystemExit):
+            sp.parse_args(["--arch", arch])       # "x"; an encoder
     with pytest.raises(SystemExit):
         sp.parse_args(["--arch", "recurrentgemma-2b"])    # a tail stack
     cfg = sp.model_config("mamba2-1.3b", layers=4, dtype="float32")
