@@ -9,12 +9,13 @@ LyMDO controller deciding and scoring slots for a 4096-cell x 8-UE grid
 full width on the ES tier: qwen3-0.6b, mamba2-1.3b and the MoE
 moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
 through the serving launcher, and llama4-maverick, llama-3.2-vision and
-seamless-m4t through the model's entry points -- and
+seamless-m4t through the model's entry points; qwen3-0.6b trained at full
+width through the training launcher -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
-1. builds the five CUDA kernels from the sources in this checkout, one
-   nvcc process per source, all at once;
+1. builds the five CUDA kernel sources in this checkout (flash attention's
+   holds its backward too), one nvcc process per source, all at once;
 2. holds each kernel against its plain version at the main path's shapes
    and more -- the learning loop's one-cell Oracle (5 UEs, through the
    one-cell entry) and its 4096 x 5 grid of Fig. 4 cells, an LM-shaped
@@ -34,18 +35,18 @@ the card:
    per slot, the kernels that take the most device time);
 4. runs the learning loop: ``python -m repro_torch.quickstart``'s ``main``
    (``QS_ARGS``: PPO with the categorical head trains on the paper scenario
-   for 2 episodes of 32 slots, is evaluated at 2.5 req/s, and the Local,
+   for 2 episodes of 8 slots, is evaluated at 2.5 req/s, and the Local,
    Edge, Random and Oracle baselines run beside it; the sweep's launches
    must equal the Oracle's slots, Adam's step epochs x episodes, the
    metrics finite and the Oracle no worse than Local or Edge), joint mode
    (the paper's "PPO" baseline) for 2 episodes at K = 200, one PPO update
    at K = 200 on the card against the same update on the CPU (each head),
    the trained agent through ``eval_policy_batched`` beside the Oracle on
-   a 4096-cell grid of Fig. 4's fixed rates for 10 slots (the Oracle also
-   on a CPU copy of that grid on the same draws, held as phase 3 holds
-   its small grid), and profiles of 3 rollout slots and of one K = 200
-   update, composed into a training slot (a rollout slot and 1/K of an
-   update);
+   a 4096-cell grid of Fig. 4's fixed rates for 3 slots (the Oracle also
+   for 10 slots on the card and on a CPU copy of that grid on the same
+   draws, held as phase 3 holds its small grid), and profiles of 3
+   rollout slots and of one K = 200 update, composed into a training
+   slot (a rollout slot and 1/K of an update);
 5. holds the flash and decode attention kernels against their plain
    versions at the serving path's shapes (phase 11's among them) and at
    the reference's own kernel test cases, each float32 case with a bf16 twin for flash's tensor-core
@@ -117,7 +118,7 @@ the card:
    held to solo runs; every wave (a) and (d) prefill must be one that
    phases 5 and 7 held the kernels at; (e) ``train_lymdo`` killed
    after its first chunk and resumed, against an uninterrupted run
-   (parameters within 1e-5); (f) ``train_compare`` at 1 episode x 8
+   (parameters within 1e-5); (f) ``train_compare`` at 1 episode x 4
    slots per agent; (g) ``python -m repro_torch.obs --overhead`` (the
    hooks' own time a tick within 5 % of the disabled tick p50).  Kernel
    launches are held to exact counts (flash 28 per wave prefill and
@@ -141,7 +142,30 @@ the card:
    and decode launches are held to exact counts (moonshot 48 a prefill
    and a tick; llama4 2 and 2; vision 10 and 10; seamless 72 and 48), and
    the phase fails if it launches either kernel at a shape phase 5 did
-   not hold.
+   not hold;
+12. trains the LM on the card: (a) holds the flash backward kernel (through
+   ``ops.flash_attention`` with a gradient wanted) against autograd through
+   the float32 plain version at the training shape (B4 S512 H16/8 hd128,
+   causal), gemma3's window at hd 256, cross attention with Sq != Sk, GQA
+   groups of 1, 5 and 8, hd 32 and 64, S = 333 and left pads whose rows
+   see no key (1e-4 in float32, 2e-2 in bf16, of max(1, max |g|); such a
+   row's dO zeroed on both sides, then restored: dq = 0 there and dk, dv
+   unchanged bit for bit), and times forward + backward and the backward
+   alone beside the plain version, SDPA and the bound; (b) runs
+   ``python -m repro_torch.launch.train``'s ``main`` (``TRAIN_ARGS``:
+   qwen3-0.6b at full width, 28 layers, bf16, remat, 2 microbatches, B8
+   S512, 12 steps) with exact launches (flash 112 forwards and 56
+   backwards a step, no other kernel), a falling loss, then a run stopped
+   at step 6 and one resumed from its checkpoint, whose parameters and
+   moments must equal the uninterrupted run's bit for bit; step time p50,
+   tokens/s, MFU (``roofline.step_flops``' model flops over the step time
+   and ``roofline.PEAK_FLOPS``), peak memory and a profile of 3 steps;
+   (c) one float32 step card against CPU at 4 layers and full width
+   (qwen3-0.6b, the whole ``make_train_step`` step; gemma3-1b as (l, g);
+   moonshot at the no-drop capacity factor), and checks that a
+   recurrentgemma or mamba2 train step on the card raises
+   NotImplementedError; (d) ``python -m repro_torch.train_lm --steps 100``,
+   whose loss must fall.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -159,20 +183,22 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's peaks (NVIDIA data sheet), from the port's one source of
+# them: HBM bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
+from repro_torch.profiling.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_S, PEAK_F32_FLOPS as PEAK_F32_S,
+    PEAK_FLOPS as PEAK_BF16_S)
 RTOL, ATOL = 1e-4, 1e-3          # the sweep tolerance of the reference's tests
 ATT_TOL_F32, ATT_TOL_BF16 = 2e-5, 2e-2   # the attention tolerances of the same tests
 BIG = 1e29
 GRID_CELLS, GRID_UES = 4096, 8
-MAIN_SLOTS = 25
+MAIN_SLOTS = 8                   # timed; SMALL_SLOTS hold card vs CPU
 SMALL_CELLS, SMALL_SLOTS = 8, 20
 # card against the port's CPU path on the same draws: the P3/P5 minimizers
 # are flat to float32 rounding, so cuts may differ in a few places
 SAME_CUT_MIN, SUMMARY_RTOL = 0.95, 1e-2
 PROFILE_SLOTS = 3
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_BF16_S = 989e12             # dense tensor-core bf16
 # the card's bf16 logits may stand this many times as far from a float32
 # evaluation as the CPU's bf16 logits (1.015-1.027 in the chip runs that
 # set it, on qwen3-0.6b, mamba2-1.3b and recurrentgemma-2b)
@@ -491,9 +517,10 @@ def profile_grid(torch, grid, slots: int) -> dict:
 # evaluation slots per method would take over an hour of eager slots), and
 # so are phases 3, 4 and 10's slot counts, to keep the smoke inside its
 # time limit on a slow host (PERF.md lists the cuts)
-QS_ARGS = ["--episodes", "2", "--steps", "32", "--eval-episodes", "1"]
+QS_ARGS = ["--episodes", "2", "--steps", "8", "--eval-episodes", "1"]
 JOINT_EPISODES, PAPER_K = 2, 200
-EVAL_CELLS, EVAL_SLOTS = 4096, 10
+EVAL_CELLS, EVAL_SLOTS = 4096, 3     # timed
+EVAL_CHECK_SLOTS = 10                # the Oracle card vs CPU on that grid
 FIG4_RATES = (0.5, 1.0, 1.5, 2.0, 2.5)     # req/s, Fig. 4's sweep
 UPDATE_RTOL, UPDATE_ATOL = 1e-4, 1e-5     # tests/test_torch_ppo.py's update band
 UPDATE_ITERS = 5
@@ -693,16 +720,17 @@ def learning_phase(torch, smi) -> dict:
     t0 = time.perf_counter()
     grids = (grid, fig4_grid("cpu")[0])
     same_cut, worst = compare_rollouts(
-        torch, grids, "oracle", EVAL_SLOTS,
-        grid_draws(np, grids[1], EVAL_SLOTS, np.random.default_rng(12)))
-    log(f"      Oracle card vs the port's CPU path, {EVAL_SLOTS} slots on the "
+        torch, grids, "oracle", EVAL_CHECK_SLOTS,
+        grid_draws(np, grids[1], EVAL_CHECK_SLOTS, np.random.default_rng(12)))
+    log(f"      Oracle card vs the port's CPU path, {EVAL_CHECK_SLOTS} slots on the "
         f"same draws: same cuts {same_cut:.4f}, worst summary rel diff "
         f"{worst:.2e} ({time.perf_counter() - t0:.1f} s)")
     if same_cut < SAME_CUT_MIN or worst > SUMMARY_RTOL:
         fail("the Oracle on the Fig. 4 grid: card and CPU paths disagree")
     out["grid"] = {"cells": EVAL_CELLS, "slots": EVAL_SLOTS,
                    "slot_ms": slot_ms, "delay_ms": delays,
-                   "oracle_vs_cpu": {"same_cut": same_cut,
+                   "oracle_vs_cpu": {"slots": EVAL_CHECK_SLOTS,
+                                     "same_cut": same_cut,
                                      "summary_rel_diff": worst}}
 
     # (e) where a training slot's time goes: a rollout of PROFILE_SLOTS
@@ -1734,6 +1762,8 @@ def scan_counters():
     return {"ssd_scan": ssd_scan.ssd_scan_cuda,
             "rglru_scan": rglru_scan.rglru_scan_cuda,
             "flash_attention": flash_attention.flash_attention_cuda,
+            "flash_attention_backward":
+                flash_attention.flash_attention_backward_cuda,
             "decode_attention": decode_attention.decode_attention_cuda}
 
 
@@ -1899,8 +1929,8 @@ def recurrentgemma_phase(torch) -> dict:
 
 SYNC_MIX = dict(n=16, lo=8, hi=300, max_new=32, slots=8, s_max=512)  # phase 6's
 TRACE_CELLS, TRACE_STEPS = 16, 20
-TL_ARGS = ["--chunk", "1", "--steps", "8", "--eval-episodes", "1"]
-TC_STEPS = 8                  # slots per episode; 1 episode each
+TL_ARGS = ["--chunk", "1", "--steps", "4", "--eval-episodes", "1"]
+TC_STEPS = 4                  # slots per episode; 1 episode each
 TC_ARGS = ["--episodes", "1", "--steps", str(TC_STEPS), "--eval-episodes",
            "1"]
 CHECKPOINT_ATOL = 1e-5
@@ -2581,6 +2611,433 @@ def kinds_phase(torch) -> dict:
     return out
 
 
+# -- phase 12: LM training on the card ---------------------------------------
+
+GRAD_TOL_F32, GRAD_TOL_BF16 = 1e-4, 2e-2   # x max(1, max |plain grad|)
+# (label, B, Sq, Sk, H, KV, hd, dtype, kind, window, pad): the training
+# shape (qwen3-0.6b at its 2-microbatch B4 S512), gemma3's window at its hd
+# 256 and MQA, cross attention (full, Sq != Sk; vision's H64/KV8), GQA
+# groups of 1, 5 and 8, hd 32 (the train_lm twin) and 64, a length no tile
+# divides, and left pads with query rows that see no key
+FLASH_GRAD_CASES = [
+    ("train", 4, 512, 512, 16, 8, 128, "bf16", "causal", 0, None),
+    ("train", 4, 512, 512, 16, 8, 128, "f32", "causal", 0, None),
+    ("gemma3 local", 1, 1100, 1100, 4, 1, 256, "bf16", "local", 1024, None),
+    ("gemma3 local", 1, 1100, 1100, 4, 1, 256, "f32", "local", 1024, None),
+    ("cross g8", 2, 100, 300, 64, 8, 128, "bf16", "full", 0, None),
+    ("cross g8", 2, 100, 300, 64, 8, 128, "f32", "full", 0, None),
+    ("encoder g1", 2, 256, 256, 16, 16, 64, "bf16", "full", 0, None),
+    ("g5", 2, 130, 130, 10, 2, 64, "bf16", "causal", 0, None),
+    ("g5", 2, 130, 130, 10, 2, 64, "f32", "causal", 0, None),
+    ("S333", 2, 333, 333, 16, 8, 128, "bf16", "causal", 0, None),
+    ("S333", 2, 333, 333, 16, 8, 128, "f32", "causal", 0, None),
+    ("hd32", 2, 64, 64, 4, 2, 32, "bf16", "causal", 0, None),
+    ("hd32", 2, 64, 64, 4, 2, 32, "f32", "causal", 0, None),
+    ("pad", 3, 96, 96, 8, 2, 64, "bf16", "causal", 0, [0, 17, 40]),
+    ("pad", 3, 96, 96, 8, 2, 64, "f32", "causal", 0, [0, 17, 40]),
+    ("local pad", 2, 200, 200, 4, 1, 256, "bf16", "local", 64, [0, 30]),
+    ("local pad", 2, 200, 200, 4, 1, 256, "f32", "local", 64, [0, 30]),
+]
+
+
+def seen_rows(torch, b, sq, sk, kind, window, pad):
+    """(B, Sq) bool: the query rows that see at least one key."""
+    from repro_torch.kernels import ref
+    mask = ref.build_mask(kind, sq, sk, window, device="cuda")
+    mask = (torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+            if mask is None else mask)[None].expand(b, sq, sk)
+    if pad is not None:
+        keys = torch.arange(sk, device="cuda")[None, None, :]
+        mask = mask & (keys >= torch.tensor(pad, device="cuda")[:, None, None])
+    return mask.any(-1)
+
+
+def check_flash_grad(torch, gen, case) -> float:
+    """The flash backward (through ``ops.flash_attention`` with a gradient
+    wanted) against autograd through the float32 plain version on the same
+    inputs.  Rows that see no key are zeros from the kernel but the uniform
+    average from the plain version: their dO is zeroed on both sides, then
+    the kernel runs once more with it and must give those rows dq = 0 and
+    change no bit of dk, dv."""
+    from repro_torch.kernels import ops, ref
+    label, b, sq, sk, h, kv, hd, dt, kind, window, pad = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = attention_inputs(torch, gen, b, sq, sk, h, kv, hd, dtype)
+    dout = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(dtype)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    pad_mask = None if pad is None else (
+        torch.arange(sk, device="cuda")[None, :] >= pad_t[:, None])
+    seen = seen_rows(torch, b, sq, sk, kind, window, pad)
+    dout_seen = dout * seen[:, :, None, None].to(dtype)
+
+    def kernel_grads(d):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, kind=kind, window=window,
+                                  pad_mask=pad_mask)
+        return torch.autograd.grad(out, leaves, d)
+
+    got = kernel_grads(dout_seen)
+    plain = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*plain, kind=kind, window=window, pad=pad_t),
+        plain, dout_seen.float())
+    torch.cuda.synchronize()
+    tol = GRAD_TOL_F32 if dtype == torch.float32 else GRAD_TOL_BF16
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(g.float()).all()):
+            fail(f"flash backward {label} {dt}: non-finite {name}")
+        e = float((g.float() - w).abs().max())
+        bound = tol * max(1.0, float(w.abs().max()))
+        if e > bound:
+            fail(f"flash backward {label} {dt}: {name} max abs err {e:.3e} "
+                 f"above {bound:.3e}")
+        err = max(err, e)
+    dead = int((~seen).sum())
+    if dead:
+        again = kernel_grads(dout)
+        if bool((again[0][~seen] != 0).any()):
+            fail(f"flash backward {label} {dt}: a row that sees no key has "
+                 f"dq != 0")
+        if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+            fail(f"flash backward {label} {dt}: rows that see no key moved "
+                 f"dk or dv")
+    log(f"  flash bwd {dt:4s} {kind:6s} B{b} Sq{sq} Sk{sk} H{h}/{kv} hd{hd} "
+        f"pad={pad}: ok, max abs err {err:.3e}"
+        f"{f'; {dead} rows see no key' if dead else ''} ({label})")
+    return err
+
+
+def time_flash_grad(torch, gen, b, s, h, kv, hd) -> dict:
+    """Causal bf16 flash forward + backward at the training shape against
+    the plain version's and SDPA's forward + backward, and the backward
+    alone against the same three; bounds: every input read and output
+    written once, 4 hd H (forward) and 8 hd H (backward) flops per live
+    pair."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    q, k, v = attention_inputs(torch, gen, b, s, s, h, kv, hd, torch.bfloat16)
+    dout = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    heads = [to_heads(torch, k, h // kv), to_heads(torch, v, h // kv),
+             q.transpose(1, 2).contiguous()]
+    sdpa_leaves = [t.detach().requires_grad_(True) for t in heads]
+    dout_h = dout.transpose(1, 2).contiguous()
+
+    def kernel():
+        out = ops.flash_attention(*leaves, kind="causal")
+        return torch.autograd.grad(out, leaves, dout)
+
+    def plain():
+        out = ref.flash_attention_ref(*leaves, kind="causal")
+        return torch.autograd.grad(out, leaves, dout)
+
+    def library():
+        kt, vt, qt = sdpa_leaves
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(out, sdpa_leaves, dout_h)
+
+    pairs = fa.live_pairs(b, s, s, "causal")
+    tensor_bytes = (4 * q.numel() + 4 * k.numel()) * 2
+    t = time_kernel(torch, kernel, plain, library, 12 * h * hd * pairs,
+                    tensor_bytes, PEAK_BF16_S)
+    # the backward alone, from a saved forward
+    out, lse = fa.flash_attention_cuda(q, k, v, kind="causal", with_lse=True)
+    bwd = lambda: fa.flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                   kind="causal")
+    plain_out = ref.flash_attention_ref(*leaves, kind="causal")
+    plain_bwd = lambda: torch.autograd.grad(plain_out, leaves, dout,
+                                            retain_graph=True)
+    kt, vt, qt = sdpa_leaves
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, dout_h,
+                                           retain_graph=True)
+    # q, k, v, out, dout and lse read, dq, dk and dv written
+    t["backward"] = time_kernel(
+        torch, bwd, plain_bwd, sdpa_bwd, 8 * h * hd * pairs,
+        tensor_bytes + lse.numel() * 4, PEAK_BF16_S)
+    t["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal, forward + backward"
+    t["backward"]["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal, backward"
+    return t
+
+
+def flash_grad_phase(torch) -> dict:
+    """Phase 12 (a): the flash backward at every listed shape, then timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    log("[12] (a) flash backward vs autograd through the plain version")
+    errs = [check_flash_grad(torch, gen, c) for c in FLASH_GRAD_CASES]
+    t = time_flash_grad(torch, gen, 4, 512, 16, 8, 128)
+    log_timed("flash fwd+bwd", t)
+    log_timed("flash bwd", t["backward"])
+    return {"max_err": max(errs), "timed": t}
+
+
+# lr 3e-4 (make_train_step's default): at the launcher's 1e-3 (the
+# reference's default) the loss fell for 6 steps, then rose past its start
+# (12.134 -> 12.053 -> 12.186, measured on one H100)
+TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512",
+              "--steps", "12", "--ckpt-every", "6", "--lr", "3e-4"]
+TRAIN_STEPS, TRAIN_RESUME_AT = 12, 6
+TRAIN_PROFILE_STEPS = 3
+# per step at qwen3-0.6b's 28 "g" layers in 2 microbatches with remat: a
+# flash forward per layer and microbatch, the same again when the backward
+# recomputes each unit, and one backward
+TRAIN_FLASH_FWD, TRAIN_FLASH_BWD = 2 * 28 * 2, 2 * 28
+LM_STEPS = 100                           # (d): the train_lm twin
+LOSS_RTOL = 1e-5                         # (c): card vs CPU in float32
+MOMENT2_TOL = 2e-4    # (c): (1 - b2) g^2 doubles the gradients' 1e-4
+# (c)'s float32 stacks at full width, 4 layers: gemma3-1b's unit cut to (l,
+# g) and its window to 64 so that (c)'s 128 tokens reach past it (its
+# 1,024 at a 262,144-word vocabulary is minutes of CPU); moonshot at the
+# no-drop capacity factor, so the card's and the CPU's routes keep the
+# same tokens
+CARD_CPU_SEQ = 128
+
+
+def max_tree_diff(torch, a, b) -> float:
+    from repro_torch import _tree
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(_tree.leaves(a), _tree.leaves(b)))
+
+
+def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
+    """One float32 training step of ``cfg`` on the card and on the CPU from
+    the same parameters (drawn on the card) and batch: the loss within
+    LOSS_RTOL, each gradient leaf within 1e-4 of its max |g|; with
+    ``full_step`` the whole ``make_train_step`` step: Adam's first moments
+    within 1e-4 of each leaf's max, its second moments within
+    MOMENT2_TOL, and the loss on the next batch within LOSS_RTOL."""
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.models import steps, transformer
+    params = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    cpu_params = _tree.to_device(params, "cpu")
+    stream = for_arch(cfg, batch=2, seq=CARD_CPU_SEQ, seed=3)
+    out = {}
+    t0 = time.perf_counter()
+    (loss, _), grads = steps.value_and_grad(
+        params, cfg, _tree.to_device(stream.get_batch(0), "cuda"))
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (cpu_loss, _), cpu_grads = steps.value_and_grad(
+        cpu_params, cfg, stream.get_batch(0))
+    out["cpu_s"] = time.perf_counter() - t0
+    rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst = 0.0
+    for g, w in zip(_tree.leaves(grads), _tree.leaves(cpu_grads)):
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        if err > 1e-4 * scale:
+            fail(f"(c) {label}: a gradient leaf {tuple(w.shape)} off by "
+                 f"{err:.3e}, above 1e-4 of its max {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    if rel > LOSS_RTOL:
+        fail(f"(c) {label}: card loss {float(loss):.7f} vs CPU "
+             f"{float(cpu_loss):.7f} ({rel:.2e} relative)")
+    del grads, cpu_grads
+    out.update(loss=float(loss), loss_rel=rel, grad_rel=worst)
+    if full_step:
+        # a first Adam step moves each entry by lr * g / |g| (+ decay): an
+        # entry whose gradient is near 0 may move either way on the two
+        # devices, so the parameters are not held; the moments, (1 - b1) g
+        # and (1 - b2) g^2, are, and the step by the loss its parameters
+        # give on the next batch (LOSS_RTOL)
+        opt_init, step = steps.make_train_step(cfg, lr=1e-3)
+        new, opt, _ = step(params, opt_init(params),
+                           _tree.to_device(stream.get_batch(0), "cuda"))
+        cpu_new, cpu_opt, _ = step(cpu_params, opt_init(cpu_params),
+                                   stream.get_batch(0))
+        for name, tol, tree, cpu_tree in (
+                ("first", 1e-4, opt.mu, cpu_opt.mu),
+                ("second", MOMENT2_TOL, opt.nu, cpu_opt.nu)):
+            rel = 0.0
+            for a, w in zip(_tree.leaves(tree), _tree.leaves(cpu_tree)):
+                scale = float(w.abs().max())
+                err = float((a.cpu() - w).abs().max())
+                if err > tol * scale:
+                    fail(f"(c) {label}: a {name} moment leaf "
+                         f"{tuple(w.shape)} off by {err:.3e}, above {tol} "
+                         f"of its max {scale:.3e}")
+                rel = max(rel, err / max(scale, 1e-30))
+            out[f"moment{name[0]}_rel"] = rel
+        after = float(steps.loss_fn(new, cfg, _tree.to_device(
+            stream.get_batch(1), "cuda"))[0])
+        cpu_after = float(steps.loss_fn(cpu_new, cfg, stream.get_batch(1))[0])
+        out["loss_after_rel"] = abs(after - cpu_after) / abs(cpu_after)
+        if out["loss_after_rel"] > LOSS_RTOL:
+            fail(f"(c) {label}: after a step the next batch's loss differs "
+                 f"by {out['loss_after_rel']:.2e} relative")
+    step_note = (f"; after a step moments within {out['momentf_rel']:.2e} "
+                 f"and {out['moments_rel']:.2e} of their max, next loss "
+                 f"{out['loss_after_rel']:.2e} relative"
+                 if full_step else "")
+    log(f"    (c) {label}: loss {out['loss']:.6f}, {rel:.2e} relative; "
+        f"worst gradient leaf {worst:.2e} of its max{step_note} (card "
+        f"{out['card_s']:.1f} s, CPU {out['cpu_s']:.1f} s)")
+    return out
+
+
+def training_phase(torch, smi: str) -> dict:
+    """Phase 12: the flash backward (a), then LM training on the card: (b)
+    ``launch.train`` at full width, killed and resumed, profiled; (c)
+    float32 steps card against CPU and the scan kinds' refusal; (d) the
+    ``train_lm`` twin."""
+    import shutil
+    from types import SimpleNamespace
+
+    from repro_torch import train_lm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import train
+    from repro_torch.models import steps, transformer
+    from repro_torch.profiling import roofline
+    t_part = time.perf_counter()
+    out = {"flash_grad": flash_grad_phase(torch), "part_s": {}}
+
+    def part_done(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        log(f"    ({name}) took {now - t_part:.1f} s")
+        t_part = now
+
+    part_done("a")
+
+    # (b) full width: uninterrupted, then stopped at 6 and resumed
+    log(f"[12] (b) python -m repro_torch.launch.train {' '.join(TRAIN_ARGS)}")
+    zero_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = train.main(TRAIN_ARGS)
+    whole_s = time.perf_counter() - t0
+    launches = {**read_counts(), "partition_sweep": sweep_launches()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = TRAIN_FLASH_FWD * TRAIN_STEPS
+    want["flash_attention_backward"] = TRAIN_FLASH_BWD * TRAIN_STEPS
+    if launches != want:
+        fail(f"(b) launches {launches}, expected {want}")
+    losses = [whole["losses"][s] for s in range(TRAIN_STEPS)]
+    if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
+        fail(f"(b) non-finite loss: {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"(b) the loss did not fall: {losses}")
+    ckpt = ROOT / "build" / "phase12_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    part = ["--ckpt-dir", str(ckpt)]
+    first = train.main([*TRAIN_ARGS, "--steps", str(TRAIN_RESUME_AT), *part])
+    del first
+    # the resumed run writes no checkpoint of its own: 6 GB less to disk
+    resumed = train.main([*TRAIN_ARGS, "--ckpt-every", str(TRAIN_STEPS + 1),
+                          *part])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if resumed["start"] != TRAIN_RESUME_AT:
+        fail(f"(b) the resumed run started at {resumed['start']}")
+    resume_diff = max(max_tree_diff(torch, resumed["params"], whole["params"]),
+                      max_tree_diff(torch, resumed["opt"], whole["opt"]))
+    if resume_diff != 0.0:
+        fail(f"(b) the resumed run's parameters or moments differ from the "
+             f"uninterrupted run's by {resume_diff:.3e}")
+    cfg = get_config("qwen3-0.6b")
+    b, s = 8, 512
+    step_s = whole["step_s"][1:]                 # step 0 builds and warms
+    p50 = sorted(step_s)[len(step_s) // 2]
+    model_flops = roofline.step_flops(cfg, SimpleNamespace(batch=b, seq=s),
+                                      "train")["model"]
+    out["train"] = train_out = {
+        "args": TRAIN_ARGS, "losses": losses, "launches": launches,
+        "microbatches": whole["microbatches"], "run_s": whole_s,
+        "step_p50_ms": p50 * 1e3, "step_min_ms": min(step_s) * 1e3,
+        "step_max_ms": max(step_s) * 1e3, "tokens_per_s": b * s / p50,
+        "model_tflop_per_step": model_flops / 1e12,
+        "mfu": model_flops / p50 / roofline.PEAK_FLOPS,
+        "peak_memory_gb": peak_gb, "resume_max_diff": resume_diff,
+        "stragglers": whole["stragglers"], "nvidia_smi": smi}
+    del whole, resumed
+    log(f"    loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} "
+        f"steps; resumed at {TRAIN_RESUME_AT} == uninterrupted, bit for bit; "
+        f"launches {launches}")
+    log(f"    step p50 {p50 * 1e3:.1f} ms (min {min(step_s) * 1e3:.1f}, max "
+        f"{max(step_s) * 1e3:.1f}), {b * s / p50:,.0f} tokens/s, MFU "
+        f"{train_out['mfu']:.4f} ({model_flops / 1e12:.2f} TFLOP of model "
+        f"flops a step over {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s), peak "
+        f"memory {peak_gb:.2f} GB ({smi})")
+
+    # (b) a profile of TRAIN_PROFILE_STEPS steps
+    run = train.setup(train.parse_args(TRAIN_ARGS))
+    state = [run["params"], run["opt"]]
+
+    def one(step):
+        state[0], state[1], _ = run["train_step"](
+            state[0], state[1], run["stream"].get_batch(step))
+
+    one(0)
+    torch.cuda.synchronize()
+    prof = window(torch, lambda: [one(i) for i in range(
+        1, 1 + TRAIN_PROFILE_STEPS)], TRAIN_PROFILE_STEPS)
+    del run, state
+    train_out["profile"] = prof
+    log(f"    profile of {TRAIN_PROFILE_STEPS} steps: {prof['wall_ms']:.1f} "
+        f"ms wall, {prof['device_ms']:.1f} ms device a step, device busy "
+        f"{prof['device_busy_share']:.3f}, {prof['device_ops']:.0f} device "
+        f"ops a step")
+    for row in prof["top"]:
+        log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
+            f"{row['name']}")
+
+    part_done("b")
+
+    # (c) float32, card against CPU; the scan kinds refuse
+    log("[12] (c) float32 training steps, card vs CPU (4 layers, full width)")
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               opt_state_dtype="float32")
+    qwen = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4, **f32)
+    gemma = dataclasses.replace(get_config("gemma3-1b"), n_layers=4,
+                                block_pattern=("l", "g"), tail_pattern=(),
+                                window=64, **f32)
+    moon = no_drop(dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                                       n_layers=4, **f32))
+    out["card_vs_cpu"] = {
+        "qwen3": train_card_vs_cpu(torch, "qwen3-0.6b", qwen, True),
+        "gemma3": train_card_vs_cpu(torch, "gemma3-1b (l, g)", gemma, False),
+        "moonshot": train_card_vs_cpu(torch, "moonshot-v1-16b-a3b", moon,
+                                      False)}
+    for name in ("recurrentgemma-2b", "mamba2-1.3b"):
+        cfg_r = reduced_for_card(get_config(name))
+        params = transformer.init_params(0, cfg_r, "cuda")
+        batch = for_arch(cfg_r, 2, 32, device="cuda").get_batch(0)
+        try:
+            steps.value_and_grad(params, cfg_r, batch)
+        except NotImplementedError as e:
+            log(f"    (c) {name}: {e}")
+        else:
+            fail(f"(c) a {name} train step on the card did not raise")
+
+    part_done("c")
+
+    # (d) the train_lm twin
+    log(f"[12] (d) python -m repro_torch.train_lm --steps {LM_STEPS}")
+    lm_dir = ROOT / "build" / "phase12_lm_ckpt"
+    shutil.rmtree(lm_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    lm = train_lm.main(["--steps", str(LM_STEPS), "--ckpt-dir", str(lm_dir)])
+    lm_s = time.perf_counter() - t0
+    shutil.rmtree(lm_dir, ignore_errors=True)
+    lm_losses = [lm["losses"][s] for s in range(LM_STEPS)]
+    first10, last10 = sum(lm_losses[:10]) / 10, sum(lm_losses[-10:]) / 10
+    if not (all(x == x for x in lm_losses) and last10 < first10):
+        fail(f"(d) the twin's loss did not fall: first 10 mean {first10:.4f}, "
+             f"last 10 {last10:.4f}")
+    out["train_lm"] = {"first10": first10, "last10": last10, "run_s": lm_s}
+    log(f"    loss mean over steps 0-9 {first10:.4f} -> over steps 90-99 "
+        f"{last10:.4f} (ln 512 = 6.2383), {lm_s:.1f} s")
+    part_done("d")
+    return out
+
+
 def no_drop(cfg):
     """``cfg`` at the smallest integer capacity factor, ceil(E / k), at
     which an expert can take its whole group: cap = ceil(g k / E) x factor
@@ -2608,7 +3065,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import scenarios
     from repro_torch.kernels import _build, ops, ref
@@ -2780,6 +3236,8 @@ def main() -> int:
     phase_done()
     report["kinds"] = kinds = kinds_phase(torch)
     phase_done()
+    report["training"] = training = training_phase(torch, smi)
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
@@ -2801,7 +3259,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serving["launches"][name] + kinds["launches"][name],
+            "launches": (serving["launches"][name] + kinds["launches"][name]
+                         + training["train"]["launches"][name]),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2820,6 +3279,18 @@ def main() -> int:
             "max_abs_err": scans[f"{key}_max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # the backward alone at the training shape, beside the plain version's
+    # and SDPA's backward; no Pallas kernel has a backward, so it stands in
+    # for the reference's differentiated non-Pallas arm
+    t = training["flash_grad"]["timed"]["backward"]
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/ops.py:61-74",
+        "launches": training["train"]["launches"]["flash_attention_backward"],
+        "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     report["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -63,6 +63,8 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRows = 64;                      // query rows of a block
 
@@ -91,6 +93,23 @@ __device__ __forceinline__ void key_range(int q0, int qb, int sq, int sk,
   if (kind != kAll) k_end = min(k_end, q_last + 1);
 }
 
+// The queries [q_begin, q_end) that may see some key of the tile [k0, k0 +
+// kb): the rule key_range applies from the other side.
+__device__ __forceinline__ void query_range(int k0, int kb, int sq, int sk,
+                                            int pad_b, int kind, int window,
+                                            int& q_begin, int& q_end) {
+  const int k_last = min(k0 + kb, sk) - 1;
+  q_begin = 0;
+  q_end = sq;
+  if (k_last < max(k0, pad_b)) {             // every key is pad or past Sk
+    q_end = 0;
+    return;
+  }
+  if (kind != kAll) q_begin = max(k0, pad_b);
+  if (kind == kLocal) q_end = min(sq, k_last + window);
+  q_begin = min(q_begin, q_end);
+}
+
 // -- float32: CUDA cores ------------------------------------------------------
 
 namespace f32 {
@@ -110,8 +129,9 @@ template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ pad,
-             float* __restrict__ out, int sq, int sk, int heads, int kv_heads,
-             int qb, int kind, int window, float scale) {
+             float* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+             int heads, int kv_heads, int qb, int kind, int window,
+             float scale) {
   constexpr int kCols = HD / 32;     // output columns of a lane
   constexpr int kLd = HD + 4;
   extern __shared__ float4 smem4[];
@@ -229,12 +249,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((static_cast<size_t>(b) * sq + qpos[i]) * heads + h) * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) o[lane + 32 * c] = acc[i][c] / denom;
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * heads + h) * sq + qpos[i]] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
-                   void* out, int batch, int sq, int sk, int heads,
+                   void* out, float* lse, int batch, int sq, int sk, int heads,
                    int kv_heads, int kind, int window, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();   // above the 48 KB default
@@ -246,8 +269,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
   flash_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(pad),
-      static_cast<float*>(out), sq, sk, heads, kv_heads, qb, kind, window,
-      scale);
+      static_cast<float*>(out), lse, sq, sk, heads, kv_heads, qb, kind,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -330,8 +353,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ pad,
-             __nv_bfloat16* __restrict__ out, int sq, int sk, int heads,
-             int kv_heads, int qb, int kind, int window, float scale_log2) {
+             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
+             int sk, int heads, int kv_heads, int qb, int kind, int window,
+             float scale_log2) {
   constexpr int kLd = HD + kPad;               // a smem row, in bf16
   constexpr int kChunks = HD / 8;              // 16-byte pieces of a row
   constexpr int kSt = kKeys / 8;               // score tiles of a warp
@@ -520,6 +544,17 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   // (no other warp reads them), then stores them 16 bytes a lane.
   const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  // the rows' log-sum-exp of the scaled scores, natural log: m and l are
+  // in base 2; +inf where the row saw no key (its P is then exactly 0)
+  if (lse != nullptr && (lane & 3) == 0) {
+    const int r_hi = r_lo + 8;
+    if (r_lo < rows_used && pos_lo < sq)
+      lse[(static_cast<size_t>(b) * heads + kvh * group + r_lo / qb) * sq + pos_lo] =
+          l_lo > 0.f ? (m_lo + log2f(l_lo)) * kLn2 : INFINITY;
+    if (r_hi < rows_used && pos_hi < sq)
+      lse[(static_cast<size_t>(b) * heads + kvh * group + r_hi / qb) * sq + pos_hi] =
+          l_hi > 0.f ? (m_hi + log2f(l_hi)) * kLn2 : INFINITY;
+  }
   __nv_bfloat16* stage_rows = qs + warp * 16 * kLd;
 #pragma unroll
   for (int d = 0; d < kOt; ++d) {
@@ -543,7 +578,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
-                   void* out, int batch, int sq, int sk, int heads,
+                   void* out, float* lse, int batch, int sq, int sk, int heads,
                    int kv_heads, int kind, int window, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();   // above the 48 KB default
@@ -555,34 +590,820 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
   flash_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pad),
-      static_cast<__nv_bfloat16*>(out), sq, sk, heads, kv_heads, qb, kind,
-      window, scale * 1.4426950408889634f);   // softmax in base 2
+      static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads, kv_heads, qb, kind,
+      window, scale * kLog2e);   // softmax in base 2
+  return cudaGetLastError();
+}
+
+// -- bf16 backward: tensor cores ---------------------------------------------
+
+constexpr int kKeysKV = 64;                    // keys of a dK/dV block, 16 a warp
+constexpr int kQueries = 32;                   // queries of a dK/dV block's tile
+
+template <int HD>
+constexpr int dkv_smem_bytes() {
+  // K and V tiles, then the Q and dO tiles of the current query tile, then
+  // the tile's log2-sum-exp and D
+  return (2 * kKeysKV + 2 * kQueries) * (HD + kPad) * 2 + 2 * kQueries * 4;
+}
+
+template <int HD>
+constexpr int dq_smem_bytes() {
+  // Q and dO tiles of the block's rows, one K and one V tile, then the
+  // rows' log2-sum-exp and D
+  return (2 * kRows + 2 * kKeys) * (HD + kPad) * 2 + 2 * kRows * 4;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// dK and dV of one (batch row, kv head, 64-key tile), columns [col0, col0 +
+// DC) of hd.  Each warp owns 16 keys; the block walks the group's heads and,
+// per head, the 32-query tiles that may see a key of the tile.  Per tile,
+// with the tile's keys as rows (the transposed products):
+//   S^T = K Q^T,  P^T = exp2(S^T scale_log2 - lse2),  dV += P^T dO,
+//   dP^T = V dO^T,  dS^T = P^T (dP^T - D),  dK += dS^T Q  (times scale last).
+// P^T and dS^T go from the accumulator fragments straight into A fragments
+// (one bf16 each), as P does in the forward; dO and Q serve as B operands
+// through ldmatrix.trans.  The group's heads are summed in registers, so
+// no two blocks write one element: no atomics, and the result does not
+// depend on the order blocks run in.
+template <int HD, int DC>
+__global__ void __launch_bounds__(kWarps * 32)
+dkv_kernel(const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v,
+           const __nv_bfloat16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           const int* __restrict__ pad, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int sq, int sk, int heads,
+           int kv_heads, int kind, int window, float scale, float scale_log2) {
+  constexpr int kLd = HD + kPad;
+  constexpr int kChunks = HD / 8;
+  constexpr int kQt = kQueries / 8;            // score tiles of a warp
+  constexpr int kOt = DC / 8;                  // dK / dV tiles of a warp
+  constexpr int kSlices = HD / DC;
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* vs = ks + kKeysKV * kLd;
+  __nv_bfloat16* qs = vs + kKeysKV * kLd;
+  __nv_bfloat16* dos = qs + kQueries * kLd;
+  float* lse_s = reinterpret_cast<float*>(dos + kQueries * kLd);
+  float* d_s = lse_s + kQueries;
+
+  const int group = heads / kv_heads;
+  const int col0 = (blockIdx.x % kSlices) * DC;
+  const int k0 = (blockIdx.x / kSlices) * kKeysKV;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pad_b = pad ? pad[b] : 0;
+
+  for (int idx = tid; idx < kKeysKV * kChunks; idx += kWarps * 32) {
+    const int j = idx / kChunks, c = idx % kChunks;
+    const bool live = k0 + j < sk;
+    const size_t off = live
+        ? ((static_cast<size_t>(b) * sk + k0 + j) * kv_heads + kvh) * HD + c * 8 : 0;
+    cp_async16(ks + j * kLd + c * 8, k + off, live);
+    cp_async16(vs + j * kLd + c * 8, v + off, live);
+  }
+  cp_async_commit();
+
+  int q_begin, q_end;
+  query_range(k0, kKeysKV, sq, sk, pad_b, kind, window, q_begin, q_end);
+  const int t_begin = q_begin / kQueries;
+  const int t_end = q_end > q_begin ? (q_end + kQueries - 1) / kQueries : t_begin;
+
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int t_col = (lane >> 4) * 8;
+  const int j_lo = k0 + warp * 16 + (lane >> 2);
+  const int j_hi = j_lo + 8;
+
+  float gk[kOt][4], gv[kOt][4];
+#pragma unroll
+  for (int d = 0; d < kOt; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[d][e] = gv[d][e] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = kvh * group + g;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int q0 = t * kQueries;
+      __syncthreads();   // the previous tile is consumed
+      for (int idx = tid; idx < kQueries * kChunks; idx += kWarps * 32) {
+        const int i = idx / kChunks, c = idx % kChunks;
+        const bool live = q0 + i < sq;
+        const size_t off = live
+            ? ((static_cast<size_t>(b) * sq + q0 + i) * heads + h) * HD + c * 8 : 0;
+        cp_async16(qs + i * kLd + c * 8, q + off, live);
+        cp_async16(dos + i * kLd + c * 8, dout + off, live);
+      }
+      cp_async_commit();
+      if (tid < kQueries) {
+        const int i = q0 + tid;
+        const size_t row = (static_cast<size_t>(b) * heads + h) * sq + i;
+        lse_s[tid] = i < sq ? lse[row] * kLog2e : INFINITY;
+        d_s[tid] = i < sq ? delta[row] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      float st[kQt][4], dpt[kQt][4];
+#pragma unroll
+      for (int n = 0; n < kQt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < HD; kd += 16) {
+        uint32_t a0, a1, a2, a3, e0, e1, e2, e3;
+        ldmatrix_x4(ks + a_row * kLd + kd + a_col, a0, a1, a2, a3);
+        ldmatrix_x4(vs + a_row * kLd + kd + a_col, e0, e1, e2, e3);
+#pragma unroll
+        for (int n = 0; n < kQt; n += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(qs + (n * 8 + b_row) * kLd + kd + b_col, b0, b1, b2, b3);
+          mma(st[n], a0, a1, a2, a3, b0, b1);
+          mma(st[n + 1], a0, a1, a2, a3, b2, b3);
+          ldmatrix_x4(dos + (n * 8 + b_row) * kLd + kd + b_col, b0, b1, b2, b3);
+          mma(dpt[n], e0, e1, e2, e3, b0, b1);
+          mma(dpt[n + 1], e0, e1, e2, e3, b2, b3);
+        }
+      }
+
+      // P^T and dS^T; element e of tile n: key e < 2 ? j_lo : j_hi, query
+      // q0 + n * 8 + 2 (lane % 4) + e % 2.  A masked pair weighs exactly 0.
+      uint32_t pa[kQt][2], sa[kQt][2];
+#pragma unroll
+      for (int n = 0; n < kQt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int li = n * 8 + 2 * (lane & 3) + (e & 1);
+          const int i = q0 + li;
+          const int j = e < 2 ? j_lo : j_hi;
+          bool ok = i < sq && j < sk && j >= pad_b;
+          if (kind != kAll) ok = ok && j <= i;
+          if (kind == kLocal) ok = ok && j > i - window;
+          const float p = ok ? exp2f(st[n][e] * scale_log2 - lse_s[li]) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - d_s[li]);
+        }
+        pa[n][0] = pack_bf16(st[n][0], st[n][1]);
+        pa[n][1] = pack_bf16(st[n][2], st[n][3]);
+        sa[n][0] = pack_bf16(dpt[n][0], dpt[n][1]);
+        sa[n][1] = pack_bf16(dpt[n][2], dpt[n][3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 32 queries
+#pragma unroll
+      for (int kk = 0; kk < kQueries / 16; ++kk) {
+#pragma unroll
+        for (int d = 0; d < kOt; d += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4_trans(dos + (kk * 16 + t_row) * kLd + col0 + d * 8 + t_col,
+                            b0, b1, b2, b3);
+          mma(gv[d], pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+              pa[2 * kk + 1][1], b0, b1);
+          mma(gv[d + 1], pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+              pa[2 * kk + 1][1], b2, b3);
+          ldmatrix_x4_trans(qs + (kk * 16 + t_row) * kLd + col0 + d * 8 + t_col,
+                            b0, b1, b2, b3);
+          mma(gk[d], sa[2 * kk][0], sa[2 * kk][1], sa[2 * kk + 1][0],
+              sa[2 * kk + 1][1], b0, b1);
+          mma(gk[d + 1], sa[2 * kk][0], sa[2 * kk][1], sa[2 * kk + 1][0],
+              sa[2 * kk + 1][1], b2, b3);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // K / V's copy, where no query tile ran
+
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) {
+    const int col = col0 + d * 8 + 2 * (lane & 3);
+    if (j_lo < sk) {
+      const size_t off = ((static_cast<size_t>(b) * sk + j_lo) * kv_heads + kvh) * HD + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(gk[d][0] * scale, gk[d][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(gv[d][0], gv[d][1]);
+    }
+    if (j_hi < sk) {
+      const size_t off = ((static_cast<size_t>(b) * sk + j_hi) * kv_heads + kvh) * HD + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(gk[d][2] * scale, gk[d][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(gv[d][2], gv[d][3]);
+    }
+  }
+}
+
+// dQ of one block of the forward's rows (the group's heads folded in, row r
+// = head r / qb at position q0 + r % qb), columns [col0, col0 + DC).  It
+// walks the key tiles the forward walks (key_range) and recomputes, per
+// tile, S = Q K^T, P = exp2(S scale_log2 - lse2), dP = dO V^T and dS = P
+// (dP - D); dQ += dS K (times scale last), K through ldmatrix.trans.
+template <int HD, int DC>
+__global__ void __launch_bounds__(kWarps * 32)
+dq_kernel(const __nv_bfloat16* __restrict__ q,
+          const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v,
+          const __nv_bfloat16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          const int* __restrict__ pad, __nv_bfloat16* __restrict__ dq, int sq,
+          int sk, int heads, int kv_heads, int qb, int kind, int window,
+          float scale, float scale_log2) {
+  constexpr int kLd = HD + kPad;
+  constexpr int kChunks = HD / 8;
+  constexpr int kSt = kKeys / 8;
+  constexpr int kOt = DC / 8;
+  constexpr int kSlices = HD / DC;
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* dos = qs + kRows * kLd;
+  __nv_bfloat16* ks = dos + kRows * kLd;
+  __nv_bfloat16* vs = ks + kKeys * kLd;
+  float* lse_s = reinterpret_cast<float*>(vs + kKeys * kLd);
+  float* d_s = lse_s + kRows;
+
+  const int group = heads / kv_heads;
+  const int rows_used = group * qb;
+  const int col0 = (blockIdx.x % kSlices) * DC;
+  const int q0 = (blockIdx.x / kSlices) * qb;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pad_b = pad ? pad[b] : 0;
+  const size_t key_stride = static_cast<size_t>(kv_heads) * HD;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * sk * kv_heads + kvh) * HD;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * sk * kv_heads + kvh) * HD;
+
+  for (int idx = tid; idx < kRows * kChunks; idx += kWarps * 32) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int pos = q0 + r % qb;
+    const bool live = r < rows_used && pos < sq;
+    const size_t off = live
+        ? ((static_cast<size_t>(b) * sq + pos) * heads + kvh * group + r / qb) * HD + c * 8 : 0;
+    cp_async16(qs + r * kLd + c * 8, q + off, live);
+    cp_async16(dos + r * kLd + c * 8, dout + off, live);
+  }
+  cp_async_commit();
+  for (int r = tid; r < kRows; r += kWarps * 32) {
+    const int pos = q0 + r % qb;
+    const bool live = r < rows_used && pos < sq;
+    const size_t row = (static_cast<size_t>(b) * heads + kvh * group + r / qb) * sq + pos;
+    lse_s[r] = live ? lse[row] * kLog2e : INFINITY;
+    d_s[r] = live ? delta[row] : 0.f;
+  }
+
+  int k_begin, k_end;
+  key_range(q0, qb, sq, sk, pad_b, kind, window, k_begin, k_end);
+  const int t_begin = k_begin / kKeys;
+  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int r_hi = r_lo + 8;
+  const int pos_lo = q0 + r_lo % qb;
+  const int pos_hi = q0 + r_hi % qb;
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int t_col = (lane >> 4) * 8;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  const float lse_lo = lse_s[r_lo], lse_hi = lse_s[r_hi];
+  const float d_lo = d_s[r_lo], d_hi = d_s[r_hi];
+
+  float acc[kOt][4];
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKeys;
+    for (int idx = tid; idx < kKeys * kChunks; idx += kWarps * 32) {
+      const int j = idx / kChunks, c = idx % kChunks;
+      const bool live = k0 + j < sk;
+      const size_t off = live ? (k0 + j) * key_stride + c * 8 : 0;
+      cp_async16(ks + j * kLd + c * 8, kb + off, live);
+      cp_async16(vs + j * kLd + c * 8, vb + off, live);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float s[kSt][4], dp[kSt][4];
+#pragma unroll
+    for (int n = 0; n < kSt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < HD; kd += 16) {
+      uint32_t a0, a1, a2, a3, e0, e1, e2, e3;
+      ldmatrix_x4(qs + a_row * kLd + kd + a_col, a0, a1, a2, a3);
+      ldmatrix_x4(dos + a_row * kLd + kd + a_col, e0, e1, e2, e3);
+#pragma unroll
+      for (int n = 0; n < kSt; n += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4(ks + (n * 8 + b_row) * kLd + kd + b_col, b0, b1, b2, b3);
+        mma(s[n], a0, a1, a2, a3, b0, b1);
+        mma(s[n + 1], a0, a1, a2, a3, b2, b3);
+        ldmatrix_x4(vs + (n * 8 + b_row) * kLd + kd + b_col, b0, b1, b2, b3);
+        mma(dp[n], e0, e1, e2, e3, b0, b1);
+        mma(dp[n + 1], e0, e1, e2, e3, b2, b3);
+      }
+    }
+
+    uint32_t sa[kSt][2];                       // dS: (row lo, row hi)
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        const int pos = e < 2 ? pos_lo : pos_hi;
+        bool ok = j < sk && j >= pad_b;
+        if (kind != kAll) ok = ok && j <= pos;
+        if (kind == kLocal) ok = ok && j > pos - window;
+        const float p = ok ? exp2f(s[n][e] * scale_log2 - (e < 2 ? lse_lo : lse_hi)) : 0.f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? d_lo : d_hi));
+      }
+      sa[n][0] = pack_bf16(s[n][0], s[n][1]);
+      sa[n][1] = pack_bf16(s[n][2], s[n][3]);
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+      for (int d = 0; d < kOt; d += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(ks + (kk * 16 + t_row) * kLd + col0 + d * 8 + t_col,
+                          b0, b1, b2, b3);
+        mma(acc[d], sa[2 * kk][0], sa[2 * kk][1], sa[2 * kk + 1][0],
+            sa[2 * kk + 1][1], b0, b1);
+        mma(acc[d + 1], sa[2 * kk][0], sa[2 * kk][1], sa[2 * kk + 1][0],
+            sa[2 * kk + 1][1], b2, b3);
+      }
+    }
+    __syncthreads();   // this tile is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) {
+    const int col = col0 + d * 8 + 2 * (lane & 3);
+    if (r_lo < rows_used && pos_lo < sq)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + ((static_cast<size_t>(b) * sq + pos_lo) * heads + kvh * group + r_lo / qb) * HD + col) =
+          __floats2bfloat162_rn(acc[d][0] * scale, acc[d][1] * scale);
+    if (r_hi < rows_used && pos_hi < sq)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + ((static_cast<size_t>(b) * sq + pos_hi) * heads + kvh * group + r_hi / qb) * HD + col) =
+          __floats2bfloat162_rn(acc[d][2] * scale, acc[d][3] * scale);
+  }
+}
+
+template <int HD>
+cudaError_t launch_backward(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const void* pad, void* dq,
+                            void* dk, void* dv, int batch, int sq, int sk,
+                            int heads, int kv_heads, int kind, int window,
+                            float scale, cudaStream_t stream) {
+  // dK / dV and dQ accumulate at most 128 columns in registers; at hd 256
+  // two blocks share a tile, each recomputing S and dP
+  constexpr int DC = HD < 128 ? HD : 128;
+  constexpr int kSlices = HD / DC;
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kk = static_cast<const __nv_bfloat16*>(k);
+  const auto* vv = static_cast<const __nv_bfloat16*>(v);
+  const auto* gg = static_cast<const __nv_bfloat16*>(dout);
+  const int* pp = static_cast<const int*>(pad);
+  constexpr int kv_bytes = dkv_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel<HD, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid(((sk + kKeysKV - 1) / kKeysKV) * kSlices, kv_heads, batch);
+  dkv_kernel<HD, DC><<<kv_grid, kWarps * 32, kv_bytes, stream>>>(
+      qq, kk, vv, gg, lse, delta, pp, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), sq, sk, heads, kv_heads, kind, window,
+      scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int q_bytes = dq_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(
+      dq_kernel<HD, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  if (err != cudaSuccess) return err;
+  const int qb = kRows / (heads / kv_heads);
+  const dim3 q_grid(((sq + qb - 1) / qb) * kSlices, kv_heads, batch);
+  dq_kernel<HD, DC><<<q_grid, kWarps * 32, q_bytes, stream>>>(
+      qq, kk, vv, gg, lse, delta, pp, static_cast<__nv_bfloat16*>(dq), sq, sk,
+      heads, kv_heads, qb, kind, window, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// bf16 takes the tensor-core body, float32 the CUDA-core one
+// -- float32 backward: CUDA cores ----------------------------------------------
+
+namespace f32 {
+
+template <int HD>
+constexpr int dkv_smem_bytes() {
+  // K, V, Q and dO tiles padded as in the forward, P and dS of a 32 x 32
+  // tile (rows of 33: no bank conflicts), the tile's lse and D
+  return (4 * kKeys * (HD + 4) + 2 * kKeys * 33 + 2 * kKeys) * 4;
+}
+
+template <int HD>
+constexpr int dq_smem_bytes() {
+  return (2 * kRows * (HD + 4) + 2 * kKeys * (HD + 4)) * 4;
+}
+
+// dK and dV of one (batch row, kv head, 32-key tile) in full float32.
+// Per 32-query tile of each head of the group: lane j scores key j against
+// the warp's 4 queries (S and dP), P and dS go to shared memory, then each
+// thread accumulates dV and dK for the warp's 4 keys at its hd / 32
+// columns.
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           const int* __restrict__ pad, float* __restrict__ dk,
+           float* __restrict__ dv, int sq, int sk, int heads, int kv_heads,
+           int kind, int window, float scale) {
+  constexpr int kCols = HD / 32;
+  constexpr int kLd = HD + 4;
+  constexpr int kPer = kKeys / kWarps;         // queries (phase 1), keys (2)
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kKeys * kLd;
+  float* qs = vs + kKeys * kLd;
+  float* dos = qs + kKeys * kLd;
+  float* ps = dos + kKeys * kLd;               // [query][key]
+  float* dss = ps + kKeys * 33;
+  float* lse_s = dss + kKeys * 33;
+  float* d_s = lse_s + kKeys;
+
+  const int group = heads / kv_heads;
+  const int k0 = blockIdx.x * kKeys;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pad_b = pad ? pad[b] : 0;
+
+  for (int idx = tid * 4; idx < kKeys * HD; idx += kWarps * 32 * 4) {
+    const int j = idx / HD, d = idx % HD;
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (k0 + j < sk) {
+      const size_t off = ((static_cast<size_t>(b) * sk + k0 + j) * kv_heads + kvh) * HD + d;
+      kx = *reinterpret_cast<const float4*>(k + off);
+      vx = *reinterpret_cast<const float4*>(v + off);
+    }
+    *reinterpret_cast<float4*>(ks + j * kLd + d) = kx;
+    *reinterpret_cast<float4*>(vs + j * kLd + d) = vx;
+  }
+
+  int q_begin, q_end;
+  query_range(k0, kKeys, sq, sk, pad_b, kind, window, q_begin, q_end);
+  const int t_begin = q_begin / kKeys;
+  const int t_end = q_end > q_begin ? (q_end + kKeys - 1) / kKeys : t_begin;
+  const int kp = k0 + lane;
+
+  float gk[kPer][kCols], gv[kPer][kCols];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = kvh * group + g;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int q0 = t * kKeys;
+      __syncthreads();   // the previous tile is consumed (and K / V stored)
+      for (int idx = tid * 4; idx < kKeys * HD; idx += kWarps * 32 * 4) {
+        const int i = idx / HD, d = idx % HD;
+        float4 qx = make_float4(0.f, 0.f, 0.f, 0.f), gx = qx;
+        if (q0 + i < sq) {
+          const size_t off = ((static_cast<size_t>(b) * sq + q0 + i) * heads + h) * HD + d;
+          qx = *reinterpret_cast<const float4*>(q + off);
+          gx = *reinterpret_cast<const float4*>(dout + off);
+        }
+        *reinterpret_cast<float4*>(qs + i * kLd + d) = qx;
+        *reinterpret_cast<float4*>(dos + i * kLd + d) = gx;
+      }
+      if (tid < kKeys) {
+        const int i = q0 + tid;
+        const size_t row = (static_cast<size_t>(b) * heads + h) * sq + i;
+        lse_s[tid] = i < sq ? lse[row] : INFINITY;
+        d_s[tid] = i < sq ? delta[row] : 0.f;
+      }
+      __syncthreads();
+
+      float s[kPer], dp[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) s[i] = dp[i] = 0.f;
+      const float* krow = ks + lane * kLd;
+      const float* vrow = vs + lane * kLd;
+      const float* qrow = qs + warp * kPer * kLd;
+      const float* grow = dos + warp * kPer * kLd;
+#pragma unroll 4
+      for (int d = 0; d < HD; d += 4) {
+        const float4 kk = *reinterpret_cast<const float4*>(krow + d);
+        const float4 vv = *reinterpret_cast<const float4*>(vrow + d);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const float4 qq = *reinterpret_cast<const float4*>(qrow + i * kLd + d);
+          const float4 gg = *reinterpret_cast<const float4*>(grow + i * kLd + d);
+          s[i] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+          dp[i] += gg.x * vv.x + gg.y * vv.y + gg.z * vv.z + gg.w * vv.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int li = warp * kPer + i;
+        const int qi = q0 + li;
+        bool ok = qi < sq && kp < sk && kp >= pad_b;
+        if (kind != kAll) ok = ok && kp <= qi;
+        if (kind == kLocal) ok = ok && kp > qi - window;
+        const float p = ok ? expf(s[i] * scale - lse_s[li]) : 0.f;
+        ps[li * 33 + lane] = p;
+        dss[li * 33 + lane] = p * (dp[i] - d_s[li]);
+      }
+      __syncthreads();
+
+      for (int i = 0; i < kKeys; ++i) {
+        float gx[kCols], qx[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          gx[c] = dos[i * kLd + lane + 32 * c];
+          qx[c] = qs[i * kLd + lane + 32 * c];
+        }
+#pragma unroll
+        for (int jj = 0; jj < kPer; ++jj) {
+          const float p = ps[i * 33 + warp * kPer + jj];
+          const float ds = dss[i * 33 + warp * kPer + jj];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            gv[jj][c] += p * gx[c];
+            gk[jj][c] += ds * qx[c];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int jj = 0; jj < kPer; ++jj) {
+    const int j = k0 + warp * kPer + jj;
+    if (j >= sk) continue;
+    const size_t off = ((static_cast<size_t>(b) * sk + j) * kv_heads + kvh) * HD;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dk[off + lane + 32 * c] = gk[jj][c] * scale;
+      dv[off + lane + 32 * c] = gv[jj][c];
+    }
+  }
+}
+
+// dQ of one block of the forward's 64 folded rows in full float32: the
+// forward's walk over 32-key tiles, lane j scoring key j, with dS in place
+// of P and K in place of V.
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          const int* __restrict__ pad, float* __restrict__ dq, int sq, int sk,
+          int heads, int kv_heads, int qb, int kind, int window, float scale) {
+  constexpr int kCols = HD / 32;
+  constexpr int kLd = HD + 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kRows * kLd;
+  float* ks = dos + kRows * kLd;
+  float* vs = ks + kKeys * kLd;
+
+  const int group = heads / kv_heads;
+  const int rows_used = group * qb;
+  const int q0 = blockIdx.x * qb;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pad_b = pad ? pad[b] : 0;
+
+  for (int idx = tid * 4; idx < kRows * HD; idx += kWarps * 32 * 4) {
+    const int r = idx / HD, d = idx % HD;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    const int pos = q0 + r % qb;
+    if (r < rows_used && pos < sq) {
+      const size_t off = ((static_cast<size_t>(b) * sq + pos) * heads + kvh * group + r / qb) * HD + d;
+      x = *reinterpret_cast<const float4*>(q + off);
+      y = *reinterpret_cast<const float4*>(dout + off);
+    }
+    *reinterpret_cast<float4*>(qs + r * kLd + d) = x;
+    *reinterpret_cast<float4*>(dos + r * kLd + d) = y;
+  }
+
+  int qpos[kRowsPerWarp];
+  float lse_r[kRowsPerWarp], d_r[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp * kRowsPerWarp + i;
+    qpos[i] = q0 + r % qb;
+    const bool live = r < rows_used && qpos[i] < sq;
+    const size_t row = (static_cast<size_t>(b) * heads + kvh * group + r / qb) * sq + qpos[i];
+    lse_r[i] = live ? lse[row] : INFINITY;
+    d_r[i] = live ? delta[row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  int k_begin, k_end;
+  key_range(q0, qb, sq, sk, pad_b, kind, window, k_begin, k_end);
+
+  for (int k0 = k_begin - k_begin % kKeys; k0 < k_end; k0 += kKeys) {
+    __syncthreads();   // the previous tile is consumed (and Q, dO stored)
+    for (int idx = tid * 4; idx < kKeys * HD; idx += kWarps * 32 * 4) {
+      const int j = idx / HD, d = idx % HD;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (k0 + j < sk) {
+        const size_t off = ((static_cast<size_t>(b) * sk + k0 + j) * kv_heads + kvh) * HD + d;
+        kx = *reinterpret_cast<const float4*>(k + off);
+        vx = *reinterpret_cast<const float4*>(v + off);
+      }
+      *reinterpret_cast<float4*>(ks + j * kLd + d) = kx;
+      *reinterpret_cast<float4*>(vs + j * kLd + d) = vx;
+    }
+    __syncthreads();
+
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = dp[i] = 0.f;
+    const float* krow = ks + lane * kLd;
+    const float* vrow = vs + lane * kLd;
+    const float* qrow = qs + warp * kRowsPerWarp * kLd;
+    const float* grow = dos + warp * kRowsPerWarp * kLd;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(krow + d);
+      const float4 vv = *reinterpret_cast<const float4*>(vrow + d);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float4 qq = *reinterpret_cast<const float4*>(qrow + i * kLd + d);
+        const float4 gg = *reinterpret_cast<const float4*>(grow + i * kLd + d);
+        s[i] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+        dp[i] += gg.x * vv.x + gg.y * vv.y + gg.z * vv.z + gg.w * vv.w;
+      }
+    }
+
+    const int kp = k0 + lane;
+    float ds[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      bool ok = kp < sk && kp >= pad_b;
+      if (kind != kAll) ok = ok && kp <= qpos[i];
+      if (kind == kLocal) ok = ok && kp > qpos[i] - window;
+      const float p = ok ? expf(s[i] * scale - lse_r[i]) : 0.f;
+      ds[i] = p * (dp[i] - d_r[i]);
+    }
+
+#pragma unroll 4
+    for (int j = 0; j < kKeys; ++j) {
+      float kx[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) kx[c] = ks[j * kLd + lane + 32 * c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float dsj = __shfl_sync(kFull, ds[i], j);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] += dsj * kx[c];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp * kRowsPerWarp + i;
+    if (r >= rows_used || qpos[i] >= sq) continue;
+    float* o = dq + ((static_cast<size_t>(b) * sq + qpos[i]) * heads + kvh * group + r / qb) * HD;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[lane + 32 * c] = acc[i][c] * scale;
+  }
+}
+
+template <int HD>
+cudaError_t launch_backward(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const void* pad, void* dq,
+                            void* dk, void* dv, int batch, int sq, int sk,
+                            int heads, int kv_heads, int kind, int window,
+                            float scale, cudaStream_t stream) {
+  const auto* qq = static_cast<const float*>(q);
+  const auto* kk = static_cast<const float*>(k);
+  const auto* vv = static_cast<const float*>(v);
+  const auto* gg = static_cast<const float*>(dout);
+  const int* pp = static_cast<const int*>(pad);
+  constexpr int kv_bytes = dkv_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((sk + kKeys - 1) / kKeys, kv_heads, batch);
+  dkv_kernel<HD><<<kv_grid, kWarps * 32, kv_bytes, stream>>>(
+      qq, kk, vv, gg, lse, delta, pp, static_cast<float*>(dk),
+      static_cast<float*>(dv), sq, sk, heads, kv_heads, kind, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int q_bytes = dq_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(
+      dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  if (err != cudaSuccess) return err;
+  const int qb = kRows / (heads / kv_heads);
+  const dim3 q_grid((sq + qb - 1) / qb, kv_heads, batch);
+  dq_kernel<HD><<<q_grid, kWarps * 32, q_bytes, stream>>>(
+      qq, kk, vv, gg, lse, delta, pp, static_cast<float*>(dq), sq, sk, heads,
+      kv_heads, qb, kind, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
+// D = rowsum(dO * O) of every (b, i, h) row, into (B, H, Sq); a warp a row
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ delta, int rows, int sq, int heads, int hd) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* a = o + static_cast<size_t>(row) * hd;
+  const T* g = dout + static_cast<size_t>(row) * hd;
+  float sum = 0.f;
+  for (int d = lane; d < hd; d += 32) sum += to_float(a[d]) * to_float(g[d]);
+  sum = warp_sum(sum);
+  if (lane == 0) {
+    const int h = row % heads, i = (row / heads) % sq, b = row / (heads * sq);
+    delta[(static_cast<size_t>(b) * heads + h) * sq + i] = sum;
+  }
+}
+
+// bf16 takes the tensor-core bodies, float32 the CUDA-core ones
 template <int HD>
 cudaError_t launch_type(bool bf16, const void* q, const void* k, const void* v,
-                        const void* pad, void* out, int batch, int sq, int sk,
-                        int heads, int kv_heads, int kind, int window,
-                        float scale, cudaStream_t stream) {
-  return bf16 ? tc::launch<HD>(q, k, v, pad, out, batch, sq, sk, heads,
+                        const void* pad, void* out, float* lse, int batch,
+                        int sq, int sk, int heads, int kv_heads, int kind,
+                        int window, float scale, cudaStream_t stream) {
+  return bf16 ? tc::launch<HD>(q, k, v, pad, out, lse, batch, sq, sk, heads,
                                kv_heads, kind, window, scale, stream)
-              : f32::launch<HD>(q, k, v, pad, out, batch, sq, sk, heads,
+              : f32::launch<HD>(q, k, v, pad, out, lse, batch, sq, sk, heads,
                                 kv_heads, kind, window, scale, stream);
+}
+
+template <int HD>
+cudaError_t backward_type(bool bf16, const void* q, const void* k,
+                          const void* v, const void* dout, const float* lse,
+                          const float* delta, const void* pad, void* dq,
+                          void* dk, void* dv, int batch, int sq, int sk,
+                          int heads, int kv_heads, int kind, int window,
+                          float scale, cudaStream_t stream) {
+  return bf16 ? tc::launch_backward<HD>(q, k, v, dout, lse, delta, pad, dq,
+                                        dk, dv, batch, sq, sk, heads, kv_heads,
+                                        kind, window, scale, stream)
+              : f32::launch_backward<HD>(q, k, v, dout, lse, delta, pad, dq,
+                                         dk, dv, batch, sq, sk, heads,
+                                         kv_heads, kind, window, scale, stream);
 }
 
 }  // namespace
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out like q, all contiguous and
-// of one type (dtype 0: float32, 1: bfloat16); pad (B,) int32 or null.
-// kind 0: causal, 1: local, 2: full.  Returns the launch's CUDA error code.
+// of one type (dtype 0: float32, 1: bfloat16); pad (B,) int32 or null; lse
+// (B, H, Sq) float32 or null: where given, the rows' log-sum-exp of the
+// scaled scores (+inf for a row that sees no key).  kind 0: causal, 1:
+// local, 2: full.  Returns the launch's CUDA error code.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* pad,
-                                      void* out, int batch, int sq, int sk,
-                                      int heads, int kv_heads, int hd,
+                                      void* out, void* lse, int batch, int sq,
+                                      int sk, int heads, int kv_heads, int hd,
                                       int dtype, int kind, int window,
                                       float scale, int device, void* stream) {
   if (heads % kv_heads != 0 || heads / kv_heads > kRows) return cudaErrorInvalidValue;
@@ -591,11 +1412,50 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 32: return launch_type<32>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
-    case 64: return launch_type<64>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
-    case 128: return launch_type<128>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
-    case 256: return launch_type<256>(bf16, q, k, v, pad, out, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 32: return launch_type<32>(bf16, q, k, v, pad, out, l, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 64: return launch_type<64>(bf16, q, k, v, pad, out, l, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 128: return launch_type<128>(bf16, q, k, v, pad, out, l, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 256: return launch_type<256>(bf16, q, k, v, pad, out, l, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The backward of flash_attention_launch: dq, dk, dv (shaped and typed as
+// q, k, v) from q, k, v, the forward's out and lse, and dout (like q).
+// delta is (B, H, Sq) float32 scratch.  Three device kernels: D = rowsum(
+// dout * out), then dK / dV, then dQ.  Returns the CUDA error code.
+extern "C" int flash_attention_backward_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, const void* pad, void* delta, void* dq,
+    void* dk, void* dv, int batch, int sq, int sk, int heads, int kv_heads,
+    int hd, int dtype, int kind, int window, float scale, int device,
+    void* stream) {
+  if (heads % kv_heads != 0 || heads / kv_heads > kRows) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  const int rows = batch * sq * heads;
+  float* d = static_cast<float*>(delta);
+  if (bf16)
+    delta_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(out),
+        static_cast<const __nv_bfloat16*>(dout), d, rows, sq, heads, hd);
+  else
+    delta_kernel<float><<<(rows + 7) / 8, 256, 0, s>>>(
+        static_cast<const float*>(out), static_cast<const float*>(dout), d,
+        rows, sq, heads, hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* l = static_cast<const float*>(lse);
+  switch (hd) {
+    case 32: return backward_type<32>(bf16, q, k, v, dout, l, d, pad, dq, dk, dv, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 64: return backward_type<64>(bf16, q, k, v, dout, l, d, pad, dq, dk, dv, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 128: return backward_type<128>(bf16, q, k, v, dout, l, d, pad, dq, dk, dv, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
+    case 256: return backward_type<256>(bf16, q, k, v, dout, l, d, pad, dq, dk, dv, batch, sq, sk, heads, kv_heads, kind, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

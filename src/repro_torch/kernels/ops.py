@@ -3,12 +3,50 @@
 Dispatch is by device alone: a CUDA tensor launches the CUDA kernel and a
 CPU tensor runs the plain version in ``kernels.ref``.  There is no other
 switch and no fallback: a kernel that fails to build or launch raises.
+
+Gradients.  The CPU arms are plain torch, differentiable as they stand.  On
+CUDA a gradient is wanted where ``torch.is_grad_enabled()`` and a tensor
+input ``requires_grad``; flash attention then runs through
+``flash_attention.FlashAttention``, whose backward is a kernel too.  The
+other kernels have no backward yet and raise ``NotImplementedError``
+there (``NO_BACKWARD`` names the ROADMAP item that will give each one):
+their outputs would otherwise be tensors autograd does not see.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+
+# kernel -> the ROADMAP item that will give it a backward
+NO_BACKWARD = {
+    "decode_attention": "ROADMAP queue 2, item B5 (serving kernels; no "
+                        "training path differentiates them)",
+    "decode_attention_paged": "ROADMAP queue 2, item B5 (serving kernels; "
+                              "no training path differentiates them)",
+    "ssd_scan": "ROADMAP queue 2, item B1 (the SSD scan's backward, to "
+                "train \"s\" layers)",
+    "rglru_scan": "ROADMAP queue 2, item B2 (the RG-LRU scan's backward, to "
+                  "train \"r\" layers)",
+    "partition_sweep": "ROADMAP queue 2, item B5 (the controller never "
+                       "differentiates the sweep)",
+}
+
+
+def grad_wanted(*tensors) -> bool:
+    """True where autograd records and some tensor input requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise for a CUDA kernel without a backward when a gradient is
+    wanted through it."""
+    if grad_wanted(*tensors):
+        raise NotImplementedError(
+            f"{name} on CUDA has no backward kernel, and a gradient is "
+            f"wanted through it; it comes with {NO_BACKWARD[name]}")
+
 
 # Above this many score elements per (batch x head) the CPU path switches to
 # the blocked formulation, as the reference's non-Pallas arm does.
@@ -31,9 +69,11 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     if pad_mask is not None:
         pad = (~pad_mask).sum(dim=1, dtype=torch.int32)
     if q.is_cuda:
-        from .flash_attention import flash_attention_cuda
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), kind=kind, window=window,
+        from .flash_attention import FlashAttention, flash_attention_cuda
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if grad_wanted(q, k, v):
+            return FlashAttention.apply(q, k, v, kind, window, pad)
+        return flash_attention_cuda(q, k, v, kind=kind, window=window,
                                     pad=pad)
     if pad is not None:
         return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
@@ -50,6 +90,7 @@ def decode_attention(q, k, v, valid_mask):
     valid_mask (B, S) bool."""
     if q.is_cuda:
         from .decode_attention import decode_attention_cuda
+        refuse_grad("decode_attention", q, k, v)
         return decode_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(), valid_mask.contiguous())
     return ref.decode_attention_ref(q, k, v, valid_mask)
@@ -64,6 +105,7 @@ def decode_attention_paged(q, k_pool, v_pool, block_table, seq_lens):
     and the plain version runs, as the reference does."""
     if q.is_cuda:
         from .decode_attention import decode_attention_paged_cuda
+        refuse_grad("decode_attention_paged", q, k_pool, v_pool)
         return decode_attention_paged_cuda(
             q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
             block_table.to(torch.int32).contiguous(),
@@ -104,6 +146,7 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
     """
     if x.is_cuda:
         from .ssd_scan import ssd_scan_cuda
+        refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip)
         return ssd_scan_cuda(
             x.contiguous(), dt.float().contiguous(),
             a_log.float().contiguous(), b.contiguous(), c.contiguous(),
@@ -128,6 +171,7 @@ def rglru_scan(x, a, reset=None):
     S; ``reset`` (B, S) bool zeroes the state entering flagged steps."""
     if x.is_cuda:
         from .rglru_scan import rglru_scan_cuda
+        refuse_grad("rglru_scan", x, a)
         return rglru_scan_cuda(
             x.contiguous(), a.contiguous(),
             reset=None if reset is None else reset.contiguous())
@@ -141,6 +185,8 @@ def partition_sweep(macs, params_b, acts, psi, L, lam, gain, q_energy,
     ``ref.SCALAR_NAMES`` (``ref.pack_scalars`` makes it from a dict)."""
     if macs.is_cuda:
         from .partition_sweep import partition_sweep_cuda
+        refuse_grad("partition_sweep", macs, params_b, acts, psi, L, lam,
+                    gain, q_energy, q_memory, scalars)
         return partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain,
                                     q_energy, q_memory,
                                     scalars.reshape(1, -1).contiguous())
@@ -158,6 +204,8 @@ def partition_sweep_batched(macs, params_b, acts, psi, L, lam, gain,
     """
     if macs.is_cuda:
         from .partition_sweep import partition_sweep_cuda
+        refuse_grad("partition_sweep", macs, params_b, acts, psi, L, lam,
+                    gain, q_energy, q_memory, scalars)
         b, n, c = macs.shape
         flat = lambda t: t.reshape((b * n,) + tuple(t.shape[2:])).contiguous()
         rows = torch.broadcast_to(scalars, (b, scalars.shape[-1])).contiguous()

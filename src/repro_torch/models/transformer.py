@@ -36,6 +36,8 @@ place.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import _tree
 from ..device import resolve_device
@@ -281,26 +283,52 @@ def _add(total, aux):
     return aux if total is None else total + aux
 
 
+def _unstack(units) -> list:
+    """The units of a unit-stacked tree as one tree of views each, from one
+    ``torch.unbind`` per leaf: under autograd each leaf then gets one
+    stacked gradient, where indexing each unit out would materialise a
+    zero tensor the size of the whole leaf per unit."""
+    parts = [torch.unbind(t) for t in _tree.leaves(units)]
+    return [_tree.unflatten(units, [p[u] for p in parts])
+            for u in range(len(parts[0]))]
+
+
+def _run_unit(unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u):
+    """One unit's layers over x; with ``caches``, each layer's cache at unit
+    ``u`` is filled in place.  Returns (x, the unit's MoE aux or None)."""
+    total = None
+    for i, kind in enumerate(pattern):
+        x, aux, out = _layer_full(unit_p[f"slot{i}"], cfg, kind, x,
+                                  positions, pad_mask,
+                                  want_cache=caches is not None, ctx=ctx)
+        total = _add(total, aux)
+        if caches is not None:
+            _fill(kind, _tree.index(caches[f"slot{i}"], u), out)
+    return x, total
+
+
 def run_units(units, cfg, x, positions, caches=None, pad_mask=None,
-              ctx=None, pattern=None):
+              ctx=None, pattern=None, remat: bool = False):
     """Apply every unit of ``units`` (leaves stacked over units; each unit
     the layers of ``pattern``, by default ``cfg.block_pattern``) to x.
     With ``caches`` ({"slot{i}": unit-stacked cache}), each layer's cache
-    is filled in place.  Returns (x, the units' summed MoE aux loss, or
-    None where the pattern has no "m")."""
+    is filled in place.  With ``remat``, where a gradient is wanted, each
+    unit runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` per unit): only its input is kept, and its forward
+    runs again in the backward.  Returns (x, the units' summed MoE aux
+    loss, or None where the pattern has no "m")."""
     pattern = cfg.block_pattern if pattern is None else pattern
-    n = next(_leaves(units)).shape[0]
+    unit_params = _unstack(units)
+    remat = remat and caches is None and torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, *_tree.leaves(units)])
     total = None
-    for u in range(n):
-        unit_p = _tree.index(units, u)
-        unit_aux = None
-        for i, kind in enumerate(pattern):
-            x, aux, out = _layer_full(unit_p[f"slot{i}"], cfg, kind, x,
-                                      positions, pad_mask,
-                                      want_cache=caches is not None, ctx=ctx)
-            unit_aux = _add(unit_aux, aux)
-            if caches is not None:
-                _fill(kind, _tree.index(caches[f"slot{i}"], u), out)
+    for u, unit_p in enumerate(unit_params):
+        args = (unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u)
+        if remat:
+            x, unit_aux = torch.utils.checkpoint.checkpoint(
+                _run_unit, *args, use_reentrant=False)
+        else:
+            x, unit_aux = _run_unit(*args)
         total = _add(total, unit_aux)
     return x, total
 
@@ -344,13 +372,18 @@ def _logits(params, cfg, x):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    """The tokens' embedding rows.  ``F.embedding``, not indexing: its
+    backward sums a repeated token's rows in a fixed order (indexing's
+    backward, ``index_put_`` with accumulation, adds them in a thread order
+    on the CPU), so a training step gives the same bits every time."""
+    return F.embedding(tokens, params["embed"]).to(dtype_of(cfg.compute_dtype))
 
 
-def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None):
+def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None,
+               remat: bool = False):
     x, aux = run_units(params["units"], cfg, x, positions,
                        None if caches is None else caches["units"], pad_mask,
-                       ctx)
+                       ctx, remat=remat)
     x, tail_aux = run_tail(params.get("tail", []), cfg, x, positions,
                            None if caches is None else caches["tail"],
                            pad_mask, ctx)
@@ -361,12 +394,13 @@ def forward_train(params, cfg, batch):
     """Teacher-forced logits.  batch: {"tokens": (B, S)} plus
     ``image_embeds`` (vision) or ``src_embeds`` (an encoder's frames),
     each (B, S_ctx, D).  Returns (logits (B, S, V) float32, the summed MoE
-    aux loss, float32)."""
+    aux loss, float32).  With ``cfg.remat``, where a gradient is wanted,
+    each unit of the decoder stack is recomputed in the backward."""
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
     ctx = _context(params, cfg, batch)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, aux = _run_stack(params, cfg, x, positions, ctx)
+    x, aux = _run_stack(params, cfg, x, positions, ctx, remat=cfg.remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return _logits(params, cfg, x), aux

@@ -1,2 +1,3 @@
-"""Training runtime of the port: checkpointing (port of part of
-``repro.runtime``)."""
+"""Training runtime of the port: checkpointing, straggler monitoring and
+restart policies (port of ``repro.runtime`` but for its compressed gradient
+sync, which needs the mesh)."""

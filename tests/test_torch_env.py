@@ -317,8 +317,8 @@ def _port_sources():
 
 def test_import_guard_covers_the_serving_slice():
     """The guard below globs the whole package: the modules of the served
-    LM path, the kernel sources' wrappers and the learning loop are among
-    its files."""
+    LM path, the kernel sources' wrappers, the learning loop and LM
+    training are among its files."""
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in _port_sources()[:-1]}
     for mod in ("configs/base.py", "kernels/_build.py",
@@ -329,7 +329,10 @@ def test_import_guard_covers_the_serving_slice():
                 "serve_partitioned.py", "kernels/ssd_scan.py",
                 "kernels/rglru_scan.py", "models/ssm.py", "models/rglru.py",
                 "launch/serve.py", "core/networks.py", "core/policies.py",
-                "core/ppo.py", "optim/adam.py", "quickstart.py"):
+                "core/ppo.py", "optim/adam.py", "quickstart.py",
+                "profiling/roofline.py", "data/pipeline.py",
+                "models/steps.py", "runtime/resilience.py",
+                "launch/train.py", "train_lm.py"):
         assert mod in names, mod
 
 

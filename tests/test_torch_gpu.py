@@ -923,3 +923,156 @@ def test_cross_attention_stacks_on_card_match_the_cpu(arch):
         cfg.n_layers + cfg.enc_layers + sum(k == "d" for k in cfg.block_pattern)
         * cfg.n_units)
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward, the gradient rule, a train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,kind,window,pad", [
+    (2, 128, 128, 16, 8, 128, "causal", 0, None),
+    (2, 100, 300, 64, 8, 128, "full", 0, None),
+    (1, 200, 200, 4, 1, 256, "local", 64, None),
+    (3, 96, 96, 8, 2, 64, "causal", 0, [0, 17, 40]),
+    (2, 37, 37, 4, 2, 32, "causal", 0, None)])
+def test_flash_backward_matches_plain_autograd(dt, b, sq, sk, h, kv, hd,
+                                               kind, window, pad):
+    """``ops.flash_attention`` with a gradient wanted runs the backward
+    kernel: dq, dk, dv against autograd through the float32 plain version
+    on the same inputs (1e-4 in float32, 2e-2 in bf16, of max(1, max |g|)).
+    Rows that see no key have their dO zeroed on both sides; with it
+    restored the kernel gives them dq = 0 and dk, dv keep every bit."""
+    _need_card()
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(sq + hd)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    q, k, v, dout = rnd(b, sq, h, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, hd), \
+        rnd(b, sq, h, hd)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                  device="cuda")
+    pad_mask = None if pad is None else (
+        torch.arange(sk, device="cuda")[None, :] >= pad_t[:, None])
+    mask = p_ref.build_mask(kind, sq, sk, window, device="cuda")
+    seen = torch.ones(b, sq, dtype=torch.bool, device="cuda")
+    if mask is not None:
+        seen = seen & mask.any(-1)[None]
+    if pad is not None:
+        seen = (mask[None] & pad_mask[:, None, :]).any(-1)
+    live = dout * seen[:, :, None, None].to(dtype)
+
+    def kernel(d):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = p_ops.flash_attention(*leaves, kind=kind, window=window,
+                                    pad_mask=pad_mask)
+        return torch.autograd.grad(out, leaves, d)
+
+    before = (p_fa.flash_attention_cuda.launches,
+              p_fa.flash_attention_backward_cuda.launches)
+    got = kernel(live)
+    assert (p_fa.flash_attention_cuda.launches,
+            p_fa.flash_attention_backward_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        p_ref.flash_attention_ref(*plain, kind=kind, window=window,
+                                  pad=pad_t), plain, live.float())
+    tol = 1e-4 if dt == "f32" else 2e-2
+    for gg, w in zip(got, want):
+        assert gg.dtype == dtype
+        assert float((gg.float() - w).abs().max()) <= tol * max(
+            1.0, float(w.abs().max()))
+    if not bool(seen.all()):
+        again = kernel(dout)
+        assert not bool((again[0][~seen] != 0).any())
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_a_gradient():
+    """On the card, decode attention (dense and paged), the SSD and RG-LRU
+    scans and the sweep raise NotImplementedError when a gradient is wanted
+    through them, and run as before under no_grad."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    q = rnd(2, 1, 4, 32).requires_grad_(True)
+    k, v = rnd(2, 16, 2, 32), rnd(2, 16, 2, 32)
+    valid = torch.ones(2, 16, dtype=torch.bool, device="cuda")
+    table = torch.arange(4, device="cuda", dtype=torch.int32).reshape(2, 2)
+    lens = torch.tensor([5, 11], device="cuda", dtype=torch.int32)
+    x = rnd(1, 8, 2, 64).requires_grad_(True)
+    calls = {
+        "decode_attention": lambda: p_ops.decode_attention(q, k, v, valid),
+        "decode_attention_paged": lambda: p_ops.decode_attention_paged(
+            q, rnd(4, 8, 2, 32), rnd(4, 8, 2, 32), table, lens),
+        "ssd_scan": lambda: p_ops.ssd_scan(
+            x, rnd(1, 8, 2).abs(), rnd(2), rnd(1, 8, 1, 16), rnd(1, 8, 1, 16),
+            rnd(2), chunk=8),
+        "rglru_scan": lambda: p_ops.rglru_scan(
+            rnd(1, 8, 64).requires_grad_(True), rnd(1, 8, 64).sigmoid()),
+    }
+    args, scalars = random_sweep_inputs((2, 3), 5, "cuda")
+    args[0].requires_grad_(True)
+    row = p_ref.pack_scalars(scalars, "cuda")
+    calls["partition_sweep"] = lambda: p_ops.partition_sweep_batched(*args,
+                                                                     row)
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_the_cpu():
+    """float32 qwen3-0.6b at full width, 2 layers, remat on: one
+    ``make_train_step`` step on the card against the CPU from the same
+    parameters and batch (the stream draws on the CPU, so both get the same
+    tokens): loss within 1e-5 relative, gradients within 1e-4 of each
+    leaf's max |g|; after the step Adam's first moments, (1 - b1) g, within
+    1e-4 of each leaf's max and its second moments, (1 - b2) g^2, within
+    2e-4 (a square doubles the gradients' relative error), and the loss on
+    the next batch within 1e-5 relative (the parameters themselves are not
+    held: a first Adam step moves an entry by lr * g / |g|, so where g is
+    near 0 the two devices may move it opposite ways); 2 flash forwards,
+    2 recomputes and 2 backwards a microbatch."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.models import steps as p_steps
+    _need_card()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    assert cfg.remat
+    gpu = p_tf.init_params(0, cfg, "cuda")
+    cpu = _tree.to_device(gpu, "cpu")
+    stream = for_arch(cfg, batch=2, seq=64, seed=4)
+    card_batch = for_arch(cfg, batch=2, seq=64, seed=4,
+                          device="cuda").get_batch(0)
+    assert all(torch.equal(card_batch[k].cpu(), v)
+               for k, v in stream.get_batch(0).items())
+    before = (p_fa.flash_attention_cuda.launches,
+              p_fa.flash_attention_backward_cuda.launches)
+    (loss, _), grads = p_steps.value_and_grad(gpu, cfg, card_batch)
+    assert (p_fa.flash_attention_cuda.launches - before[0],
+            p_fa.flash_attention_backward_cuda.launches - before[1]) == (4, 2)
+    (cpu_loss, _), cpu_grads = p_steps.value_and_grad(cpu, cfg,
+                                                      stream.get_batch(0))
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    for gg, w in zip(_tree.leaves(grads), _tree.leaves(cpu_grads)):
+        assert float((gg.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    lr = 1e-3
+    opt_init, step = p_steps.make_train_step(cfg, lr=lr)
+    new, opt, m = step(gpu, opt_init(gpu), card_batch)
+    cpu_new, cpu_opt, _ = step(cpu, opt_init(cpu), stream.get_batch(0))
+    for tol, tree, cpu_tree in ((1e-4, opt.mu, cpu_opt.mu),
+                                (2e-4, opt.nu, cpu_opt.nu)):
+        for a, b in zip(_tree.leaves(tree), _tree.leaves(cpu_tree)):
+            assert float((a.cpu() - b).abs().max()) <= tol * float(b.abs().max())
+    nxt = stream.get_batch(1)
+    after = float(p_steps.loss_fn(new, cfg, _tree.to_device(nxt, "cuda"))[0])
+    cpu_after = float(p_steps.loss_fn(cpu_new, cfg, nxt)[0])
+    assert abs(after - cpu_after) <= 1e-5 * abs(cpu_after)
