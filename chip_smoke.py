@@ -2618,7 +2618,9 @@ GRAD_TOL_F32, GRAD_TOL_BF16 = 1e-4, 2e-2   # x max(1, max |plain grad|)
 # shape (qwen3-0.6b at its 2-microbatch B4 S512), gemma3's window at its hd
 # 256 and MQA, cross attention (full, Sq != Sk; vision's H64/KV8), GQA
 # groups of 1, 5 and 8, hd 32 (the train_lm twin) and 64, a length no tile
-# divides, and left pads with query rows that see no key
+# divides, and left pads with query rows that see no key; then the edges of
+# the backward's tiling: Sq or Sk under one 64-row tile, a group of 64
+# (one position a dQ block), an odd number of key tiles under causal
 FLASH_GRAD_CASES = [
     ("train", 4, 512, 512, 16, 8, 128, "bf16", "causal", 0, None),
     ("train", 4, 512, 512, 16, 8, 128, "f32", "causal", 0, None),
@@ -2637,6 +2639,13 @@ FLASH_GRAD_CASES = [
     ("pad", 3, 96, 96, 8, 2, 64, "f32", "causal", 0, [0, 17, 40]),
     ("local pad", 2, 200, 200, 4, 1, 256, "bf16", "local", 64, [0, 30]),
     ("local pad", 2, 200, 200, 4, 1, 256, "f32", "local", 64, [0, 30]),
+    ("S17", 2, 17, 17, 8, 2, 64, "bf16", "causal", 0, None),
+    ("S17", 2, 17, 17, 8, 2, 64, "f32", "causal", 0, None),
+    ("Sq17 cross", 2, 17, 300, 16, 8, 128, "bf16", "full", 0, None),
+    ("Sk17 cross", 2, 300, 17, 16, 8, 128, "bf16", "full", 0, None),
+    ("g64", 1, 40, 40, 64, 1, 64, "bf16", "causal", 0, None),
+    ("g64", 1, 40, 40, 64, 1, 64, "f32", "causal", 0, None),
+    ("5 key tiles", 2, 320, 320, 8, 4, 128, "bf16", "causal", 0, None),
 ]
 
 
@@ -2709,6 +2718,71 @@ def check_flash_grad(torch, gen, case) -> float:
     return err
 
 
+def flash_bwd_calls(torch, gen, b, s, h, kv, hd, kind="causal", window=0):
+    """The bf16 flash backward alone at B x S (causal, or local under
+    ``window``), from a saved forward, with what it is timed against: the
+    plain version's backward and SDPA's (a boolean mask for local), each
+    from its own saved graph; its flops (8 hd H a live pair) and bytes (q,
+    k, v, out, dO and lse read, dq, dk and dv written).  Returns (calls,
+    flops, bytes, shape); ``calls["kernel"](lib)`` launches through the
+    library ``lib`` (``flash_attention.LIBRARY`` or an earlier build with
+    the same C interface)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = attention_inputs(torch, gen, b, s, s, h, kv, hd, torch.bfloat16)
+    dout = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
+                                       with_lse=True)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ref.flash_attention_ref(*leaves, kind=kind, window=window)
+    heads = [to_heads(torch, k, h // kv), to_heads(torch, v, h // kv),
+             q.transpose(1, 2).contiguous()]
+    kt, vt, qt = [t.detach().requires_grad_(True) for t in heads]
+    if kind == "causal":
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        allowed = ref.build_mask(kind, s, s, window, device="cuda")
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=allowed)
+    dout_h = dout.transpose(1, 2).contiguous()
+
+    def kernel(lib):
+        def call():
+            saved, fa.LIBRARY = fa.LIBRARY, lib
+            try:
+                return fa.flash_attention_backward_cuda(
+                    q, k, v, out, lse, dout, kind=kind, window=window)
+            finally:
+                fa.LIBRARY = saved
+        return call
+
+    calls = {
+        "kernel": kernel,
+        "plain": lambda: torch.autograd.grad(plain_out, leaves, dout,
+                                             retain_graph=True),
+        "library": lambda: torch.autograd.grad(sdpa_out, [kt, vt, qt], dout_h,
+                                               retain_graph=True)}
+    pairs = fa.live_pairs(b, s, s, kind, window)
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    shape = (f"B{b} S{s} H{h}/{kv} hd{hd} bf16 {kind}"
+             f"{f' W{window}' if window else ''}, backward")
+    return calls, 8 * h * hd * pairs, n_bytes, shape
+
+
+def time_flash_bwd(torch, gen, b, s, h, kv, hd, kind="causal",
+                   window=0) -> dict:
+    """The backward alone (``flash_bwd_calls``) beside the plain version's
+    and SDPA's backward, and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+    calls, n_flops, n_bytes, shape = flash_bwd_calls(torch, gen, b, s, h, kv,
+                                                     hd, kind, window)
+    t = time_kernel(torch, calls["kernel"](fa.LIBRARY), calls["plain"],
+                    calls["library"], n_flops, n_bytes, PEAK_BF16_S)
+    t["shape"] = shape
+    return t
+
+
 def time_flash_grad(torch, gen, b, s, h, kv, hd) -> dict:
     """Causal bf16 flash forward + backward at the training shape against
     the plain version's and SDPA's forward + backward, and the backward
@@ -2743,34 +2817,28 @@ def time_flash_grad(torch, gen, b, s, h, kv, hd) -> dict:
     tensor_bytes = (4 * q.numel() + 4 * k.numel()) * 2
     t = time_kernel(torch, kernel, plain, library, 12 * h * hd * pairs,
                     tensor_bytes, PEAK_BF16_S)
-    # the backward alone, from a saved forward
-    out, lse = fa.flash_attention_cuda(q, k, v, kind="causal", with_lse=True)
-    bwd = lambda: fa.flash_attention_backward_cuda(q, k, v, out, lse, dout,
-                                                   kind="causal")
-    plain_out = ref.flash_attention_ref(*leaves, kind="causal")
-    plain_bwd = lambda: torch.autograd.grad(plain_out, leaves, dout,
-                                            retain_graph=True)
-    kt, vt, qt = sdpa_leaves
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, dout_h,
-                                           retain_graph=True)
-    # q, k, v, out, dout and lse read, dq, dk and dv written
-    t["backward"] = time_kernel(
-        torch, bwd, plain_bwd, sdpa_bwd, 8 * h * hd * pairs,
-        tensor_bytes + lse.numel() * 4, PEAK_BF16_S)
     t["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal, forward + backward"
-    t["backward"]["shape"] = f"B{b} S{s} H{h}/{kv} hd{hd} bf16 causal, backward"
+    t["backward"] = time_flash_bwd(torch, gen, b, s, h, kv, hd)
     return t
 
 
+# the backward alone is also timed at gemma3-1b's "l" layers: hd 256, one
+# kv head for 4 query heads, window 1,024, over 1,100 positions (one batch
+# row and one kv head: the fewest blocks a pass gets, so the cluster split)
+FLASH_BWD_LOCAL = (1, 1100, 4, 1, 256, "local", 1024)
+
+
 def flash_grad_phase(torch) -> dict:
-    """Phase 12 (a): the flash backward at every listed shape, then timed."""
+    """Phase 12 (a): the flash backward at every listed shape, then timed
+    at the training shape and at gemma3's local one."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     log("[12] (a) flash backward vs autograd through the plain version")
     errs = [check_flash_grad(torch, gen, c) for c in FLASH_GRAD_CASES]
     t = time_flash_grad(torch, gen, 4, 512, 16, 8, 128)
     log_timed("flash fwd+bwd", t)
     log_timed("flash bwd", t["backward"])
+    t["local_backward"] = time_flash_bwd(torch, gen, *FLASH_BWD_LOCAL)
+    log_timed("flash bwd", t["local_backward"])
     return {"max_err": max(errs), "timed": t}
 
 

@@ -11,6 +11,17 @@ They are built on first use through ``kernels._build`` and launched on
 PyTorch's current stream.  The plain version is
 ``kernels.ref.flash_attention_ref`` (autograd through it for the backward).
 
+The bf16 backward is two launches: a dQ pass that also forms D =
+rowsum(dO * O), then a dK/dV pass.  Each block streams its tiles through a
+cp.async ring and splits every step into two phases: S and dP computed once
+and shared through shared memory, then the outputs accumulated.  Blocks go
+heaviest first, and a cluster of blocks splits the work where one block a
+tile would leave the card idle (gemma3's hd 256 local layers).  What bounds
+it on an H100 is the latency of its ``mma.sync`` products, fragment loads and
+softmax, not the bytes (``scripts/flash_backward_turns.py`` times it, its
+earlier build and each part).  No atomics: every element of dq, dk and dv
+has one writer, so two calls on the same inputs agree bit for bit.
+
 ``flash_attention_cuda.launches`` and ``flash_attention_backward_cuda.
 launches`` count launches: each rises by one each time its wrapper
 launches its kernel, and nowhere else.  ``FlashAttention`` is the

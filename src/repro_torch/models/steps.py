@@ -80,13 +80,20 @@ def make_train_step(cfg, lr: float = 3e-4, weight_decay: float = 0.1,
     ``microbatches > 1`` runs the batch in that many equal shards, one after
     the other, and sums each shard's gradients divided by ``microbatches``
     (in float32, or bf16 for the FSDP giants, as the reference does) before
-    a single optimizer update."""
+    a single optimizer update.  A batch whose rows ``microbatches`` does not
+    divide raises ``ValueError`` before any gradient is taken (the
+    reference's reshape refuses it too)."""
     opt_init, opt_update = adam(lr, weight_decay=weight_decay,
                                 grad_clip=grad_clip,
                                 state_dtype=dtype_of(cfg.opt_state_dtype))
     acc_dtype = torch.bfloat16 if cfg.fsdp else torch.float32
 
     def train_step(params, opt_state, batch):
+        for key, x in batch.items():
+            if x.shape[0] % microbatches:
+                raise ValueError(
+                    f"batch {key!r} has {x.shape[0]} rows, not a multiple "
+                    f"of microbatches={microbatches}")
         if microbatches == 1:
             (loss, (ce, aux)), grads = value_and_grad(params, cfg, batch)
         else:

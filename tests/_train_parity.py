@@ -20,6 +20,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.base import get_config as r_get_config
@@ -122,6 +123,29 @@ def check_train_step(arch, microbatches):
     # the step returned new trees and left its inputs as they were
     assert not all(torch.equal(a, b) for a, b in
                    zip(before, _tree.leaves(p_params)))
+
+
+def check_indivisible_batch(arch, batch=3, microbatches=2):
+    """A batch whose rows ``microbatches`` does not divide: the reference's
+    step raises (its reshape to (microbatches, b // microbatches, ...)),
+    the port's raises ValueError naming both numbers before any gradient,
+    and neither the parameters nor the optimizer state move."""
+    r_cfg, p_cfg, r_params, p_params = arch
+    tokens = np.random.default_rng(7).integers(
+        0, r_cfg.vocab, (batch, S + 1)).astype(np.int32)
+    data = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    r_init, r_step = r_steps.make_train_step(r_cfg, microbatches=microbatches)
+    with pytest.raises(TypeError, match="reshape"):
+        jax.jit(r_step)(r_params, r_init(r_params), data)
+    p_init, p_step = p_steps.make_train_step(p_cfg, microbatches=microbatches)
+    p_opt = p_init(p_params)
+    before = [t.clone() for t in _tree.leaves(p_params)]
+    with pytest.raises(ValueError, match=rf"\b{batch} rows.*"
+                       rf"microbatches={microbatches}"):
+        p_step(p_params, p_opt, _to_port(data))
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, _tree.leaves(p_params)))
+    assert int(p_opt.step) == 0
 
 
 def check_accumulation(arch):

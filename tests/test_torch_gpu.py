@@ -936,14 +936,23 @@ def test_cross_attention_stacks_on_card_match_the_cpu(arch):
     (2, 100, 300, 64, 8, 128, "full", 0, None),
     (1, 200, 200, 4, 1, 256, "local", 64, None),
     (3, 96, 96, 8, 2, 64, "causal", 0, [0, 17, 40]),
-    (2, 37, 37, 4, 2, 32, "causal", 0, None)])
+    (2, 37, 37, 4, 2, 32, "causal", 0, None),
+    (2, 17, 17, 8, 2, 64, "causal", 0, None),
+    (2, 17, 300, 16, 8, 128, "full", 0, None),
+    (2, 300, 17, 16, 8, 128, "full", 0, None),
+    (1, 1100, 1100, 4, 1, 256, "local", 1024, None),
+    (1, 40, 40, 64, 1, 64, "causal", 0, None),
+    (2, 320, 320, 8, 4, 128, "causal", 0, None)])
 def test_flash_backward_matches_plain_autograd(dt, b, sq, sk, h, kv, hd,
                                                kind, window, pad):
     """``ops.flash_attention`` with a gradient wanted runs the backward
     kernel: dq, dk, dv against autograd through the float32 plain version
     on the same inputs (1e-4 in float32, 2e-2 in bf16, of max(1, max |g|)).
     Rows that see no key have their dO zeroed on both sides; with it
-    restored the kernel gives them dq = 0 and dk, dv keep every bit."""
+    restored the kernel gives them dq = 0 and dk, dv keep every bit.  The
+    shapes include the edges of the bf16 backward's tiling: Sq or Sk under
+    one 64-row tile, gemma3's window at hd 256 and one kv head, a group of
+    64 (one position a dQ block) and 5 key tiles under causal masking."""
     _need_card()
     dtype = torch.float32 if dt == "f32" else torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(sq + hd)
@@ -987,6 +996,37 @@ def test_flash_backward_matches_plain_autograd(dt, b, sq, sk, h, kv, hd,
         again = kernel(dout)
         assert not bool((again[0][~seen] != 0).any())
         assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,kind,window", [
+    (4, 512, 16, 8, 128, "causal", 0),
+    (1, 1100, 4, 1, 256, "local", 1024),
+    (2, 130, 10, 2, 64, "causal", 0),
+    (1, 40, 64, 1, 32, "full", 0)])
+def test_flash_backward_is_bit_identical_across_calls(b, s, h, kv, hd, kind,
+                                                      window):
+    """Two bf16 backward calls on the same inputs give the same dq, dk and
+    dv bit for bit: no atomics, nothing hangs on the order blocks run in
+    (a resumed training run equals an uninterrupted one through this)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(s + hd)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").to(torch.bfloat16)
+    q, k, v, dout = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd), \
+        rnd(b, s, h, hd)
+    out, lse = p_fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
+                                         with_lse=True)
+    first = p_fa.flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                               kind=kind, window=window)
+    # other work between the calls, so that blocks land elsewhere
+    torch.randn(4096, 4096, device="cuda") @ torch.randn(4096, 4096,
+                                                         device="cuda")
+    second = p_fa.flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                kind=kind, window=window)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+        assert bool(torch.isfinite(a.float()).all())
 
 
 @pytest.mark.gpu
