@@ -10,7 +10,8 @@ full width on the ES tier: qwen3-0.6b, mamba2-1.3b and the MoE
 moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
 through the serving launcher, and llama4-maverick, llama-3.2-vision and
 seamless-m4t through the model's entry points; qwen3-0.6b trained at full
-width through the training launcher -- and
+width through the training launcher; the grid sharded over a cells mesh
+of processes -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
@@ -165,7 +166,22 @@ the card:
    moonshot at the no-drop capacity factor), and checks that a
    recurrentgemma or mamba2 train step on the card raises
    NotImplementedError; (d) ``python -m repro_torch.train_lm --steps 100``,
-   whose loss must fall.
+   whose loss must fall;
+13. drives the cells mesh (``launch.mesh``, ``core.gridshard``,
+   ``ScenarioGrid.use_mesh``): (a) ``python -m repro_torch.scenario_sweep``'s
+   ``main`` (``MESH_SWEEP_ARGS``) on a one-rank NCCL mesh, its sharded leg
+   with no drift and one sweep launch per Oracle slot; (b) three processes
+   on the one card, joined over gloo (NCCL takes one rank a device), run
+   phase 3's grid padded to 4,098 cells (1,366 a rank) under the Oracle
+   and Random for MAIN_SLOTS slots, and every rank's gathered results,
+   states and summaries must equal phase 3's unsharded ones (cuts
+   identical, floats within rtol 1e-5 / atol 1e-7), with one sweep launch
+   a rank per Oracle slot over its 1,366 cells; each rank's slot time is
+   logged beside phase 3's, and one gather timed alone; (c)
+   ``train_compare`` on a two-rank world on the card (gloo), whose Fig. 4
+   must equal phase 10 (f)'s one-rank run to 1e-5.  A rank that fails or a
+   world that outlives its deadline fails the run; the phase logs its
+   seconds against a 90 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -2235,7 +2251,8 @@ def engines_phase(torch, report: dict, smi: str) -> dict:
             f"{r} {row['oracle']['delay'] * 1e3:.1f}"
             for r, row in written["fig4"].items()))
     out["train_compare"] = {"s": tc_s, "keys": sorted(written),
-                            "sweep_launches": TC_STEPS}
+                            "sweep_launches": TC_STEPS,
+                            "fig4": written["fig4"]}
 
     # (g) the telemetry overhead gate at the CLI's depth
     log("    (g) python -m repro_torch.obs " + " ".join(OVERHEAD_ARGS))
@@ -3106,6 +3123,238 @@ def training_phase(torch, smi: str) -> dict:
     return out
 
 
+# -- phase 13: the cells mesh --------------------------------------------------
+
+MESH_POLICIES = ("oracle", "random")
+MESH_RANKS, MESH_PAD = 3, 2           # (b): 4,096 cells padded to 4,098: 1,366 a rank
+MESH_SWEEP_ARGS = ["--steps", "4", "--episodes", "1"]
+MESH_SWEEP_ORACLE_SLOTS = 3 * 4       # (a): Fig. 4's, the 16-cell grid's, the sharded leg's
+MESH_TC_RANKS = 2                     # (c)
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-7     # the reference's sharded == unsharded contract
+MESH_DEADLINE_S = 180.0               # a spawned world still running then is ended
+MESH_BUDGET_S = 90.0                  # the phase's share of the smoke's time limit
+
+
+def rollout_on_host(states, res, summary) -> dict:
+    """A rollout's tensors on the host, by name (the generator dropped)."""
+    out = {"states.t": states.t, "states.gain": states.gain,
+           "states.lam": states.lam, "states.q_energy": states.queues.energy,
+           "states.q_memory": states.queues.memory}
+    out.update({f"results.{k}": v for k, v in res._asdict().items()})
+    out.update({f"summary.{k}": v for k, v in summary.items()})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def mesh_mismatch(torch, got: dict, want: dict) -> str | None:
+    """Where ``got`` parts from ``want``: cuts and integers must be equal,
+    floats within MESH_RTOL / MESH_ATOL; None where they agree."""
+    if set(got) != set(want):
+        return f"leaves {sorted(set(got) ^ set(want))}"
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return f"{name}: {g.dtype} {tuple(g.shape)} for {w.dtype} {tuple(w.shape)}"
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                return f"{name}: {int((g != w).sum())} entries differ"
+        elif not torch.allclose(g, w, rtol=MESH_RTOL, atol=MESH_ATOL):
+            return f"{name}: worst |diff| {float((g - w).abs().max()):.3e}"
+    return None
+
+
+def mesh_grid_rank(slots: int, pad_to: int) -> dict:
+    """A rank of phase 13 (b): phase 3's grid sharded over the world's cells
+    mesh and rolled out under each of MESH_POLICIES for ``slots`` slots from
+    seed 0, the sweep's launches counted and the cells of each recorded;
+    then one gather of the results' slot stack timed alone."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import gridshard, scenarios
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import partition_sweep as ps
+    from repro_torch.launch.mesh import make_cells_mesh
+
+    t0 = time.perf_counter()
+    grid = scenarios.ScenarioGrid(
+        scenarios.multicell_grid(cells=GRID_CELLS, ues=GRID_UES))
+    grid.use_mesh(make_cells_mesh(), pad_to=pad_to)
+    out = {"rank": dist.get_rank(), "device": torch.cuda.current_device(),
+           "b_local": grid.b_local, "build_s": time.perf_counter() - t0}
+    cells, plain = [], ops.partition_sweep_batched
+
+    def recorded(macs, *args):
+        cells.append(macs.shape[0])
+        return plain(macs, *args)
+
+    ops.partition_sweep_batched = recorded
+    try:
+        for policy in MESH_POLICIES:
+            cells.clear()
+            ps.partition_sweep_cuda.launches = 0
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, res, summary = grid.make_rollout(policy, slots)(0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[policy] = {"slot_ms": dt / slots * 1e3,
+                           "launches": ps.partition_sweep_cuda.launches,
+                           "cells": list(cells),
+                           "rollout": rollout_on_host(states, res, summary)}
+    finally:
+        ops.partition_sweep_batched = plain
+    mine = gridshard.local(res, grid.gridshard, lead=1)
+    gather_ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gridshard.gather(mine, grid.gridshard, lead=1)
+        torch.cuda.synchronize()
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+    out["gather_ms"] = gather_ms
+    return out
+
+
+def mesh_train_compare_rank(argv: list) -> dict:
+    """A rank of phase 13 (c): ``train_compare.main(argv)``, the sweep's
+    launches counted."""
+    from repro_torch import train_compare
+    from repro_torch.kernels import partition_sweep as ps
+    ps.partition_sweep_cuda.launches = 0
+    art = train_compare.main(argv)
+    return {"fig4": art["fig4"], "launches": ps.partition_sweep_cuda.launches}
+
+
+def fig4_drift(got: dict, want: dict) -> float:
+    """Worst relative difference over two Fig. 4 artifacts' numbers; inf
+    where their keys differ."""
+    worst = 0.0
+    for rate, algs in want.items():
+        for alg, metrics in algs.items():
+            for name, w in metrics.items():
+                try:
+                    g = got[rate][alg][name]
+                except KeyError:
+                    return float("inf")
+                if abs(g - w) > MESH_ATOL + MESH_RTOL * abs(w):
+                    worst = max(worst, abs(g - w) / max(abs(w), 1e-30))
+    return worst
+
+
+def mesh_phase(torch, held: dict, phase3: dict, tc: dict) -> dict:
+    """Phase 13: the cells mesh.  (a) ``scenario_sweep.main`` on a one-rank
+    NCCL mesh; (b) MESH_RANKS processes on the one card over gloo, phase 3's
+    grid padded by MESH_PAD, held to phase 3's unsharded results (``held``)
+    under the Oracle and Random; (c) ``train_compare`` on a two-rank world,
+    its Fig. 4 held to phase 10 (f)'s one-rank run (``tc``)."""
+    import torch.distributed as dist
+    from repro_torch import scenario_sweep
+    from repro_torch.launch.mesh import init_group, run_world
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def part_done(tag: str, t0: float) -> None:
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        log(f"    ({tag}) took {out[tag + '_s']:.1f} s")
+
+    # (a) the twin of examples/scenario_sweep.py on a one-rank NCCL mesh
+    log("[13] (a) python -m repro_torch.scenario_sweep "
+        + " ".join(MESH_SWEEP_ARGS) + " on a one-rank NCCL cells mesh")
+    t0 = time.perf_counter()
+    init_group("nccl", "cuda")
+    try:
+        zero_all_counts()
+        swept = scenario_sweep.main(MESH_SWEEP_ARGS)
+        torch.cuda.synchronize()
+        launched_a = sweep_launches()
+    finally:
+        dist.destroy_process_group()
+    numbers = swept["grid16"] + swept["sharded"] + sum(swept["fig4"].values(), [])
+    if not all(x == x and 0 < x < float("inf") for x in numbers):
+        fail("(a) scenario_sweep gave a delay that is not finite and positive")
+    if swept["pad"] != 0 or swept["drift"] > MESH_RTOL * max(swept["grid16"]):
+        fail(f"(a) the sharded leg drifted {swept['drift']:.3e} (pad "
+             f"{swept['pad']})")
+    if launched_a != MESH_SWEEP_ORACLE_SLOTS:
+        fail(f"(a) {launched_a} partition_sweep launches, expected one per "
+             f"Oracle slot ({MESH_SWEEP_ORACLE_SLOTS})")
+    out["sweep"] = {"drift": swept["drift"], "launches": launched_a}
+    log(f"    drift {swept['drift']:.2e}, {launched_a} sweep launches")
+    part_done("a", t0)
+
+    # (b) phase 3's grid over MESH_RANKS processes on one card (gloo: NCCL
+    # takes one rank a device)
+    b_padded = GRID_CELLS + MESH_PAD
+    b_local = b_padded // MESH_RANKS
+    log(f"[13] (b) {GRID_CELLS}x{GRID_UES} grid padded to {b_padded} over "
+        f"{MESH_RANKS} ranks on one card (gloo), {MAIN_SLOTS} slots of "
+        + " and ".join(MESH_POLICIES) + ", against phase 3")
+    t0 = time.perf_counter()
+    ranks = run_world(mesh_grid_rank, MESH_RANKS,
+                      args=(MAIN_SLOTS, b_padded), backend="gloo",
+                      device="cuda:0", deadline_s=MESH_DEADLINE_S)
+    launched_b = 0
+    for r in ranks:
+        if r["b_local"] != b_local or r["device"] != 0:
+            fail(f"(b) rank {r['rank']} held {r['b_local']} cells on cuda:"
+                 f"{r['device']}, expected {b_local} on cuda:0")
+        for policy in MESH_POLICIES:
+            got = r[policy]
+            want = MAIN_SLOTS if policy == "oracle" else 0
+            if got["launches"] != want or got["cells"] != [b_local] * want:
+                fail(f"(b) rank {r['rank']} {policy}: {got['launches']} "
+                     f"sweep launches over cells {got['cells']}, expected "
+                     f"{want} over {b_local} each")
+            launched_b += got["launches"]
+            bad = mesh_mismatch(torch, got["rollout"], held[policy])
+            if bad:
+                fail(f"(b) rank {r['rank']} {policy} parts from phase 3: {bad}")
+        log(f"    rank {r['rank']}: grid built in {r['build_s']:.1f} s; "
+            + "; ".join(f"{p} {r[p]['slot_ms']:.1f} ms/slot (phase 3 "
+                        f"{phase3[p]['slot_ms']:.1f})" for p in MESH_POLICIES)
+            + "; gather of the results' slot stack "
+            + ", ".join(f"{x:.1f}" for x in r["gather_ms"]) + " ms")
+    log(f"    every rank equals phase 3 (cuts identical, rtol {MESH_RTOL:g}, "
+        f"atol {MESH_ATOL:g}); one sweep launch a rank per Oracle slot over "
+        f"{b_local} cells")
+    out["grid"] = [{"rank": r["rank"], "build_s": r["build_s"],
+                    "gather_ms": r["gather_ms"],
+                    **{f"{p}_slot_ms": r[p]["slot_ms"] for p in MESH_POLICIES}}
+                   for r in ranks]
+    out["phase3_slot_ms"] = {p: phase3[p]["slot_ms"] for p in MESH_POLICIES}
+    part_done("b", t0)
+
+    # (c) train_compare on a two-rank world against phase 10 (f)'s one rank
+    log(f"[13] (c) python -m repro_torch.train_compare {' '.join(TC_ARGS)} "
+        f"on {MESH_TC_RANKS} ranks on one card (gloo), against phase 10 (f)")
+    t0 = time.perf_counter()
+    art = ROOT / "build" / "phase13_paper_artifacts.json"
+    ranks = run_world(mesh_train_compare_rank, MESH_TC_RANKS,
+                      args=(TC_ARGS + ["--out", str(art)],), backend="gloo",
+                      device="cuda:0", deadline_s=MESH_DEADLINE_S)
+    launched_c = 0
+    for r in ranks:
+        drift = fig4_drift(r["fig4"], tc["fig4"])
+        if drift:
+            fail(f"(c) a rank's Fig. 4 parts from the one-rank run's "
+                 f"(worst relative difference {drift:.3e})")
+        if r["launches"] != TC_STEPS:
+            fail(f"(c) {r['launches']} sweep launches on a rank, expected "
+                 f"one per Oracle slot ({TC_STEPS})")
+        launched_c += r["launches"]
+    log(f"    Fig. 4 on every rank equals the one-rank run's (rtol "
+        f"{MESH_RTOL:g}); {launched_c} sweep launches")
+    part_done("c", t0)
+
+    out["sweep_launches"] = launched_a + launched_b + launched_c
+    out["s"] = time.perf_counter() - t_phase
+    log(f"    phase 13: {out['s']:.1f} s of its {MESH_BUDGET_S:.0f} s budget"
+        + ("" if out["s"] <= MESH_BUDGET_S else " (OVER)"))
+    return out
+
+
 def no_drop(cfg):
     """``cfg`` at the smallest integer capacity factor, ceil(E / k), at
     which an expert can take its whole group: cap = ceil(g k / E) x factor
@@ -3222,13 +3471,15 @@ def main() -> int:
     log(f"[3] main path: ScenarioGrid {GRID_CELLS}x{GRID_UES}, "
         f"{MAIN_SLOTS} slots per policy")
     L_grid = grid.params.L
-    policies = {}
+    policies, held = {}, {}
     ps.partition_sweep_cuda.launches = 0
     for policy in ("oracle", "local", "edge", "random"):
         t0 = time.perf_counter()
         states, res, summary = grid.make_rollout(policy, MAIN_SLOTS)(0)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if policy in MESH_POLICIES:          # phase 13 (b) holds the mesh to it
+            held[policy] = rollout_on_host(states, res, summary)
         for name in ("reward", "delay", "energy", "mem_cost", "alpha", "f_ue"):
             if not bool(torch.isfinite(getattr(res, name)).all()):
                 fail(f"{policy}: non-finite {name}")
@@ -3306,12 +3557,16 @@ def main() -> int:
     phase_done()
     report["training"] = training = training_phase(torch, smi)
     phase_done()
+    report["mesh"] = mesh = mesh_phase(torch, held, policies,
+                                       report["engines"]["train_compare"])
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep.py:175",
-        "launches": launches, "max_abs_err": max(errs), "ms": kernel_ms,
+        "launches": launches + mesh["sweep_launches"],
+        "max_abs_err": max(errs), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,

@@ -211,6 +211,11 @@ def run_fixed_batched(grid, policy="oracle", episodes: int = 1,
     last_results): metrics maps each summary name to a (B,) numpy array of
     per-cell means over episodes; last_results is the final episode's
     (steps, B, N) result stack.
+
+    A grid sharded over a cells mesh (``grid.use_mesh(...)``; see
+    ``repro_torch.core.gridshard``) is taken transparently: each rank runs
+    its shard, and every rank returns the logical-B outputs, equal to the
+    unsharded run's to 1e-5.
     """
     rollout = grid.make_rollout(policy, steps)
     gen = grid.generator(seed)
@@ -228,7 +233,8 @@ def eval_policy_batched(grid, agent: PPO, train_state: TrainState,
     """Deterministic-policy LyMDO evaluation across every cell of a grid.
 
     The one trained agent acts per cell on that cell's observation, and all
-    cells advance together.  Cells must have the per-UE layer counts the
+    cells advance together (on a sharded grid each rank's shard, as in
+    :func:`run_fixed_batched`).  Cells must have the per-UE layer counts the
     policy head was built with: ``to_cut`` maps actions onto the policy's
     own L, so a deeper cell would never receive its deep cuts.
     """

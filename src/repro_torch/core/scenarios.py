@@ -1,12 +1,16 @@
 """Scenario registry + batched multi-cell evaluation engine.
 
-Port of ``repro/core/scenarios.py`` (device sharding waits for a later
-slice).  A :class:`ScenarioGrid` stacks B single-cell ``MecParams`` into one
-(B, ...) parameter set and advances every cell per slot with the same
-``step_p`` the single cell uses: the batch dimension is written out where
-the reference ``vmap``s, and the slot loop is a Python loop where the
-reference ``lax.scan``s.  Cell tables are built on the host and the stacked
-tensors move to the device once.
+Port of ``repro/core/scenarios.py``.  A :class:`ScenarioGrid` stacks B
+single-cell ``MecParams`` into one (B, ...) parameter set and advances
+every cell per slot with the same ``step_p`` the single cell uses: the
+batch dimension is written out where the reference ``vmap``s, and the slot
+loop is a Python loop where the reference ``lax.scan``s.  Cell tables are
+built on the host and the stacked tensors move to the device once.
+
+``use_mesh`` shards the grid over a cells mesh (one process a rank; see
+``repro_torch.core.gridshard``): each rank advances its own rows of the
+padded stack, draws stay those of the unsharded grid, and a rollout
+gathers its outputs once at the end, so every rank returns the logical B.
 
 The batched Oracle's per-slot (B, N, C) objective table goes through the
 ``partition_sweep`` CUDA kernel in one launch for all cells, with the even
@@ -25,9 +29,9 @@ from .. import _tree
 from ..device import resolve_device
 from ..profiling.profiles import LayerProfile
 from ..traffic import processes as traffic
-from . import sweep
+from . import gridshard, sweep
 from .env import (LAM_FIXED, LAM_PEAK, LAM_TRACE, MecConfig, MecEnv,
-                  MecParams, MecState, SlotResult, free_space_gain,
+                  MecParams, MecState, SlotResult, _draw_p, free_space_gain,
                   make_params, reset_p, step_p)
 
 
@@ -394,10 +398,17 @@ class ScenarioGrid:
     """B independent cells advanced together, one slot at a time.
 
     ``params`` is the stacked (B, ...) ``MecParams`` on ``device``;
-    ``reset`` / ``step`` act on stacked (B, ...) states.
+    ``reset`` / ``step`` act on stacked states.
+
+    ``use_mesh`` (or the ``mesh=`` constructor argument) shards the grid
+    over a cells mesh's ranks: B is padded to a rank multiple, and each
+    rank keeps its ``b_local`` rows of the padded stack in ``_run_params``
+    and advances only those.  ``params`` always stays the logical stack,
+    and the stack a state batch needs is picked from its width.
     """
 
-    def __init__(self, scenarios: Sequence[Scenario], device=None):
+    def __init__(self, scenarios: Sequence[Scenario], device=None,
+                 mesh=None):
         self.scenarios = tuple(scenarios)
         if not self.scenarios:
             raise ValueError("empty grid")
@@ -409,21 +420,100 @@ class ScenarioGrid:
         self.num_cuts = int(self.params.num_cuts)
         # (B, 11) rows of MEC constants, one per cell, for the sweep kernel
         self.sweep_scalars = sweep.scalar_rows_p(self.params)
+        self.gridshard: gridshard.GridSharding | None = None
+        self._run_params, self._run_scalars = self.params, self.sweep_scalars
+        if mesh is not None:
+            self.use_mesh(mesh)
 
     def generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    # -- rank sharding ------------------------------------------------------
+
+    @property
+    def b_run(self) -> int:
+        """Cell-axis width of the padded stack (b unless sharded)."""
+        return self.b if self.gridshard is None else self.gridshard.b_padded
+
+    @property
+    def b_local(self) -> int:
+        """Cells this rank advances (b unless sharded)."""
+        return self.b if self.gridshard is None else self.gridshard.b_local
+
+    def use_mesh(self, mesh=None, *, model: int = 1,
+                 pad_to: int | None = None):
+        """Shard the stacked grid over ``mesh``'s ``"cells"`` axis.
+
+        ``mesh=None`` builds a mesh over every rank of the default process
+        group (``repro_torch.launch.mesh.make_cells_mesh``).  B is padded up
+        to a multiple of the rank count (``pad_to`` forces a wider pad --
+        mainly for tests); padded cells replicate the last real cell and
+        are sliced off everything a rollout returns.  The sweep's constant
+        rows are taken with the shard, so they stay checked.  Sharded
+        rollouts equal unsharded ones to 1e-5.  Returns ``self``.
+
+        Per-cell tensor parallelism (``model > 1``, or a mesh whose
+        ``"model"`` axis is larger than 1) raises NotImplementedError.
+        """
+        names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
+        have = (int(mesh.size(names.index(gridshard.MODEL_AXIS)))
+                if gridshard.MODEL_AXIS in names else 1)
+        if model > 1 or have > 1:
+            raise NotImplementedError(
+                "per-cell tensor parallelism over a 'model' mesh axis (an "
+                "all-reduce in every UE sum of P4/P5) is ROADMAP queue 1, "
+                "item 7b; use a cells-only mesh (model=1)")
+        if model < 1:
+            raise ValueError(f"model axis size must be >= 1, got model={model}")
+        if mesh is None:
+            from ..launch.mesh import make_cells_mesh
+            mesh = make_cells_mesh()
+        gs = gridshard.plan(self.b, mesh, pad_to=pad_to)
+        self._run_params = gridshard.local(self.params, gs)
+        self._run_scalars = gridshard.local(self.sweep_scalars, gs)
+        self.gridshard = gs
+        return self
+
+    def _params_for(self, states: MecState) -> tuple[MecParams, torch.Tensor]:
+        """The (params, sweep rows) matching a state batch's cell width:
+        this rank's shard, or the logical stack."""
+        lead = states.t.shape[0]
+        if lead == self.b_local:
+            return self._run_params, self._run_scalars
+        if lead == self.b:
+            return self.params, self.sweep_scalars
+        raise ValueError(
+            f"state batch {lead} matches neither b={self.b} nor this "
+            f"rank's shard of {self.b_local}")
+
+    def _draws(self, gen, t, draws=None):
+        """A sharded slot's (gain, lam) on this rank's rows: the rows of
+        ``draws`` if given, else of the logical (b, N) draw from ``gen``,
+        which consumes the generator as the unsharded grid does."""
+        if draws is None:
+            draws = _draw_p(self.params, gen, t)
+        return tuple(gridshard.local([torch.as_tensor(x) for x in draws],
+                                     self.gridshard))
+
     # -- per-slot primitives ------------------------------------------------
 
     def reset(self, gen=None, draws=None) -> MecState:
-        """Stacked (B, ...) states; ``draws=(gain, lam)`` (B, N) overrides
-        the generator."""
-        return reset_p(self.params, gen, draws)
+        """Stacked states, (b_local, ...) on a sharded grid; ``draws=(gain,
+        lam)`` (B, N) overrides the generator."""
+        if self.gridshard is None:
+            return reset_p(self.params, gen, draws)
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        return reset_p(self._run_params, gen, self._draws(gen, zero, draws))
 
     def step(self, states: MecState, cuts: torch.Tensor,
              draws=None) -> tuple[MecState, SlotResult]:
-        """(B, N) cuts -> stacked next states + (B, N) slot results."""
-        return step_p(self.params, states, cuts, draws)
+        """(B, N) cuts -> stacked next states + (B, N) slot results.  A
+        shard's next draws are the logical draw's rows; its cells advance
+        in lock step, so the shard's first slot index stands for all."""
+        params, _ = self._params_for(states)
+        if self.gridshard is not None and params is self._run_params:
+            draws = self._draws(states.gen, states.t[:1] + 1, draws)
+        return step_p(params, states, cuts, draws)
 
     # -- batched oracle sweep ----------------------------------------------
 
@@ -432,7 +522,8 @@ class ScenarioGrid:
         ``partition_sweep`` kernel launch over the flattened (B*N, C) rows
         on CUDA (the even split per cell, each cell its own constants), the
         plain version on the CPU."""
-        return sweep.kernel_table_p(self.params, states, self.sweep_scalars)
+        params, scalars = self._params_for(states)
+        return sweep.kernel_table_p(params, states, scalars)
 
     def oracle_cuts(self, states: MecState) -> torch.Tensor:
         """Batched Oracle decision: argmin over each cell's objective table."""
@@ -451,11 +542,20 @@ class ScenarioGrid:
         at reset, entry t + 1 after slot t).  Returns
         ``fn(gen_or_seed) -> (final_states, results, summary)`` with results
         stacked (steps, B, N) and summary per-cell (B,) means.
+
+        On a sharded grid each rank runs its shard; the random policy draws
+        the logical cuts and keeps its rows, a callable sees the shard.  The
+        results and final states are gathered once at the end and the
+        padding sliced off, so every rank returns the logical B.
         """
+        gs = self.gridshard
         if policy == "oracle":
             act = lambda params, sts, gen: self.oracle_cuts(sts)
         else:
             act = POLICIES[policy] if isinstance(policy, str) else policy
+        if gs is not None and act is random_policy:
+            act = lambda params, sts, gen: gridshard.local(
+                random_policy(self.params, None, gen), gs)
         at = (lambda t: None) if draws is None else (
             lambda t: (draws[0][t], draws[1][t]))
 
@@ -465,10 +565,14 @@ class ScenarioGrid:
             states = self.reset(gen, at(0))
             results = []
             for t in range(steps):
-                cuts = act(self.params, states, gen)
+                cuts = act(self._run_params, states, gen)
                 states, res = self.step(states, cuts, at(t + 1))
                 results.append(res)
             results = _tree.stack(results)
+            if gs is not None:
+                states = gridshard.unpad(gridshard.gather(states, gs), gs)
+                results = gridshard.unpad(gridshard.gather(results, gs, lead=1),
+                                          gs, lead=1)
             return states, results, _summary(results)
 
         return rollout

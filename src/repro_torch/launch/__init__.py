@@ -1,1 +1,2 @@
-"""Launchers: the serving launcher on one device."""
+"""Launchers: serving and training on one device, and the cells mesh over
+the default process group."""

@@ -1,0 +1,214 @@
+"""Cells mesh construction on ``torch.distributed``.
+
+Port of ``repro/launch/mesh.py``'s cells mesh.  The reference is one
+controller over every live device; here every rank is a process of its own
+running the same program (SPMD), one rank a device, joined by the default
+process group.  So a mesh needs that group first:
+
+* :func:`init_group` joins it -- from torchrun's environment where
+  ``WORLD_SIZE`` is set, from an explicit ``rank`` / ``world_size`` /
+  ``init_method`` (a test or a smoke run spawning its own ranks), or else
+  as a one-rank group on a ``FileStore`` in a temporary directory -- and
+  sets the rank's CUDA device;
+* :func:`make_cells_mesh` lays a ``DeviceMesh`` over it;
+* :func:`run_world` spawns ranks on this host, each joined to one group,
+  with a deadline (what ``torchrun --nproc-per-node N`` does for a CLI).
+
+``make_production_mesh``, ``make_host_mesh`` and ``elastic_mesh`` belong
+with the engine's model axis and are not ported yet.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+
+from .. import _tree
+from ..device import resolve_device
+
+CELLS, MODEL = "cells", "model"
+
+
+def init_group(backend: str | None = None, device=None, *,
+               rank: int | None = None, world_size: int | None = None,
+               init_method: str | None = None) -> torch.device:
+    """Join the default process group; returns this rank's device.
+
+    ``device=None`` means CUDA (it raises where there is none); a CUDA
+    device without an index becomes ``cuda:LOCAL_RANK``, and the rank's
+    current CUDA device is set to it.  ``backend=None`` is NCCL on CUDA and
+    gloo on the CPU.  ``rank`` / ``world_size`` / ``init_method`` default to
+    torchrun's ``RANK`` / ``WORLD_SIZE`` / ``env://`` where ``WORLD_SIZE``
+    is set, and otherwise to a one-rank group on a ``FileStore`` in a new
+    temporary directory.
+    """
+    if dist.is_initialized():
+        raise RuntimeError("the default process group already exists")
+    device = resolve_device(device)
+    env = "WORLD_SIZE" in os.environ
+    if world_size is None:
+        world_size = int(os.environ["WORLD_SIZE"]) if env else 1
+    if rank is None:
+        rank = int(os.environ["RANK"]) if env else 0
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             rank)))
+        torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if init_method is None:
+        init_method = "env://" if env else "file://" + os.path.join(
+            tempfile.mkdtemp(prefix="repro_group_"), "store")
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+    return device
+
+
+def make_cells_mesh(n_devices: int | None = None, *, model: int = 1):
+    """``DeviceMesh`` for sharding a ScenarioGrid's stacked cell axis (see
+    ``repro_torch.core.gridshard``): 1-D ``("cells",)``, or 2-D
+    ``("cells", "model")`` when ``model > 1``, over the default process
+    group's ranks.  Its device type follows the backend: ``"cuda"`` under
+    NCCL, ``"cpu"`` under gloo (whose collectives run on host copies).
+
+    ``n_devices=None`` takes every rank; any other count must equal the
+    world size.  Every layout precondition is checked here, with a message
+    that says what to do.
+    """
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a cells mesh needs the default process group: call "
+            "repro_torch.launch.mesh.init_group() (or "
+            "torch.distributed.init_process_group) first, or launch with "
+            "torchrun --nproc-per-node N")
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    model = int(model)
+    if n < 1:
+        raise ValueError(f"need at least one device, got n_devices={n}")
+    if n != world:
+        raise ValueError(
+            f"requested a {n}-device cells mesh but the default process "
+            f"group has {world} rank(s), one device each; launch with "
+            f"torchrun --nproc-per-node {n} (or pass n_devices=None)")
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got model={model}")
+    if n % model:
+        raise ValueError(
+            f"model={model} does not divide the {n}-device mesh; pick a "
+            f"model-axis size from the divisors of {n} "
+            f"({[d for d in range(1, n + 1) if n % d == 0]})")
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if model > 1:
+        return DeviceMesh(device_type, torch.arange(n).reshape(n // model,
+                                                               model),
+                          mesh_dim_names=(CELLS, MODEL))
+    return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=(CELLS,))
+
+
+def data_axes(mesh) -> tuple:
+    """Mesh axes that carry the batch (DP): ("pod","data") when present."""
+    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+def world_size() -> int:
+    """Ranks in the default process group; 1 where there is none."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _on_host(group=None) -> bool:
+    """Gloo's collectives take CPU tensors only; NCCL's take CUDA ones."""
+    return dist.get_backend(group) != "nccl"
+
+
+def pack(leaves) -> tuple[dict, list]:
+    """One flat buffer a dtype of ``leaves`` (each flattened), and how to
+    split it back: a collective then moves each dtype once."""
+    groups: dict = {}
+    for x in leaves:
+        groups.setdefault(x.dtype, []).append(x.reshape(-1))
+    return ({dt: torch.cat(xs) for dt, xs in groups.items()},
+            [(x.dtype, x.numel(), x.shape) for x in leaves])
+
+
+def unpack(buffers: dict, layout: list) -> list:
+    offsets = {dt: 0 for dt in buffers}
+    out = []
+    for dt, numel, shape in layout:
+        out.append(buffers[dt][offsets[dt]:offsets[dt] + numel].reshape(shape))
+        offsets[dt] += numel
+    return out
+
+
+def broadcast_tree(tree, src: int = 0, group=None):
+    """``tree`` with every tensor replaced by rank ``src``'s, on each
+    rank's own device (one broadcast a dtype).  Every rank passes a tree of
+    the same structure and shapes."""
+    leaves = _tree.leaves(tree)
+    if not leaves:
+        return tree
+    buffers, layout = pack(leaves)
+    host = _on_host(group)
+    for dt in buffers:
+        buf = buffers[dt].cpu() if host else buffers[dt].contiguous()
+        dist.broadcast(buf, src, group=group)
+        buffers[dt] = buf
+    out = unpack(buffers, layout)
+    return _tree.unflatten(tree, [x.to(leaf.device) for x, leaf
+                                  in zip(out, leaves)])
+
+
+def _world_rank(rank: int, fn, nprocs: int, backend: str, device: str,
+                store_dir: str, args: tuple) -> None:
+    torch.set_num_threads(1)
+    init_group(backend, device, rank=rank, world_size=nprocs,
+               init_method="file://" + os.path.join(store_dir, "store"))
+    try:
+        out = fn(*args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(store_dir, f"rank{rank}.pt"))
+
+
+def run_world(fn, nprocs: int, *, args: tuple = (), backend: str = "gloo",
+              device="cpu", deadline_s: float = 600.0) -> list:
+    """Run ``fn(*args)`` on ``nprocs`` ranks spawned on this host, each
+    joined to one default process group (a ``FileStore`` in a temporary
+    directory, no TCP port) on ``device``; returns each rank's result, by
+    rank.  ``fn`` must be importable by name (a module-level function) and
+    return what ``torch.save`` can write.  A rank that raises fails the
+    world: the others are ended and the error is raised here.  So is a
+    world still running after ``deadline_s`` seconds."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="repro_world_") as store_dir:
+        ctx = mp.start_processes(
+            _world_rank, args=(fn, nprocs, backend, str(device), store_dir,
+                               tuple(args)),
+            nprocs=nprocs, join=False, start_method="spawn")
+        end = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > end:
+                    raise TimeoutError(
+                        f"a {nprocs}-rank world ran past its "
+                        f"{deadline_s:.0f} s deadline")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [torch.load(os.path.join(store_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(nprocs)]

@@ -17,11 +17,17 @@ trained heads through ``eval_policy_batched``, the baselines through
 ``run_fixed_batched``; the Oracle decides through the partition-sweep
 kernel on CUDA), and Fig. 5 is the ``peak_window`` scenario.  Joint PPO
 allocates resources itself (``env.step_joint``), so it evaluates per env.
-The reference shards the grid over a ``("cells",)`` mesh when more than
-one device is live (``grid.use_mesh()``); the port runs on one device and
-leaves that out until the mesh is ported.  Runs on CUDA unless
-``--device cpu``.  Port of ``scripts/train_compare.py``; the defaults are
-its settings.
+As the reference does when more than one device is live, the grid is
+sharded over a ``("cells",)`` mesh (``grid.use_mesh()``) when the default
+process group has more than one rank:
+
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.train_compare
+
+Every rank trains the agents; rank 0's train states are broadcast before
+the Fig. 4 grid, so every shard is evaluated with one policy, and only
+rank 0 prints and writes ``--out``.  Runs on CUDA unless ``--device cpu``
+(gloo then joins the ranks; NCCL on CUDA).  Port of
+``scripts/train_compare.py``; the defaults are its settings.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import json
 import os
 import time
 
+import torch.distributed as dist
 
 from .core.lymdo import (Runner, RunConfig, eval_policy_batched,
                          run_fixed_batched)
@@ -38,6 +45,7 @@ from .core.policies import (CategoricalPolicy, GaussianTanhPolicy,
 from .core.ppo import PPO, PPOConfig
 from .core.scenarios import grid_from_names, make
 from .device import resolve_device
+from .launch.mesh import broadcast_tree, init_group, is_rank0, world_size
 
 RATES = [0.5, 1.0, 1.5, 2.0, 2.5]
 AGENTS = (("lymdo", GaussianTanhPolicy, "lymdo"),
@@ -56,6 +64,11 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def say(*args, **kwargs) -> None:
+    if is_rank0():
+        print(*args, **kwargs)
+
+
 def train_agents(args, device) -> tuple[dict, dict]:
     """The three agents trained on Table I's iid-uniform rates: name ->
     (agent, state, mode), and fig3's reward curves."""
@@ -71,11 +84,12 @@ def train_agents(args, device) -> tuple[dict, dict]:
         agent = PPO(pol, train_env.obs_dim, PPOConfig())
         runner = Runner(train_env, agent, steps=args.steps, mode=mode)
         state, hist = runner.train(RunConfig(episodes=args.episodes,
-                                             steps=args.steps, chunk=50))
+                                             steps=args.steps, chunk=50,
+                                             log=is_rank0()))
         agents[name] = (agent, state, mode)
         fig3[name] = {"reward_curve": [float(x) for x in hist["reward"]],
                       "train_s": time.time() - t0}
-        print(f"[trained] {name} in {time.time() - t0:.0f}s", flush=True)
+        say(f"[trained] {name} in {time.time() - t0:.0f}s", flush=True)
     return agents, fig3
 
 
@@ -83,6 +97,8 @@ def fig4_sweep(args, agents, device) -> dict:
     """rate -> algorithm -> metric means, every rate in one grid."""
     grid = grid_from_names([("fixed_rate", {"rate": r}) for r in RATES],
                            device=device)
+    if world_size() > 1:
+        grid.use_mesh()                        # ("cells",) over the ranks
     fig4 = {str(r): {} for r in RATES}
 
     def record(name, metrics):
@@ -109,10 +125,10 @@ def fig4_sweep(args, agents, device) -> dict:
         fig4[str(rate)]["ppo_joint"] = {k: float(v) for k, v in m.items()}
     for rate in RATES:
         row = fig4[str(rate)]
-        print(f"[fig4] rate {rate}: lymdo delay {row['lymdo']['delay']:.4f} "
-              f"ppo {row['ppo_joint']['delay']:.4f} "
-              f"local {row['local']['delay']:.4f} "
-              f"oracle {row['oracle']['delay']:.4f}", flush=True)
+        say(f"[fig4] rate {rate}: lymdo delay {row['lymdo']['delay']:.4f} "
+            f"ppo {row['ppo_joint']['delay']:.4f} "
+            f"local {row['local']['delay']:.4f} "
+            f"oracle {row['oracle']['delay']:.4f}", flush=True)
     return fig4
 
 
@@ -139,9 +155,23 @@ def main(argv=None) -> dict:
     """Returns the artifact (the JSON written to ``--out``) with the
     trained ``agents`` beside it."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    own = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    device = init_group(device=args.device) if own else resolve_device(
+        args.device)
+    try:
+        return _run(args, device)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> dict:
     artifacts = {"episodes": args.episodes, "rates": RATES}
     agents, artifacts["fig3"] = train_agents(args, device)
+    if world_size() > 1:
+        # ranks that trained apart need not hold the same weights
+        agents = {name: (agent, broadcast_tree(state), mode)
+                  for name, (agent, state, mode) in agents.items()}
     fig4 = artifacts["fig4"] = fig4_sweep(args, agents, device)
 
     d_l = fig4["2.5"]["lymdo"]["delay"]
@@ -158,13 +188,14 @@ def main(argv=None) -> dict:
         artifacts[f"fig5_{task}_queue_reduction"] = \
             1.0 - peak_l / max(peak_j, 1e-9)
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(artifacts, f)
-    print("headline: %.1f%% delay reduction vs joint PPO (best %.1f%%)"
-          % (100 * artifacts["headline_delay_reduction_vs_ppo"],
-             100 * artifacts["headline_delay_reduction_best"]), flush=True)
-    print(f"saved {args.out}")
+    if is_rank0():
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(artifacts, f)
+    say("headline: %.1f%% delay reduction vs joint PPO (best %.1f%%)"
+        % (100 * artifacts["headline_delay_reduction_vs_ppo"],
+           100 * artifacts["headline_delay_reduction_best"]), flush=True)
+    say(f"saved {args.out}")
     return {**artifacts, "agents": agents}
 
 

@@ -145,6 +145,41 @@ def test_grid_on_card_launches_kernel_once_per_oracle_slot():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["oracle", "random"])
+def test_one_rank_nccl_mesh_grid_equals_the_unsharded_card_grid(policy,
+                                                                tmp_path):
+    """A grid sharded over a one-rank NCCL cells mesh (padded by 2) gives
+    the unsharded card grid's cuts and, to 1e-5, its floats; the Oracle
+    launches the sweep once a slot, over the padded rows."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as p_mesh
+    cells = p_sc.multicell_grid(64, 8)
+    want = p_sc.ScenarioGrid(cells).rollout(policy, steps=3, seed=5)
+    p_mesh.init_group("nccl", "cuda", rank=0, world_size=1,
+                      init_method=f"file://{tmp_path}/store")
+    try:
+        grid = p_sc.ScenarioGrid(cells).use_mesh(pad_to=66)
+        assert p_mesh.make_cells_mesh().device_type == "cuda"
+        before = p_ps.partition_sweep_cuda.launches
+        got = grid.rollout(policy, steps=3, seed=5)
+        torch.cuda.synchronize()
+        launched = p_ps.partition_sweep_cuda.launches - before
+    finally:
+        dist.destroy_process_group()
+    assert launched == (3 if policy == "oracle" else 0)
+    assert grid._run_params.L.shape[0] == 66
+    (st_g, res_g, sum_g), (st_w, res_w, sum_w) = got, want
+    assert torch.equal(res_g.cut, res_w.cut)
+    leaves = [_tree.leaves([st, res, summary]) for st, res, summary
+              in (got, want)]
+    assert len(leaves[0]) == len(leaves[1]) == 5 + 13 + 7
+    for g, w in zip(*leaves):
+        assert g.shape == w.shape and g.is_cuda
+        torch.testing.assert_close(g.to(w.dtype), w, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
 def test_grid_with_per_cell_constants_runs_the_kernel_on_card():
     """Cells with their own Lyapunov weight V share one launch per Oracle
     slot, and the table matches the CPU path's plain version."""
