@@ -11,7 +11,7 @@ moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
 through the serving launcher, and llama4-maverick, llama-3.2-vision and
 seamless-m4t through the model's entry points; qwen3-0.6b trained at full
 width through the training launcher; the grid sharded over a cells mesh
-of processes -- and
+of processes; qwen3-0.6b served tensor-parallel over two ranks -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
@@ -181,7 +181,25 @@ the card:
    ``train_compare`` on a two-rank world on the card (gloo), whose Fig. 4
    must equal phase 10 (f)'s one-rank run to 1e-5.  A rank that fails or a
    world that outlives its deadline fails the run; the phase logs its
-   seconds against a 90 s budget.
+   seconds against a 90 s budget;
+14. drives the model axis (``launch.sharding``, ``shardctx``,
+   ``ServingEngine(mesh=)``, ``PartitionedLM(mesh=)``): two processes on
+   the one card, joined over gloo, on ``make_cells_mesh(model=2)``: (a)
+   qwen3-0.6b at full width and depth (bf16; 8 of 16 query heads, 4 of 8
+   kv heads, 1,536 of 3,072 FFN columns and 75,968 of 151,936 vocabulary
+   rows a rank) through ``PartitionedLM(mesh=).es_engine()`` on phase 6's
+   burst cut to 8 requests, with exact launches a rank (flash 28 a
+   prefill, decode 28 a tick), tick p50/p99 and tokens/s beside phase 6's
+   one-rank numbers, and a profile of 3 decode ticks for the collectives'
+   share; (b) float32 engines at 4 layers and full width -- qwen3 (g),
+   recurrentgemma (r, r, l, r), mamba2 (s), moonshot (m, no-drop) --
+   whose tokens, chunked prefill and preemption included, must equal the
+   one-rank card engine's on every rank, and qwen3's bf16 prefill logits at
+   full width, which may stand at most ``BF16_DRIFT`` times as far from the
+   one-rank float32 logits as the one-rank bf16 logits do.  Every kernel
+   call a rank makes must be at a shape phase 5 (attention) or phase 7
+   (scans) held; a failing rank or a world past its deadline fails the
+   run; the phase logs its seconds against a 90 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -193,6 +211,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -927,12 +946,49 @@ PAGED_CASES += [
     for dt in ("bf16", "f32")]
 
 
+# phase 14's shapes: a rank's share of the heads on a 2-way model axis --
+# qwen3 at H8/4 (its solo prefills, first chunks and engine ticks in bf16
+# and float32, and the bf16 prefill check), recurrentgemma's local
+# attention and ring at H5/1 hd256, moonshot's G 1 at H8/8 (every bucket
+# width, no chunking); phase 14 fails if a rank launches either kernel at
+# a shape not held here (or, for the scans, in phase 7's TP_SSD_CASES and
+# TP_RGLRU_CASES)
+TP_BUCKETS = (8, 16, 32)
+FLASH_CASES += (
+    [(f"phase 14 qwen3 rank, bucket {w}", 1, w, w, 8, 4, 128, dt, "causal",
+      0, pad) for dt in ("bf16", "f32") for w in TP_BUCKETS
+     for pad in ([w // 3], None)]
+    + [("phase 14 qwen3 rank, bf16 prefill check", 2, 64, 64, 8, 4, 128,
+        "bf16", "causal", 0, [0, 20])]
+    + [(f"phase 14 recurrentgemma rank, bucket {w}", 1, w, w, 5, 1, 256,
+        "f32", "local", 2048, pad) for w in TP_BUCKETS
+       for pad in ([w // 3], None)]
+    + [(f"phase 14 moonshot rank, bucket {w}", 1, w, w, 8, 8, 128, "f32",
+        "causal", 0, pad) for w in (*TP_BUCKETS, 64)
+       for pad in ([w // 3], None)])
+DECODE_CASES += [
+    ("phase 14 recurrentgemma rank: the ring, 3 slots", 3, 2048, 5, 1, 256,
+     "f32", True),
+    ("phase 14 recurrentgemma rank: a chunk's replay", 1, 2048, 5, 1, 256,
+     "f32", False)]
+PAGED_CASES += [
+    ("phase 14 qwen3 rank: 8 slots x 32 blocks of 16", 8, 32, 16, 8, 4, 128,
+     "bf16", [0, 15, 16, 511, 100, 300, 1, 64]),
+    ("phase 14 qwen3 rank: 3 slots x 8 blocks of 16", 3, 8, 16, 8, 4, 128,
+     "f32", [0, 16, 127]),
+    ("phase 14 moonshot rank: 3 slots x 8 blocks of 16", 3, 8, 16, 8, 8, 128,
+     "f32", [100, 0, 31])]
+
+
 def held_shapes() -> set:
-    """The launch keys (``launch_key``) of every phase-5 case."""
+    """The launch keys (``recorded_launches``') of every phase-5 case and
+    of phase 7's scan cases."""
     held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
             for _, b, sq, sk, h, kv, hd, dt, kind, _, pad in FLASH_CASES}
     held |= {("decode", c[6], *c[1:6]) for c in DECODE_CASES}
     held |= {("paged", c[7], *c[1:7]) for c in PAGED_CASES}
+    held |= {("ssd", c[8], *c[1:7]) for c in SSD_CASES}
+    held |= {("rglru", c[4], *c[1:4]) for c in RGLRU_CASES}
     return held
 
 
@@ -1539,6 +1595,17 @@ RGLRU_CASES += [
      None if pad is None else [(i, t) for i, p in enumerate(pad) if p
                                for t in range(p + 1)])
     for b, s, pad in RG_WAVES for dt in ("f32", "bf16")]
+# phase 14's scan shapes: a rank's 32 of mamba2's 64 SSD heads and 1,280 of
+# recurrentgemma's 2,560 RG-LRU channels, at the float32 engine's solo
+# prefills (a left pad of 3) and first chunk
+TP_SSD_CASES = [("phase 14 mamba2 rank, pad 3", 1, w, 32, 64, 1, 128, w,
+                 "f32", PAD3) for w in (8, 16, 32)] + [
+    ("phase 14 mamba2 rank, first chunk", 1, 32, 32, 64, 1, 128, 32, "f32",
+     None)]
+TP_RGLRU_CASES = [("phase 14 recurrentgemma rank, pad 3", 1, w, 1280, "f32",
+                   PAD3) for w in (8, 16, 32)]
+SSD_CASES += TP_SSD_CASES
+RGLRU_CASES += TP_RGLRU_CASES
 FLUSH_BYTES = 64 << 20          # written before each call to empty the 50 MB L2
 RG_FLASH_CASES = [
     # recurrentgemma's "l" prefill: 10 query heads over 1 kv head, hd 256
@@ -2273,15 +2340,16 @@ SEED_KINDS = 0                # (b)-(d)'s weights
 
 @contextlib.contextmanager
 def recorded_launches(seen: set):
-    """Add to ``seen`` the key of every flash, decode and paged-decode call
-    the model makes through ``kernels.ops`` while the block runs: on CUDA
-    each call launches its kernel once (the launch counts stay with the
-    kernels' wrappers).  The keys are those ``held_shapes`` makes of the
-    phase-5 cases."""
+    """Add to ``seen`` the key of every flash, decode, paged-decode, SSD and
+    RG-LRU call the model makes through ``kernels.ops`` while the block
+    runs: on CUDA each call launches its kernel once (the launch counts stay
+    with the kernels' wrappers).  The keys are those ``held_shapes`` makes
+    of the phase-5 and phase-7 cases."""
     import torch
     from repro_torch.kernels import ops
     saved = {n: getattr(ops, n) for n in
-             ("flash_attention", "decode_attention", "decode_attention_paged")}
+             ("flash_attention", "decode_attention", "decode_attention_paged",
+              "ssd_scan", "rglru_scan")}
     dt = lambda t: "bf16" if t.dtype == torch.bfloat16 else "f32"
 
     def flash(q, k, v, *, kind="causal", window=0, pad_mask=None):
@@ -2302,8 +2370,17 @@ def recorded_launches(seen: set):
         return saved["decode_attention_paged"](q, k_pool, v_pool,
                                                block_table, seq_lens)
 
+    def ssd_scan(x, dt_, a_log, b, c, d_skip, chunk, reset=None):
+        seen.add(("ssd", dt(x), *x.shape, *b.shape[2:]))
+        return saved["ssd_scan"](x, dt_, a_log, b, c, d_skip, chunk, reset)
+
+    def rglru_scan(x, a, reset=None):
+        seen.add(("rglru", dt(x), *x.shape))
+        return saved["rglru_scan"](x, a, reset)
+
     ops.flash_attention, ops.decode_attention = flash, decode
     ops.decode_attention_paged = paged
+    ops.ssd_scan, ops.rglru_scan = ssd_scan, rglru_scan
     try:
         yield seen
     finally:
@@ -3355,6 +3432,371 @@ def mesh_phase(torch, held: dict, phase3: dict, tc: dict) -> dict:
     return out
 
 
+# -- phase 14: the model axis --------------------------------------------------
+
+TP_RANKS = 2                          # one card: gloo, host copies (NCCL takes one rank a device)
+TP_REQUESTS = 8                       # (a): phase 6's burst cut to 8 requests
+TP_SLOTS, TP_S_MAX = 8, 512           # (a): serve_partitioned's engine
+TP_PROFILE_TICKS = 3
+TP_F32_LAYERS = 4                     # (b)
+TP_F32_ENGINE = dict(slots=3, s_max=128, kv_blocks=8)    # a pool that preempts
+TP_F32_REQUESTS = (8, 5, 64, 8, 3)    # make_requests' n, lo, hi, max_new, seed
+TP_F32_SEED = 7
+TP_DEADLINE_S = 300.0                 # a spawned world still running then is ended
+TP_BUDGET_S = 90.0                    # the phase's share of the smoke's time limit
+COLLECTIVES = ("model_all_reduce", "model_all_gather")
+
+
+def tp_f32_configs() -> list:
+    """(b)'s float32 stacks at TP_F32_LAYERS layers and full width: qwen3
+    (g), recurrentgemma as (r, r, l, r) (one unit and a one-layer tail),
+    mamba2 (s) and moonshot (m, at the no-drop capacity factor)."""
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.configs.base import get_config
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    return [
+        ("qwen3-0.6b", sp.model_config(layers=TP_F32_LAYERS,
+                                       dtype="float32")),
+        ("recurrentgemma-2b", dataclasses.replace(
+            get_config("recurrentgemma-2b"), n_layers=TP_F32_LAYERS,
+            tail_pattern=("r",), **f32)),
+        ("mamba2-1.3b", sp.model_config("mamba2-1.3b", TP_F32_LAYERS,
+                                        "float32")),
+        ("moonshot-v1-16b-a3b", no_drop(sp.model_config(
+            "moonshot-v1-16b-a3b", TP_F32_LAYERS, "float32")))]
+
+
+def tp_engine_tokens(cfg, mesh=None, device="cuda") -> dict:
+    """(b)'s float32 engine run: TP_F32_ENGINE (a pool sized to preempt,
+    chunked prefill but for MoE stacks) on TP_F32_REQUESTS, the weights
+    from TP_F32_SEED; each request's tokens and the engine's counters."""
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+
+    params = transformer.init_params(TP_F32_SEED, cfg, device)
+    eng = ServingEngine(cfg, params, mesh=mesh, **TP_F32_ENGINE)
+    del params
+    reqs = sp.make_requests(cfg, *TP_F32_REQUESTS)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return {"out": [list(r.out) for r in reqs],
+            "preemptions": eng.preemptions,
+            "prefill_steps": eng.prefill_steps,
+            "chunk_steps": eng.chunk_steps}
+
+
+def tp_prefill_batch(torch, cfg, device="cuda"):
+    """card_vs_cpu's ragged batch: 2 x 64 tokens, a left pad of 20."""
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=g)
+    return toks.to(device), torch.tensor([0, 20], dtype=torch.int32,
+                                         device=device)
+
+
+def tp_profile(torch, eng, ticks: int) -> dict:
+    """``ticks`` decode ticks of ``eng`` under torch.profiler: wall and
+    device time a tick, and the host time inside the model axis's
+    collectives (the D2H copy, which waits for the work queued before it,
+    gloo, and the H2D copy), from their ``record_function`` spans."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.step()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        rows = prof.key_averages()
+        # the spans' GPU-side annotations (device rows of the same names)
+        # are ranges, not kernels
+        device = [e for e in rows
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key not in COLLECTIVES and e.device_time_total > 0]
+        device_us = sum(e.device_time_total for e in device)
+        if device_us > 0:
+            break
+    else:
+        fail("the profiler recorded no device time in three tries")
+    coll = {e.key: (e.count, e.cpu_time_total) for e in rows
+            if e.key in COLLECTIVES
+            and e.device_type == torch.autograd.DeviceType.CPU}
+    coll_us = sum(us for _, us in coll.values())
+    return {"ticks": ticks, "wall_ms_per_tick": wall_s * 1e3 / ticks,
+            "device_ms_per_tick": device_us / 1e3 / ticks,
+            "device_busy_share": device_us / 1e6 / wall_s,
+            "device_ops_per_tick": sum(e.count for e in device) / ticks,
+            "collective_calls_per_tick": {k: c / ticks
+                                          for k, (c, _) in coll.items()},
+            "collective_ms_per_tick": coll_us / 1e3 / ticks,
+            "collective_share": coll_us / 1e6 / wall_s,
+            "top": [{"name": e.key[:80], "count": e.count,
+                     "device_ms": e.device_time_total / 1e3}
+                    for e in sorted(device,
+                                    key=lambda e: -e.device_time_total)[:6]]}
+
+
+def gloo_all_reduce_ms(torch, mesh, rows: int, cfg, calls: int = 50):
+    """Host ms of one gloo all-reduce over the "model" sub-group of a
+    decode tick's (rows, d_model) bf16 activations, already on the host:
+    what a collective costs without the device copies around it."""
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    x = torch.zeros(rows, cfg.d_model, dtype=torch.bfloat16)
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dist.all_reduce(x, group=group)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def tp_rank(go_file: str) -> dict:
+    """A rank of phase 14, on a ``make_cells_mesh(model=TP_RANKS)`` mesh:
+    (a) qwen3-0.6b at full width and depth in bf16 through
+    ``PartitionedLM(cfg, params, 0, mesh=).es_engine()`` on phase 6's burst
+    cut to TP_REQUESTS requests, the kernels' launches counted, then a
+    profile of TP_PROFILE_TICKS decode ticks of 8 slots; (b) each of
+    ``tp_f32_configs`` through ``tp_engine_tokens``, then qwen3's bf16
+    prefill logits on ``tp_prefill_batch`` at full width.  Every call to
+    the kernels is recorded (``recorded_launches``).  The timed burst
+    waits for ``go_file``, which the phase writes once its one-rank runs
+    are done, so that nothing else shares the card then."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.launch.mesh import make_cells_mesh
+    from repro_torch.launch.sharding import place_params
+    from repro_torch.models import transformer
+    from repro_torch.serving.partitioned import PartitionedLM
+    from repro_torch.shardctx import activation_sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_cells_mesh(model=TP_RANKS)
+    seen: set = set()
+    out: dict = {"rank": dist.get_rank(), "seen": seen}
+    t0 = time.perf_counter()
+    cfg = sp.model_config()
+    params = transformer.init_params(sp.SEED, cfg, "cuda")
+    with recorded_launches(seen):
+        plm = PartitionedLM(cfg, params, 0, mesh=mesh)
+        eng = plm.es_engine(slots=TP_SLOTS, s_max=TP_S_MAX)
+        out["view"] = {k: getattr(plm.cfg, k) for k in (
+            "n_heads", "n_kv", "d_ff", "local_vocab", "split")}
+        reqs = sp.make_requests(cfg, TP_REQUESTS, sp.PROMPT_MIN, 300, 32,
+                                sp.SEED)
+        out["setup_s"] = time.perf_counter() - t0
+        while not os.path.exists(go_file):
+            time.sleep(0.05)
+        out["waited_s"] = time.perf_counter() - t0 - out["setup_s"]
+        dist.barrier()
+        zero_counts()
+        out["serving"] = sp.serve(eng, reqs, torch.cuda.synchronize)
+        out["launches"] = read_counts()
+        t0 = time.perf_counter()
+        # every slot decoding (prompts of one solo prefill each)
+        for r in sp.make_requests(cfg, TP_SLOTS, sp.PROMPT_MIN, 16, 150, 1):
+            eng.submit(r)
+        while eng.queue or eng._stream_req is not None:
+            eng.step()
+        out["profile"] = tp_profile(torch, eng, TP_PROFILE_TICKS)
+        out["profile_s"] = time.perf_counter() - t0
+        out["gloo_ms"] = gloo_all_reduce_ms(torch, mesh, TP_SLOTS, cfg)
+        del eng
+        t0 = time.perf_counter()
+        zero_counts()
+        out["f32"] = {label: tp_engine_tokens(c, mesh)
+                      for label, c in tp_f32_configs()}
+        out["f32_launches"] = read_counts()
+        local, view = place_params(mesh, cfg, params)
+        del params, plm
+        toks, pad = tp_prefill_batch(torch, cfg)
+        with activation_sharding(mesh):
+            lg, _ = transformer.prefill(local, view, {"tokens": toks},
+                                        s_max=64, pad=pad)
+        out["bf16_logits"] = lg.cpu()
+        out["f32_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def tp_one_rank(torch) -> dict:
+    """The one-rank card references of phase 14 (b): each float32 stack's
+    engine tokens, and qwen3's bf16 and float32 prefill logits at full
+    width on the same weights."""
+    from repro_torch import _tree
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.models import transformer
+
+    out = {"f32": {label: tp_engine_tokens(c) for label, c in
+                   tp_f32_configs()}}
+    cfg = sp.model_config()
+    params = transformer.init_params(sp.SEED, cfg, "cuda")
+    toks, pad = tp_prefill_batch(torch, cfg)
+    lg, _ = transformer.prefill(params, cfg, {"tokens": toks}, s_max=64,
+                                pad=pad)
+    out["bf16_logits"] = lg.cpu()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = _tree.map_tensors(
+        lambda t: t.float() if t.is_floating_point() else t, params)
+    del params
+    lg32, _ = transformer.prefill(p32, cfg32, {"tokens": toks}, s_max=64,
+                                  pad=pad)
+    out["f32_logits"] = lg32.cpu()
+    return out
+
+
+def model_phase(torch, phase6: dict) -> dict:
+    """Phase 14: the model axis.  TP_RANKS processes on the one card over
+    gloo run ``tp_rank``; their greedy tokens, kernel launches and shapes,
+    and bf16 logits are held here to the one-rank card runs
+    (``tp_one_rank``) and to phase 5's and phase 7's cases."""
+    from repro_torch import serve_partitioned as sp
+    from repro_torch.launch.mesh import run_world
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    log(f"[14] the model axis: {TP_RANKS} ranks on one card (gloo), "
+        f"make_cells_mesh(model={TP_RANKS}); (a) qwen3-0.6b at full width "
+        f"and depth (bf16) through PartitionedLM(mesh=).es_engine(), "
+        f"{TP_REQUESTS} requests of phase 6's burst; (b) float32 engine "
+        f"tokens at {TP_F32_LAYERS} layers and full width against one rank")
+    # the one-rank references run here while the world's ranks start;
+    # the ranks' timed burst waits for them (go_file)
+    go_file = ROOT / "build" / "phase14_go"
+    go_file.parent.mkdir(exist_ok=True)
+    go_file.unlink(missing_ok=True)
+    with ThreadPoolExecutor(1) as pool:
+        world = pool.submit(run_world, tp_rank, TP_RANKS,
+                            args=(str(go_file),), backend="gloo",
+                            device="cuda:0", deadline_s=TP_DEADLINE_S)
+        try:
+            one = tp_one_rank(torch)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["one_rank_s"] = time.perf_counter() - t_phase
+        finally:
+            go_file.touch()
+        ranks = world.result()
+    go_file.unlink()
+    out["world_s"] = time.perf_counter() - t_phase
+    log(f"    one-rank references {out['one_rank_s']:.1f} s, beside the "
+        f"{TP_RANKS}-rank world's start; the world {out['world_s']:.1f} s")
+
+    cfg = sp.model_config()
+    layers = cfg.n_layers
+    view = ranks[0]["view"]
+    log(f"    rank view: {view}")
+    if view["n_heads"] * TP_RANKS != cfg.n_heads or \
+            view["local_vocab"] * TP_RANKS != cfg.vocab:
+        fail(f"(a) a rank's view {view} is not 1/{TP_RANKS} of qwen3's")
+    # (a) the served burst: the same tokens on every rank, exact launches
+    srv = [r["serving"] for r in ranks]
+    if any(s["out"] != srv[0]["out"] for s in srv):
+        fail("(a) the ranks served different tokens")
+    if srv[0]["completed"] != TP_REQUESTS or any(
+            len(o) != 32 for o in srv[0]["out"].values()):
+        fail(f"(a) served {srv[0]['completed']} of {TP_REQUESTS} requests, "
+             f"or a request did not get its 32 tokens")
+    launched = {"flash_attention": 0, "decode_attention": 0,
+                "ssd_scan": 0, "rglru_scan": 0}
+    for r in ranks:
+        check_counts(f"(a) rank {r['rank']}", r["launches"], r["serving"],
+                     per_prefill={"flash_attention": layers},
+                     per_tick={"decode_attention": layers})
+        log_serving(f"(a) rank {r['rank']}", r["serving"])
+        p = r["profile"]
+        log(f"    rank {r['rank']}: set up in {r['setup_s']:.1f} s, waited "
+            f"{r['waited_s']:.1f} s for the one-rank runs, burst "
+            f"{r['serving']['wall_s']:.1f} s, profile {r['profile_s']:.1f} s, "
+            f"(b) {r['f32_s']:.1f} s")
+        log(f"    rank {r['rank']} profile of {p['ticks']} decode ticks (8 "
+            f"slots): wall {p['wall_ms_per_tick']:.2f} ms/tick, device "
+            f"{p['device_ms_per_tick']:.3f} ms/tick (busy "
+            f"{p['device_busy_share']:.3f}, "
+            f"{p['device_ops_per_tick']:.0f} device ops/tick); host time in "
+            f"the collectives {p['collective_ms_per_tick']:.2f} ms/tick = "
+            f"{p['collective_share']:.3f} of the tick "
+            f"({p['collective_calls_per_tick']} calls a tick); a gloo "
+            f"all-reduce of the tick's activations on the host alone "
+            f"{r['gloo_ms']:.3f} ms")
+        for row in p["top"]:
+            log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
+                f"{row['name']}")
+        for k in launched:
+            launched[k] += r["launches"].get(k, 0) \
+                + r["f32_launches"].get(k, 0)
+    one_srv = phase6["serving"]
+    log(f"    phase 6 on one rank (16 requests): decode tick p50 "
+        f"{one_srv['decode_tick_ms_p50']:.2f} / p99 "
+        f"{one_srv['decode_tick_ms_p99']:.2f} ms, prefill tick p50 "
+        f"{one_srv['prefill_tick_ms_p50']:.2f} / p99 "
+        f"{one_srv['prefill_tick_ms_p99']:.2f} ms, "
+        f"{one_srv['tokens_per_s']:.1f} tokens/s")
+    out["serving"] = [{k: v for k, v in s.items() if k != "out"}
+                      for s in srv]
+    out["profile"] = [r["profile"] for r in ranks]
+    out["gloo_ms"] = [r["gloo_ms"] for r in ranks]
+    out["phase6_serving"] = {k: v for k, v in one_srv.items() if k != "out"}
+
+    # (b) float32 tokens == the one-rank card engine's
+    for label, want in one["f32"].items():
+        for r in ranks:
+            got = r["f32"][label]
+            if got["out"] != want["out"]:
+                bad = [i for i, (a, b) in enumerate(zip(got["out"],
+                                                        want["out"]))
+                       if a != b]
+                fail(f"(b) {label}: rank {r['rank']}'s float32 tokens part "
+                     f"from one rank's on requests {bad}")
+            if got["preemptions"] != want["preemptions"]:
+                fail(f"(b) {label}: {got['preemptions']} preemptions, one "
+                     f"rank {want['preemptions']}")
+        log(f"    (b) {label} at {TP_F32_LAYERS} layers, float32: "
+            f"{len(want['out'])} requests, tokens identical to one rank's on "
+            f"every rank ({want['preemptions']} preemptions, "
+            f"{want['prefill_steps']} prefills and chunks)")
+        if want["preemptions"] == 0:
+            fail(f"(b) {label}: the pool sized to preempt preempted nothing")
+    # qwen3's bf16 prefill logits at full width: as far from float32 as one
+    # rank's, within BF16_DRIFT
+    lg32 = one["f32_logits"]
+    d_one = float((one["bf16_logits"] - lg32).abs().max())
+    out["bf16"] = {"one_rank_vs_f32": d_one}
+    for r in ranks:
+        d_tp = float((r["bf16_logits"] - lg32).abs().max())
+        drift = d_tp / d_one
+        out["bf16"][f"rank{r['rank']}_vs_f32"] = d_tp
+        out["bf16"]["drift"] = max(out["bf16"].get("drift", 0.0), drift)
+        log(f"    (b) qwen3 bf16 prefill logits, rank {r['rank']}: "
+            f"{d_tp:.3e} from float32, one rank {d_one:.3e}: {drift:.3f} of "
+            f"it (limit {BF16_DRIFT})")
+        if drift > BF16_DRIFT:
+            fail(f"(b) the {TP_RANKS}-rank bf16 logits stand further from "
+                 f"float32 than {BF16_DRIFT} x one rank's")
+    # every per-rank shape must be one phase 5 or phase 7 held
+    held = held_shapes()
+    seen = set().union(*(r["seen"] for r in ranks))
+    missed = sorted(seen - held)
+    log(f"    phase 14 launched the kernels at {len(seen)} shapes; "
+        f"{len(seen) - len(missed)} held in phases 5 and 7")
+    if missed:
+        fail(f"phase 14 launched kernels at shapes phases 5 and 7 did not "
+             f"hold: {missed}")
+    out["launches"] = launched
+    out["peak_gb"] = [r["peak_bytes"] / 1e9 for r in ranks]
+    out["s"] = time.perf_counter() - t_phase
+    log(f"    phase 14: {out['s']:.1f} s of its {TP_BUDGET_S:.0f} s budget"
+        + ("" if out["s"] <= TP_BUDGET_S else " (OVER)"))
+    return out
+
+
 def no_drop(cfg):
     """``cfg`` at the smallest integer capacity factor, ceil(E / k), at
     which an expert can take its whole group: cap = ceil(g k / E) x factor
@@ -3560,6 +4002,8 @@ def main() -> int:
     report["mesh"] = mesh = mesh_phase(torch, held, policies,
                                        report["engines"]["train_compare"])
     phase_done()
+    report["model_axis"] = tp = model_phase(torch, serving)
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
@@ -3583,18 +4027,21 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (serving["launches"][name] + kinds["launches"][name]
-                         + training["train"]["launches"][name]),
+                         + training["train"]["launches"][name]
+                         + tp["launches"][name]),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for name, key, source, replaces, launches in (
             ("ssd_scan", "ssd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:135",
-             report["mamba2"]["launches"]["ssd_scan"]),
+             report["mamba2"]["launches"]["ssd_scan"]
+             + tp["launches"]["ssd_scan"]),
             ("rglru_scan", "rglru",
              "src/repro_torch/kernels/csrc/rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:97",
-             report["recurrentgemma"]["launches"]["rglru_scan"])):
+             report["recurrentgemma"]["launches"]["rglru_scan"]
+             + tp["launches"]["rglru_scan"])):
         t = scans[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -462,7 +462,7 @@ class ScenarioGrid:
             raise NotImplementedError(
                 "per-cell tensor parallelism over a 'model' mesh axis (an "
                 "all-reduce in every UE sum of P4/P5) is ROADMAP queue 1, "
-                "item 7b; use a cells-only mesh (model=1)")
+                "item 7c; use a cells-only mesh (model=1)")
         if model < 1:
             raise ValueError(f"model axis size must be >= 1, got model={model}")
         if mesh is None:

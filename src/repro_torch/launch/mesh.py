@@ -1,6 +1,6 @@
-"""Cells mesh construction on ``torch.distributed``.
+"""Mesh construction on ``torch.distributed``.
 
-Port of ``repro/launch/mesh.py``'s cells mesh.  The reference is one
+Port of ``repro/launch/mesh.py``.  The reference is one
 controller over every live device; here every rank is a process of its own
 running the same program (SPMD), one rank a device, joined by the default
 process group.  So a mesh needs that group first:
@@ -10,12 +10,17 @@ process group.  So a mesh needs that group first:
   ``init_method`` (a test or a smoke run spawning its own ranks), or else
   as a one-rank group on a ``FileStore`` in a temporary directory -- and
   sets the rank's CUDA device;
-* :func:`make_cells_mesh` lays a ``DeviceMesh`` over it;
+* :func:`make_cells_mesh` lays a ``("cells",)`` or ``("cells",
+  "model")`` ``DeviceMesh`` over it, :func:`make_production_mesh` the
+  ``(16, 16)`` ``("data", "model")`` pod (or ``(2, 16, 16)`` with
+  "pod"), :func:`elastic_mesh` the largest ``("data", "model")`` mesh the
+  world divides, and :func:`make_host_mesh` a 1 x 1 ``("data", "model")``
+  mesh on a one-rank group (joining one where none exists);
 * :func:`run_world` spawns ranks on this host, each joined to one group,
   with a deadline (what ``torchrun --nproc-per-node N`` does for a CLI).
 
-``make_production_mesh``, ``make_host_mesh`` and ``elastic_mesh`` belong
-with the engine's model axis and are not ported yet.
+A mesh's device type follows the backend: ``"cuda"`` under NCCL, ``"cpu"``
+under gloo (whose collectives run on host copies).
 """
 from __future__ import annotations
 
@@ -102,13 +107,75 @@ def make_cells_mesh(n_devices: int | None = None, *, model: int = 1):
             f"model={model} does not divide the {n}-device mesh; pick a "
             f"model-axis size from the divisors of {n} "
             f"({[d for d in range(1, n + 1) if n % d == 0]})")
+    if model > 1:
+        return _device_mesh((n // model, model), (CELLS, MODEL))
+    return _device_mesh((n,), (CELLS,))
+
+
+def _device_mesh(shape: tuple, names: tuple):
+    """A ``DeviceMesh`` of ``shape`` over the default group's ranks, in
+    rank order, its device type the backend's."""
     from torch.distributed.device_mesh import DeviceMesh
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    if model > 1:
-        return DeviceMesh(device_type, torch.arange(n).reshape(n // model,
-                                                               model),
-                          mesh_dim_names=(CELLS, MODEL))
-    return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=(CELLS,))
+    n = 1
+    for d in shape:
+        n *= d
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 ranks a pod, ``("data", "model")``; ``multi_pod``
+    adds a leading 2-pod axis (512 ranks, ``("pod", "data", "model")``).
+    Any other world raises ``ValueError``, as the reference's
+    ``jax.make_mesh`` does on the wrong device count."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for d in shape:
+        need *= d
+    have = world_size()
+    if have != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(names, shape))} needs {need} "
+            f"ranks, one device each; the default process group has {have}"
+            + ("" if dist.is_initialized() else " (none is initialized)")
+            + f": launch {need} ranks with torchrun (e.g. torchrun --nnodes "
+            f"{need // 8} --nproc-per-node 8 ...), or serve one device "
+            "without --multi-pod")
+    return _device_mesh(shape, names)
+
+
+def make_host_mesh():
+    """The degenerate 1 x 1 ``("data", "model")`` mesh of a smoke run, on a
+    one-rank group: where no default group exists it joins one (gloo, a
+    ``FileStore`` in a temporary directory; the caller may destroy it with
+    ``torch.distributed.destroy_process_group``)."""
+    if not dist.is_initialized():
+        init_group("gloo", "cpu")
+    if world_size() != 1:
+        raise ValueError(
+            f"the host mesh is one rank; the default process group has "
+            f"{world_size()} (use make_cells_mesh or elastic_mesh)")
+    return _device_mesh((1, 1), ("data", "model"))
+
+
+def elastic_mesh(target_model: int = 16):
+    """The largest ``(data, model)`` mesh the world divides: the "model"
+    axis is ``target_model`` where the world allows, else the largest
+    divisor of the world below it."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "an elastic mesh needs the default process group: call "
+            "repro_torch.launch.mesh.init_group() first, or launch with "
+            "torchrun --nproc-per-node N")
+    n = world_size()
+    model = min(int(target_model), n)
+    if model < 1:
+        raise ValueError(f"target_model must be >= 1, got {target_model}")
+    while n % model:
+        model -= 1
+    return _device_mesh((n // model, model), ("data", "model"))
 
 
 def data_axes(mesh) -> tuple:

@@ -1,8 +1,8 @@
-"""Serving launcher: the ES-side serving engine on one device.
+"""Serving launcher: the ES-side serving engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
         [--smoke] [--device cpu] [--requests 6] [--slots 2]
-        [--prompt-len 16] [--max-new 8] [--sync-batching]
+        [--prompt-len 16] [--max-new 8] [--sync-batching] [--multi-pod]
 
 Builds ``--arch`` from a seeded random init (``--smoke``: the reduced
 config of the same family, float32; on CUDA its heads widen from 16 to
@@ -12,22 +12,37 @@ printing each request's latency, through the continuous-batching engine
 or, with ``--sync-batching``, the synchronized-batch engine.  It serves
 stacks of g/l/m/r/s layers (MoE stacks with whole-prompt prefill); it
 refuses encoder stacks and the engine refuses "x" stacks.  Port of
-``repro/launch/serve.py`` for one device, on CUDA unless ``--device cpu``;
-the production mesh (``--multi-pod``) comes with a later slice.
+``repro/launch/serve.py``, on CUDA unless ``--device cpu``:
+
+* ``--smoke`` serves under ``launch.mesh.make_host_mesh()`` (1 x 1
+  ``("data", "model")``, on a one-rank group it joins where none exists
+  and leaves after) inside its activation-sharding context, as the
+  reference does;
+* ``--multi-pod`` serves tensor-parallel on ``make_production_mesh(
+  multi_pod=True)``, 512 ranks launched by torchrun; on any other world it
+  raises ``ValueError``, as the reference's ``jax.make_mesh`` does;
+* under a mesh each rank draws only its shard of the weights, one layer
+  at a time on the host (``launch.sharding.init_rank_params``);
+* otherwise it serves the full config on one device, with no mesh (where
+  the reference takes the 256-rank production mesh): the smoke's phase 9
+  serves recurrentgemma-2b so on the card.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import get_config, reduced
 from ..device import resolve_device
 from ..models import transformer
 from ..serving import kvpool
 from ..serving.engine import Request, ServingEngine
+from .sharding import init_rank_params
 
 SEED = 0
 
@@ -45,12 +60,13 @@ def kernel_head_dim(device) -> dict:
 
 
 def make_engine(cfg, params, *, slots: int, prompt_len: int,
-                max_new: int, sync_batching: bool = False) -> ServingEngine:
+                max_new: int, sync_batching: bool = False,
+                mesh=None) -> ServingEngine:
     """The engine the launcher serves with: ``s_max`` leaves room for a
     ``prompt_len`` prompt, ``max_new`` tokens and 8 more."""
     return ServingEngine(cfg, params, slots=slots,
                          s_max=prompt_len + max_new + 8,
-                         sync_batching=sync_batching)
+                         sync_batching=sync_batching, mesh=mesh)
 
 
 def parse_args(argv=None):
@@ -64,7 +80,7 @@ def parse_args(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (the production mesh)")
+                    help="serve on the 512-rank production mesh (torchrun)")
     ap.add_argument("--sync-batching", action="store_true",
                     help="the synchronized-batch compat engine")
     return ap.parse_args(argv)
@@ -72,10 +88,25 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    from .mesh import init_group, make_host_mesh, make_production_mesh
     if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod (the production mesh) is not ported yet; it comes "
-            "with a later slice (the mesh)")
+        if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+            init_group(device=args.device)      # torchrun's ranks
+        mesh = make_production_mesh(multi_pod=True)
+        joined = False
+    elif args.smoke:
+        joined = not dist.is_initialized()
+        mesh = make_host_mesh()
+    else:
+        mesh, joined = None, False
+    try:
+        return _serve(args, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> dict:
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -86,15 +117,19 @@ def main(argv=None) -> dict:
     # the engine's own check, made before the weights exist: an "x" stack
     # is refused here rather than after a full-width init
     kvpool.check_pattern(cfg, sync=args.sync_batching)
-    params = transformer.init_params(SEED, cfg, device)
+    if mesh is None:
+        params = transformer.init_params(SEED, cfg, device)
+    else:   # the rank's shard, drawn layer by layer: no whole tree
+        params, cfg = init_rank_params(SEED, mesh, cfg, device)
     n_params = transformer.param_count(params)
-    print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params "
+    print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params"
+          f"{'' if mesh is None else ' on this rank'} "
           f"({cfg.n_layers} layers, {cfg.param_dtype}) on {device}, "
           f"{args.slots} slots")
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     eng = make_engine(cfg, params, slots=args.slots,
                       prompt_len=args.prompt_len, max_new=args.max_new,
-                      sync_batching=args.sync_batching)
+                      sync_batching=args.sync_batching, mesh=mesh)
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len)
                     .astype(np.int32), max_new=args.max_new)

@@ -1,0 +1,623 @@
+"""Sharding policy: logical-axis rules -> partition specs for every leaf,
+and the rank-local layout that the port's explicit tensor parallelism runs.
+
+Port of ``repro/launch/sharding.py``.  Two things are kept apart:
+
+* **The policy** (``param_spec``, ``cache_spec``, ``batch_spec``,
+  ``validate_spec``, and ``serving.kvpool``'s ``_pool_leaf_spec``) is the
+  reference's, copied rule for rule, and returns :class:`P`, a small tuple
+  type of the port's own with the entries of a ``jax.sharding.
+  PartitionSpec``: per dim None, a mesh axis name or a tuple of names.
+  The reference's policy in its own words:
+
+  * batch -> all DP axes ("pod", "data");
+  * attention heads, FFN hidden, vocab, experts -> "model" (TP / EP);
+  * params and optimizer moments additionally over "data" (FSDP/ZeRO-3)
+    when ``cfg.fsdp``, experts keeping E on "model";
+  * KV caches: batch -> "data", kv heads -> "model" when divisible, else
+    the sequence axis -> "model";
+  * anything that does not divide its mesh axis stays replicated.
+
+* **The rank-local compute layout** (``place_params``): the shard of each
+  weight that a rank holds and computes with, one process a rank, and the
+  rank's ``shardctx.RankConfig``.  It takes only the "model" entries of
+  the policy (FSDP storage over "data" is a training-memory policy with
+  nothing to run in serving: every "data" replica holds its whole
+  "model" shard), and it departs from the policy where GSPMD would
+  reshard behind the reference's back:
+
+  * **The SSD's ``in_proj``** is one fused (d, 2 d_inner + 2 g n + h)
+    matrix: 290 columns at reduced width, which ``param_spec`` splits at
+    column 145 on a 2-way axis, not on a head boundary
+    (``repro/models/ssm.py:50,54-62``).  The layout shards z, x and dt by
+    SSD head and replicates B and C (g = 1); ``conv`` likewise (x by head,
+    B and C whole), and ``gate_norm`` (replicated by the policy) by head.
+    Where the heads do not divide the axis, the whole layer is replicated.
+  * **Query heads that divide M over kv heads that do not** (recurrentgemma
+    at 10/1, reduced hybrid-grs at 4/2 with M = 4, qwen1.5-110b's 64/8 on
+    the 16-way production axis): the rank keeps the run of kv heads its
+    query heads read and no other (columns of ``wk``/``wv``, which the
+    policy replicates), so its KV cache holds just those (one kv head
+    each at 64/8 over 16).  Where that run serves its kv heads unevenly
+    (6/3 over 2: kv heads (0, 0, 1) and (1, 2, 2)), each local query head
+    reads its own kv head (``models.attention._kv_for_q``); no uniform
+    group is assumed.  The policy shards the sequence dim of such caches
+    (``cache_spec``); the layout does not.
+  * **The RG-LRU gates** take the full (R, R) ``w_r``/``w_i`` on the full
+    u: the rank holds their columns (the policy's split) and u is
+    all-gathered once a layer.
+
+``init_rank_params`` draws a rank's shard without the whole tree, one layer
+at a time on the host.  ``place_params`` is idempotent: a ``RankConfig`` marks parameters that are
+already the rank's, and they pass through.  On a mesh whose "model" axis
+is 1 nothing is split and every tensor passes through as it is, so the
+engine on a 1 x 1 mesh equals the engine without one bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..shardctx import RankConfig, mesh_axes
+from ..runtime.checkpoint import _map_with_path
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, each None (replicated), a mesh
+    axis name, or a tuple of names (the dim split over their product).  As
+    ``PartitionSpec`` does, an empty tuple of names is None and a tuple of
+    one name is that name."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_entry(e) for e in entries))
+
+    def __repr__(self) -> str:          # PartitionSpec's, so messages match
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _entry(e):
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else e[0] if len(e) == 1 else e
+    return e
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingOptions:
+    """Hillclimb knobs.  Defaults = the paper-faithful baseline (naive TP
+    x DP everywhere)."""
+
+    tp_mode: str = "full"          # "full" | "vocab-only" | "moe-only"
+    expert_shard_dff: bool = False  # experts: shard F over data (keep EP resident)
+    seq_shard: bool = False        # context parallelism: activations S -> model
+    microbatches: int | None = None  # override models.steps.default_microbatches
+    fsdp_override: bool | None = None  # force ZeRO-3 on/off (None = per-arch cfg)
+    remat_offload: bool = False    # host-offload the remat carry stacks
+    expert_mesh: str = "model"     # expert-parallel axis: "model" | "data"
+
+
+BASELINE = ShardingOptions()
+
+
+def recommended_options(cfg, shape_kind: str) -> ShardingOptions:
+    """The reference's per-family defaults: decode always baseline TP (the
+    weights stay resident); MoE resident-expert layout only where expert
+    params dominate (llama4 yes, moonshot no); enc-dec baseline for
+    training; under 8 B parameters pure-DP layers with ZeRO over data (2
+    microbatches for training); 90 B+ dense prefill pure-DP with ZeRO-2D,
+    training baseline TP with 8 microbatches."""
+    from ..profiling.roofline import param_count
+    if shape_kind == "decode":
+        return BASELINE
+    if cfg.n_experts:
+        expert_params = cfg.n_experts * (3 if cfg.gated_ffn else 2) \
+            * cfg.d_model * cfg.resolved_moe_dff
+        if expert_params * 2 > 8e9:        # bytes: resident layout pays off
+            return ShardingOptions(
+                tp_mode="moe-only", expert_shard_dff=True, remat_offload=True,
+                microbatches=4 if shape_kind == "train" else None)
+        return BASELINE
+    if cfg.enc_layers and shape_kind == "train":
+        return BASELINE
+    n = param_count(cfg)
+    if n < 8e9:
+        return ShardingOptions(tp_mode="vocab-only", fsdp_override=True,
+                               microbatches=2 if shape_kind == "train" else None)
+    if shape_kind == "prefill":
+        return ShardingOptions(tp_mode="vocab-only", fsdp_override=True)
+    return ShardingOptions(microbatches=8)   # big-dense training: baseline TP
+
+
+# ---------------------------------------------------------------------------
+# the policy
+# ---------------------------------------------------------------------------
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh_axes(mesh).get(name, 1)
+
+
+def _shard_if(mesh, dim: int, axis):
+    """Use ``axis`` (a mesh axis name or tuple of names) only if the dim
+    divides evenly."""
+    if axis is None:
+        return None
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    names = mesh_axes(mesh)
+    n = 1
+    for a in axes:
+        if a not in names:
+            return None
+        n *= names[a]
+    if dim % n != 0:
+        return None
+    return axis if isinstance(axis, str) else tuple(axes)
+
+
+def _path_str(path) -> str:
+    """A leaf's path as "a/b/0/c": ``path`` is such a string already, or a
+    sequence of keys (strings, ints, or the reference's key objects)."""
+    if isinstance(path, str):
+        return path
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "name"):
+            parts.append(str(p.name))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
+
+
+def param_spec(mesh, cfg, path: str, shape: tuple,
+               opts: ShardingOptions = BASELINE) -> P:
+    """Partition spec for one parameter identified by its tree path."""
+    names = mesh_axes(mesh)
+    use_fsdp = cfg.fsdp if opts.fsdp_override is None else opts.fsdp_override
+    fsdp = "data" if (use_fsdp and "data" in names) else None
+    stacked = bool(re.search(r"units/slot\d+", path)) and len(shape) >= 1
+    lead: tuple = (None,) if stacked else ()
+    body = shape[1:] if stacked else shape
+
+    def spec(*axes):
+        return P(*lead, *axes)
+
+    name = path.rsplit("/", 1)[-1]
+    layer_tp = opts.tp_mode == "full"        # TP on layer weights?
+    moe_tp = opts.tp_mode in ("full", "moe-only")
+
+    if name == "embed" or path.endswith("embed"):
+        return P(_shard_if(mesh, shape[0], "model"),
+                 _shard_if(mesh, shape[1], fsdp) if fsdp else None)
+    if name == "head":
+        return P(_shard_if(mesh, shape[0], fsdp) if fsdp else None,
+                 _shard_if(mesh, shape[1], "model"))
+
+    # Without layer TP, ZeRO-3 storage for layer weights can use both axes
+    if fsdp and not layer_tp:
+        fsdp = ("data", "model")
+
+    if len(body) == 0:
+        return spec()
+    # MoE expert tensors: (E, D, F) / (E, F, D) -- E on the expert axis
+    if name in ("wi", "wg") and len(body) == 3:
+        if opts.expert_mesh == "data":   # EP over data, F over model
+            return spec(_shard_if(mesh, body[0], "data"), None,
+                        _shard_if(mesh, body[2], "model"))
+        e_ax = _shard_if(mesh, body[0], "model") if moe_tp else None
+        if opts.expert_shard_dff:   # keep weights resident, shard F over data
+            return spec(e_ax, None, _shard_if(mesh, body[2], "data"))
+        return spec(e_ax,
+                    _shard_if(mesh, body[1], fsdp) if fsdp else None, None)
+    if name == "wo" and len(body) == 3:
+        if opts.expert_mesh == "data":
+            return spec(_shard_if(mesh, body[0], "data"),
+                        _shard_if(mesh, body[1], "model"), None)
+        e_ax = _shard_if(mesh, body[0], "model") if moe_tp else None
+        if opts.expert_shard_dff:
+            return spec(e_ax, _shard_if(mesh, body[1], "data"), None)
+        return spec(e_ax, None,
+                    _shard_if(mesh, body[2], fsdp) if fsdp else None)
+    if name == "router":
+        return spec(_shard_if(mesh, body[0], fsdp) if fsdp else None, None)
+
+    # attention / dense FFN 2D weights: attention projections shard on
+    # "model" only when the head count divides the axis (head-granular TP)
+    if name in ("wq", "wk", "wv", "w1", "w3", "w_x", "w_gate", "in_proj"):
+        tp_ax = "model" if layer_tp else None
+        if name in ("wq", "wk", "wv"):
+            heads = cfg.n_heads if name == "wq" else (cfg.n_kv or cfg.n_heads)
+            if heads % _axis_size(mesh, "model"):
+                tp_ax = None
+        return spec(_shard_if(mesh, body[0], fsdp) if fsdp else None,
+                    _shard_if(mesh, body[1], tp_ax))
+    if name in ("wo", "w2", "w_out", "out_proj"):
+        tp_ax = "model" if layer_tp else None
+        if name == "wo" and cfg.n_heads % _axis_size(mesh, "model"):
+            tp_ax = None
+        return spec(_shard_if(mesh, body[0], tp_ax),
+                    _shard_if(mesh, body[1], fsdp) if fsdp else None)
+    if name in ("w_r", "w_i"):   # RG-LRU channel-coupling gates
+        return spec(None, _shard_if(mesh, body[1], "model") if layer_tp else None)
+    if name in ("bq", "bk", "bv"):
+        heads = cfg.n_heads if name == "bq" else (cfg.n_kv or cfg.n_heads)
+        b_ax = ("model" if layer_tp
+                and heads % _axis_size(mesh, "model") == 0 else None)
+        return spec(_shard_if(mesh, body[0], b_ax))
+    if name == "conv":
+        return spec(None, _shard_if(mesh, body[1], "model") if layer_tp else None)
+    if name in ("lam", "a_log", "dt_bias", "d_skip"):
+        return spec(_shard_if(mesh, body[0], "model") if layer_tp else None)
+    # norms / scalars / anything else: replicated (beyond the stack axis)
+    return spec(*([None] * len(body)))
+
+
+def batch_spec(mesh, leaf, *, shard_batch=True) -> P:
+    """Partition spec for one token/embedding input leaf: batch over all DP
+    axes when divisible, replicated otherwise."""
+    names = mesh_axes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    if (not shard_batch or leaf.ndim == 0
+            or leaf.shape[0] % _mesh_prod(mesh, dp) != 0):
+        return P()
+    return P(dp, *([None] * (len(leaf.shape) - 1)))
+
+
+def _mesh_prod(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= _axis_size(mesh, a)
+    return n
+
+
+def cache_spec(mesh, path, leaf, batch: int) -> P:
+    """Partition spec for one serving-cache leaf: KV tensors (units, B, S,
+    KV, hd) or (B, S, KV, hd) put batch over DP when divisible (else the
+    sequence over "data"), kv heads over "model" when divisible (else the
+    sequence over "model"); recurrent states, ring positions and conv
+    tails shard the batch dim only where the cache layout puts it."""
+    names = mesh_axes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    dp_n = _mesh_prod(mesh, dp)
+    shape = leaf.shape
+    p = _path_str(path)
+    # exact leaf-name match: "conv" ends with "v"
+    if leaf.ndim >= 4 and p.rsplit("/", 1)[-1] in ("k", "v"):
+        stacked = leaf.ndim == 5
+        lead = (None,) if stacked else ()
+        b, s, kv, hd = shape[-4:]
+        batch_ax = dp if b % dp_n == 0 else None
+        seq_ax = None
+        kv_ax = _shard_if(mesh, kv, "model")
+        if kv_ax is None:
+            seq_ax = _shard_if(mesh, s, "model")
+        if batch_ax is None and seq_ax is None:
+            seq_ax = _shard_if(mesh, s, "data")
+        return P(*lead, batch_ax, seq_ax, kv_ax, None)
+    if dp and batch % dp_n == 0 and leaf.ndim >= 1:
+        if shape[0] == batch:
+            return P(dp, *[None] * (leaf.ndim - 1))
+        if leaf.ndim >= 2 and shape[1] == batch:
+            return P(None, dp, *[None] * (leaf.ndim - 2))
+    return P()
+
+
+def validate_spec(mesh, shape: tuple, spec) -> list[str]:
+    """Static invariants for one leaf's spec; returns error strings: every
+    entry names axes that exist on the mesh, no mesh axis is consumed by
+    more than one dimension, the spec is no longer than the leaf's rank,
+    and every sharded dimension divides the product of its axis sizes."""
+    names = mesh_axes(mesh)
+    errs: list[str] = []
+    entries = tuple(spec)
+    if len(entries) > len(shape):
+        return [f"spec {spec} has {len(entries)} entries for a "
+                f"rank-{len(shape)} leaf"]
+    used: dict[str, int] = {}
+    for dim, axes in enumerate(entries):
+        if axes is None:
+            continue
+        group = (axes,) if isinstance(axes, str) else tuple(axes)
+        total = 1
+        for a in group:
+            if a not in names:
+                errs.append(f"dim {dim}: unknown mesh axis {a!r}")
+                continue
+            if a in used:
+                errs.append(f"mesh axis {a!r} consumed twice "
+                            f"(dims {used[a]} and {dim})")
+            else:
+                used[a] = dim
+            total *= names[a]
+        if total > 1 and shape[dim] % total:
+            errs.append(f"dim {dim} of shape {tuple(shape)} not divisible "
+                        f"by {group} (={total})")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# shardings: a spec on a mesh, and the shard of a leaf this rank keeps
+# ---------------------------------------------------------------------------
+
+def _coord(mesh, axis: str) -> int:
+    """This rank's index on ``axis`` of a ``DeviceMesh``."""
+    return mesh.get_local_rank(axis)
+
+
+def _take_spec(mesh, spec, t):
+    """This rank's block of ``t`` under ``spec``: each sharded dim cut into
+    equal parts, the part at this rank's (row-major) index over its axes."""
+    names = mesh_axes(mesh)
+    for dim, axes in enumerate(tuple(spec)):
+        if axes is None:
+            continue
+        group = (axes,) if isinstance(axes, str) else tuple(axes)
+        n, at = 1, 0
+        for a in group:
+            at = at * names[a] + _coord(mesh, a)
+            n *= names[a]
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, at * size, size)
+    return t.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """The rank-local compute layout of one config on one mesh."""
+    cfg: ArchConfig          # the model's
+    view: RankConfig         # the rank's
+    m: int                   # ranks on "model"
+    r: int                   # this rank's index on it
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's partition spec on ``mesh`` and the shard of the leaf this
+    rank keeps (:meth:`local`): a parameter's by the rank-local compute
+    layout (``layout`` and ``path`` set), any other leaf by its spec."""
+    mesh: Any
+    spec: P
+    layout: _Layout | None = None
+    path: str = ""
+
+    def local(self, t):
+        if self.layout is not None:
+            return _local_leaf(self.layout, self.path, t)
+        return _take_spec(self.mesh, self.spec, t)
+
+
+def _splits(mesh, cfg) -> dict:
+    """{sub-block: split?} on ``mesh``, from the policy's own conditions
+    under ``BASELINE`` (and the layout's, for "ssm")."""
+    m = _axis_size(mesh, "model")
+    if m == 1:
+        return {}
+    kinds = set(cfg.block_pattern) | set(cfg.tail_pattern) | (
+        {"e"} if cfg.enc_layers else set())
+    d_in = cfg.ssm_expand * cfg.d_model
+    heads = d_in // cfg.ssm_headdim if cfg.ssm_headdim else 0
+    out = {
+        "attn": cfg.n_heads > 0 and cfg.n_heads % m == 0
+        and bool(kinds - {"r", "s"}),
+        "ffn": cfg.d_ff > 0 and cfg.d_ff % m == 0
+        and bool(kinds - {"m", "s"}),
+        "shared": "m" in kinds and cfg.shared_expert
+        and cfg.resolved_moe_dff % m == 0,
+        "moe": "m" in kinds and cfg.n_experts % m == 0,
+        "rglru": "r" in kinds
+        and cfg.resolved_rnn_width % m == 0,
+        "ssm": "s" in kinds and heads > 0 and heads % m == 0,
+        "vocab": cfg.vocab % m == 0,
+    }
+    return {k: v for k, v in out.items() if v}
+
+
+def rank_config(mesh, cfg) -> RankConfig:
+    """This rank's view of ``cfg`` on ``mesh`` (see ``shardctx.RankConfig``);
+    a ``RankConfig`` is returned as it is."""
+    if isinstance(cfg, RankConfig):
+        return cfg
+    m = _axis_size(mesh, "model")
+    r = _coord(mesh, "model") if m > 1 else 0
+    split = _splits(mesh, cfg)
+    base = {f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(ArchConfig)}
+    over: dict = dict(model_rank=r, model_size=m, split=tuple(sorted(split)),
+                      head_dim=cfg.resolved_head_dim,
+                      moe_dff=cfg.resolved_moe_dff if cfg.n_experts
+                      else cfg.moe_dff)
+    if "attn" in split:
+        h = cfg.n_heads // m
+        over["n_heads"] = h
+        if cfg.n_kv % m == 0:
+            over["n_kv"] = cfg.n_kv // m
+            over["kv_offset"] = r * (cfg.n_kv // m)
+        else:   # the kv heads this rank's query heads read, and no others
+            group = cfg.n_heads // cfg.n_kv
+            kv = [(r * h + j) // group for j in range(h)]
+            n = kv[-1] + 1 - kv[0]
+            over["n_kv"], over["kv_offset"] = n, kv[0]
+            if h % n or any(k - kv[0] != j // (h // n)
+                            for j, k in enumerate(kv)):
+                over["q_kv"] = tuple(k - kv[0] for k in kv)
+    if "ffn" in split:
+        over["d_ff"] = cfg.d_ff // m
+    if "rglru" in split:
+        over["rnn_width"] = cfg.resolved_rnn_width // m
+    if "ssm" in split:
+        over["ssm_heads"] = cfg.ssm_expand * cfg.d_model \
+            // cfg.ssm_headdim // m
+    if "moe" in split:
+        over["local_experts"] = cfg.n_experts // m
+        over["expert_offset"] = r * (cfg.n_experts // m)
+    if "vocab" in split:
+        over["local_vocab"] = cfg.vocab // m
+        over["vocab_offset"] = r * (cfg.vocab // m)
+    return RankConfig(**{**base, **over})
+
+
+def _part(t, dim: int, r: int, m: int):
+    """Part ``r`` of ``m`` equal parts of ``t`` along ``dim``, contiguous."""
+    size = t.shape[dim] // m
+    return t.narrow(dim, r * size, size).contiguous()
+
+
+def _ssm_columns(cfg, r: int, m: int, conv: bool) -> list[int]:
+    """The columns of the fused ``in_proj`` (z | x | B | C | dt), or of
+    ``conv`` (x | B | C), that rank ``r`` of ``m`` keeps: its heads' z, x
+    and dt, and all of B and C."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    h = d_in // cfg.ssm_headdim
+    gn = cfg.ssm_state            # one B/C group
+    dl, hl = d_in // m, h // m
+    mine = list(range(r * dl, (r + 1) * dl))
+    if conv:
+        return mine + list(range(d_in, d_in + 2 * gn))
+    return (mine + [d_in + c for c in mine]
+            + list(range(2 * d_in, 2 * d_in + 2 * gn))
+            + list(range(2 * d_in + 2 * gn + r * hl,
+                         2 * d_in + 2 * gn + (r + 1) * hl)))
+
+
+def _kv_heads(view: RankConfig, t, dim: int, width: int = 1):
+    """The rank's kv heads (``view.kv_offset`` on, ``view.n_kv`` of them)
+    of ``t``, whose ``dim`` holds every kv head ``width`` entries each;
+    ``t`` itself where the rank reads every kv head."""
+    if view.n_kv * width == t.shape[dim]:
+        return t
+    return t.narrow(dim, view.kv_offset * width,
+                    view.n_kv * width).contiguous()
+
+
+def _local_leaf(lay: _Layout, path: str, t):
+    """The shard of parameter ``t`` (at ``path``) that the rank computes
+    with; the tensor itself where the rank holds all of it."""
+    split, m, r, cfg = lay.view.split, lay.m, lay.r, lay.cfg
+    parts = path.split("/")
+    name = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if name == "embed" and "vocab" in split:
+        return _part(t, 0, r, m)
+    if name == "head" and "vocab" in split:
+        return _part(t, -1, r, m)
+    if parent in ("attn", "xattn") and "attn" in split:
+        if name in ("wq", "bq"):
+            return _part(t, -1, r, m)
+        if name in ("wk", "wv", "bk", "bv"):
+            return _kv_heads(lay.view, t, -1, cfg.resolved_head_dim)
+        if name == "wo":
+            return _part(t, -2, r, m)
+        return t
+    if parent in ("ffn", "shared") and parent in split:
+        if name in ("w1", "w3"):
+            return _part(t, -1, r, m)
+        if name == "w2":
+            return _part(t, -2, r, m)
+        return t
+    if parent == "moe" and "moe" in split and name in ("wi", "wg", "wo"):
+        return _part(t, -3, r, m)
+    if parent == "rglru" and "rglru" in split:
+        if name in ("w_x", "w_gate", "conv", "w_r", "w_i", "lam"):
+            return _part(t, -1, r, m)
+        if name == "w_out":
+            return _part(t, -2, r, m)
+        return t
+    if parent == "ssm" and "ssm" in split:
+        if name in ("in_proj", "conv"):
+            cols = torch.tensor(_ssm_columns(cfg, r, m, name == "conv"),
+                                device=t.device)
+            return t.index_select(-1, cols)
+        if name in ("a_log", "dt_bias", "d_skip", "gate_norm"):
+            return _part(t, -1, r, m)
+        if name == "out_proj":
+            return _part(t, -2, r, m)
+    return t
+
+
+def _layout(mesh, cfg) -> _Layout:
+    view = rank_config(mesh, cfg)
+    return _Layout(cfg=cfg, view=view, m=view.model_size, r=view.model_rank)
+
+
+def map_with_paths(fn, tree):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, ``path`` the
+    leaf's "units/slot0/attn/wq" string (dict keys, list indices and
+    named-tuple fields joined by "/", as ``_path_str`` makes them)."""
+    strip = lambda key: "/".join(p.split(":", 1)[1] for p in key.split("/"))
+    return _map_with_path(lambda key, leaf: fn(strip(key), leaf), tree)
+
+
+def params_shardings(mesh, cfg, params: Any):
+    """A tree of :class:`NamedSharding`, one a parameter leaf: the policy's
+    spec (``param_spec``) and the rank-local shard it keeps.  ``params``
+    need only give each leaf's shape (a tree on the meta device does).  On a
+    ``("cells", "model")`` mesh weights replicate across "cells" (each
+    cells row holds a full replica) and split their head/FFN/vocab dims
+    over "model"."""
+    lay = _layout(mesh, cfg)
+    return map_with_paths(
+        lambda path, leaf: NamedSharding(
+            mesh, param_spec(mesh, cfg, path, tuple(leaf.shape)), lay,
+            path), params)
+
+
+def place_params(mesh, cfg, params):
+    """(this rank's shard of ``params``, its ``RankConfig``): the serving
+    stack's entry into tensor parallelism.  Every rank passes the whole
+    parameter tree (the same weights); the shards are contiguous copies,
+    so the caller may drop the whole tree after.  ``cfg`` already a
+    ``RankConfig`` means ``params`` are the rank's (from
+    :func:`init_rank_params` or a ``restore`` with ``params_shardings``,
+    which never hold a whole tree): both pass through."""
+    if isinstance(cfg, RankConfig):
+        if cfg.model_size != _axis_size(mesh, "model"):
+            raise ValueError(
+                f"parameters placed for a {cfg.model_size}-way model axis "
+                f"given a mesh whose model axis is "
+                f"{_axis_size(mesh, 'model')}")
+        return params, cfg
+    lay = _layout(mesh, cfg)
+    return map_with_paths(lambda path, t: _local_leaf(lay, path, t),
+                          params), lay.view
+
+
+def init_rank_params(seed, mesh, cfg, device=None):
+    """(this rank's shard of ``models.transformer.init_params(seed, cfg,
+    "cpu")`` on ``device``, its ``RankConfig``), what ``place_params`` of
+    that whole tree gives, without the whole tree: the host draws one
+    layer at a time and keeps each leaf's shard, which alone goes to
+    ``device``.  So a model larger than one card is placed over the
+    "model" axis; the host holds one layer (and the embedding) at most."""
+    from ..device import resolve_device
+    from ..models import transformer
+    device = resolve_device(device)
+    lay = _layout(mesh, cfg)
+    params = transformer.init_params(
+        seed, cfg, "cpu",
+        keep=lambda path, t: _local_leaf(lay, path, t).to(device))
+    return params, lay.view
+
+
+def batch_shardings(mesh, cfg, batch_shape: Any, *, shard_batch=True):
+    """Token/embedding inputs: batch over all DP axes (when divisible)."""
+    return map_with_paths(
+        lambda _, leaf: NamedSharding(mesh, batch_spec(
+            mesh, leaf, shard_batch=shard_batch)), batch_shape)
+
+
+def cache_shardings(mesh, cfg, cache_shape: Any, batch: int):
+    """Serving-cache shardings by ``cache_spec``."""
+    return map_with_paths(
+        lambda path, leaf: NamedSharding(
+            mesh, cache_spec(mesh, path, leaf, batch)), cache_shape)
+
+
+def replicated(mesh, tree: Any):
+    return map_with_paths(lambda _, leaf: NamedSharding(mesh, P()), tree)

@@ -1,4 +1,4 @@
-"""LM training launcher on one device.
+"""LM training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b
         [--smoke] [--device cpu] [--steps 100] [--batch 8] [--seq 64]
@@ -12,15 +12,21 @@ the synthetic stream with ``models.steps.make_train_step``, in the
 microbatches the reference's sharding policy recommends, checkpointing
 every ``--ckpt-every`` steps (with the stream's ``data_step``) and resuming
 from the latest checkpoint in ``--ckpt-dir``; ``StragglerMonitor`` times
-every step, each ended by a device synchronisation.  The production mesh
-(``--multi-pod``) comes with a later slice.
+every step, each ended by a device synchronisation.  ``--multi-pod``
+builds ``launch.mesh.make_production_mesh(multi_pod=True)``: on any world
+but 512 ranks it raises ``ValueError``, as the reference's
+``jax.make_mesh`` does; on 512 it raises ``NotImplementedError``, since
+data-parallel training needs the gradient sync of
+``runtime/compression.py`` (ROADMAP queue 1, item 7c).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import get_config, reduced
 from ..data.pipeline import for_arch
@@ -65,7 +71,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (the production mesh)")
+                    help="the 512-rank production mesh (torchrun)")
     return ap.parse_args(argv)
 
 
@@ -74,9 +80,14 @@ def setup(args) -> dict:
     (restored from ``--ckpt-dir``'s latest checkpoint where one exists),
     stream, train step, checkpoint manager and first step."""
     if args.multi_pod:
+        from .mesh import init_group, make_production_mesh
+        if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+            init_group(device=args.device)      # torchrun's ranks
+        make_production_mesh(multi_pod=True)
         raise NotImplementedError(
-            "--multi-pod (the production mesh) is not ported yet; it comes "
-            "with a later slice (the mesh)")
+            "training on the production mesh needs the data-parallel "
+            "gradient sync (runtime/compression.py), which is not ported "
+            "yet (ROADMAP queue 1, item 7c)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

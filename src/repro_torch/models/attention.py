@@ -9,6 +9,14 @@ and "d" kinds.  The attention itself goes through
 their plain versions.  Where the reference returns an updated cache, the
 port writes into the cache it was given and returns that same cache: a
 caller that needs the old state clones it first.
+
+Under tensor parallelism (``cfg`` a ``shardctx.RankConfig`` that splits
+"attn") the rank projects its own query heads and the kv heads they read
+(its own share where the kv heads divide the "model" axis; where they do
+not, the run of kv heads its query heads' groups cover, and its cache
+holds just those).  Uneven groups are gathered per query head
+(``_kv_for_q``).  The output projection is row-parallel: its partial sum
+is all-reduced over "model".
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import shardctx
 from ..kernels import ops
 from .common import dense_init, dtype_of, head_rms_norm, rope
 
@@ -79,6 +88,26 @@ def _project_kv(p, cfg, x):
     return k, v
 
 
+def _kv_for_q(cfg, k, v):
+    """k, v (..., KV, hd) as the rank's query heads read them.  The rank
+    holds the run of kv heads its query heads read; where that run serves
+    its kv heads unevenly (``cfg.q_kv``, each local query head's kv head),
+    they are gathered one a query head, so no group size is assumed.
+    Otherwise GQA's own mapping holds and k, v pass as they are."""
+    idx = cfg.q_kv if shardctx.split(cfg, "attn") else ()
+    if not idx:
+        return k, v
+    at = torch.tensor(idx, device=k.device)
+    return k.index_select(-2, at), v.index_select(-2, at)
+
+
+def _out(p, cfg, out, x):
+    """The attention output (..., H, hd) through ``wo``: row-parallel where
+    the heads are split, so its partial sum is all-reduced over "model"."""
+    out = out.reshape(*x.shape[:-1], -1)
+    return shardctx.reduce(cfg, "attn", out @ p["wo"])
+
+
 def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
     """Full-sequence self-attention (train / prefill).  kind: g | l | e.
 
@@ -91,20 +120,18 @@ def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     akind = {"l": "local", "e": "full"}.get(kind, "causal")
-    out = ops.flash_attention(q, k, v, kind=akind, window=cfg.window,
-                              pad_mask=pad_mask)
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"], (k, v)
+    out = ops.flash_attention(q, *_kv_for_q(cfg, k, v), kind=akind,
+                              window=cfg.window, pad_mask=pad_mask)
+    return _out(p, cfg, out, x), (k, v)
 
 
 def cross_attention(p, cfg, x, context_kv):
     """Cross-attention of x (B, S, D) against precomputed context K/V
     (B, Sk, KV, hd): every query sees every context key, no RoPE."""
     q = _project_q(p, cfg, x)
-    k, v = context_kv
+    k, v = _kv_for_q(cfg, *context_kv)
     out = ops.flash_attention(q, k, v, kind="full")
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"]
+    return _out(p, cfg, out, x)
 
 
 def context_kv(p, cfg, context):
@@ -117,11 +144,10 @@ def decode_cross_attention(p, cfg, x, context_cache):
     """One token's cross-attention against the prefill's context K/V, every
     key valid."""
     q = _project_q(p, cfg, x)
-    k, v = context_cache
+    k, v = _kv_for_q(cfg, *context_cache)
     valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
     out = ops.decode_attention(q, k, v, valid)
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"]
+    return _out(p, cfg, out, x)
 
 
 def init_kv_cache(cfg, batch: int, s_max: int, dtype, device=None) -> KVCache:
@@ -200,9 +226,8 @@ def decode_self_attention(p, cfg, x, cache, pos: int, *, kind: str,
         valid = (slots <= pos)[None, :].expand(b, s)
         if pad is not None:
             valid = valid & (slots[None, :] >= pad[:, None])
-    out = ops.decode_attention(q, cache.k, cache.v, valid)
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"], cache
+    out = ops.decode_attention(q, *_kv_for_q(cfg, cache.k, cache.v), valid)
+    return _out(p, cfg, out, x), cache
 
 
 def chunk_self_attention(p, cfg, x, cache: KVCache, start: int, positions):
@@ -222,9 +247,9 @@ def chunk_self_attention(p, cfg, x, cache: KVCache, start: int, positions):
     at = min(start, s_max - c)
     cache.k[:, at:at + c] = k_new.to(cache.k.dtype)
     cache.v[:, at:at + c] = v_new.to(cache.v.dtype)
-    out = ops.chunk_attention(q, cache.k, cache.v, start=start)
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"], cache
+    out = ops.chunk_attention(q, *_kv_for_q(cfg, cache.k, cache.v),
+                              start=start)
+    return _out(p, cfg, out, x), cache
 
 
 def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,
@@ -259,16 +284,15 @@ def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,
         cache.pos[rows, slot] = seq_lens.to(torch.int32)
         valid = ((cache.pos >= 0)
                  & (cache.pos >= (seq_lens - w + 1)[:, None]))
-        out = ops.decode_attention(q, cache.k, cache.v, valid)
-        out = out.reshape(*x.shape[:-1], -1)
-        return out @ p["wo"], cache
+        out = ops.decode_attention(q, *_kv_for_q(cfg, cache.k, cache.v),
+                                   valid)
+        return _out(p, cfg, out, x), cache
     bs = cache.k.shape[1]
     rows = torch.arange(b, device=x.device)
     blk = block_table[rows, seq_lens // bs]
     off = seq_lens % bs
     cache.k[blk, off] = k_new[:, 0].to(cache.k.dtype)
     cache.v[blk, off] = v_new[:, 0].to(cache.v.dtype)
-    out = ops.decode_attention_paged(q, cache.k, cache.v, block_table,
-                                     seq_lens)
-    out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"], cache
+    out = ops.decode_attention_paged(q, *_kv_for_q(cfg, cache.k, cache.v),
+                                     block_table, seq_lens)
+    return _out(p, cfg, out, x), cache

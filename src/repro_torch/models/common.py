@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import shardctx
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -50,10 +52,20 @@ def embed_init(gen, shape, dtype, device=None):
     return (w * 0.02).to(dtype)
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
-    """RMSNorm in float32 with a ``1 + scale`` gain, cast back to x's dtype."""
+def rms_norm(x, scale, eps: float = 1e-6, *, split: bool = False):
+    """RMSNorm in float32 with a ``1 + scale`` gain, cast back to x's dtype.
+
+    ``split``: x and ``scale`` are this rank's slices of a last axis
+    sharded evenly over "model" (the SSD's gated norm over d_inner): the
+    sum of squares is all-reduced before the rsqrt, so every rank divides
+    by the whole row's mean square."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if split:
+        ss = shardctx.model_all_reduce(torch.sum(x32 * x32, dim=-1,
+                                                 keepdim=True))
+        var = ss / (x.shape[-1] * shardctx.model_size())
+    else:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     normed = x32 * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.float())).to(x.dtype)
 

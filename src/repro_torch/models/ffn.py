@@ -6,12 +6,20 @@ groups of ``MOE_GROUP``, routes each token to its top-k experts in a
 float32 router under a per-expert capacity, runs the expert FFNs batched
 over the expert axis (``torch.bmm``: the reference's einsums, outside any
 kernel) and returns the load-balance aux loss beside the output.
+
+Under tensor parallelism (``cfg`` a ``shardctx.RankConfig``) the dense FFN
+is column-parallel in ``w1``/``w3`` and row-parallel in ``w2``, its partial
+sum all-reduced over "model" ("ffn", or "shared" for the MoE's shared
+expert); the MoE routes every token on every rank, runs the rank's own
+experts (``local_experts`` from ``expert_offset``) and all-reduces the
+combine's partial sum ("moe").
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import shardctx
 from .common import dense_init, dtype_of
 
 MOE_GROUP = 1024          # tokens per dispatch group
@@ -30,23 +38,25 @@ def init_ffn(gen, cfg, d_ff: int | None = None, device=None) -> dict:
     return p
 
 
-def _ffn_block(p, cfg, x):
+def _ffn_block(p, cfg, x, part, reduce):
     h = x @ p["w1"]
     if cfg.gated_ffn:
         h = F.silu(h) * (x @ p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    return h @ p["w2"]
+    y = h @ p["w2"]
+    return shardctx.reduce(cfg, part, y) if reduce else y
 
 
-def apply_ffn(p, cfg, x):
+def apply_ffn(p, cfg, x, part: str = "ffn", reduce: bool = True):
     """Dense FFN; sequences of at least FFN_CHUNK_SEQ tokens (and a
     multiple of FFN_CHUNK) run in token chunks so the (tokens, d_ff) hidden
-    never exists whole."""
+    never exists whole.  ``part`` names the block for ``cfg.split``; with
+    ``reduce=False`` a split block returns its rank's partial sum."""
     s = x.shape[-2]
     if s < FFN_CHUNK_SEQ or s % FFN_CHUNK != 0:
-        return _ffn_block(p, cfg, x)
-    return torch.cat([_ffn_block(p, cfg, xc)
+        return _ffn_block(p, cfg, x, part, reduce)
+    return torch.cat([_ffn_block(p, cfg, xc, part, reduce)
                       for xc in torch.split(x, FFN_CHUNK, dim=-2)], dim=-2)
 
 
@@ -133,6 +143,9 @@ def apply_moe(p, cfg, x):
     g = tokens.shape[0] // gsize
     xg = tokens.reshape(g, gsize, d)
     dispatch, combine, aux = route(p["router"], cfg, xg)
+    if shardctx.split(cfg, "moe"):
+        mine = slice(cfg.expert_offset, cfg.expert_offset + cfg.local_experts)
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
 
     cdt = dtype_of(cfg.compute_dtype)
     e, cap = dispatch.shape[2], dispatch.shape[3]
@@ -149,8 +162,15 @@ def apply_moe(p, cfg, x):
     ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
     y = torch.bmm(combine.to(cdt).reshape(g, gsize, e * cap), ye)
 
-    if "shared" in p:
-        y = y + apply_ffn(p["shared"], cfg, xg)
+    if "shared" not in p:
+        y = shardctx.reduce(cfg, "moe", y)
+    elif shardctx.split(cfg, "moe") and shardctx.split(cfg, "shared"):
+        # both partial sums: one all-reduce
+        y = shardctx.model_all_reduce(
+            y + apply_ffn(p["shared"], cfg, xg, "shared", reduce=False))
+    else:
+        y = (shardctx.reduce(cfg, "moe", y)
+             + apply_ffn(p["shared"], cfg, xg, "shared"))
     y = y.reshape(-1, d)
     if pad:
         y = y[:t]

@@ -11,6 +11,14 @@ whose linear recurrence runs as ``kernels.ops.rglru_scan`` (the CUDA
 kernel on the card).  Decode keeps a (conv, h) cache whose size does not
 grow with the sequence; the decode step is elementwise and updates the
 cache it is given in place.
+
+Under tensor parallelism (``cfg`` a ``shardctx.RankConfig`` that splits
+"rglru") the rank holds its slice of the recurrent width R: its columns of
+``w_x``, ``w_gate``, ``conv``, ``w_r`` and ``w_i``, its entries of
+``lam`` and its rows of ``w_out``.  The gates couple every channel of u,
+so u is all-gathered over "model" once a layer (a sequence, or a decode
+step) and multiplied by the rank's gate columns; the scan, the conv and
+the state stay local, and the row-parallel ``w_out`` is all-reduced.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import shardctx
 from ..kernels import ops
 from .common import dense_init, dtype_of, pad_reset
 from .ssm import conv_full, conv_tail
@@ -46,10 +55,13 @@ def init_rglru(gen, cfg, device=None) -> dict:
     }
 
 
-def _gates(params, u):
-    """(a, drive) in float32: the decay a_t and the gated input."""
-    r = torch.sigmoid((u @ params["w_r"]).float())
-    i = torch.sigmoid((u @ params["w_i"]).float())
+def _gates(params, cfg, u):
+    """(a, drive) in float32: the decay a_t and the gated input.  Where R
+    is split, the gates read the whole u (one all-gather over "model")."""
+    u_all = (shardctx.model_all_gather(u, -1)
+             if shardctx.split(cfg, "rglru") else u)
+    r = torch.sigmoid((u_all @ params["w_r"]).float())
+    i = torch.sigmoid((u_all @ params["w_i"]).float())
     log_a = -_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -74,10 +86,11 @@ def apply_rglru(params, cfg, x, want_cache: bool = False, pad_mask=None):
         u_pre = torch.where(pad_mask[:, :, None], u_pre, 0.0)
         reset = pad_reset(pad_mask)
     u = conv_full(params["conv"], u_pre).to(u_pre.dtype)
-    a, drive = _gates(params, u)
+    a, drive = _gates(params, cfg, u)
     h = ops.rglru_scan(drive, a, reset=reset)
     gate = _gelu((x @ params["w_gate"]).float())
-    out = (gate * h.float()).to(x.dtype) @ params["w_out"]
+    out = shardctx.reduce(cfg, "rglru",
+                          (gate * h.float()).to(x.dtype) @ params["w_out"])
     if not want_cache:
         return out
     return out, RglruCache(conv=conv_tail(u_pre, cfg.conv_width),
@@ -102,10 +115,11 @@ def apply_rglru_decode(params, cfg, x, cache: RglruCache):
     hist = torch.cat([cache.conv, u_pre[:, None, :]], dim=1)
     u = torch.einsum("bkr,kr->br", hist.float(),
                      params["conv"].float()).to(x.dtype)
-    a, drive = _gates(params, u)
+    a, drive = _gates(params, cfg, u)
     h = a * cache.h + drive
     cache.conv.copy_(hist[:, 1:])
     cache.h.copy_(h)
     gate = _gelu((x[:, 0] @ params["w_gate"]).float())
-    y = (gate * h).to(x.dtype) @ params["w_out"]
+    y = shardctx.reduce(cfg, "rglru",
+                        (gate * h).to(x.dtype) @ params["w_out"])
     return y[:, None, :], cache

@@ -6,6 +6,14 @@ dt]; a short causal depthwise conv over [x | B | C]; the SSD scan
 z; out_proj.  Decode keeps a (conv, state) cache whose size does not grow
 with the sequence, and steps it with the plain ``ref.ssd_step_ref``, as the
 reference does.  The decode step updates the cache it is given in place.
+
+Under tensor parallelism (``cfg`` a ``shardctx.RankConfig`` that splits
+"ssm") the rank holds ``cfg.ssm_heads`` SSD heads: its columns of z, x and
+dt in ``in_proj`` and of x in ``conv``, its entries of ``a_log``,
+``dt_bias``, ``d_skip`` and ``gate_norm``, and its rows of ``out_proj``;
+B and C (one group) are replicated.  The scan, its state and the conv
+tail are the local heads'; the gated RMSNorm spans all of d_inner, so its
+sum of squares is all-reduced, and so is ``out_proj``'s partial sum.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import shardctx
 from ..kernels import ops
 from ..kernels.ref import ssd_step_ref
 from .common import dense_init, dtype_of, pad_reset, rms_norm
@@ -25,9 +34,14 @@ class SsmCache(NamedTuple):
 
 
 def _dims(cfg):
+    """(d_inner, head dim, heads, state, groups, conv channels): the
+    rank's own where ``cfg`` splits "ssm"."""
     d_in = cfg.ssm_expand * cfg.d_model
     p = cfg.ssm_headdim
     h = d_in // p
+    if shardctx.split(cfg, "ssm"):
+        h = cfg.ssm_heads
+        d_in = h * p
     n = cfg.ssm_state
     g = 1                      # one B/C group
     return d_in, p, h, n, g, d_in + 2 * g * n
@@ -59,6 +73,15 @@ def _split_proj(cfg, proj):
 def _split_xbc(cfg, xbc):
     d_in, p, h, n, g, _ = _dims(cfg)
     return torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+
+
+def _gated_out(params, cfg, y, z):
+    """RMSNorm(y * silu(z)) over d_inner, then ``out_proj``; both ends
+    reduced over "model" where the heads are split."""
+    split = shardctx.split(cfg, "ssm")
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"],
+                 split=split)
+    return shardctx.reduce(cfg, "ssm", y @ params["out_proj"])
 
 
 def conv_full(weight, u):
@@ -104,8 +127,7 @@ def apply_ssm(params, cfg, x, want_cache: bool = False, pad_mask=None):
                             params["d_skip"], chunk=min(cfg.ssm_chunk, s),
                             reset=reset)
     y = y.reshape(bsz, s, d_in)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
-    out = y @ params["out_proj"]
+    out = _gated_out(params, cfg, y, z)
     if not want_cache:
         return out
     return out, SsmCache(conv=conv_tail(xbc_pre, cfg.conv_width),
@@ -143,5 +165,4 @@ def apply_ssm_decode(params, cfg, x, cache: SsmCache):
     cache.conv.copy_(hist[:, 1:])
     cache.state.copy_(state)
     y = y.reshape(bsz, d_in)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
-    return (y @ params["out_proj"])[:, None, :], cache
+    return _gated_out(params, cfg, y, z)[:, None, :], cache

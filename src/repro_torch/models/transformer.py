@@ -32,6 +32,14 @@ for left-padded rows), ``decode_step`` (one token against that cache),
 ``decode_step_paged`` (one token per slot against the engine's pool; the
 kinds ``serving.kvpool.check_pattern`` admits).  Caches are updated in
 place.
+
+Under tensor parallelism the entry points take a rank's shard of the
+parameters and its ``shardctx.RankConfig`` (``launch.sharding.place_params``)
+and run unchanged: each layer module calls its own collectives, and where
+the config splits "vocab" the embedding is a masked lookup of the rank's
+rows, all-reduced, and the logits of the rank's columns are all-gathered
+before anyone takes an argmax, so ties break on the first index as they
+do unsharded.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from .. import _tree
+from .. import _tree, shardctx
 from ..device import resolve_device
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -78,7 +86,17 @@ def _init_layer(gen, cfg, kind, device) -> dict:
     return {"norm1": norm(), **mixer, "norm2": norm(), **channel}
 
 
-def _init_stack(gen, cfg, pattern, n: int, device) -> dict:
+def _keep_tree(keep, prefix: str, tree):
+    """``tree`` (nested dicts and lists of tensors) with each leaf ``t`` at
+    path ``prefix/...`` replaced by ``keep(path, t)``."""
+    if isinstance(tree, torch.Tensor):
+        return keep(prefix, tree)
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {k: _keep_tree(keep, f"{prefix}/{k}", v) for k, v in items}
+    return out if isinstance(tree, dict) else list(out.values())
+
+
+def _init_stack(gen, cfg, pattern, n: int, device, keep, prefix) -> dict:
     """{"slot{i}": the n layers of kind pattern[i], stacked}.  Each leaf is
     allocated stacked and filled one layer at a time, in the order the
     layers are drawn, so only one layer exists beside the stack."""
@@ -86,7 +104,8 @@ def _init_stack(gen, cfg, pattern, n: int, device) -> dict:
     for i, kind in enumerate(pattern):
         stacked = None
         for u in range(n):
-            layer = _init_layer(gen, cfg, kind, device)
+            layer = _keep_tree(keep, f"{prefix}/slot{i}",
+                               _init_layer(gen, cfg, kind, device))
             if stacked is None:
                 stacked = _tree.map_tensors(
                     lambda t: t.new_empty((n, *t.shape)), layer)
@@ -97,30 +116,41 @@ def _init_stack(gen, cfg, pattern, n: int, device) -> dict:
     return out
 
 
-def init_params(seed, cfg, device=None) -> dict:
+def init_params(seed, cfg, device=None, *, keep=None) -> dict:
     """Random parameters from ``seed`` (an int, or a ``torch.Generator`` on
     the target device).  Not the reference's numbers: parity tests use
-    ``params_from_reference``."""
+    ``params_from_reference``.
+
+    ``keep(path, t)``, where given, maps each leaf as it is drawn (a
+    unit's one layer at a time, at its unstacked path such as
+    "units/slot0/attn/wq") to what the tree holds instead: a rank's shard
+    on another device (``launch.sharding.init_rank_params``)."""
     device = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=device).manual_seed(int(seed))
+    keep = keep or (lambda path, t: t)
     dt = dtype_of(cfg.param_dtype)
+    norm = lambda path: keep(path, torch.zeros(cfg.d_model, dtype=dt,
+                                               device=device))
     params = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dt, device=device),
+        "embed": keep("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dt,
+                                          device=device)),
         "units": _init_stack(gen, cfg, cfg.block_pattern, cfg.n_units,
-                             device),
-        "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=device),
+                             device, keep, "units"),
+        "final_norm": norm("final_norm"),
     }
     if cfg.tail_pattern:
-        params["tail"] = [_init_layer(gen, cfg, kind, device)
-                          for kind in cfg.tail_pattern]
+        params["tail"] = [_keep_tree(keep, f"tail/{j}",
+                                     _init_layer(gen, cfg, kind, device))
+                          for j, kind in enumerate(cfg.tail_pattern)]
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt,
-                                    device=device)
+        params["head"] = keep("head", dense_init(
+            gen, (cfg.d_model, cfg.vocab), dt, device=device))
     if cfg.enc_layers:
         params["encoder"] = {
-            "units": _init_stack(gen, cfg, ("e",), cfg.enc_layers, device),
-            "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=device)}
+            "units": _init_stack(gen, cfg, ("e",), cfg.enc_layers, device,
+                                 keep, "encoder/units"),
+            "final_norm": norm("encoder/final_norm")}
     return params
 
 
@@ -368,15 +398,28 @@ def _context(params, cfg, batch):
 def _logits(params, cfg, x):
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (x @ head).float()
+    logits = (x @ head).float()
+    if shardctx.split(cfg, "vocab"):
+        logits = shardctx.model_all_gather(logits, -1)
+    return logits
 
 
 def _embed(params, cfg, tokens):
     """The tokens' embedding rows.  ``F.embedding``, not indexing: its
     backward sums a repeated token's rows in a fixed order (indexing's
     backward, ``index_put_`` with accumulation, adds them in a thread order
-    on the CPU), so a training step gives the same bits every time."""
-    return F.embedding(tokens, params["embed"]).to(dtype_of(cfg.compute_dtype))
+    on the CPU), so a training step gives the same bits every time.  Where
+    the vocabulary is split, each rank looks up the tokens among its rows
+    (zeros for the others') and the sum over "model" is the row: one
+    nonzero term, so it is exact."""
+    if not shardctx.split(cfg, "vocab"):
+        return F.embedding(tokens, params["embed"]).to(
+            dtype_of(cfg.compute_dtype))
+    local = tokens - cfg.vocab_offset
+    mine = (local >= 0) & (local < cfg.local_vocab)
+    rows = F.embedding(torch.where(mine, local, 0), params["embed"])
+    rows = shardctx.model_all_reduce(rows * mine[..., None].to(rows.dtype))
+    return rows.to(dtype_of(cfg.compute_dtype))
 
 
 def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None,

@@ -12,7 +12,10 @@ Port of ``repro/runtime/checkpoint.py``, with its on-disk format:
   * keep-last-k, with a JSON manifest of step, time, extra data, the keys
     and each array's true dtype (bf16 is stored as its raw uint16 bits).
 
-``restore(shardings=)`` (resharding onto a live mesh) comes with the mesh.
+``restore(shardings=)`` keeps each rank's shard of every leaf: the
+shardings are a tree of ``launch.sharding.NamedSharding`` (from
+``params_shardings``, ``cache_shardings`` ...), each leaf loaded whole and
+cut by its sharding's ``local``.
 """
 from __future__ import annotations
 
@@ -147,11 +150,14 @@ class CheckpointManager:
 
     def restore(self, like_tree, step: int | None = None, shardings=None):
         """Restore into the structure of ``like_tree`` (its tensors give
-        each leaf's dtype and device).  Returns ``(tree, manifest)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) is not ported yet; it comes with the "
-                "mesh (ROADMAP queue 1, item 7)")
+        each leaf's dtype and device).  Returns ``(tree, manifest)``.
+
+        ``shardings``: a tree of the same structure whose leaves have a
+        ``local(tensor)`` method (``launch.sharding.NamedSharding``); each
+        leaf is loaded whole and this rank keeps ``local`` of it, so
+        ``restore(params, shardings=params_shardings(mesh, cfg, params))``
+        gives what ``place_params`` gives."""
+        keep = {} if shardings is None else _flatten(shardings)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -169,6 +175,8 @@ class CheckpointManager:
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
+            if key in keep:
+                t = keep[key].local(t)
             if isinstance(leaf, torch.Tensor):
                 return t.to(device=leaf.device, dtype=leaf.dtype)
             return t

@@ -1,7 +1,7 @@
 """Serving engine for the edge tier: continuous batching over a paged KV
 cache, with the synchronized-batch engine kept as a compat mode.
 
-Port of ``repro/serving/engine.py`` for one device.  Requests arrive
+Port of ``repro/serving/engine.py``.  Requests arrive
 continuously (the paper's serial queuing model), so the default engine
 admits per tick: a queued request prefills SOLO into a free decode slot
 (batch 1, left-padded to its bucket width) while the other slots keep
@@ -38,7 +38,21 @@ clock.  ``telemetry=`` (a :class:`repro_torch.obs.Telemetry`) adds metrics
 and spans at every lifecycle edge and per-tick gauges; ``sanitize=True``
 adds the KV-pool shadow ownership checks and the dispatch guards of
 ``repro_torch.analysis.sanitize``.  Off, each costs one ``is None`` check
-per site.  ``mesh=`` comes with a later slice and raises here.
+per site.
+
+``mesh=`` (a mesh with a "model" axis: ``launch.mesh.make_cells_mesh(
+model=M)``, ``make_host_mesh``, ``make_production_mesh``,
+``elastic_mesh``) turns on tensor parallelism: every rank of the mesh runs
+the same engine on the same requests, holding its shard of the weights
+(``launch.sharding.place_params`` of the whole tree, or, for a model
+larger than one card, the shard ``init_rank_params`` or a ``restore``
+with ``params_shardings`` gives, passed with its ``RankConfig``) and of
+the KV pool (the kv heads its query heads read), and
+each tick runs under the mesh's activation-sharding context, where the
+layers' collectives find the "model" sub-group.  The logits are gathered
+whole before the argmax, so every rank takes the same tokens and the same
+host decisions (admission, blocks, preemption), and the greedy tokens are
+the unsharded engine's.
 """
 from __future__ import annotations
 
@@ -48,10 +62,9 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import shardctx
 from ..models import transformer
 from . import kvpool
-
-LATER = "a later slice of the port"
 
 
 @dataclasses.dataclass
@@ -97,10 +110,10 @@ class ServingEngine:
                  sync_batching: bool = False, kv_block: int = 16,
                  kv_blocks: int | None = None, telemetry=None,
                  sanitize: bool = False, prefill_chunk="auto"):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                f"ServingEngine(mesh=) is not ported yet; it comes with "
-                f"{LATER}")
+            from ..launch.sharding import place_params
+            params, cfg = place_params(mesh, cfg, params)
         # token requests carry no context: both modes serve g/l/m/r/s only
         kvpool.check_pattern(cfg, sync=sync_batching)
         self.cfg, self.params = cfg, params
@@ -615,9 +628,10 @@ class ServingEngine:
         """One engine tick.  Returns False when idle.  The clock advances on
         every call, idle ticks included."""
         self.clock += 1
-        if self.sync_batching:
-            return self._step_sync()
-        alive = self._step_continuous()
+        with shardctx.mesh_context(self.mesh):
+            if self.sync_batching:
+                return self._step_sync()
+            alive = self._step_continuous()
         if self._san is not None and not alive:
             self._san.check_drain()         # idle engine: pool fully drained
         return alive

@@ -14,6 +14,16 @@ state ("r", "s") is O(1) per request, so those live as plain per-slot rows
 
 Where the reference returns a new pool, the port writes into the pool it
 was given (``commit_prefill``, ``commit_chunk``).
+
+Under a "model" mesh the pool's kv-head dim shards M ways where the kv
+heads divide M (``_pool_leaf_spec``, the reference's policy), and holds
+the kv heads the rank's query heads read where they do not; the block tables, ``seq_lens`` and the
+allocator stay on the host, replicated, so every rank makes the same
+decisions.  The policy replicates recurrent state; the rank-local layout
+(``launch.sharding``) keeps the RG-LRU's and the SSD's state of its own
+channels and heads.  The engine builds its rank's pool directly from its
+``RankConfig`` (``init_decode_state``), which is the pool
+``place_decode_state`` cuts from the whole one.
 """
 from __future__ import annotations
 
@@ -244,3 +254,71 @@ def commit_chunk(state, solo, chunk_start: int, n_new: int, slot: int,
         else:
             _copy_rows(pool, one, slot)
     return state
+
+
+def _pool_leaf_spec(mesh, path, leaf):
+    """Placement policy for one decode-state leaf: pool/ring kv-head dims
+    shard over "model" when divisible, everything else (block-shaped axes,
+    ring positions, recurrent state) replicates."""
+    from ..launch.sharding import P, _path_str
+    from ..shardctx import mesh_axes
+
+    axes = mesh_axes(mesh)
+    if "model" not in axes:
+        return P()
+    m = axes["model"]
+    name = _path_str(path).rsplit("/", 1)[-1]
+    if name in ("k", "v") and leaf.ndim >= 4 and leaf.shape[-2] % m == 0:
+        return P(*([None] * (leaf.ndim - 2)), "model", None)
+    return P()
+
+
+def decode_state_specs(mesh, state) -> list[tuple]:
+    """``[(path_str, shape, spec)]`` for every decode-state leaf: the
+    policy's (``state``'s leaves need only ``shape`` and ``ndim``; ``mesh``
+    may be a shape-only stand-in).  ``place_decode_state`` applies it to
+    the kv heads and the rank-local layout to the recurrent state."""
+    from ..launch.sharding import map_with_paths
+    out = []
+    map_with_paths(lambda path, leaf: out.append(
+        (path, tuple(leaf.shape), _pool_leaf_spec(mesh, path, leaf))), state)
+    return out
+
+
+def place_decode_state(mesh, state, cfg):
+    """This rank's shard of a whole decode state of ``cfg`` under
+    ``mesh``, by the rank-local layout (``launch.sharding.rank_config``):
+    the pools' and rings' kv heads the rank's query heads read (its share
+    where ``_pool_leaf_spec`` shards them, the run its query heads cover
+    where the policy replicates them), the RG-LRU's conv tail and state by
+    channel and the SSD's conv tail (x by head, B and C whole) and state
+    by head where the layer is split; everything else whole.  It equals
+    ``init_decode_state`` of the rank's ``RankConfig``."""
+    from ..launch.sharding import (_kv_heads, _part, _ssm_columns,
+                                   map_with_paths, rank_config)
+
+    view = rank_config(mesh, cfg)
+    m, r = view.model_size, view.model_rank
+
+    def kind_of(path):
+        parts = path.split("/")
+        if parts[0] == "units":
+            return cfg.block_pattern[int(parts[1].removeprefix("slot"))]
+        return cfg.tail_pattern[int(parts[1])]
+
+    def cut(path, leaf):
+        kind, name = kind_of(path), path.rsplit("/", 1)[-1]
+        if kind == "r" and "rglru" in view.split and name in ("conv", "h"):
+            return _part(leaf, -1, r, m)
+        if kind == "s" and "ssm" in view.split:
+            if name == "conv":
+                cols = torch.tensor(_ssm_columns(cfg, r, m, True),
+                                    device=leaf.device)
+                return leaf.index_select(-1, cols)
+            if name == "state":
+                return _part(leaf, -3, r, m)
+        if name in ("k", "v") and "attn" in view.split:
+            return _kv_heads(view, leaf, -2)
+        return leaf
+
+    return map_with_paths(cut, state)

@@ -1,7 +1,6 @@
 """Partitioned-model execution: the paper's Fig. 1 on the LM stack.
 
-Port of ``repro/serving/partitioned.py`` (without ``mesh=``, which comes
-with a later slice).  A ``PartitionedLM`` splits a decoder-only stack (the
+Port of ``repro/serving/partitioned.py``.  A ``PartitionedLM`` splits a decoder-only stack (the
 served layer kinds: g, l, m, r, s; no tail, as in the reference) at a *unit*
 boundary: units ``0..cut_unit-1`` run on the device tier (UE), the
 rest on the edge tier (ES), and the boundary hidden state (psi in the
@@ -9,12 +8,19 @@ paper) crosses between.  The LyMDO controller picks the cut per slot from
 the arch's layer profile (``profiling.lmprofiles``); ``layer_cut_to_unit``
 maps a profile-layer cut onto a unit cut.  At the full-offload cut the ES
 half holds the whole stack and ``es_engine`` serves token traffic on it.
+
+``mesh=`` (a mesh with a "model" axis) runs both halves tensor-parallel:
+each rank places its shard of each half (``launch.sharding.place_params``;
+``params`` already the rank's, with its ``RankConfig`` as ``cfg``, pass
+through) and runs under the mesh's activation-sharding context, while the boundary
+activation (psi) stays replicated over "model"; ``es_engine`` passes the
+mesh and the placed ES half on.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _tree
+from .. import _tree, shardctx
 from ..configs.base import ArchConfig
 from ..models import transformer
 from ..models.common import dtype_of
@@ -47,10 +53,6 @@ class PartitionedLM:
     are not given (the reference fails on them at the first pass)."""
 
     def __init__(self, cfg: ArchConfig, params, cut_unit: int, *, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PartitionedLM(mesh=) is not ported yet; it comes with a "
-                "later slice of the port")
         if cfg.tail_pattern or cfg.enc_layers:
             raise ValueError(
                 f"{cfg.name}: the partitioned model takes plain stacks, "
@@ -62,8 +64,12 @@ class PartitionedLM:
                 f"context its halves are not given")
         self.cfg = cfg
         self.cut_unit = int(cut_unit)
-        self.mesh = None
+        self.mesh = mesh
         self.ue_params, self.es_params = split_params(params, self.cut_unit)
+        if mesh is not None:
+            from ..launch.sharding import place_params
+            self.ue_params, self.cfg = place_params(mesh, cfg, self.ue_params)
+            self.es_params, _ = place_params(mesh, cfg, self.es_params)
 
     def _ue_half(self, tokens):
         x = transformer._embed(self.ue_params, self.cfg, tokens)
@@ -92,14 +98,17 @@ class PartitionedLM:
                 f"whole stack on the ES tier); got cut_unit="
                 f"{self.cut_unit}")
         from .engine import ServingEngine
-        return ServingEngine(self.cfg, self.es_params, **engine_kwargs)
+        return ServingEngine(self.cfg, self.es_params, mesh=self.mesh,
+                             **engine_kwargs)
 
     def infer(self, tokens):
         """Returns (logits, boundary activation): the latter is what the
         transmission model charges for."""
-        if self.cut_unit == 0:
-            # full offload: raw tokens cross the uplink, ES does everything
-            x = transformer._embed(self.es_params, self.cfg, tokens)
-            return self._es_half(x.to(dtype_of(self.cfg.compute_dtype))), tokens
-        hidden = self._ue_half(tokens)
-        return self._es_half(hidden), hidden
+        with shardctx.mesh_context(self.mesh):
+            if self.cut_unit == 0:
+                # full offload: raw tokens cross the uplink, ES does it all
+                x = transformer._embed(self.es_params, self.cfg, tokens)
+                return (self._es_half(x.to(dtype_of(self.cfg.compute_dtype))),
+                        tokens)
+            hidden = self._ue_half(tokens)
+            return self._es_half(hidden), hidden

@@ -72,8 +72,17 @@ def test_checkpoint_async(tmp_path, tree):
     assert mgr.latest_step() == 1
 
 
+class _Half:
+    """A sharding that keeps the first half of a leaf's leading dim."""
+
+    def local(self, t):
+        return t[:t.shape[0] // 2]
+
+
 def test_checkpoint_atomicity(tmp_path, tree):
-    """A leftover .tmp dir from a crashed writer is invisible to restore."""
+    """A leftover .tmp dir from a crashed writer is invisible to restore;
+    ``restore(shardings=)`` keeps each sharded leaf's ``local`` part and
+    every other leaf whole."""
     mgr = CheckpointManager(str(tmp_path), async_save=False)
     mgr.save(1, tree)
     os.makedirs(tmp_path / "step_0000000009.tmp")
@@ -81,8 +90,9 @@ def test_checkpoint_atomicity(tmp_path, tree):
     assert mgr.restore_or_none(tree)[1]["step"] == 1
     assert CheckpointManager(str(tmp_path / "empty")).restore_or_none(
         tree) == (None, None)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mgr.restore(tree, shardings=object())
+    got, _ = mgr.restore(tree, shardings={"a": _Half(), "nested": None})
+    assert torch.equal(got["a"], tree["a"][:tree["a"].shape[0] // 2])
+    assert torch.equal(got["nested"]["b"], tree["nested"]["b"])
 
 
 def test_bf16_crosses_both_ways_as_raw_bits(tmp_path, tree):

@@ -183,7 +183,7 @@ def test_launch_train_resumes_to_the_uninterrupted_run(tmp_path):
     assert _equal_trees(resumed["params"], whole["params"])
     assert _equal_trees(resumed["opt"], whole["opt"])
     assert len(whole["step_s"]) == 6 and min(whole["step_s"]) > 0
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 512 ranks"):
         p_train.main(["--arch", "qwen3-0.6b", "--multi-pod"])
 
 

@@ -1151,3 +1151,56 @@ def test_train_step_on_card_matches_the_cpu():
     after = float(p_steps.loss_fn(new, cfg, _tree.to_device(nxt, "cuda"))[0])
     cpu_after = float(p_steps.loss_fn(cpu_new, cfg, nxt)[0])
     assert abs(after - cpu_after) <= 1e-5 * abs(cpu_after)
+
+
+def _one_rank_card_tokens(ma) -> dict:
+    """The one-rank card engine's tokens on every card case, on seed 0's
+    weights drawn on the host as ``init_rank_params`` draws them."""
+    want = {}
+    for name in ma.CARD_NAMES:
+        cfg = ma.card_cfg(name)
+        params = _tree.to_device(p_tf.init_params(0, cfg, "cpu"), "cuda")
+        for case in ma.CARD_CASES:
+            want[(name, case)] = ma.run_engine(p_engine, cfg, params, case)
+    return want
+
+
+@pytest.mark.gpu
+def test_model_axis_on_card_matches_one_rank():
+    """Two ranks on the one card (gloo: NCCL takes one rank a device) on a
+    2-way model axis give the one-rank card engine's float32 tokens, with
+    chunked prefill and preemption: qwen3-0.6b at full width (2 layers)
+    and the g, r, s hybrid (one unit)."""
+    _need_card()
+    import _model_axis as ma
+    from repro_torch.launch.mesh import run_world
+    ranks = run_world(ma.card_world, 2, backend="gloo", device="cuda:0",
+                      deadline_s=300)
+    want = _one_rank_card_tokens(ma)
+    for key, w in want.items():
+        for r in ranks:
+            assert r[key] == w, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", [2, 4])
+def test_model_axis_under_nccl_matches_one_rank(model):
+    """``model`` ranks, one a card, on a ``model``-way axis under NCCL:
+    the collectives run on the device (in place, no host copy), and each
+    rank, holding only its drawn shard, gives the one-rank card engine's
+    float32 tokens on both stacks, with chunked prefill and
+    preemption."""
+    _need_card()
+    if torch.cuda.device_count() < model:
+        pytest.skip(f"needs {model} cards, one a rank under NCCL; this "
+                    f"machine has {torch.cuda.device_count()}")
+    import _model_axis as ma
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+    _build.build_all(_build.all_libraries())      # once, not once a rank
+    ranks = run_world(ma.card_world, model, args=(model,), backend="nccl",
+                      device="cuda", deadline_s=300)
+    want = _one_rank_card_tokens(ma)
+    for key, w in want.items():
+        for r in ranks:
+            assert r[key] == w, key

@@ -233,10 +233,10 @@ def test_init_group_reads_torchruns_rank(monkeypatch, tmp_path):
 
 
 def test_use_mesh_model_axis_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7c"):
         mw.multicell(3).use_mesh(model=2)
     two_d = FakeMesh(2, names=("cells", "model"), sizes=(1, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7c"):
         mw.multicell(3).use_mesh(two_d)
 
 

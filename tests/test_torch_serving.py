@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs.base import get_config as r_get_config
 from repro.configs.base import load_all as r_load_all
@@ -26,6 +27,7 @@ from repro.serving import engine as r_engine
 from repro.serving import kvpool as r_kvpool
 from repro.serving import partitioned as r_part
 from repro_torch.configs import base as p_base
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as p_tf
 from repro_torch.serving import engine as p_engine
 from repro_torch.serving import kvpool as p_kvpool
@@ -314,8 +316,17 @@ def test_es_engine_full_offload_only(model):
     assert req.out == r_req.out
     with pytest.raises(ValueError, match="full-offload"):
         p_part.PartitionedLM(p_cfg, p_params, 2).es_engine(slots=1, s_max=64)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        p_part.PartitionedLM(p_cfg, p_params, 0, mesh=object())
+    mesh = make_host_mesh()               # 1 x 1: the same tokens
+    try:
+        eng = p_part.PartitionedLM(p_cfg, p_params, 0, mesh=mesh).es_engine(
+            slots=1, s_max=64)
+        assert eng.mesh is mesh
+        req = p_engine.Request(rid=0, prompt=prompt, max_new=4)
+        eng.submit(req)
+        eng.run_until_idle()
+    finally:
+        dist.destroy_process_group()
+    assert req.out == r_req.out
 
 
 @pytest.mark.parametrize("option", [dict(sync_batching=True),
@@ -323,14 +334,18 @@ def test_es_engine_full_offload_only(model):
                                     dict(telemetry=object()),
                                     dict(sanitize=True)])
 def test_unported_engine_options_raise(model, option):
-    """``mesh=`` is the one engine option still unported, and it raises;
-    the sync mode, telemetry and the sanitizer are ported and build."""
+    """Every engine option is ported now and builds: the sync mode,
+    telemetry, the sanitizer and ``mesh=`` (here the 1 x 1 host mesh)."""
     _, p_cfg, _, p_params = model
     name = next(iter(option))
     if name == "mesh":
-        with pytest.raises(NotImplementedError, match=name):
-            p_engine.ServingEngine(p_cfg, p_params, slots=1, s_max=32,
-                                   **option)
+        mesh = make_host_mesh()
+        try:
+            eng = p_engine.ServingEngine(p_cfg, p_params, slots=1, s_max=32,
+                                         mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+        assert eng.mesh is mesh and eng.cfg.model_size == 1
         return
     if name == "telemetry":
         from repro_torch.obs import Telemetry

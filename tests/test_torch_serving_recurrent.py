@@ -110,7 +110,7 @@ def test_launch_serve_engine_and_refusals():
     params = p_tf.init_params(0, cfg, "cpu")
     eng = p_serve.make_engine(cfg, params, slots=3, prompt_len=40, max_new=6)
     assert (eng.slots, eng.s_max, eng.prefill_chunk) == (3, 54, 32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="needs 512 ranks"):
         p_serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
                       "--multi-pod"])
     sync = p_serve.make_engine(cfg, params, slots=3, prompt_len=40,
