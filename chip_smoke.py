@@ -11,7 +11,9 @@ moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
 through the serving launcher, and llama4-maverick, llama-3.2-vision and
 seamless-m4t through the model's entry points; qwen3-0.6b trained at full
 width through the training launcher; the grid sharded over a cells mesh
-of processes; qwen3-0.6b served tensor-parallel over two ranks -- and
+of processes; qwen3-0.6b served tensor-parallel over two ranks; the
+grid's per-cell model axis; qwen3-0.6b trained over a (data, model) mesh
+of processes -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
@@ -199,7 +201,25 @@ the card:
    one-rank float32 logits as the one-rank bf16 logits do.  Every kernel
    call a rank makes must be at a shape phase 5 (attention) or phase 7
    (scans) held; a failing rank or a world past its deadline fails the
-   run; the phase logs its seconds against a 90 s budget.
+   run; the phase logs its seconds against a 90 s budget;
+15. drives the grid's model axis and the mesh's training half, on one card
+   over gloo: (a) two processes on ``make_cells_mesh(model=2)`` run phase
+   3's grid with 4 of each cell's 8 UEs a rank for 3 slots of the Oracle
+   and Random, whose gathered results must equal phase 3's first 3
+   slots, with one sweep launch a rank per Oracle slot over 4096 x 4 rows
+   and the even split over 8; (b) four processes on a (data 2, model 2)
+   mesh run ``launch.train.main`` (``TM_ARGS``: qwen3-0.6b at full width,
+   bf16, remat, B8 S512 over the world, 2 microbatches, 4 steps, at
+   ``TM_LAYERS`` of its 28 layers) with exact flash launches a rank and a
+   finite loss, logging step p50 a rank, tokens/s over the world, the
+   collectives' share of a step and peak memory a rank; (c) in the same
+   world, one float32 step of qwen3 and gemma3-1b (l, g) at 4 layers and
+   moonshot (no-drop) at 1, at full width, equal to the one-rank card
+   step (Adam's moments within 1e-4 / 2e-4 of each leaf's max, the next
+   batch's loss within 1e-5), and ``make_grad_sync`` in modes bf16 and
+   int8 on card tensors equal to the same call on CPU ones, bit for bit.
+   Every shape a rank launches flash at must be one phase 5 and phase 12
+   (a) held; the phase logs its seconds against a 90 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -483,6 +503,16 @@ def sweep_cases(torch, grid, rng) -> list:
     fig4, _ = fig4_grid()
     cases.append((f"(g) {EVAL_CELLS} fixed_rate cells x {env.n_ue} UEs",
                   grid_args(fig4, 9)))
+
+    # (h) phase 15 (a)'s rank: GM_COLS of each cell's GRID_UES UEs, the even
+    # split over all GRID_UES
+    for r in range(GM_RANKS):
+        cols = slice(r * GM_COLS, (r + 1) * GM_COLS)
+        cases.append((f"(h) a model rank's UEs {cols.start}-{cols.stop - 1} "
+                      f"of the {GRID_CELLS}x{GRID_UES} grid, split over "
+                      f"{GRID_UES}",
+                      tuple(t[:, cols] for t in cases[0][1][:9])
+                      + (cases[0][1][9], GRID_UES)))
     return cases
 
 
@@ -966,6 +996,22 @@ FLASH_CASES += (
     + [(f"phase 14 moonshot rank, bucket {w}", 1, w, w, 8, 8, 128, "f32",
         "causal", 0, pad) for w in (*TP_BUCKETS, 64)
        for pad in ([w // 3], None)])
+# phase 15: (b)'s rank trains qwen3 (B2 a microbatch, 8 of 16 heads); (c)'s
+# float32 steps, one rank (B2), a rank of the mesh (its row, half the
+# heads) and the mesh's next-batch loss (B2, half the heads)
+TM_FLASH = (
+    [("phase 15 (b) qwen3 training rank", 2, 512, 512, 8, 4, 128, "bf16",
+      "causal", 0, None)]
+    + [(f"phase 15 (c) {label}", b, s, s, h, kv, hd, "f32", kind, 64, None)
+       for label, s, heads, hd, kinds in (
+           ("qwen3", 128, (16, 8), 128, ("causal",)),
+           ("gemma3 (l, g)", 128, (4, 1), 256, ("local", "causal")),
+           ("moonshot", 1024, (16, 16), 128, ("causal",)))
+       for b, h, kv in ((2, *heads),
+                        *((b, heads[0] // 2, max(heads[1] // 2, 1))
+                          for b in (1, 2)))
+       for kind in kinds])
+FLASH_CASES += TM_FLASH
 DECODE_CASES += [
     ("phase 14 recurrentgemma rank: the ring, 3 slots", 3, 2048, 5, 1, 256,
      "f32", True),
@@ -2740,7 +2786,7 @@ FLASH_GRAD_CASES = [
     ("g64", 1, 40, 40, 64, 1, 64, "bf16", "causal", 0, None),
     ("g64", 1, 40, 40, 64, 1, 64, "f32", "causal", 0, None),
     ("5 key tiles", 2, 320, 320, 8, 4, 128, "bf16", "causal", 0, None),
-]
+] + TM_FLASH
 
 
 def seen_rows(torch, b, sq, sk, kind, window, pad):
@@ -2962,6 +3008,20 @@ def max_tree_diff(torch, a, b) -> float:
     from repro_torch import _tree
     return max(float((x.float() - y.float()).abs().max())
                for x, y in zip(_tree.leaves(a), _tree.leaves(b)))
+
+
+@contextlib.contextmanager
+def train_depth(layers: int):
+    """``launch.train`` builds its configs at ``layers`` layers while the
+    block runs (its CLI has no depth flag, as the reference's has none)."""
+    from repro_torch.launch import train
+    full = train.get_config
+    train.get_config = lambda name: dataclasses.replace(full(name),
+                                                        n_layers=layers)
+    try:
+        yield
+    finally:
+        train.get_config = full
 
 
 def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
@@ -3797,6 +3857,517 @@ def model_phase(torch, phase6: dict) -> dict:
     return out
 
 
+# -- phase 15: the model mesh's training half and the grid's model axis --------
+
+GM_RANKS = 2                          # (a): make_cells_mesh(model=2) on one card
+GM_SLOTS = 3                          # (a): timed slots a policy
+GM_COLS = GRID_UES // GM_RANKS        # (a): a rank's UEs of each cell
+TM_RANKS, TM_DATA, TM_MODEL = 4, 2, 2  # (b), (c): one world, (data 2, model 2)
+TM_STEPS = 4
+TM_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512", "--lr",
+           "3e-4", "--steps", str(TM_STEPS)]
+TM_MICRO = 2                          # launch.train's for qwen3-0.6b
+# (b)'s depth, cut from 28 so that the phase keeps within its budget: on
+# an H100 80GB HBM3 at 700 W, with the vocabulary-parallel loss, a step
+# took 8.0 s at 28 layers (1,176 all-reduces on gloo host copies over 4
+# steps, 41 % of the steps' time; the phase 103 s) and 1.6 s at 4
+TM_LAYERS = 4
+# a rank's launches a step: a flash forward per layer and microbatch, again
+# in the remat recompute, and one backward
+TM_FLASH_FWD, TM_FLASH_BWD = 2 * TM_LAYERS * TM_MICRO, TM_LAYERS * TM_MICRO
+TM_ROWS = 8 // TM_DATA // TM_MICRO    # a microbatch's rows on a rank
+TM_F32_LAYERS = 4                     # (c)
+# (c)'s moonshot: 1 layer (the one-rank reference beside four ranks'
+# float32 training state ran the card out of memory at 2), and 1,024
+# tokens a data rank so that each rank's MoE dispatch groups (1,024
+# tokens) are the whole batch's
+TM_F32_MOON_LAYERS, TM_F32_MOON_SEQ = 1, 1024
+TM_F32_SEQ = 128                      # (c)'s qwen3 and gemma3, B2 over data 2
+TM_SYNC_MODES = ("bf16", "int8")
+TM_DEADLINE_S = 400.0                 # a spawned world still running then is ended
+TM_READY_S = 120.0                    # (a) waits at most this for (b)'s ranks
+MM_BUDGET_S = 90.0                    # the phase's share of the smoke's time limit
+DIST_CALLS = ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
+              "barrier")
+
+
+@contextlib.contextmanager
+def timed_collectives(spent: dict):
+    """Add to ``spent`` the count and host seconds of every
+    ``torch.distributed`` collective called while the block runs (gloo
+    here: the host copies are outside it)."""
+    import torch.distributed as dist
+    saved = {n: getattr(dist, n) for n in DIST_CALLS}
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                calls, s = spent.get(name, (0, 0.0))
+                spent[name] = (calls + 1, s + time.perf_counter() - t0)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def gm_rank(slots: int, ready: str) -> dict:
+    """A rank of phase 15 (a): phase 3's grid on ``make_cells_mesh(model=
+    GM_RANKS)``, each cell's UEs split over "model", rolled out under each
+    of MESH_POLICIES for ``slots`` slots from seed 0; the sweep's calls
+    (rows, cells and split count) and launches counted, and the model
+    axis's collectives a slot timed.  It starts beside (b)'s world,
+    builds its grid, and times nothing until that world's TM_RANKS ranks
+    are up (a file each under ``ready``; at most TM_READY_S), so that no
+    start shares the host with its timed work."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import gridshard, scenarios
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import partition_sweep as ps
+    from repro_torch.launch.mesh import make_cells_mesh
+
+    mesh = make_cells_mesh(model=GM_RANKS)
+    t0 = time.perf_counter()
+    grid = scenarios.ScenarioGrid(
+        scenarios.multicell_grid(cells=GRID_CELLS, ues=GRID_UES))
+    grid.use_mesh(mesh)
+    gs = grid.ue_sharding
+    out = {"rank": dist.get_rank(), "device": torch.cuda.current_device(),
+           "cols": None if gs is None else (gs.ue_cols.start, gs.ue_cols.stop),
+           "b_local": grid.b_local, "build_s": time.perf_counter() - t0}
+    end = time.perf_counter() + TM_READY_S
+    while (len(os.listdir(ready)) < TM_RANKS
+           and time.perf_counter() < end):
+        time.sleep(0.05)
+    dist.barrier()
+    calls, plain = [], ops.partition_sweep_batched
+    whole, spent = gridshard.GridSharding.ue_whole, []
+
+    def recorded(macs, *args):
+        calls.append((*macs.shape, args[9] if len(args) > 9 else None))
+        return plain(macs, *args)
+
+    def timed(self, xs):
+        t1 = time.perf_counter()
+        try:
+            return whole(self, xs)
+        finally:
+            spent.append(time.perf_counter() - t1)
+
+    ops.partition_sweep_batched = recorded
+    gridshard.GridSharding.ue_whole = timed
+    try:
+        for policy in MESH_POLICIES:
+            calls.clear()
+            spent.clear()
+            ps.partition_sweep_cuda.launches = 0
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, res, summary = grid.make_rollout(policy, slots)(0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[policy] = {
+                "slot_ms": dt / slots * 1e3,
+                "launches": ps.partition_sweep_cuda.launches,
+                "calls": list(calls),
+                "collectives_per_slot": len(spent) / slots,
+                "collective_ms_per_slot": sum(spent) * 1e3 / slots,
+                "results": {f"results.{k}": v.detach().cpu()
+                            for k, v in res._asdict().items()}}
+    finally:
+        ops.partition_sweep_batched = plain
+        gridshard.GridSharding.ue_whole = whole
+    return out
+
+
+def tm_f32_configs() -> list:
+    """(c)'s float32 stacks at full width: qwen3 (g) and gemma3-1b as (l, g)
+    with window 64 at TM_F32_LAYERS layers and TM_F32_SEQ tokens, moonshot
+    (m, at the no-drop capacity factor) at TM_F32_MOON_LAYERS layers and
+    TM_F32_MOON_SEQ tokens."""
+    from repro_torch.configs.base import get_config
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               opt_state_dtype="float32")
+    return [
+        ("qwen3-0.6b", dataclasses.replace(
+            get_config("qwen3-0.6b"), n_layers=TM_F32_LAYERS, **f32),
+         TM_F32_SEQ),
+        ("gemma3-1b (l, g)", dataclasses.replace(
+            get_config("gemma3-1b"), n_layers=TM_F32_LAYERS,
+            block_pattern=("l", "g"), tail_pattern=(), window=64, **f32),
+         TM_F32_SEQ),
+        ("moonshot-v1-16b-a3b", no_drop(dataclasses.replace(
+            get_config("moonshot-v1-16b-a3b"),
+            n_layers=TM_F32_MOON_LAYERS, **f32)), TM_F32_MOON_SEQ)]
+
+
+def tm_f32_case(torch, mesh, cfg, seq: int) -> dict:
+    """(c): one float32 step of ``cfg`` from the same weights (drawn on the
+    card) and batch (B2), on one rank and on the mesh.  Every rank draws
+    the whole weights and keeps its shard; the two ranks of data index 0
+    also take the one-rank step with the whole model and keep their shard
+    of its moments on the host.  Then every rank takes the mesh's step.  Returns, on
+    those two ranks, each moment leaf's worst error over its max (the
+    whole leaf's) and the next batch's loss both ways; on every rank a
+    digest of its moments, which data ranks must share."""
+    import torch.distributed as dist
+    from repro_torch import _tree, shardctx
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import steps, transformer
+
+    stream = for_arch(cfg, batch=2, seq=seq, seed=3)
+    b0 = _tree.to_device(stream.get_batch(0), "cuda")
+    b1 = _tree.to_device(stream.get_batch(1), "cuda")
+    out: dict = {}
+    ref = None
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    local, view = sharding.place_params(mesh, cfg, params)
+    if mesh.get_local_rank("data") == 0:
+        init, step = steps.make_train_step(cfg, lr=1e-3)
+        new, opt, _ = step(params, init(params), b0)
+        out["loss_after_one"] = float(steps.loss_fn(new, cfg, b1)[0])
+        scale = {k: [float(t.abs().max()) for t in _tree.leaves(tree)]
+                 for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+        # on the host: four ranks' float32 training state fills the card
+        ref = {k: _tree.to_device(sharding.place_params(mesh, cfg, tree)[0],
+                                  "cpu")
+               for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+        del new, opt
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["one_s"] = time.perf_counter() - t0
+    init, step = train.make_mesh_train_step(mesh, view, lr=1e-3)
+    t0 = time.perf_counter()
+    new, opt, metrics = step(local, init(local), b0)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with shardctx.activation_sharding(mesh):
+        out["loss_after_mesh"] = float(steps.loss_fn(new, view, b1)[0])
+    out["loss"] = float(metrics["loss"])
+    out["digest"] = [float(t.sum()) for t in
+                     _tree.leaves(opt.mu) + _tree.leaves(opt.nu)]
+    if ref is not None:          # a leaf at a time, back on the card
+        for k in ("mu", "nu"):
+            out[f"{k}_rel"] = max(
+                float((got.float() - want.to(got.device)).abs().max())
+                / max(sc, 1e-30)
+                for got, want, sc in zip(_tree.leaves(getattr(opt, k)),
+                                         _tree.leaves(ref[k]), scale[k]))
+    del new, opt, local, ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["check_s"] = time.perf_counter() - t0
+    return out
+
+
+def tm_grad_sync(torch, mesh) -> dict:
+    """(c): ``make_grad_sync`` over the data axis in modes bf16 and int8 on
+    card tensors and on the same tensors on the CPU: every output must be
+    equal, bit for bit."""
+    from repro_torch import _tree
+    from repro_torch.runtime import compression
+    gen = torch.Generator().manual_seed(100 + mesh.get_local_rank("data"))
+    cpu = {"w": torch.randn(512, 1024, generator=gen),
+           "b": torch.randn(3000, generator=gen) * 1e-3}
+    zeros = _tree.map_tensors(torch.zeros_like, cpu)
+    card = _tree.to_device(cpu, "cuda")
+    out = {}
+    for mode in TM_SYNC_MODES:
+        sync = compression.make_grad_sync(mesh, "data", mode)
+        c_mean, c_res = sync(card, _tree.to_device(zeros, "cuda"))
+        h_mean, h_res = sync(cpu, zeros)
+        out[mode] = all(torch.equal(a.cpu(), b) for a, b in zip(
+            _tree.leaves(c_mean) + _tree.leaves(c_res),
+            _tree.leaves(h_mean) + _tree.leaves(h_res)))
+    return out
+
+
+def tm_rank(go_file: str, ready: str) -> dict:
+    """A rank of phase 15 (b) and (c), on ``elastic_mesh(TM_MODEL)`` over
+    TM_RANKS ranks: (data TM_DATA, model TM_MODEL).  Up (a file under
+    ``ready``), it waits for ``go_file``, which the phase writes when (a)
+    is done, so that the two worlds start together and nothing else runs
+    beside (b); then (b) ``launch.train.
+    main(TM_ARGS, mesh=)``, the kernels' launches counted and their shapes
+    recorded, the collectives timed; (c) ``tm_f32_case`` of each
+    ``tm_f32_configs`` stack, and ``tm_grad_sync``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import elastic_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic_mesh(TM_MODEL)
+    out = {"rank": dist.get_rank(),
+           "coords": (mesh.get_local_rank("data"),
+                      mesh.get_local_rank("model")),
+           "shape": tuple(mesh.mesh.shape)}
+    torch.zeros(1, device="cuda")      # the rank's CUDA context is up
+    pathlib.Path(ready, f"tm{out['rank']}").touch()
+    t0 = time.perf_counter()
+    while not os.path.exists(go_file):
+        time.sleep(0.05)
+    dist.barrier()
+    out["waited_s"] = time.perf_counter() - t0
+    seen: set = set()
+    spent: dict = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorded_launches(seen), timed_collectives(spent), \
+            train_depth(TM_LAYERS):
+        run = train.main(TM_ARGS, mesh=mesh)
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["losses"] = [run["losses"][s] for s in range(TM_STEPS)]
+    out["step_s"] = run["step_s"]
+    out["microbatches"] = run["microbatches"]
+    out["collectives"] = spent
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["train_seen"] = set(seen)
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with recorded_launches(seen):
+        out["f32"] = {label: tm_f32_case(torch, mesh, cfg, seq)
+                      for label, cfg, seq in tm_f32_configs()}
+    out["sync"] = tm_grad_sync(torch, mesh)
+    out["f32_s"] = time.perf_counter() - t0
+    out["seen"] = seen
+    return out
+
+
+def gm_part(torch, held: dict, phase3: dict, cuts: int, ready: str,
+            out: dict) -> int:
+    """Phase 15 (a): the grid's model axis on GM_RANKS ranks, held to phase
+    3's unsharded results (``held``); its numbers go into ``out``.  Returns
+    the sweep's launches."""
+    from repro_torch.launch.mesh import run_world
+    # (a) the grid's model axis
+    log(f"[15] (a) {GRID_CELLS}x{GRID_UES} grid on make_cells_mesh(model="
+        f"{GM_RANKS}), {GM_RANKS} ranks on one card (gloo), {GM_COLS} UEs "
+        f"of each cell a rank, {GM_SLOTS} slots of "
+        + " and ".join(MESH_POLICIES) + ", against phase 3")
+    t0 = time.perf_counter()
+    ranks = run_world(gm_rank, GM_RANKS, args=(GM_SLOTS, ready),
+                      backend="gloo",
+                      device="cuda:0", deadline_s=TM_DEADLINE_S)
+    sweep_calls = 0
+    for r in ranks:
+        want_cols = (r["rank"] * GM_COLS, (r["rank"] + 1) * GM_COLS)
+        if r["cols"] != want_cols or r["device"] != 0:
+            fail(f"(a) rank {r['rank']} held UEs {r['cols']} on cuda:"
+                 f"{r['device']}, expected {want_cols} on cuda:0")
+        for policy in MESH_POLICIES:
+            got = r[policy]
+            n = GM_SLOTS if policy == "oracle" else 0
+            if got["launches"] != n or got["calls"] != [
+                    (GRID_CELLS, GM_COLS, cuts, GRID_UES)] * n:
+                fail(f"(a) rank {r['rank']} {policy}: {got['launches']} sweep "
+                     f"launches at {got['calls']}, expected {n} at "
+                     f"{(GRID_CELLS, GM_COLS, cuts, GRID_UES)}")
+            sweep_calls += got["launches"]
+            want = {k: v[:GM_SLOTS] for k, v in held[policy].items()
+                    if k.startswith("results.")}
+            bad = mesh_mismatch(torch, got["results"], want)
+            if bad:
+                fail(f"(a) rank {r['rank']} {policy} parts from phase 3's "
+                     f"first {GM_SLOTS} slots: {bad}")
+        log(f"    rank {r['rank']} (UEs {r['cols'][0]}-{r['cols'][1] - 1}): "
+            f"grid built in {r['build_s']:.1f} s beside (b)'s start; "
+            + "; ".join(f"{p} {r[p]['slot_ms']:.1f} ms/slot (phase 3 "
+                        f"{phase3[p]['slot_ms']:.1f}), "
+                        f"{r[p]['collectives_per_slot']:.0f} collectives "
+                        f"{r[p]['collective_ms_per_slot']:.2f} ms a slot"
+                        for p in MESH_POLICIES))
+    log(f"    every rank's gathered results equal phase 3's first {GM_SLOTS} "
+        f"slots (cuts identical, rtol {MESH_RTOL:g}, atol {MESH_ATOL:g}); "
+        f"one sweep launch a rank per Oracle slot over {GRID_CELLS}x{GM_COLS} "
+        f"rows with the even split over {GRID_UES}")
+    out["grid"] = [{"rank": r["rank"], "build_s": r["build_s"],
+                    **{f"{p}_{k}": r[p][k] for p in MESH_POLICIES
+                       for k in ("slot_ms", "collectives_per_slot",
+                                 "collective_ms_per_slot")}}
+                   for r in ranks]
+    out["phase3_slot_ms"] = {p: phase3[p]["slot_ms"] for p in MESH_POLICIES}
+    out["a_s"] = time.perf_counter() - t0
+    log(f"    (a) took {out['a_s']:.1f} s")
+    return sweep_calls
+
+
+def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
+    """Phase 15: (a) the grid's model axis on GM_RANKS ranks, held to phase
+    3's unsharded results (``held``); (b) ``launch.train`` over a (data 2,
+    model 2) mesh of TM_RANKS ranks at full width; (c) float32 steps of
+    the mesh against one rank's, and the compressed gradient sync on the
+    card against the CPU."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import run_world
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # the two worlds start together; (a)'s timed work waits for (b)'s
+    # ranks to be up, and (b) for (a) to end (go_file).  The ranks'
+    # allocators grow their segments, so that four processes' freed
+    # blocks do not strand the card's memory
+    go_file = ROOT / "build" / "phase15_go"
+    ready = ROOT / "build" / "phase15_ready"
+    shutil.rmtree(ready, ignore_errors=True)
+    ready.mkdir(parents=True)
+    go_file.unlink(missing_ok=True)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    pool = ThreadPoolExecutor(1)
+    world = pool.submit(run_world, tm_rank, TM_RANKS,
+                        args=(str(go_file), str(ready)), backend="gloo",
+                        device="cuda:0", deadline_s=TM_DEADLINE_S)
+    try:
+        grid_part = gm_part(torch, held, phase3, cuts, str(ready), out)
+    finally:
+        go_file.touch()
+        pool.shutdown(wait=False)
+    t0 = time.perf_counter()
+    log(f"[15] (b) python -m repro_torch.launch.train {' '.join(TM_ARGS)} on "
+        f"a (data {TM_DATA}, model {TM_MODEL}) mesh, {TM_RANKS} ranks on one "
+        f"card (gloo), full width at {TM_LAYERS} of 28 layers; (c) float32 "
+        f"steps against one rank's and the compressed gradient sync, card "
+        f"against CPU")
+    try:
+        ranks = world.result()
+    finally:
+        go_file.unlink(missing_ok=True)
+        shutil.rmtree(ready, ignore_errors=True)
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    out["sweep_launches"] = grid_part
+    want = {"flash_attention": TM_FLASH_FWD * TM_STEPS,
+            "flash_attention_backward": TM_FLASH_BWD * TM_STEPS,
+            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    launched = {"flash_attention": 0, "flash_attention_backward": 0}
+    tokens = 8 * 512
+    for r in ranks:
+        if r["shape"] != (TM_DATA, TM_MODEL):
+            fail(f"(b) rank {r['rank']} on a {r['shape']} mesh")
+        if r["launches"] != want:
+            fail(f"(b) rank {r['rank']}: launches {r['launches']}, expected "
+                 f"{want}")
+        if r["microbatches"] != TM_MICRO:
+            fail(f"(b) rank {r['rank']}: {r['microbatches']} microbatches")
+        if not all(x == x and abs(x) < 1e30 for x in r["losses"]):
+            fail(f"(b) rank {r['rank']}: a loss is not finite: {r['losses']}")
+        if r["losses"] != ranks[0]["losses"]:
+            fail(f"(b) the ranks report different losses")
+        for k in launched:
+            launched[k] += r["launches"][k]
+        steps_s = r["step_s"][1:]              # step 0 builds and warms
+        p50 = sorted(steps_s)[len(steps_s) // 2]
+        coll_s = sum(s for _, s in r["collectives"].values())
+        share = coll_s / sum(r["step_s"])
+        r["p50_s"], r["share"] = p50, share
+        log(f"    rank {r['rank']} (data {r['coords'][0]}, model "
+            f"{r['coords'][1]}): run {r['train_s']:.1f} s (set-up "
+            f"{r['train_s'] - sum(r['step_s']):.1f} s, step 0 "
+            f"{r['step_s'][0]:.1f} s), step p50 "
+            f"{p50 * 1e3:.1f} ms ({tokens / p50:,.0f} tokens/s over the "
+            f"world), collectives {share:.3f} of the steps' time ("
+            + ", ".join(f"{k} x{c} {s:.2f} s" for k, (c, s)
+                        in sorted(r["collectives"].items()))
+            + f"), peak memory {r['peak_bytes'] / 1e9:.2f} GB")
+    log(f"    losses {['%.4f' % x for x in ranks[0]['losses']]}; launches a "
+        f"rank {ranks[0]['launches']}")
+    train_seen = set().union(*(r["train_seen"] for r in ranks))
+    want_seen = {("flash", "bf16", TM_ROWS, 512, 512, 16 // TM_MODEL,
+                  8 // TM_MODEL, 128, "causal", False)}
+    if train_seen != want_seen:
+        fail(f"(b) flash launched at {sorted(train_seen)}, expected "
+             f"{sorted(want_seen)}")
+    p50s = [r["p50_s"] for r in ranks]
+    out["train"] = {
+        "args": TM_ARGS, "losses": ranks[0]["losses"],
+        "launches_per_rank": ranks[0]["launches"],
+        "step_p50_ms": [x * 1e3 for x in p50s],
+        "tokens_per_s": tokens / max(p50s),
+        "collective_share": [r["share"] for r in ranks],
+        "collectives": [r["collectives"] for r in ranks],
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks]}
+
+    # (c) float32 steps, and the compressed sync
+    for label, *_ in tm_f32_configs():
+        cases = [r["f32"][label] for r in ranks]
+        for r, c in zip(ranks, cases):
+            if c["loss"] != cases[0]["loss"]:
+                fail(f"(c) {label}: the ranks report different losses")
+            if r["coords"][0] == 1:
+                twin = next(x for x, y in zip(cases, ranks)
+                            if y["coords"] == (0, r["coords"][1]))
+                if c["digest"] != twin["digest"]:
+                    fail(f"(c) {label}: data ranks hold different moments")
+                continue
+            rel = abs(c["loss_after_mesh"] - c["loss_after_one"]) / abs(
+                c["loss_after_one"])
+            if c["mu_rel"] > 1e-4 or c["nu_rel"] > 2e-4 or rel > LOSS_RTOL:
+                fail(f"(c) {label}: rank {r['rank']} moments "
+                     f"{c['mu_rel']:.2e} / {c['nu_rel']:.2e} of their max, "
+                     f"next loss {rel:.2e} relative, past 1e-4 / 2e-4 / "
+                     f"{LOSS_RTOL:g}")
+            log(f"    (c) {label}, model rank {r['coords'][1]}: moments "
+                f"within {c['mu_rel']:.2e} and {c['nu_rel']:.2e} of their "
+                f"max, next batch's loss {c['loss_after_mesh']:.6f} vs one "
+                f"rank {c['loss_after_one']:.6f} ({rel:.2e}); weights and "
+                f"the one-rank step {c['one_s']:.1f} s, mesh step "
+                f"{c['step_s']:.1f} s, checks {c['check_s']:.1f} s")
+    for r in ranks:
+        for mode, same in r["sync"].items():
+            if not same:
+                fail(f"(c) make_grad_sync {mode}: rank {r['rank']}'s card "
+                     f"result parts from the CPU's")
+    log(f"    (c) make_grad_sync over data in modes "
+        + " and ".join(TM_SYNC_MODES) + ": card == CPU, bit for bit, on "
+        f"every rank; (b)+(c) world {time.perf_counter() - t0:.1f} s, (c) "
+        f"{max(r['f32_s'] for r in ranks):.1f} s a rank")
+    out["f32"] = {label: [r["f32"][label] for r in ranks]
+                  for label, *_ in tm_f32_configs()}
+    # every shape a rank launched flash at must be one phases 5 and 12
+    # held, forward and backward
+    seen = set().union(*(r["seen"] for r in ranks))
+    grad_held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
+                 for _, b, sq, sk, h, kv, hd, dt, kind, _, pad
+                 in FLASH_GRAD_CASES}
+    missed = sorted(seen - held_shapes()) + sorted(seen - grad_held)
+    log(f"    phase 15 trained at {len(seen)} flash shapes, forward and "
+        f"backward held in phases 5 and 12 (a)")
+    if missed:
+        fail(f"phase 15 launched flash at shapes phases 5 and 12 (a) did "
+             f"not hold: {missed}")
+    out["launches"] = launched
+    out["bc_s"] = time.perf_counter() - t0
+    log(f"    (b) and (c) took {out['bc_s']:.1f} s after (a); the world had "
+        f"started beside (a), its ranks waiting "
+        f"{min(r['waited_s'] for r in ranks):.1f} s for it")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"    phase 15: {out['s']:.1f} s of its {MM_BUDGET_S:.0f} s budget"
+        + ("" if out["s"] <= MM_BUDGET_S else " (OVER)"))
+    return out
+
+
 def no_drop(cfg):
     """``cfg`` at the smallest integer capacity factor, ceil(E / k), at
     which an expert can take its whole group: cap = ceil(g k / E) x factor
@@ -4004,12 +4575,15 @@ def main() -> int:
     phase_done()
     report["model_axis"] = tp = model_phase(torch, serving)
     phase_done()
+    report["mesh_train"] = mm = mesh_train_phase(torch, held, policies,
+                                                 grid.num_cuts)
+    phase_done()
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep.py:175",
-        "launches": launches + mesh["sweep_launches"],
+        "launches": launches + mesh["sweep_launches"] + mm["sweep_launches"],
         "max_abs_err": max(errs), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -4028,7 +4602,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (serving["launches"][name] + kinds["launches"][name]
                          + training["train"]["launches"][name]
-                         + tp["launches"][name]),
+                         + tp["launches"][name]
+                         + mm["launches"].get(name, 0)),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -4057,7 +4632,8 @@ def main() -> int:
         "name": "flash_attention_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/ops.py:61-74",
-        "launches": training["train"]["launches"]["flash_attention_backward"],
+        "launches": (training["train"]["launches"]["flash_attention_backward"]
+                     + mm["launches"]["flash_attention_backward"]),
         "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -234,6 +234,23 @@ def parent_ssd(lib):
     return call
 
 
+def bind_parent_sweep(source: pathlib.Path):
+    """The binder of an earlier tree's sweep library: before the split
+    count had an argument of its own (``cell_rows``), ``n_total`` was both
+    the rows of a cell and the split, so the call drops ``cell_rows``."""
+    from repro_torch.kernels import partition_sweep as ps
+    if "int cell_rows" in source.read_text():
+        return ps._bind
+
+    def bind(lib) -> None:
+        fn = lib.partition_sweep_launch
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.partition_sweep_launch = lambda *a: fn(*a[:13], *a[14:])
+    return bind
+
+
 def bind_parent_ssd(lib) -> None:
     fn = lib.ssd_scan_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -280,8 +297,10 @@ def main() -> int:
     log(f"card: {smi}")
     csrc = args.parent / "src" / "repro_torch" / "kernels" / "csrc"
     sweep_libs = {
-        "earlier": _build.Library("partition_sweep", csrc / "partition_sweep.cu",
-                                  ps._bind, extra_flags=("-fmad=false",)),
+        "earlier": _build.Library(
+            "partition_sweep", csrc / "partition_sweep.cu",
+            bind_parent_sweep(csrc / "partition_sweep.cu"),
+            extra_flags=("-fmad=false",)),
         "committed": ps.LIBRARY,
         "IEEE division": variant(ps.LIBRARY, "ieee_division", *IEEE_DIVISION),
         "two IEEE divisions": variant(ps.LIBRARY, "two_divisions",

@@ -320,11 +320,15 @@ def _gather(table: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
 
 
 def step_p(p: MecParams, state: MecState, cut: torch.Tensor,
-           draws=None) -> tuple[MecState, SlotResult]:
+           draws=None, ues=None) -> tuple[MecState, SlotResult]:
     """LyMDO inner loop: partitioning action + exact convex allocation.
 
     ``draws=(gain, lam)`` sets the next slot's draws instead of the
-    state's generator.
+    state's generator.  ``ues`` (a ``gridshard.GridSharding`` whose UE
+    axis is split) says that ``p``, ``state`` and ``cut`` hold this rank's
+    UE columns of each cell: P4 and P5, which couple a cell's UEs, then
+    solve the whole cell from inputs all-gathered once (one collective),
+    and the rank keeps its columns of their answers.
     """
     cut = project_cut_p(p, cut, state.lam)
     d_ue = _ue(p.rho) * _gather(p.prefix_macs, cut)
@@ -332,14 +336,18 @@ def step_p(p: MecParams, state: MecState, cut: torch.Tensor,
     psi = _gather(p.psi, cut)
 
     q = state.queues
-    f_es = convex.solve_p4(d_es, _ue(p.f_max_es))
     f_ue = convex.solve_p3(q.energy, _ue(p.kappa), d_ue, state.lam, _ue(p.v),
                            _ue(p.f_max_ue),
                            stability_margin=_ue(p.stability_margin))
-    alpha = convex.solve_p5(q.energy, _ue(p.p_tx), state.lam, _ue(p.v), psi,
-                            _ue(p.w_hz), state.gain, _ue(p.n0))
+    own = (lambda x: x) if ues is None else ues.ue_own
+    d_es_c, qe_c, lam_c, psi_c, gain_c = (
+        (d_es, q.energy, state.lam, psi, state.gain) if ues is None
+        else ues.ue_whole([d_es, q.energy, state.lam, psi, state.gain]))
+    f_es = own(convex.solve_p4(d_es_c, _ue(p.f_max_es)))
+    alpha = own(convex.solve_p5(qe_c, _ue(p.p_tx), lam_c, _ue(p.v), psi_c,
+                                _ue(p.w_hz), gain_c, _ue(p.n0)))
     return _evaluate_p(p, state, cut, alpha, f_ue, f_es, d_ue, d_es, psi,
-                       draws)
+                       draws, ues)
 
 
 def step_joint_p(p: MecParams, state: MecState, cut, alpha, f_ue, f_es,
@@ -366,7 +374,7 @@ def step_joint_p(p: MecParams, state: MecState, cut, alpha, f_ue, f_es,
 
 
 def _evaluate_p(p: MecParams, state, cut, alpha, f_ue, f_es, d_ue, d_es, psi,
-                draws):
+                draws, ues=None):
     q = state.queues
     delay, (t_ue, t_tx, t_es) = queueing.e2e_delay(
         state.lam, f_ue, f_es, d_ue, d_es, psi, alpha,
@@ -382,7 +390,7 @@ def _evaluate_p(p: MecParams, state, cut, alpha, f_ue, f_es, d_ue, d_es, psi,
         _gather(p.suffix_act_max, cut),
         _ue(p.gamma_ue), _ue(p.gamma_es))
 
-    rew = lyapunov_reward(q, energy, mem, delay, _ue(p.v))
+    rew = lyapunov_reward(q, energy, mem, delay, _ue(p.v), ues=ues)
     new_queues = update_queues(q, energy, mem, p.e_budget, p.c_budget,
                                _ue(p.nu_e), _ue(p.nu_c))
 

@@ -34,13 +34,28 @@ unsharded ones bit for bit.  The cost is one logical draw per rank per slot
 generator itself sees only the rank's shard.
 
 The reference's ``constrain`` (an in-jit sharding constraint) has no
-meaning without GSPMD and is not ported.  A mesh with a ``"model"`` axis
-larger than 1 -- per-cell tensor parallelism over the UE axis, which needs
-an all-reduce in every UE sum of P4/P5 -- waits for the engine's model
-axis.
+meaning without GSPMD and is not ported.
+
+On a ``("cells", "model")`` mesh (``make_cells_mesh(model=M)``) the plan
+also splits each cell's UE axis M ways where M divides N, and otherwise
+holds every cell whole on every "model" rank, as the reference replicates
+a dim that does not divide.  A rank then holds the (b_local, N / M) block
+of every per-UE leaf (``local(..., ues=True)``), and the slot's per-UE
+work (the cut projection, P3, the delays, energy, memory and queue
+updates) stays on it.  What couples a cell's UEs is done whole on every
+"model" rank instead of summed across ranks: the inputs of P4 and P5 are
+all-gathered once a slot (:meth:`GridSharding.ue_whole`), both solves run
+over the whole cell, and each rank keeps its columns
+(:meth:`GridSharding.ue_own`); the per-UE terms of the reward are
+all-gathered before their sum.  So a slot takes two collectives on the
+"model" sub-group, whatever P5's 42 x 36 bisection does, and every sum
+runs over whole rows in the unsharded order: sharded rollouts equal
+unsharded ones bit for bit on the CPU.  :data:`calls` counts the slot's
+collectives.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any
 
@@ -53,7 +68,11 @@ from ..launch.mesh import MODEL as MODEL_AXIS
 from ..launch.mesh import _on_host, pack, unpack
 
 __all__ = ["CELL_AXIS", "MODEL_AXIS", "GridSharding", "plan", "pad_cells",
-           "cell_index", "local", "gather", "unpad"]
+           "cell_index", "local", "gather", "unpad", "calls"]
+
+# collectives issued by ``GridSharding.ue_whole`` (a slot's all-gathers
+# over "model"), by name
+calls: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +83,10 @@ class GridSharding:
     ``n_shards``); rank ``rank`` holds rows ``rows`` of the padded stack,
     ``b_local`` of them.  ``mesh`` is the ``DeviceMesh`` whose ``axis``
     group :func:`gather` runs over (None: one process holds every shard).
+
+    ``n_ue`` UEs a cell are split ``ue_shards`` ways over the "model"
+    axis (1: every rank holds whole cells); this rank holds the UEs
+    ``ue_cols``, ``n_ue_local`` of them.
     """
 
     b: int
@@ -72,6 +95,9 @@ class GridSharding:
     rank: int = 0
     mesh: Any = None
     axis: str = CELL_AXIS
+    n_ue: int = 0
+    ue_shards: int = 1
+    ue_rank: int = 0
 
     def __post_init__(self):
         if self.b < 1:
@@ -84,6 +110,9 @@ class GridSharding:
                 f"{self.n_shards}-way {self.axis!r} axis")
         if not 0 <= self.rank < self.n_shards:
             raise ValueError(f"rank {self.rank} outside 0..{self.n_shards - 1}")
+        if self.ue_shards > 1 and self.n_ue % self.ue_shards:
+            raise ValueError(
+                f"{self.n_ue} UEs a cell do not split {self.ue_shards} ways")
 
     @property
     def pad(self) -> int:
@@ -104,6 +133,34 @@ class GridSharding:
     def group(self):
         return None if self.mesh is None else self.mesh.get_group(self.axis)
 
+    @property
+    def n_ue_local(self) -> int:
+        """UEs of a cell this rank holds."""
+        return self.n_ue // self.ue_shards
+
+    @property
+    def ue_cols(self) -> slice:
+        """This rank's UEs of every cell."""
+        return slice(self.ue_rank * self.n_ue_local,
+                     (self.ue_rank + 1) * self.n_ue_local)
+
+    def ue_whole(self, xs: list) -> list:
+        """Each of ``xs`` (..., n_ue_local), this rank's UE columns, joined
+        with the other "model" ranks' into (..., n_ue) whole-cell rows: one
+        all-gather a dtype over the "model" sub-group.  As they are where
+        the UE axis is not split."""
+        if self.ue_shards == 1:
+            return list(xs)
+        calls["ue_whole"] += 1
+        return _all_gather(xs, self.mesh.get_group(MODEL_AXIS),
+                           self.ue_shards, -1)
+
+    def ue_own(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's UE columns of a whole-cell (..., n_ue) tensor."""
+        if self.ue_shards == 1:
+            return x
+        return x[..., self.ue_cols]
+
     def mask(self) -> torch.Tensor:
         """(b_padded,) validity mask: True for real cells, False for padding.
 
@@ -114,12 +171,15 @@ class GridSharding:
 
 
 def plan(b: int, mesh, *, axis: str = CELL_AXIS,
-         pad_to: int | None = None) -> GridSharding:
+         pad_to: int | None = None, n_ue: int = 0) -> GridSharding:
     """Round ``b`` up to a multiple of ``mesh``'s ``axis`` size and return
     this rank's plan.
 
     ``pad_to`` forces a larger padded width (it must itself be a multiple)
     -- used by tests to exercise the padding path on any rank count.
+    ``n_ue`` is the UE count of a cell: on a mesh with a "model" axis of
+    size M it splits M ways where M divides it, else each "model" rank
+    holds whole cells.
     """
     names = tuple(mesh.mesh_dim_names or ())
     if axis not in names:
@@ -133,9 +193,14 @@ def plan(b: int, mesh, *, axis: str = CELL_AXIS,
             raise ValueError(
                 f"pad_to={pad_to} must be a multiple of {n} and >= {b_padded}")
         b_padded = pad_to
+    m = (int(mesh.size(names.index(MODEL_AXIS))) if MODEL_AXIS in names
+         else 1)
+    split = m > 1 and n_ue > 0 and n_ue % m == 0
     return GridSharding(b=b, b_padded=b_padded, n_shards=n,
                         rank=int(mesh.get_local_rank(axis)), mesh=mesh,
-                        axis=axis)
+                        axis=axis, n_ue=int(n_ue), ue_shards=m if split else 1,
+                        ue_rank=int(mesh.get_local_rank(MODEL_AXIS))
+                        if split else 0)
 
 
 def _rows_of(x: torch.Tensor, idx: torch.Tensor, lead: int) -> torch.Tensor:
@@ -165,40 +230,72 @@ def cell_index(gs: GridSharding) -> torch.Tensor:
     return torch.clamp(torch.arange(gs.rows.start, gs.rows.stop), max=gs.b - 1)
 
 
-def local(tree, gs: GridSharding, *, lead: int = 0):
+def _ue_axis(x: torch.Tensor, lead: int) -> bool:
+    """Whether a leaf with the cell axis at ``lead`` has a UE axis after
+    it: per-cell scalars (and scalar riders) do not."""
+    return x.dim() > lead + 1
+
+
+def local(tree, gs: GridSharding, *, lead: int = 0, ues: bool = False):
     """This rank's ``b_local`` rows of the padded stack of ``tree``, whose
     leaves carry the logical b cells (or the padded b_padded) on ``lead``.
+    With ``ues``, every leaf with an axis after ``lead`` (the UE axis of a
+    per-UE or per-(UE, cut) leaf) keeps the rank's UE columns there too.
     Scalar riders pass through."""
     idx = cell_index(gs)
-    return _tree.map_tensors(lambda x: _rows_of(x, idx, lead), tree)
+    cols = gs.ue_cols if ues and gs.ue_shards > 1 else None
+
+    def f(x):
+        x = _rows_of(x, idx, lead)
+        if cols is not None and _ue_axis(x, lead):
+            x = x.narrow(lead + 1, cols.start, gs.n_ue_local).contiguous()
+        return x
+
+    return _tree.map_tensors(f, tree)
 
 
-def gather(tree, gs: GridSharding, *, lead: int = 0):
+def _all_gather(xs: list, group, n: int, dim: int) -> list:
+    """Each of ``xs`` joined along ``dim`` with the other ``n`` ranks' of
+    ``group``, in rank order: one all-gather a dtype (gloo on host copies,
+    the result back on each tensor's device)."""
+    host = _on_host(group)
+    moved = [x.movedim(dim, 0).contiguous() for x in xs]
+    buffers, layout = pack(moved)
+    joined = {}
+    for dt, buf in buffers.items():
+        buf = buf.cpu() if host else buf
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf, group=group)
+        joined[dt] = parts
+    # rank r's buffer holds its part of every tensor: split each, then join
+    # the ranks' pieces of one tensor along ``dim``
+    per_rank = [unpack({dt: joined[dt][r] for dt in joined}, layout)
+                for r in range(n)]
+    return [torch.cat([pieces[i] for pieces in per_rank]).movedim(0, dim)
+            .contiguous().to(x.device) for i, x in enumerate(xs)]
+
+
+def gather(tree, gs: GridSharding, *, lead: int = 0, ues: bool = False):
     """Every rank's rows of ``tree`` (each leaf ``b_local`` on ``lead``)
     joined into the padded stack (``b_padded`` on ``lead``), on every rank:
-    one all-gather a dtype over the ``"cells"`` group.  Under gloo it runs
-    on host copies and the result returns to each leaf's device; under NCCL
+    one all-gather a dtype over the ``"cells"`` group.  With ``ues``, the
+    UE columns of per-UE leaves (an axis after ``lead``) are first joined
+    over the "model" group, one all-gather a dtype.  Under gloo it runs on
+    host copies and the result returns to each leaf's device; under NCCL
     on the device.  Scalar riders pass through."""
+    if ues and gs.ue_shards > 1:
+        per_ue = [x for x in _tree.leaves(tree) if _ue_axis(x, lead)]
+        if per_ue:
+            out = iter(_all_gather(per_ue, gs.mesh.get_group(MODEL_AXIS),
+                                   gs.ue_shards, lead + 1))
+            tree = _tree.map_tensors(
+                lambda x: next(out) if _ue_axis(x, lead) else x, tree)
     if gs.n_shards == 1:
         return tree
     leaves = [x for x in _tree.leaves(tree) if x.dim() > lead]
     if not leaves:
         return tree
-    group = gs.group
-    host = _on_host(group)
-    buffers, layout = pack([x.movedim(lead, 0).contiguous() for x in leaves])
-    joined = {}
-    for dt, buf in buffers.items():
-        buf = buf.cpu() if host else buf
-        parts = [torch.empty_like(buf) for _ in range(gs.n_shards)]
-        dist.all_gather(parts, buf, group=group)
-        joined[dt] = parts
-    # rank r's buffer holds its rows of every leaf: split each, then join
-    # the ranks' pieces of one leaf along the cell axis
-    per_rank = [unpack({dt: joined[dt][r] for dt in joined}, layout)
-                for r in range(gs.n_shards)]
-    out = iter([torch.cat([pieces[i] for pieces in per_rank]).movedim(0, lead)
-                .contiguous().to(x.device) for i, x in enumerate(leaves)])
+    out = iter(_all_gather(leaves, gs.group, gs.n_shards, lead))
     return _tree.map_tensors(
         lambda x: next(out) if x.dim() > lead else x, tree)
 

@@ -2,6 +2,9 @@
 
 Port of ``repro/core/lyapunov.py``.  Queues are ``(..., N)``; every sum is
 over the last (UE) axis, so a stack of B cells gives B per-cell values.
+Where ``ues`` (a ``gridshard.GridSharding``) says the UE axis is split over
+"model", the per-UE terms are all-gathered first and every rank sums whole
+rows, in the unsharded order.
 """
 from __future__ import annotations
 
@@ -35,11 +38,15 @@ def lyapunov_function(q: VirtualQueues):
                   + torch.sum(q.memory * q.memory, dim=-1))
 
 
-def per_slot_objective(q: VirtualQueues, energy, mem_cost, delay, v):
+def per_slot_objective(q: VirtualQueues, energy, mem_cost, delay, v,
+                       ues=None):
     """Eq. (11) / negative of reward (14): sum_n Q E + W C + V T, per cell."""
-    return torch.sum(q.energy * energy + q.memory * mem_cost + v * delay, dim=-1)
+    terms = q.energy * energy + q.memory * mem_cost + v * delay
+    if ues is not None:
+        terms, = ues.ue_whole([terms])
+    return torch.sum(terms, dim=-1)
 
 
-def reward(q: VirtualQueues, energy, mem_cost, delay, v):
+def reward(q: VirtualQueues, energy, mem_cost, delay, v, ues=None):
     """Eq. (14)."""
-    return -per_slot_objective(q, energy, mem_cost, delay, v)
+    return -per_slot_objective(q, energy, mem_cost, delay, v, ues)

@@ -247,11 +247,23 @@ def eval_policy_batched(grid, agent: PPO, train_state: TrainState,
             f"{grid_L}; eval_policy_batched needs cells with the profiles "
             "the policy was trained for")
     pi_params = train_state.params["pi"]
+    ues = grid.ue_sharding
 
     def act(params, states, gen):
         del gen
+        if ues is not None:
+            # the head reads the whole cell: one all-gather of the UE
+            # columns; every "model" rank takes the mean action, each
+            # keeps its cuts
+            gain, lam, qe, qm = ues.ue_whole(
+                [states.gain, states.lam, states.queues.energy,
+                 states.queues.memory])
+            states = dataclasses.replace(
+                states, gain=gain, lam=lam,
+                queues=type(states.queues)(qe, qm))
         y = agent.policy.mean_action(pi_params, observe_p(params, states))
-        return agent.policy.to_cut(y)
+        cuts = agent.policy.to_cut(y)
+        return cuts if ues is None else ues.ue_own(cuts)
 
     with torch.no_grad():
         return run_fixed_batched(grid, act, episodes=episodes, steps=steps,

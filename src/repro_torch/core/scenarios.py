@@ -9,7 +9,8 @@ built on the host and the stacked tensors move to the device once.
 
 ``use_mesh`` shards the grid over a cells mesh (one process a rank; see
 ``repro_torch.core.gridshard``): each rank advances its own rows of the
-padded stack, draws stay those of the unsharded grid, and a rollout
+padded stack, and on a ``("cells", "model")`` mesh its own UE columns of
+each of them; draws stay those of the unsharded grid, and a rollout
 gathers its outputs once at the end, so every rank returns the logical B.
 
 The batched Oracle's per-slot (B, N, C) objective table goes through the
@@ -445,46 +446,62 @@ class ScenarioGrid:
         """Shard the stacked grid over ``mesh``'s ``"cells"`` axis.
 
         ``mesh=None`` builds a mesh over every rank of the default process
-        group (``repro_torch.launch.mesh.make_cells_mesh``).  B is padded up
-        to a multiple of the rank count (``pad_to`` forces a wider pad --
-        mainly for tests); padded cells replicate the last real cell and
-        are sliced off everything a rollout returns.  The sweep's constant
-        rows are taken with the shard, so they stay checked.  Sharded
-        rollouts equal unsharded ones to 1e-5.  Returns ``self``.
-
-        Per-cell tensor parallelism (``model > 1``, or a mesh whose
-        ``"model"`` axis is larger than 1) raises NotImplementedError.
+        group (``repro_torch.launch.mesh.make_cells_mesh(model=model)``);
+        ``model=M > 1`` makes it the 2-D ``("cells", "model")`` mesh, which
+        splits each cell's UE axis M ways where M divides it (and holds
+        whole cells on every "model" rank where it does not).  A mesh
+        passed explicitly must agree with a non-default ``model``.  B is
+        padded up to a multiple of the cells-axis size (``pad_to`` forces
+        a wider pad -- mainly for tests); padded cells replicate the last
+        real cell and are sliced off everything a rollout returns.  The
+        sweep's constant rows are taken with the shard, so they stay
+        checked.  Sharded rollouts equal unsharded ones bit for bit on the
+        CPU.  Returns ``self``.
         """
-        names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
-        have = (int(mesh.size(names.index(gridshard.MODEL_AXIS)))
-                if gridshard.MODEL_AXIS in names else 1)
-        if model > 1 or have > 1:
-            raise NotImplementedError(
-                "per-cell tensor parallelism over a 'model' mesh axis (an "
-                "all-reduce in every UE sum of P4/P5) is ROADMAP queue 1, "
-                "item 7c; use a cells-only mesh (model=1)")
         if model < 1:
             raise ValueError(f"model axis size must be >= 1, got model={model}")
         if mesh is None:
             from ..launch.mesh import make_cells_mesh
-            mesh = make_cells_mesh()
-        gs = gridshard.plan(self.b, mesh, pad_to=pad_to)
-        self._run_params = gridshard.local(self.params, gs)
+            mesh = make_cells_mesh(model=model)
+        elif model != 1:
+            names = tuple(mesh.mesh_dim_names or ())
+            have = (int(mesh.size(names.index(gridshard.MODEL_AXIS)))
+                    if gridshard.MODEL_AXIS in names else 1)
+            if have != model:
+                raise ValueError(
+                    f"use_mesh(model={model}) but the given mesh has a "
+                    f"{have}-way {gridshard.MODEL_AXIS!r} axis; pass "
+                    "mesh=None to build a matching one (make_cells_mesh)")
+        gs = gridshard.plan(self.b, mesh, pad_to=pad_to, n_ue=self.n_ue)
+        # the arrival process is drawn on the logical stack only
+        # (``_draws``); the shard keeps its cells' rows of it whole
+        self._run_params = dataclasses.replace(
+            gridshard.local(dataclasses.replace(self.params, arrival=None),
+                            gs, ues=True),
+            arrival=gridshard.local(self.params.arrival, gs))
         self._run_scalars = gridshard.local(self.sweep_scalars, gs)
         self.gridshard = gs
         return self
 
+    @property
+    def ue_sharding(self):
+        """The grid's ``GridSharding`` where it splits the UE axis over
+        "model" (a rank's shard then holds N / M UEs a cell), else None."""
+        gs = self.gridshard
+        return gs if gs is not None and gs.ue_shards > 1 else None
+
     def _params_for(self, states: MecState) -> tuple[MecParams, torch.Tensor]:
         """The (params, sweep rows) matching a state batch's cell width:
         this rank's shard, or the logical stack."""
-        lead = states.t.shape[0]
-        if lead == self.b_local:
+        lead, width = states.t.shape[0], states.gain.shape[-1]
+        if (lead, width) == (self.b_local, self._run_params.n_ue):
             return self._run_params, self._run_scalars
-        if lead == self.b:
+        if (lead, width) == (self.b, self.n_ue):
             return self.params, self.sweep_scalars
         raise ValueError(
-            f"state batch {lead} matches neither b={self.b} nor this "
-            f"rank's shard of {self.b_local}")
+            f"state batch of {lead} cells x {width} UEs matches neither "
+            f"b={self.b} x {self.n_ue} UEs nor this rank's shard of "
+            f"{self.b_local} x {self._run_params.n_ue}")
 
     def _draws(self, gen, t, draws=None):
         """A sharded slot's (gain, lam) on this rank's rows: the rows of
@@ -493,7 +510,7 @@ class ScenarioGrid:
         if draws is None:
             draws = _draw_p(self.params, gen, t)
         return tuple(gridshard.local([torch.as_tensor(x) for x in draws],
-                                     self.gridshard))
+                                     self.gridshard, ues=True))
 
     # -- per-slot primitives ------------------------------------------------
 
@@ -511,9 +528,11 @@ class ScenarioGrid:
         shard's next draws are the logical draw's rows; its cells advance
         in lock step, so the shard's first slot index stands for all."""
         params, _ = self._params_for(states)
+        ues = None
         if self.gridshard is not None and params is self._run_params:
             draws = self._draws(states.gen, states.t[:1] + 1, draws)
-        return step_p(params, states, cuts, draws)
+            ues = self.ue_sharding
+        return step_p(params, states, cuts, draws, ues)
 
     # -- batched oracle sweep ----------------------------------------------
 
@@ -521,9 +540,10 @@ class ScenarioGrid:
         """(B, N, C) drift-plus-penalty tables for every cell at once: one
         ``partition_sweep`` kernel launch over the flattened (B*N, C) rows
         on CUDA (the even split per cell, each cell its own constants), the
-        plain version on the CPU."""
+        plain version on the CPU.  A rank holding N / M of each cell's UEs
+        sweeps its (b_local * N / M) rows with the even split over N."""
         params, scalars = self._params_for(states)
-        return sweep.kernel_table_p(params, states, scalars)
+        return sweep.kernel_table_p(params, states, scalars, self.n_ue)
 
     def oracle_cuts(self, states: MecState) -> torch.Tensor:
         """Batched Oracle decision: argmin over each cell's objective table."""
@@ -544,9 +564,10 @@ class ScenarioGrid:
         stacked (steps, B, N) and summary per-cell (B,) means.
 
         On a sharded grid each rank runs its shard; the random policy draws
-        the logical cuts and keeps its rows, a callable sees the shard.  The
-        results and final states are gathered once at the end and the
-        padding sliced off, so every rank returns the logical B.
+        the logical cuts and keeps its block, a callable sees the shard (and
+        ``grid.gridshard`` says which).  The results and final states are
+        gathered once at the end (over both axes) and the padding sliced
+        off, so every rank returns the logical B x N.
         """
         gs = self.gridshard
         if policy == "oracle":
@@ -555,7 +576,7 @@ class ScenarioGrid:
             act = POLICIES[policy] if isinstance(policy, str) else policy
         if gs is not None and act is random_policy:
             act = lambda params, sts, gen: gridshard.local(
-                random_policy(self.params, None, gen), gs)
+                random_policy(self.params, None, gen), gs, ues=True)
         at = (lambda t: None) if draws is None else (
             lambda t: (draws[0][t], draws[1][t]))
 
@@ -570,9 +591,11 @@ class ScenarioGrid:
                 results.append(res)
             results = _tree.stack(results)
             if gs is not None:
-                states = gridshard.unpad(gridshard.gather(states, gs), gs)
-                results = gridshard.unpad(gridshard.gather(results, gs, lead=1),
-                                          gs, lead=1)
+                states = gridshard.unpad(
+                    gridshard.gather(states, gs, ues=True), gs)
+                results = gridshard.unpad(
+                    gridshard.gather(results, gs, lead=1, ues=True), gs,
+                    lead=1)
             return states, results, _summary(results)
 
         return rollout

@@ -27,14 +27,17 @@ def objective_table(*, prefix_macs, suffix_macs, psi, prefix_params,
                     suffix_params, prefix_act_max, suffix_act_max, L,
                     lam, gain, q_energy, q_memory,
                     rho, kappa, p_tx, w_hz, n0, f_max_ue, f_max_es, v,
-                    gamma_ue, gamma_es, stability_margin=1e-3):
+                    gamma_ue, gamma_es, stability_margin=1e-3, n_total=None):
     """Returns the (..., N, C) objective table; infeasible cells hold +BIG.
 
     Tables are (..., N, C); lam/gain/q_* and L are (..., N); the constants
     are Python floats or tensors that broadcast against (..., N, C).  The
-    even split uses the per-cell UE count N.
+    even split is over ``n_total`` UEs: the per-cell UE count N by default,
+    a cell's whole count where the rows are a rank's share of its UEs.
     """
     n, c = prefix_macs.shape[-2:]
+    if n_total is not None:
+        n = n_total
     lam_ = lam[..., None]
     gain_ = gain[..., None]
     qe = q_energy[..., None]
@@ -104,21 +107,22 @@ def scalar_rows_p(params) -> torch.Tensor:
     return rows
 
 
-def kernel_table_p(params, state, scalars=None):
+def kernel_table_p(params, state, scalars=None, n_total=None):
     """``objective_table_p`` through ``kernels.ops``: one partition-sweep
     kernel launch for a cell or a whole (B, ...) grid on CUDA tensors, the
     plain version on CPU ones.  ``scalars`` is ``scalar_rows_p(params)``,
     which a caller deciding many slots builds once (and which checks the
     rows); built here, per call, they are not checked, since that would
-    read the device every slot."""
+    read the device every slot.  ``n_total`` is the even split's UE count
+    where ``params`` hold a rank's share of each cell's UEs."""
     if scalars is None:
         scalars = _stack_scalars(params)
     args = (params.macs, params.param_bytes, params.act_bytes, params.psi,
             params.L, state.lam, state.gain, state.queues.energy,
             state.queues.memory, scalars)
     if params.macs.dim() == 2:
-        return ops.partition_sweep(*args)
-    return ops.partition_sweep_batched(*args)
+        return ops.partition_sweep(*args, n_total)
+    return ops.partition_sweep_batched(*args, n_total)
 
 
 def kernel_oracle_cut_p(params, state, scalars=None):

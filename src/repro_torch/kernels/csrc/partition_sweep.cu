@@ -31,8 +31,10 @@
 //     serve) writes 1e30 and skips the search.
 // The 11 MEC constants, compile-time constants on the TPU, are one row of
 // 11 floats per cell here, so cells with different constants share one
-// launch; rows [g * n_total, (g + 1) * n_total) belong to cell g.  n_total
-// (the per-cell UE count of the even split) is an int argument.
+// launch; rows [g * cell_rows, (g + 1) * cell_rows) belong to cell g.
+// n_total, the UE count of the even split, is an int argument of its own:
+// a rank that holds cell_rows = N / M of a cell's N UEs (the grid's "model"
+// axis) still splits the cell's bandwidth and edge CPU N ways.
 //
 // What bounds it.  A feasible (row, cut) takes 1,188 float32 operations
 // (kernels/partition_sweep.py counts them, a division or a log2 as one)
@@ -167,7 +169,8 @@ partition_sweep_kernel(const float* __restrict__ macs,
                        const float* __restrict__ qe_v,
                        const float* __restrict__ qm_v,
                        const SweepScalars* __restrict__ scalars,
-                       float* __restrict__ out, int rows, int C, int n_total) {
+                       float* __restrict__ out, int rows, int C, int cell_rows,
+                       int n_total) {
   constexpr int kRowsPerWarp = 32 / kLanes;
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
@@ -178,7 +181,7 @@ partition_sweep_kernel(const float* __restrict__ macs,
   const bool live = first + lane / kLanes < rows;
   const long long row = live ? first + lane / kLanes : rows - 1;
 
-  const SweepScalars s = scalars[row / n_total];
+  const SweepScalars s = scalars[row / cell_rows];
   const long long base = row * (long long)C;
   const float* m_row = macs + base;
   const float* p_row = params + base;
@@ -308,12 +311,13 @@ cudaError_t launch_rows(const float* macs, const float* params,
                         const float* lam, const float* gain,
                         const float* q_energy, const float* q_memory,
                         const SweepScalars* scalars, float* out, int rows,
-                        int C, int n_total, cudaStream_t stream) {
+                        int C, int cell_rows, int n_total,
+                        cudaStream_t stream) {
   constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / kLanes);
   const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
   partition_sweep_kernel<kLanes><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(
       macs, params, acts, psi, L, lam, gain, q_energy, q_memory, scalars, out,
-      rows, C, n_total);
+      rows, C, cell_rows, n_total);
   return cudaGetLastError();
 }
 
@@ -323,11 +327,13 @@ extern "C" int partition_sweep_launch(
     const float* macs, const float* params, const float* acts,
     const float* psi, const int64_t* L, const float* lam, const float* gain,
     const float* q_energy, const float* q_memory, const float* scalars,
-    float* out, int rows, int C, int n_total, int device, void* stream) {
+    float* out, int rows, int C, int cell_rows, int n_total, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rows == 0 || C == 0) return 0;
-  if (n_total <= 0 || rows % n_total != 0) return (int)cudaErrorInvalidValue;
+  if (cell_rows <= 0 || rows % cell_rows != 0 || n_total <= 0)
+    return (int)cudaErrorInvalidValue;
   const SweepScalars* sc = reinterpret_cast<const SweepScalars*>(scalars);
   const cudaStream_t s = (cudaStream_t)stream;
   // lanes a row: the least power of two >= C, at most 32
@@ -335,7 +341,7 @@ extern "C" int partition_sweep_launch(
                  : C <= 4 ? launch_rows<4> : C <= 8 ? launch_rows<8>
                  : C <= 16 ? launch_rows<16> : launch_rows<32>;
   return (int)run(macs, params, acts, psi, L, lam, gain, q_energy, q_memory,
-                  sc, out, rows, C, n_total, s);
+                  sc, out, rows, C, cell_rows, n_total, s);
 }
 
 extern "C" const char* partition_sweep_error_string(int code) {

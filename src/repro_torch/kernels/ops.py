@@ -179,28 +179,34 @@ def rglru_scan(x, a, reset=None):
 
 
 def partition_sweep(macs, params_b, acts, psi, L, lam, gain, q_energy,
-                    q_memory, scalars):
+                    q_memory, scalars, n_total: int | None = None):
     """Per-(UE, cut) drift-plus-penalty table (paper eq. 11) of one cell:
     tables (N, C), vectors (N,), ``scalars`` the cell's (11,) float32 row of
-    ``ref.SCALAR_NAMES`` (``ref.pack_scalars`` makes it from a dict)."""
+    ``ref.SCALAR_NAMES`` (``ref.pack_scalars`` makes it from a dict).
+    ``n_total`` is the UE count of the even split (default N), as the
+    reference's ``partition_sweep_pallas`` takes it."""
     if macs.is_cuda:
         from .partition_sweep import partition_sweep_cuda
         refuse_grad("partition_sweep", macs, params_b, acts, psi, L, lam,
                     gain, q_energy, q_memory, scalars)
         return partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain,
                                     q_energy, q_memory,
-                                    scalars.reshape(1, -1).contiguous())
+                                    scalars.reshape(1, -1).contiguous(),
+                                    cell_rows=macs.shape[0], n_total=n_total)
     return ref.partition_sweep_ref(macs, params_b, acts, psi, L, lam, gain,
-                                   q_energy, q_memory, scalars)
+                                   q_energy, q_memory, scalars, n_total)
 
 
 def partition_sweep_batched(macs, params_b, acts, psi, L, lam, gain,
-                            q_energy, q_memory, scalars):
+                            q_energy, q_memory, scalars,
+                            n_total: int | None = None):
     """(B, N, C) sweep over every cell of a grid in one kernel launch.
 
-    The B*N rows are flattened onto the kernel's rows; the even split stays
-    per cell through ``n_total=N``.  ``scalars`` is (B, 11), one row per
-    cell, or one (11,) row for every cell.
+    The B*N rows are flattened onto the kernel's rows, N of them a cell.
+    ``n_total`` is the UE count of each cell's even split: N by default;
+    on a grid whose UE axis is split over "model", the rank holds N of a
+    cell's ``n_total`` UEs.  ``scalars`` is (B, 11), one row per cell, or
+    one (11,) row for every cell.
     """
     if macs.is_cuda:
         from .partition_sweep import partition_sweep_cuda
@@ -212,7 +218,8 @@ def partition_sweep_batched(macs, params_b, acts, psi, L, lam, gain,
         out = partition_sweep_cuda(
             flat(macs), flat(params_b), flat(acts), flat(psi), flat(L),
             flat(lam), flat(gain), flat(q_energy), flat(q_memory), rows,
-            n_total=n)
+            cell_rows=n, n_total=n_total)
         return out.reshape(b, n, c)
     return ref.partition_sweep_batched_ref(macs, params_b, acts, psi, L, lam,
-                                           gain, q_energy, q_memory, scalars)
+                                           gain, q_energy, q_memory, scalars,
+                                           n_total)

@@ -86,7 +86,7 @@ def check_scalar_rows(scalars: torch.Tensor) -> None:
 
 def _bind(lib) -> None:
     fn = lib.partition_sweep_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -96,23 +96,31 @@ LIBRARY = _build.Library("partition_sweep", _build.CSRC / "partition_sweep.cu",
 
 
 def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
-                         q_memory, scalars, *, n_total: int | None = None):
+                         q_memory, scalars, *, n_total: int | None = None,
+                         cell_rows: int | None = None):
     """Launch the CUDA sweep.  Tables (R, C) float32, ``L`` (R,) int64,
-    vectors (R,) float32, ``scalars`` (R / n_total, 11) float32 -- one row
-    of ``kernels.ref.SCALAR_NAMES`` per cell -- all contiguous on one CUDA
-    device.  ``n_total`` is the per-cell UE count of the even split
-    (defaults to R, one cell); rows [g * n_total, (g + 1) * n_total) are
-    cell g.  Returns the (R, C) table, infeasible cells = 1e30.
+    vectors (R,) float32, ``scalars`` (R / cell_rows, 11) float32 -- one
+    row of ``kernels.ref.SCALAR_NAMES`` per cell -- all contiguous on one
+    CUDA device.  Rows [g * cell_rows, (g + 1) * cell_rows) are cell g;
+    ``n_total`` is the UE count of a cell's even split.  ``cell_rows``
+    defaults to ``n_total``, and that to R (one cell); a rank holding
+    N / M of each cell's N UEs passes ``cell_rows=N // M, n_total=N``.
+    Returns the (R, C) table, infeasible cells = 1e30.
     """
     tables = (macs, params_b, acts, psi)
     vectors = (lam, gain, q_energy, q_memory)
     if macs.dim() != 2:
         raise ValueError(f"tables must be (R, C), got {tuple(macs.shape)}")
     rows, c = macs.shape
-    n_total = rows if n_total is None else int(n_total)
-    if n_total <= 0 or rows % n_total:
-        raise ValueError(f"n_total={n_total} must be positive and divide "
-                         f"the {rows} rows")
+    if cell_rows is None:
+        cell_rows = rows if n_total is None else n_total
+    cell_rows = int(cell_rows)
+    n_total = cell_rows if n_total is None else int(n_total)
+    if cell_rows <= 0 or rows % cell_rows:
+        raise ValueError(f"the rows of a cell ({cell_rows}) must be "
+                         f"positive and divide the {rows} rows")
+    if n_total <= 0:
+        raise ValueError(f"n_total={n_total} must be positive")
     for t in tables:
         if t.shape != (rows, c) or t.dtype != torch.float32:
             raise ValueError("tables must all be float32 of shape "
@@ -123,7 +131,7 @@ def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
                              f"got {t.dtype} {tuple(t.shape)}")
     if L.shape != (rows,) or L.dtype != torch.int64:
         raise ValueError(f"L must be int64 of shape {(rows,)}")
-    cells = rows // n_total
+    cells = rows // cell_rows
     if scalars.shape != (cells, N_SCALARS) or scalars.dtype != torch.float32:
         raise ValueError(f"scalars must be float32 of shape "
                          f"{(cells, N_SCALARS)}, got {scalars.dtype} "
@@ -144,7 +152,7 @@ def partition_sweep_cuda(macs, params_b, acts, psi, L, lam, gain, q_energy,
     err = lib.partition_sweep_launch(
         *(t.data_ptr() for t in tables), L.data_ptr(),
         *(t.data_ptr() for t in vectors), scalars.data_ptr(), out.data_ptr(),
-        rows, c, n_total, device.index if device.index is not None
+        rows, c, cell_rows, n_total, device.index if device.index is not None
         else torch.cuda.current_device(), stream)
     LIBRARY.check(err)
     partition_sweep_cuda.launches += 1

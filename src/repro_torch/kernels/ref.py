@@ -273,14 +273,14 @@ def pack_scalars(scalars: Mapping[str, float], device=None) -> torch.Tensor:
 
 
 def partition_sweep_ref(macs, params_b, acts, psi, L, lam, gain, q_energy,
-                        q_memory, scalars):
+                        q_memory, scalars, n_total: int | None = None):
     """Plain partition sweep: builds the per-cut tables from RAW per-layer
     arrays, then delegates to ``repro_torch.core.sweep``.
 
     Tables are (..., N, C), vectors (..., N), ``scalars`` the (..., 11)
     float32 rows of ``SCALAR_NAMES``, one per cell (a single (11,) row
-    serves every cell); the even split uses the per-cell N
-    (``macs.shape[-2]``).
+    serves every cell); the even split is over ``n_total`` UEs, by default
+    the per-cell N (``macs.shape[-2]``).
     """
     from ..core import sweep
 
@@ -302,15 +302,16 @@ def partition_sweep_ref(macs, params_b, acts, psi, L, lam, gain, q_energy,
         prefix_params=prefix_params, suffix_params=suffix_params,
         prefix_act_max=prefix_act_max, suffix_act_max=suffix_act_max,
         L=L, lam=lam, gain=gain, q_energy=q_energy, q_memory=q_memory,
-        **consts)
+        n_total=n_total, **consts)
 
 
 def partition_sweep_batched_ref(macs, params_b, acts, psi, L, lam, gain,
-                                q_energy, q_memory, scalars):
+                                q_energy, q_memory, scalars,
+                                n_total: int | None = None):
     """Batched plain sweep: tables (B, N, C), vectors (B, N), scalars
     (B, 11) or one (11,) row.  The per-cell even split is
-    ``partition_sweep_ref``'s own, over the N axis."""
+    ``partition_sweep_ref``'s own, over ``n_total`` (default N) UEs."""
     if macs.dim() != 3:
         raise ValueError(f"expected (B, N, C) tables, got {tuple(macs.shape)}")
     return partition_sweep_ref(macs, params_b, acts, psi, L, lam, gain,
-                               q_energy, q_memory, scalars)
+                               q_energy, q_memory, scalars, n_total)

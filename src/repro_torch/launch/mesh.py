@@ -183,6 +183,31 @@ def data_axes(mesh) -> tuple:
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
 
 
+def data_size(mesh) -> int:
+    """Ranks over ``mesh``'s data axes (1 where it has none)."""
+    n = 1
+    for a in data_axes(mesh):
+        n *= int(mesh.size(mesh.mesh_dim_names.index(a)))
+    return n
+
+
+def axes_group(mesh, axes):
+    """(this rank's process group over ``axes`` of ``mesh``, its size): a
+    name, or a tuple of names joined row-major (the data axes ("pod",
+    "data") of a multi-pod mesh)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = tuple(mesh.mesh_dim_names)
+    for a in axes:
+        if a not in names:
+            raise ValueError(f"mesh has no {a!r} axis; axes are {names}")
+    n = 1
+    for a in axes:
+        n *= int(mesh.size(names.index(a)))
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), n
+    return mesh[axes]._flatten().get_group(), n
+
+
 def world_size() -> int:
     """Ranks in the default process group; 1 where there is none."""
     return dist.get_world_size() if dist.is_initialized() else 1

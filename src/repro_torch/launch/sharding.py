@@ -61,6 +61,7 @@ from typing import Any
 
 import torch
 
+from .. import _tree
 from ..configs.base import ArchConfig
 from ..shardctx import RankConfig, mesh_axes
 from ..runtime.checkpoint import _map_with_path
@@ -393,10 +394,9 @@ class NamedSharding:
         return _take_spec(self.mesh, self.spec, t)
 
 
-def _splits(mesh, cfg) -> dict:
-    """{sub-block: split?} on ``mesh``, from the policy's own conditions
-    under ``BASELINE`` (and the layout's, for "ssm")."""
-    m = _axis_size(mesh, "model")
+def _splits(m: int, cfg) -> dict:
+    """{sub-block: split?} on an ``m``-way "model" axis, from the policy's
+    own conditions under ``BASELINE`` (and the layout's, for "ssm")."""
     if m == 1:
         return {}
     kinds = set(cfg.block_pattern) | set(cfg.tail_pattern) | (
@@ -425,11 +425,16 @@ def rank_config(mesh, cfg) -> RankConfig:
     if isinstance(cfg, RankConfig):
         return cfg
     m = _axis_size(mesh, "model")
-    r = _coord(mesh, "model") if m > 1 else 0
-    split = _splits(mesh, cfg)
+    return rank_view(cfg, m, _coord(mesh, "model") if m > 1 else 0)
+
+
+def rank_view(cfg, m: int, r: int) -> RankConfig:
+    """Rank ``r``'s view of ``cfg`` on an ``m``-way "model" axis."""
+    split = _splits(m, cfg)
     base = {f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(ArchConfig)}
     over: dict = dict(model_rank=r, model_size=m, split=tuple(sorted(split)),
+                      whole=cfg,
                       head_dim=cfg.resolved_head_dim,
                       moe_dff=cfg.resolved_moe_dff if cfg.n_experts
                       else cfg.moe_dff)
@@ -496,48 +501,61 @@ def _kv_heads(view: RankConfig, t, dim: int, width: int = 1):
                     view.n_kv * width).contiguous()
 
 
-def _local_leaf(lay: _Layout, path: str, t):
-    """The shard of parameter ``t`` (at ``path``) that the rank computes
-    with; the tensor itself where the rank holds all of it."""
-    split, m, r, cfg = lay.view.split, lay.m, lay.r, lay.cfg
+def _rule(lay: _Layout, path: str) -> tuple:
+    """How the rank-local layout cuts the parameter at ``path``:
+    ("whole",) where every rank holds all of it, ("part", dim) for the
+    rank's equal contiguous part along ``dim``, ("kv", width) for the run
+    of kv heads on the last dim (``width`` entries a head), ("cols", conv)
+    for the SSD's fused columns (``_ssm_columns``)."""
+    split = lay.view.split
     parts = path.split("/")
     name = parts[-1]
     parent = parts[-2] if len(parts) > 1 else ""
     if name == "embed" and "vocab" in split:
-        return _part(t, 0, r, m)
+        return ("part", 0)
     if name == "head" and "vocab" in split:
-        return _part(t, -1, r, m)
+        return ("part", -1)
     if parent in ("attn", "xattn") and "attn" in split:
         if name in ("wq", "bq"):
-            return _part(t, -1, r, m)
+            return ("part", -1)
         if name in ("wk", "wv", "bk", "bv"):
-            return _kv_heads(lay.view, t, -1, cfg.resolved_head_dim)
+            return ("kv", lay.cfg.resolved_head_dim)
         if name == "wo":
-            return _part(t, -2, r, m)
-        return t
+            return ("part", -2)
     if parent in ("ffn", "shared") and parent in split:
         if name in ("w1", "w3"):
-            return _part(t, -1, r, m)
+            return ("part", -1)
         if name == "w2":
-            return _part(t, -2, r, m)
-        return t
+            return ("part", -2)
     if parent == "moe" and "moe" in split and name in ("wi", "wg", "wo"):
-        return _part(t, -3, r, m)
+        return ("part", -3)
     if parent == "rglru" and "rglru" in split:
         if name in ("w_x", "w_gate", "conv", "w_r", "w_i", "lam"):
-            return _part(t, -1, r, m)
+            return ("part", -1)
         if name == "w_out":
-            return _part(t, -2, r, m)
-        return t
+            return ("part", -2)
     if parent == "ssm" and "ssm" in split:
         if name in ("in_proj", "conv"):
-            cols = torch.tensor(_ssm_columns(cfg, r, m, name == "conv"),
-                                device=t.device)
-            return t.index_select(-1, cols)
+            return ("cols", name == "conv")
         if name in ("a_log", "dt_bias", "d_skip", "gate_norm"):
-            return _part(t, -1, r, m)
+            return ("part", -1)
         if name == "out_proj":
-            return _part(t, -2, r, m)
+            return ("part", -2)
+    return ("whole",)
+
+
+def _local_leaf(lay: _Layout, path: str, t):
+    """The shard of parameter ``t`` (at ``path``) that the rank computes
+    with; the tensor itself where the rank holds all of it."""
+    rule = _rule(lay, path)
+    if rule[0] == "part":
+        return _part(t, rule[1], lay.r, lay.m)
+    if rule[0] == "kv":
+        return _kv_heads(lay.view, t, -1, rule[1])
+    if rule[0] == "cols":
+        cols = torch.tensor(_ssm_columns(lay.cfg, lay.r, lay.m, rule[1]),
+                            device=t.device)
+        return t.index_select(-1, cols)
     return t
 
 
@@ -550,8 +568,12 @@ def map_with_paths(fn, tree):
     """``tree`` with each leaf replaced by ``fn(path, leaf)``, ``path`` the
     leaf's "units/slot0/attn/wq" string (dict keys, list indices and
     named-tuple fields joined by "/", as ``_path_str`` makes them)."""
-    strip = lambda key: "/".join(p.split(":", 1)[1] for p in key.split("/"))
-    return _map_with_path(lambda key, leaf: fn(strip(key), leaf), tree)
+    return _map_with_path(lambda key, leaf: fn(_strip(key), leaf), tree)
+
+
+def _strip(key: str) -> str:
+    """A checkpoint key's "units/slot0/attn/wq" path."""
+    return "/".join(p.split(":", 1)[1] for p in key.split("/"))
 
 
 def params_shardings(mesh, cfg, params: Any):
@@ -586,6 +608,196 @@ def place_params(mesh, cfg, params):
     lay = _layout(mesh, cfg)
     return map_with_paths(lambda path, t: _local_leaf(lay, path, t),
                           params), lay.view
+
+
+def _view_layout(view: RankConfig) -> _Layout:
+    """The layout that ``view``, a rank's view, belongs to."""
+    return _Layout(cfg=view.whole, view=view, m=view.model_size,
+                   r=view.model_rank)
+
+
+def _ssm_bc(cfg, m: int, conv: bool) -> slice:
+    """The B and C columns among a rank's ``_ssm_columns``: every rank
+    holds them."""
+    dl = cfg.ssm_expand * cfg.d_model // m
+    first = dl if conv else 2 * dl
+    return slice(first, first + 2 * cfg.ssm_state)
+
+
+def _whole_shape(lay: _Layout, path: str, shape) -> tuple:
+    """The whole parameter's shape, from the shape of a rank's shard."""
+    rule, shape = _rule(lay, path), list(shape)
+    cfg = lay.cfg
+    if rule[0] == "part":
+        shape[rule[1]] *= lay.m
+    elif rule[0] == "kv":
+        shape[-1] = cfg.n_kv * rule[1]
+    elif rule[0] == "cols":
+        d_in = cfg.ssm_expand * cfg.d_model
+        shape[-1] = d_in + 2 * cfg.ssm_state + (
+            0 if rule[1] else d_in + d_in // cfg.ssm_headdim)
+    return tuple(shape)
+
+
+def _owned_index(lay: _Layout, path: str) -> tuple | None:
+    """(positions in the rank's shard, positions in the whole last dim)
+    of the entries the rank owns of a "kv" or "cols" leaf, which several
+    ranks hold (the lowest holder owns an entry); None for any other
+    rule."""
+    rule = _rule(lay, path)
+    if rule[0] == "kv":
+        first, stop = lay.view.kv_offset, lay.view.kv_offset + lay.view.n_kv
+        if lay.r > 0:
+            prev = rank_view(lay.cfg, lay.m, lay.r - 1)
+            first = max(first, prev.kv_offset + prev.n_kv)
+        w, at = rule[1], lay.view.kv_offset
+        return (torch.arange((first - at) * w, (stop - at) * w),
+                torch.arange(first * w, stop * w))
+    if rule[0] == "cols":
+        cols = torch.tensor(_ssm_columns(lay.cfg, lay.r, lay.m, rule[1]))
+        keep = torch.ones(len(cols), dtype=torch.bool)
+        if lay.r > 0:
+            keep[_ssm_bc(lay.cfg, lay.m, rule[1])] = False
+        return torch.arange(len(cols))[keep], cols[keep]
+    return None
+
+
+def gather_params(view: RankConfig, tree):
+    """The inverse of ``place_params``: every rank's shards of ``tree``
+    (parameters, or a tree shaped like them, such as Adam's moments) joined
+    into the whole tree, on every rank of the active "model" sub-group
+    (``shardctx.activation_sharding``).  ``view`` a plain config: ``tree``
+    is already whole.  See :func:`gathered_leaves`."""
+    if not isinstance(view, RankConfig) or view.model_size == 1:
+        return tree
+    lay = _view_layout(view)
+    return map_with_paths(lambda path, t: _whole_leaf(lay, path, t), tree)
+
+
+def gathered_leaves(view: RankConfig, tree):
+    """Each leaf of ``tree`` whole, one at a time, in the tree's order:
+    ``(key, leaf)``, ``key`` the checkpoint's (``runtime.checkpoint``), so
+    a device holds one whole leaf at a time (a checkpoint writes each as
+    it comes).  Every rank of the active "model" sub-group iterates to the
+    end: each leaf is a collective.  ``view`` a plain config: the leaves
+    as they are."""
+    items: list = []
+    _map_with_path(lambda key, t: items.append((key, t)), tree)
+    if not isinstance(view, RankConfig) or view.model_size == 1:
+        yield from items
+        return
+    lay = _view_layout(view)
+    for key, t in items:
+        yield key, _whole_leaf(lay, _strip(key), t)
+
+
+def _whole_leaf(lay: _Layout, path: str, t):
+    """The whole leaf of a rank's shard ``t``.  An equal part is
+    all-gathered; the kv-head runs and the SSD's fused columns, which
+    several ranks hold, are summed over the ranks from each entry's owner
+    alone, so the sum is exact."""
+    from ..shardctx import model_all_gather, model_all_reduce
+    rule = _rule(lay, path)
+    if rule[0] == "whole":
+        return t
+    if rule[0] == "part":
+        return model_all_gather(t, rule[1])
+    out = t.new_zeros(_whole_shape(lay, path, t.shape))
+    local, at = _owned_index(lay, path)
+    out.index_copy_(-1, at.to(t.device), t.index_select(-1, local.to(t.device)))
+    return model_all_reduce(out)
+
+
+def _partial_grad(lay: _Layout, path: str):
+    """Where the gradient of a leaf is summed over ranks: the slice of its
+    last dim that every rank holds and reads inside a split sub-block
+    (each rank then computes part of its gradient), "kv" for a kv-head
+    run that several ranks hold, None where each rank's gradient is
+    already whole (a shard of its own, or a replicated leaf read outside
+    the split sub-blocks)."""
+    split, cfg = lay.view.split, lay.cfg
+    parts = path.split("/")
+    name, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+    if parent in ("attn", "xattn") and "attn" in split:
+        if name in ("q_norm", "k_norm"):
+            return slice(None)
+        if name in ("wk", "wv", "bk", "bv") and cfg.n_kv % lay.m:
+            return "kv"
+    if parent == "ssm" and "ssm" in split and name in ("in_proj", "conv"):
+        return _ssm_bc(cfg, lay.m, name == "conv")
+    return None
+
+
+def reduce_partial_grads(view: RankConfig, grads):
+    """``grads`` with the gradients that ranks hold in part summed over
+    the active "model" sub-group (one all-reduce a dtype): the QK-norm
+    scales, which each rank applies to its own heads; the SSD's B and C
+    columns, which each rank's heads read; a kv head that several ranks'
+    query heads read.  Every other gradient is already the rank's whole
+    share: its own shard's, or a replicated leaf's that the replicated
+    residual stream gives every rank in full."""
+    if not isinstance(view, RankConfig) or view.model_size == 1:
+        return grads
+    from ..shardctx import model_all_reduce
+    from .mesh import pack, unpack
+    lay = _view_layout(view)
+    at = view.kv_offset * lay.cfg.resolved_head_dim
+    picks: dict = {}
+
+    def take(path, g):
+        where = _partial_grad(lay, path)
+        if where == "kv":         # the rank's run within all the kv heads
+            part = g.new_zeros(_whole_shape(lay, path, g.shape))
+            part[..., at:at + g.shape[-1]] = g
+            picks[path] = (where, part)
+        elif where is not None:
+            picks[path] = (where, g[..., where].contiguous())
+        return g
+
+    map_with_paths(take, grads)
+    if not picks:
+        return grads
+    buffers, layout = pack([part for _, part in picks.values()])
+    for dt in buffers:
+        buffers[dt] = model_all_reduce(buffers[dt])
+    summed = dict(zip(picks, unpack(buffers, layout)))
+
+    def put(path, g):
+        if path not in summed:
+            return g
+        where, s = picks[path][0], summed[path]
+        if where == "kv":
+            return s[..., at:at + g.shape[-1]].clone()
+        g = g.clone()
+        g[..., where] = s
+        return g
+
+    return map_with_paths(put, grads)
+
+
+def global_norm(view: RankConfig, tree) -> torch.Tensor:
+    """The global norm of a tree whose leaves are this rank's shards of
+    the whole model's (``place_params``), in float32, the same on every
+    rank: each rank sums the squares of the entries it owns (its own
+    parts; a replicated leaf is rank 0's; an entry several ranks hold is
+    its lowest holder's), and the sums are added over "model"."""
+    from ..shardctx import model_all_reduce
+    lay = _view_layout(view)
+    total = []
+
+    def add(path, g):
+        if _rule(lay, path)[0] == "whole" and lay.r > 0:
+            return g
+        owned = _owned_index(lay, path)
+        if owned is not None:
+            g = g.index_select(-1, owned[0].to(g.device))
+        total.append(torch.sum(torch.square(g.float())))
+        return g
+
+    map_with_paths(add, tree)
+    device = _tree.leaves(tree)[0].device
+    ss = torch.stack(total).sum() if total else torch.zeros((), device=device)
+    return torch.sqrt(model_all_reduce(ss.reshape(1))[0])
 
 
 def init_rank_params(seed, mesh, cfg, device=None):

@@ -16,7 +16,9 @@ Under tensor parallelism (``cfg`` a ``shardctx.RankConfig`` that splits
 not, the run of kv heads its query heads' groups cover, and its cache
 holds just those).  Uneven groups are gathered per query head
 (``_kv_for_q``).  The output projection is row-parallel: its partial sum
-is all-reduced over "model".
+is all-reduced over "model".  In training, the replicated inputs enter the
+split block through ``shardctx.enter`` (their gradient summed over
+"model").
 """
 from __future__ import annotations
 
@@ -114,6 +116,7 @@ def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
     ``positions`` is (S,) or per-row (B, S); ``pad_mask`` (B, S) marks the
     valid (non-left-pad) positions.  Returns (out, (k, v)).
     """
+    x = shardctx.enter(cfg, "attn", x)
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if cfg.rope_theta:
@@ -128,6 +131,7 @@ def self_attention(p, cfg, x, positions, *, kind: str, pad_mask=None):
 def cross_attention(p, cfg, x, context_kv):
     """Cross-attention of x (B, S, D) against precomputed context K/V
     (B, Sk, KV, hd): every query sees every context key, no RoPE."""
+    x = shardctx.enter(cfg, "attn", x)
     q = _project_q(p, cfg, x)
     k, v = _kv_for_q(cfg, *context_kv)
     out = ops.flash_attention(q, k, v, kind="full")
@@ -137,7 +141,8 @@ def cross_attention(p, cfg, x, context_kv):
 def context_kv(p, cfg, context):
     """The cross-attention K/V of context embeddings (B, Sk, D), once per
     prefill: a ``KVCache`` (k, v), each (B, Sk, KV, hd)."""
-    return KVCache(*_project_kv(p, cfg, context))
+    return KVCache(*_project_kv(p, cfg, shardctx.enter(cfg, "attn",
+                                                       context)))
 
 
 def decode_cross_attention(p, cfg, x, context_cache):

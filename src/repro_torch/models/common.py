@@ -61,8 +61,9 @@ def rms_norm(x, scale, eps: float = 1e-6, *, split: bool = False):
     by the whole row's mean square."""
     x32 = x.float()
     if split:
-        ss = shardctx.model_all_reduce(torch.sum(x32 * x32, dim=-1,
-                                                 keepdim=True))
+        ss = shardctx.model_all_reduce(
+            torch.sum(x32 * x32, dim=-1, keepdim=True),
+            backward="all_reduce")
         var = ss / (x.shape[-1] * shardctx.model_size())
     else:
         var = torch.mean(x32 * x32, dim=-1, keepdim=True)

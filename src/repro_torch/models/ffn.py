@@ -39,6 +39,8 @@ def init_ffn(gen, cfg, d_ff: int | None = None, device=None) -> dict:
 
 
 def _ffn_block(p, cfg, x, part, reduce):
+    if reduce:
+        x = shardctx.enter(cfg, part, x)
     h = x @ p["w1"]
     if cfg.gated_ffn:
         h = F.silu(h) * (x @ p["w3"])
@@ -52,7 +54,8 @@ def apply_ffn(p, cfg, x, part: str = "ffn", reduce: bool = True):
     """Dense FFN; sequences of at least FFN_CHUNK_SEQ tokens (and a
     multiple of FFN_CHUNK) run in token chunks so the (tokens, d_ff) hidden
     never exists whole.  ``part`` names the block for ``cfg.split``; with
-    ``reduce=False`` a split block returns its rank's partial sum."""
+    ``reduce=False`` a split block returns its rank's partial sum, and
+    its caller enters x into the split block (``shardctx.enter``)."""
     s = x.shape[-2]
     if s < FFN_CHUNK_SEQ or s % FFN_CHUNK != 0:
         return _ffn_block(p, cfg, x, part, reduce)
@@ -144,6 +147,10 @@ def apply_moe(p, cfg, x):
     xg = tokens.reshape(g, gsize, d)
     dispatch, combine, aux = route(p["router"], cfg, xg)
     if shardctx.split(cfg, "moe"):
+        # the router runs whole on every rank; its outputs enter the
+        # rank's experts, so their gradients are summed over "model"
+        xg = shardctx.enter(cfg, "moe", xg)
+        combine = shardctx.enter(cfg, "moe", combine)
         mine = slice(cfg.expert_offset, cfg.expert_offset + cfg.local_experts)
         dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
 

@@ -80,6 +80,7 @@ def apply_rglru(params, cfg, x, want_cache: bool = False, pad_mask=None):
     inputs are zeroed ahead of the temporal conv and a reset mask goes into
     the scan, so a padded row's outputs and cache equal its solo run's.
     """
+    x = shardctx.enter(cfg, "rglru", x)
     u_pre = x @ params["w_x"]
     reset = None
     if pad_mask is not None:

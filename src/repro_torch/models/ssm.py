@@ -111,7 +111,7 @@ def apply_ssm(params, cfg, x, want_cache: bool = False, pad_mask=None):
     row's outputs, state and conv tail equal its solo run's.
     """
     d_in, p, h, n, g, _ = _dims(cfg)
-    normed = rms_norm(x, params["norm"])
+    normed = shardctx.enter(cfg, "ssm", rms_norm(x, params["norm"]))
     proj = normed @ params["in_proj"]
     z, xbc_pre, dt_raw = _split_proj(cfg, proj)
     reset = None

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from .. import _tree
+from .. import _tree, shardctx
 from ..optim.adam import adam
 from .common import dtype_of
 from . import transformer
@@ -28,12 +28,27 @@ from . import transformer
 MOE_AUX_COEF = 0.01
 
 
-def cross_entropy(logits, targets, mask=None):
+def cross_entropy(logits, targets, mask=None, vocab_offset=None):
     """Mean token cross-entropy.  logits float32 (B, S, V); targets (B, S)
     int; ``mask`` (B, S) weighs each token (the mean over its sum, at
-    least 1)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    least 1).  ``vocab_offset``: ``logits`` are this rank's columns of a
+    vocabulary split over "model", the first of them at that row, and the
+    loss is vocabulary-parallel: the row's max, its sum of exponentials
+    and the target's logit are reduced over "model" (three all-reduces of
+    (B, S), where gathering the logits moves (B, S, V)), and each rank's
+    gradient is its own columns'."""
+    if vocab_offset is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        top = shardctx.model_max(torch.amax(logits, dim=-1))
+        logz = top + torch.log(shardctx.model_all_reduce(
+            torch.sum(torch.exp(logits - top[..., None]), dim=-1)))
+        local = targets.long() - vocab_offset
+        mine = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1,
+                            torch.where(mine, local, 0)[..., None])[..., 0]
+        gold = shardctx.model_all_reduce(gold * mine.to(gold.dtype))
     nll = logz - gold
     if mask is not None:
         mask = mask.to(nll.dtype)
@@ -43,9 +58,13 @@ def cross_entropy(logits, targets, mask=None):
 
 def loss_fn(params, cfg, batch):
     """(loss, (ce, aux)): the cross-entropy of ``forward_train``'s logits
-    plus ``MOE_AUX_COEF`` times its MoE aux loss."""
-    logits, aux = transformer.forward_train(params, cfg, batch)
-    ce = cross_entropy(logits, batch["targets"], batch.get("mask"))
+    plus ``MOE_AUX_COEF`` times its MoE aux loss.  Where ``cfg`` splits
+    the vocabulary, the cross-entropy is vocabulary-parallel."""
+    split = shardctx.split(cfg, "vocab")
+    logits, aux = transformer.forward_train(params, cfg, batch,
+                                            local_logits=split)
+    ce = cross_entropy(logits, batch["targets"], batch.get("mask"),
+                       cfg.vocab_offset if split else None)
     return ce + MOE_AUX_COEF * aux, (ce, aux)
 
 
@@ -82,13 +101,28 @@ def make_train_step(cfg, lr: float = 3e-4, weight_decay: float = 0.1,
     (in float32, or bf16 for the FSDP giants, as the reference does) before
     a single optimizer update.  A batch whose rows ``microbatches`` does not
     divide raises ``ValueError`` before any gradient is taken (the
-    reference's reshape refuses it too)."""
+    reference's reshape refuses it too).  On a mesh,
+    ``launch.train.make_mesh_train_step`` composes the same gradients with
+    the data-parallel sync."""
     opt_init, opt_update = adam(lr, weight_decay=weight_decay,
                                 grad_clip=grad_clip,
                                 state_dtype=dtype_of(cfg.opt_state_dtype))
-    acc_dtype = torch.bfloat16 if cfg.fsdp else torch.float32
+    grads_of = microbatch_grads(cfg, microbatches)
 
     def train_step(params, opt_state, batch):
+        loss, ce, aux, grads = grads_of(params, batch)
+        params, opt_state = opt_update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "ce": ce, "aux": aux}
+
+    return opt_init, train_step
+
+
+def microbatch_grads(cfg, microbatches: int = 1):
+    """``grads(params, batch) -> (loss, ce, aux, grads)`` of one batch, in
+    ``microbatches`` shards (see ``make_train_step``)."""
+    acc_dtype = torch.bfloat16 if cfg.fsdp else torch.float32
+
+    def grads_of(params, batch):
         for key, x in batch.items():
             if x.shape[0] % microbatches:
                 raise ValueError(
@@ -96,29 +130,28 @@ def make_train_step(cfg, lr: float = 3e-4, weight_decay: float = 0.1,
                     f"of microbatches={microbatches}")
         if microbatches == 1:
             (loss, (ce, aux)), grads = value_and_grad(params, cfg, batch)
-        else:
-            def shard(x, m):
-                b = x.shape[0] // microbatches
-                return x[m * b:(m + 1) * b]
+            return loss, ce, aux, grads
 
+        def shard(x, m):
+            b = x.shape[0] // microbatches
+            return x[m * b:(m + 1) * b]
+
+        grads = _tree.map_tensors(
+            lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
+            params)
+        loss = ce = aux = 0.0
+        for m in range(microbatches):
+            micro = {k: shard(x, m) for k, x in batch.items()}
+            (l, (c, a)), g = value_and_grad(params, cfg, micro)
             grads = _tree.map_tensors(
-                lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                      device=p.device), params)
-            loss = ce = aux = 0.0
-            for m in range(microbatches):
-                micro = {k: shard(x, m) for k, x in batch.items()}
-                (l, (c, a)), g = value_and_grad(params, cfg, micro)
-                grads = _tree.map_tensors(
-                    lambda t, u: t + (u / microbatches).to(acc_dtype),
-                    grads, g)
-                del g
-                loss = loss + l / microbatches
-                ce = ce + c / microbatches
-                aux = aux + a / microbatches
-        params, opt_state = opt_update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss, "ce": ce, "aux": aux}
+                lambda t, u: t + (u / microbatches).to(acc_dtype), grads, g)
+            del g
+            loss = loss + l / microbatches
+            ce = ce + c / microbatches
+            aux = aux + a / microbatches
+        return loss, ce, aux, grads
 
-    return opt_init, train_step
+    return grads_of
 
 
 def make_prefill(cfg, s_max: int):

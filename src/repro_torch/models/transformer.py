@@ -395,12 +395,21 @@ def _context(params, cfg, batch):
     return None
 
 
-def _logits(params, cfg, x):
-    x = rms_norm(x, params["final_norm"])
+def _head(params, cfg, x):
+    """Float32 logits of the rank's vocabulary columns (all of them where
+    the vocabulary is whole)."""
+    x = shardctx.enter(cfg, "vocab", rms_norm(x, params["final_norm"]))
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = (x @ head).float()
+    return (x @ head).float()
+
+
+def _logits(params, cfg, x):
+    """Float32 logits; where the vocabulary is split, each rank's columns
+    are all-gathered, and a caller that reads the whole row on every rank
+    (a loss every rank repeats) takes its columns' gradient as it is."""
+    logits = _head(params, cfg, x)
     if shardctx.split(cfg, "vocab"):
-        logits = shardctx.model_all_gather(logits, -1)
+        logits = shardctx.model_all_gather(logits, -1, backward="slice")
     return logits
 
 
@@ -433,12 +442,15 @@ def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None,
     return x, _add(aux, tail_aux)
 
 
-def forward_train(params, cfg, batch):
+def forward_train(params, cfg, batch, *, local_logits: bool = False):
     """Teacher-forced logits.  batch: {"tokens": (B, S)} plus
     ``image_embeds`` (vision) or ``src_embeds`` (an encoder's frames),
     each (B, S_ctx, D).  Returns (logits (B, S, V) float32, the summed MoE
     aux loss, float32).  With ``cfg.remat``, where a gradient is wanted,
-    each unit of the decoder stack is recomputed in the backward."""
+    each unit of the decoder stack is recomputed in the backward.
+    ``local_logits``: where the vocabulary is split, the rank's columns
+    alone, (B, S, cfg.local_vocab), for a vocabulary-parallel loss
+    (``models.steps.cross_entropy(vocab_offset=)``)."""
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
     ctx = _context(params, cfg, batch)
@@ -446,7 +458,8 @@ def forward_train(params, cfg, batch):
     x, aux = _run_stack(params, cfg, x, positions, ctx, remat=cfg.remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return _logits(params, cfg, x), aux
+    head = _head if local_logits else _logits
+    return head(params, cfg, x), aux
 
 
 def prefill(params, cfg, batch, s_max: int, pad=None):

@@ -24,15 +24,18 @@ class AdamState(NamedTuple):
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          weight_decay: float = 0.0, grad_clip: float | None = None,
-         state_dtype: torch.dtype | None = None):
+         state_dtype: torch.dtype | None = None, norm=None):
     """Returns ``(init_fn, update_fn)``.
 
     ``update_fn(grads, state, params) -> (new_params, new_state)``.
     ``weight_decay`` is decoupled (AdamW) decay; ``grad_clip`` is a
     global-norm clip over the whole tree, applied before the moments.
-    The moments are kept in ``state_dtype`` (default: the params' dtype)
-    and updated in float32.
+    ``norm(grads)`` is that norm (default :func:`global_norm`); where the
+    tree is a rank's shard of a model split over "model", it is the whole
+    model's (``launch.sharding.global_norm``).  The moments are kept in
+    ``state_dtype`` (default: the params' dtype) and updated in float32.
     """
+    norm = global_norm if norm is None else norm
 
     def _cast(x):
         return x.to(state_dtype) if state_dtype is not None else x
@@ -46,7 +49,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update_fn(grads, state: AdamState, params):
         if grad_clip is not None:
-            gnorm = global_norm(grads)
+            gnorm = norm(grads)
             scale = torch.clamp_max(
                 grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
             grads = _tree.map_tensors(lambda g: g * scale, grads)

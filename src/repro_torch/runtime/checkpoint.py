@@ -8,7 +8,9 @@ Port of ``repro/runtime/checkpoint.py``, with its on-disk format:
   * ATOMIC: written to a temp dir, fsynced, renamed; a crashed writer
     never corrupts the latest checkpoint;
   * ASYNC: a background thread drains a queue, so the training loop only
-    pays for the device->host copy;
+    pays for the device->host copy; or STREAMED (``save_leaves``): each
+    leaf copied and written as it comes, as a mesh's gathered checkpoint
+    is;
   * keep-last-k, with a JSON manifest of step, time, extra data, the keys
     and each array's true dtype (bf16 is stored as its raw uint16 bits).
 
@@ -25,6 +27,7 @@ import queue
 import shutil
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -87,14 +90,22 @@ class CheckpointManager:
     def save(self, step: int, tree, *, extra: dict | None = None,
              blocking: bool = False):
         """Snapshot to host memory now; write in the background."""
-        leaves = _flatten(tree)
-        arrays = {k: _to_numpy(v) for k, v in leaves.items()}
-        dtypes = {k: _dtype_name(v) for k, v in leaves.items()}
-        payload = (step, arrays, dtypes, extra or {})
+        items = [(k, _to_numpy(v), _dtype_name(v))
+                 for k, v in _flatten(tree).items()]
+        payload = (step, items, extra or {})
         if self._thread is None or blocking:
             self._write(*payload)
         else:
             self._q.put(payload)
+
+    def save_leaves(self, step: int, leaves, *, extra: dict | None = None):
+        """Write a checkpoint from ``leaves``, an iterable of ``(key,
+        leaf)`` in the tree's order (``launch.sharding.gathered_leaves``),
+        each copied to the host and written as it comes, so that no whole
+        tree is ever in memory.  Blocks, after the queued saves."""
+        self.wait()
+        self._write(step, ((k, _to_numpy(v), _dtype_name(v))
+                           for k, v in leaves), extra or {})
 
     def _worker(self):
         while True:
@@ -113,15 +124,24 @@ class CheckpointManager:
         if self._err:
             raise self._err
 
-    def _write(self, step: int, arrays: dict, dtypes: dict, extra: dict):
+    def _write(self, step: int, items, extra: dict):
+        """``items``: (key, host array, dtype name), written one at a time
+        into ``arrays.npz`` (``np.savez``'s layout)."""
         final = os.path.join(self.dir, f"step_{step:010d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        dtypes = {}
+        with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                             zipfile.ZIP_STORED, allowZip64=True) as zf:
+            for key, arr, dtype in items:
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
+                dtypes[key] = dtype
         manifest = {"step": step, "time": time.time(), "extra": extra,
-                    "keys": sorted(arrays.keys()), "dtypes": dtypes}
+                    "keys": sorted(dtypes), "dtypes": dtypes}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()

@@ -13,6 +13,13 @@ the collectives here, by name, where a sharded contraction ends.  So
   sub-group; under NCCL on the device, under gloo on host copies (as
   ``core.gridshard.gather`` does); the backend is the mesh's, and no path
   catches a failure to take another;
+* training goes through them too: each has the backward its call site
+  needs (Megatron's rule).  Every rank computes the same loss, so the
+  gradient of the replicated residual stream is the same on every rank: a
+  row-parallel sum passes it back as it is, :func:`enter` sums the
+  partial gradients of a replicated input that split weights read, an
+  all-gather read by each rank's own channels sums and scatters, and one
+  read by a loss every rank repeats takes the rank's slice;
 * the reference's ``constrain`` (a layout constraint that only asks GSPMD
   to move data) has no counterpart: every tensor already lives where the
   explicit collectives put it.
@@ -72,7 +79,8 @@ class RankConfig(ArchConfig):
       holds);
     * ``ssm_heads``: the local SSD heads where "ssm" is split;
     * ``expert_offset`` / ``vocab_offset``: the first global expert and
-      vocabulary row the rank holds.
+      vocabulary row the rank holds;
+    * ``whole``: the model's ``ArchConfig``.
     """
     model_rank: int = 0
     model_size: int = 1
@@ -84,6 +92,11 @@ class RankConfig(ArchConfig):
     expert_offset: int = 0
     local_vocab: int = 0
     vocab_offset: int = 0
+    # the model's own config, for what a rank must know of the others'
+    # shards (``launch.sharding``: gathering them, summing the gradients
+    # several ranks hold); not part of the view's identity
+    whole: ArchConfig | None = dataclasses.field(default=None, compare=False,
+                                                 repr=False)
 
 
 def split(cfg, part: str) -> bool:
@@ -95,12 +108,13 @@ def split(cfg, part: str) -> bool:
 @contextlib.contextmanager
 def activation_sharding(mesh):
     """Activate the mesh's "model" axis: its size and this rank's "model"
-    sub-group, for the collectives.  The other axes
-    ("cells", "data", "pod") hold replicas and need nothing here.  The
+    sub-group, for the collectives.  The other axes ("cells", "data",
+    "pod") hold replicas, or a train step's own rows of the batch
+    (``launch.train.make_mesh_train_step``), and need nothing here.  The
     reference's other knobs (sequence sharding, MoE dispatch groups over
     dp, remat offload, the expert axis) shard nothing under explicit
-    tensor parallelism and are not taken: they come with the training
-    half of the model axis (ROADMAP queue 1, item 7c)."""
+    tensor parallelism and are not taken (ROADMAP queue 1, item 7c, part
+    3)."""
     tp_n = mesh_axes(mesh).get("model", 1)
     group = None
     if tp_n > 1 and hasattr(mesh, "get_group"):
@@ -142,24 +156,21 @@ def _on_host(group) -> bool:
     return dist.get_backend(group) != "nccl"
 
 
-def model_all_reduce(x):
-    """The sum of ``x`` over the "model" sub-group, in ``x``'s dtype.  A
-    fresh tensor is reduced in place and returned; under gloo a CUDA
-    tensor goes through a host copy."""
+def _all_reduce(x, op=dist.ReduceOp.SUM):
+    """The sum (or ``op``) of ``x`` over the "model" sub-group, written
+    into ``x`` (contiguous); under gloo a CUDA tensor goes through a host
+    copy."""
     group = _group()
     with torch.profiler.record_function("model_all_reduce"):
-        x = x.contiguous()
         if x.is_cuda and _on_host(group):
             buf = x.cpu()
-            dist.all_reduce(buf, group=group)
+            dist.all_reduce(buf, op=op, group=group)
             return x.copy_(buf)
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
         return x
 
 
-def model_all_gather(x, dim: int = -1):
-    """Every rank's ``x`` of the "model" sub-group, concatenated along
-    ``dim`` in rank order."""
+def _all_gather(x, dim: int):
     group = _group()
     with torch.profiler.record_function("model_all_gather"):
         host = x.is_cuda and _on_host(group)
@@ -168,6 +179,109 @@ def model_all_gather(x, dim: int = -1):
         dist.all_gather(parts, buf, group=group)
         out = torch.cat(parts, dim=dim)
         return out.to(x.device) if host else out
+
+
+def _own_slice(g, dim: int):
+    """This rank's part of ``g`` along ``dim`` (M equal parts)."""
+    size = g.shape[dim] // _CTX["tp_n"]
+    return g.narrow(dim, dist.get_rank(_group()) * size, size)
+
+
+class _AllReduce(torch.autograd.Function):
+    """All-reduce forward; the backward is the identity, or an all-reduce
+    of the gradient (``both``)."""
+
+    @staticmethod
+    def forward(ctx, x, both: bool):
+        ctx.both = both
+        return _all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.both:
+            g = _all_reduce(g.contiguous().clone())
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone())
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather forward; backward the sum over ranks of the gradient,
+    each keeping its slice (a reduce-scatter), or the slice alone where
+    every rank computed the same whole gradient (``scatter`` False)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, scatter: bool):
+        ctx.dim, ctx.scatter = dim, scatter
+        return _all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scatter:
+            g = _all_reduce(g.contiguous().clone())
+        return _own_slice(g, ctx.dim).contiguous(), None, None
+
+
+def _tracked(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def model_all_reduce(x, *, backward: str = "identity"):
+    """The sum of ``x`` over the "model" sub-group, in ``x``'s dtype.
+    Where autograd records, the gradient goes back as it came
+    (``backward="identity"``: the result feeds computation every rank
+    repeats, as a row-parallel product's sum feeds the residual stream)
+    or summed over the ranks too (``"all_reduce"``: every rank's own
+    computation reads the sum, as the SSD's split norm reads its sum of
+    squares).  Without autograd a fresh tensor is reduced in place and
+    returned."""
+    if backward not in ("identity", "all_reduce"):
+        raise ValueError(f"unknown backward {backward!r}")
+    if _tracked(x):
+        return _AllReduce.apply(x, backward == "all_reduce")
+    return _all_reduce(x.contiguous())
+
+
+def model_max(x):
+    """The elementwise max of ``x`` over the "model" sub-group, outside
+    autograd (a fresh tensor)."""
+    return _all_reduce(x.detach().contiguous().clone(), dist.ReduceOp.MAX)
+
+
+def model_all_gather(x, dim: int = -1, *, backward: str = "reduce_scatter"):
+    """Every rank's ``x`` of the "model" sub-group, concatenated along
+    ``dim`` in rank order.  Where autograd records, each rank's gradient
+    is summed over the ranks and the rank keeps its part
+    (``backward="reduce_scatter"``: each rank's own computation reads the
+    whole, as the RG-LRU gates read the whole u), or the rank takes its
+    part of a gradient every rank computed whole (``"slice"``: the logits
+    before a loss every rank repeats)."""
+    if backward not in ("reduce_scatter", "slice"):
+        raise ValueError(f"unknown backward {backward!r}")
+    if _tracked(x):
+        return _AllGather.apply(x, dim, backward == "reduce_scatter")
+    return _all_gather(x, dim)
+
+
+def enter(cfg, part: str, x):
+    """``x`` as it enters ``part``'s shard where ``cfg`` splits ``part``:
+    the same tensor forward, and where autograd records, its gradient
+    summed over "model" backward (each rank's shard contributes its part
+    of the replicated input's gradient).  Call it once on each replicated
+    tensor that a split sub-block reads."""
+    if split(cfg, part) and _tracked(x):
+        return _Enter.apply(x)
+    return x
 
 
 def reduce(cfg, part: str, x):

@@ -1204,3 +1204,28 @@ def test_model_axis_under_nccl_matches_one_rank(model):
     for key, w in want.items():
         for r in ranks:
             assert r[key] == w, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_model_axis_training_under_nccl_matches_one_rank(ranks):
+    """``ranks`` ranks, one a card, under NCCL on a 2-way model axis (and
+    a 2-way data axis at 4): one float32 step of qwen3-0.6b at full width
+    (2 layers) gives each rank's shard of the one-rank card step's Adam
+    moments (1e-4 and 2e-4 of each leaf's max) and the next batch's loss
+    (1e-5 relative)."""
+    _need_card()
+    if torch.cuda.device_count() < ranks:
+        pytest.skip(f"needs {ranks} cards, one a rank under NCCL; this "
+                    f"machine has {torch.cuda.device_count()}")
+    import _model_axis_train as mt
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+    _build.build_all(_build.all_libraries())      # once, not once a rank
+    out = run_world(mt.card_train_world, ranks, backend="nccl",
+                    device="cuda", deadline_s=300)
+    for r in out:
+        assert r["shape"] == (ranks // 2, 2)
+        assert r["mu"] <= 1e-4 and r["nu"] <= 2e-4, r
+        assert abs(r["loss_mesh"] - r["loss_one"]) <= 1e-5 * abs(
+            r["loss_one"]), r

@@ -233,11 +233,24 @@ def test_init_group_reads_torchruns_rank(monkeypatch, tmp_path):
 
 
 def test_use_mesh_model_axis_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7c"):
+    """The model axis was refused until it was ported; now ``model=2``
+    needs only a group, a mesh that disagrees with ``model`` raises as the
+    reference's does, and a (cells, model) mesh splits each cell's UEs
+    where the axis divides them and holds whole cells where it does not
+    (the sharded rollouts: tests/test_torch_grid_model_axis.py)."""
+    with pytest.raises(RuntimeError, match="init_group"):
         mw.multicell(3).use_mesh(model=2)
     two_d = FakeMesh(2, names=("cells", "model"), sizes=(1, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7c"):
-        mw.multicell(3).use_mesh(two_d)
+    with pytest.raises(ValueError, match="2-way 'model' axis"):
+        mw.multicell(3).use_mesh(two_d, model=4)
+    whole = mw.multicell(3).use_mesh(two_d)           # 3 UEs: replicated
+    assert whole.ue_sharding is None
+    assert whole._run_params.L.shape == (3, mw.UES)
+    four = sc.ScenarioGrid(sc.multicell_grid(cells=3, ues=4), device="cpu")
+    four.use_mesh(two_d)
+    assert four.ue_sharding.ue_cols == slice(0, 2)
+    assert four._run_params.L.shape == (3, 2)
+    assert four._run_params.prefix_macs.shape == (3, 2, four.num_cuts)
 
 
 def test_params_for_refuses_a_third_width():
