@@ -38,7 +38,7 @@ the card:
    per slot, the kernels that take the most device time);
 4. runs the learning loop: ``python -m repro_torch.quickstart``'s ``main``
    (``QS_ARGS``: PPO with the categorical head trains on the paper scenario
-   for 2 episodes of 8 slots, is evaluated at 2.5 req/s, and the Local,
+   for 1 episode of 8 slots, is evaluated at 2.5 req/s, and the Local,
    Edge, Random and Oracle baselines run beside it; the sweep's launches
    must equal the Oracle's slots, Adam's step epochs x episodes, the
    metrics finite and the Oracle no worse than Local or Edge), joint mode
@@ -219,7 +219,25 @@ the card:
    batch's loss within 1e-5), and ``make_grad_sync`` in modes bf16 and
    int8 on card tensors equal to the same call on CPU ones, bit for bit.
    Every shape a rank launches flash at must be one phase 5 and phase 12
-   (a) held; the phase logs its seconds against a 90 s budget.
+   (a) held; the phase logs its seconds against a 90 s budget;
+16. drives ZeRO-3 training in the rank-local layout, in phase 15's world
+   after its (c): (a) ``launch.train.main(TZ_ARGS)`` (15 (b)'s run, 3
+   steps) under qwen3's recommended options (every layer whole on each model rank, the
+   vocabulary over "model", ZeRO-3 storage over ("data", "model"), 2
+   microbatches) with exact flash launches a rank and a finite, falling
+   loss, logging step p50, the collectives' share and peak memory a rank
+   beside phase 15 (b)'s; (b) one float32 step of qwen3 at 4 layers under
+   those options against the one-rank card step (phase 15 (c)'s bars),
+   and the same step with ``remat_offload`` equal to it bit for bit; (c)
+   ``python -m repro_torch.launch.dryrun`` in a subprocess off the card
+   (started after the build, so that it runs beside the earlier phases):
+   qwen3-0.6b's cells on the single-pod mesh under ``--recommended``
+   (memory, flops and collective bytes printed), and (a)'s cell on a
+   (data 2, model 2) fake world, whose argument bytes and one step's
+   collective ledger must equal (a)'s rank's, kind for kind, count for
+   count and byte for byte; its predicted peak is printed beside (a)'s
+   ``torch.cuda.max_memory_allocated``.  The phase logs its seconds
+   against a 60 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -248,7 +266,9 @@ RTOL, ATOL = 1e-4, 1e-3          # the sweep tolerance of the reference's tests
 ATT_TOL_F32, ATT_TOL_BF16 = 2e-5, 2e-2   # the attention tolerances of the same tests
 BIG = 1e29
 GRID_CELLS, GRID_UES = 4096, 8
-MAIN_SLOTS = 8                   # timed; SMALL_SLOTS hold card vs CPU
+# timed (8 before PR 25, which cut it to make room for phase 16);
+# SMALL_SLOTS hold card vs CPU
+MAIN_SLOTS = 5
 SMALL_CELLS, SMALL_SLOTS = 8, 20
 # card against the port's CPU path on the same draws: the P3/P5 minimizers
 # are flat to float32 rounding, so cuts may differ in a few places
@@ -582,7 +602,8 @@ def profile_grid(torch, grid, slots: int) -> dict:
 # evaluation slots per method would take over an hour of eager slots), and
 # so are phases 3, 4 and 10's slot counts, to keep the smoke inside its
 # time limit on a slow host (PERF.md lists the cuts)
-QS_ARGS = ["--episodes", "2", "--steps", "8", "--eval-episodes", "1"]
+# one training episode (two before PR 25, which cut it for phase 16)
+QS_ARGS = ["--episodes", "1", "--steps", "8", "--eval-episodes", "1"]
 JOINT_EPISODES, PAPER_K = 2, 200
 EVAL_CELLS, EVAL_SLOTS = 4096, 3     # timed
 EVAL_CHECK_SLOTS = 10                # the Oracle card vs CPU on that grid
@@ -1011,6 +1032,14 @@ TM_FLASH = (
                         *((b, heads[0] // 2, max(heads[1] // 2, 1))
                           for b in (1, 2)))
        for kind in kinds])
+# phase 16: (a)'s rank trains qwen3 with every layer whole (B2 a
+# microbatch, all 16 heads); (b)'s float32 mesh step, a data rank's row
+TZ_FLASH = [
+    ("phase 16 (a) qwen3 ZeRO-3 rank", 2, 512, 512, 16, 8, 128, "bf16",
+     "causal", 0, None),
+    ("phase 16 (b) qwen3 ZeRO-3 rank", 1, 128, 128, 16, 8, 128, "f32",
+     "causal", 0, None)]
+TM_FLASH += TZ_FLASH
 FLASH_CASES += TM_FLASH
 DECODE_CASES += [
     ("phase 14 recurrentgemma rank: the ring, 3 slots", 3, 2048, 5, 1, 256,
@@ -3888,7 +3917,7 @@ TM_DEADLINE_S = 400.0                 # a spawned world still running then is en
 TM_READY_S = 120.0                    # (a) waits at most this for (b)'s ranks
 MM_BUDGET_S = 90.0                    # the phase's share of the smoke's time limit
 DIST_CALLS = ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
-              "barrier")
+              "barrier", "all_gather_single", "all_gather_into_tensor")
 
 
 @contextlib.contextmanager
@@ -3897,7 +3926,7 @@ def timed_collectives(spent: dict):
     ``torch.distributed`` collective called while the block runs (gloo
     here: the host copies are outside it)."""
     import torch.distributed as dist
-    saved = {n: getattr(dist, n) for n in DIST_CALLS}
+    saved = {n: getattr(dist, n) for n in DIST_CALLS if hasattr(dist, n)}
 
     def wrap(name, fn):
         def call(*a, **k):
@@ -4032,7 +4061,10 @@ def tm_f32_case(torch, mesh, cfg, seq: int) -> dict:
     ref = None
     t0 = time.perf_counter()
     params = transformer.init_params(SEED_KINDS, cfg, "cuda")
-    local, view = sharding.place_params(mesh, cfg, params)
+    # the model axis alone, as in PR 24 (moonshot's BASELINE would store
+    # ZeRO-3 slices over "data"; phase 16 (b) holds that layout)
+    opts = sharding.ShardingOptions(fsdp_override=False)
+    local, view = sharding.place_params(mesh, cfg, params, opts)
     if mesh.get_local_rank("data") == 0:
         init, step = steps.make_train_step(cfg, lr=1e-3)
         new, opt, _ = step(params, init(params), b0)
@@ -4040,15 +4072,15 @@ def tm_f32_case(torch, mesh, cfg, seq: int) -> dict:
         scale = {k: [float(t.abs().max()) for t in _tree.leaves(tree)]
                  for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
         # on the host: four ranks' float32 training state fills the card
-        ref = {k: _tree.to_device(sharding.place_params(mesh, cfg, tree)[0],
-                                  "cpu")
+        ref = {k: _tree.to_device(sharding.place_params(mesh, cfg, tree,
+                                                        opts)[0], "cpu")
                for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
         del new, opt
     del params
     torch.cuda.empty_cache()
     dist.barrier()
     out["one_s"] = time.perf_counter() - t0
-    init, step = train.make_mesh_train_step(mesh, view, lr=1e-3)
+    init, step = train.make_mesh_train_step(mesh, view, lr=1e-3, opts=opts)
     t0 = time.perf_counter()
     new, opt, metrics = step(local, init(local), b0)
     torch.cuda.synchronize()
@@ -4108,6 +4140,7 @@ def tm_rank(go_file: str, ready: str) -> dict:
     import torch.distributed as dist
     from repro_torch.launch import train
     from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.launch.sharding import ShardingOptions
 
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = elastic_mesh(TM_MODEL)
@@ -4129,7 +4162,10 @@ def tm_rank(go_file: str, ready: str) -> dict:
     t0 = time.perf_counter()
     with recorded_launches(seen), timed_collectives(spent), \
             train_depth(TM_LAYERS):
-        run = train.main(TM_ARGS, mesh=mesh)
+        # the baseline layout (full TP, no ZeRO-3), which phase 16 (a)'s
+        # recommended one stands beside
+        run = train.main(TM_ARGS, mesh=mesh,
+                         opts=ShardingOptions(microbatches=TM_MICRO))
     out["train_s"] = time.perf_counter() - t0
     out["launches"] = read_counts()
     out["losses"] = [run["losses"][s] for s in range(TM_STEPS)]
@@ -4147,6 +4183,389 @@ def tm_rank(go_file: str, ready: str) -> dict:
     out["sync"] = tm_grad_sync(torch, mesh)
     out["f32_s"] = time.perf_counter() - t0
     out["seen"] = seen
+    out["zero"] = tz_rank(torch, mesh)
+    return out
+
+
+# -- phase 16: ZeRO-3 training in the rank-local layout, and the dry run -----
+
+TZ_BUDGET_S = 60.0                    # the phase's share of the smoke's limit
+TZ_LEDGER_STEP = 1                    # (a): the step whose collectives (c) holds
+TZ_ROWS = 8 // TM_DATA                # (a): a rank's rows of each batch
+TZ_LOSS_RTOL = 1e-3                   # (a) against phase 15 (b), both bf16
+TZ_STEPS = 3                          # (a): p50 over steps 1-2
+TZ_ARGS = TM_ARGS[:-1] + [str(TZ_STEPS)]
+DRY_OUT = ROOT / "build" / "dryrun"
+# (c): (a)'s cell on its mesh, then qwen3's cells on the single-pod mesh
+DRY_CARD = ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--mesh-shape",
+            f"{TM_DATA}x{TM_MODEL}", "--layers", str(TM_LAYERS), "--batch",
+            "8", "--seq", "512", "--recommended", "--tag", "card"]
+DRY_PROD = ["--arch", "qwen3-0.6b", "--mesh", "single", "--recommended"]
+DRY_DEADLINE_S = 600.0
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch import _tree
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
+
+
+def tz_f32_case(torch, mesh) -> dict:
+    """(b): one float32 step of qwen3 at TM_F32_LAYERS layers (remat) from
+    the same weights and batch (B2) on one rank and on the mesh under the
+    recommended options; then the mesh's step again with
+    ``remat_offload``.  Returns the rank's worst moment errors over each
+    leaf's max (its ZeRO-3 slices against its slices of the one-rank
+    step's), the next batch's loss both ways, and whether the offloaded
+    step equals the other bit for bit."""
+    from repro_torch import _tree, shardctx
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import steps, transformer
+
+    cfg = dataclasses.replace(tm_f32_configs()[0][1], remat=True)
+    opts = sharding.recommended_options(cfg, "train")
+    stream = for_arch(cfg, batch=2, seq=TM_F32_SEQ, seed=3)
+    b0 = _tree.to_device(stream.get_batch(0), "cuda")
+    b1 = _tree.to_device(stream.get_batch(1), "cuda")
+    out: dict = {}
+    params = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    local, view = sharding.place_params(mesh, cfg, params, opts)
+    init, step = steps.make_train_step(cfg, lr=1e-3)
+    new, opt, _ = step(params, init(params), b0)
+    out["loss_after_one"] = float(steps.loss_fn(new, cfg, b1)[0])
+    scale = {k: [float(t.abs().max()) for t in _tree.leaves(tree)]
+             for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+    ref = {k: _tree.to_device(sharding.place_params(mesh, cfg, tree,
+                                                    opts)[0], "cpu")
+           for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+    del params, new, opt
+    torch.cuda.empty_cache()
+    mine = {}
+    for offload in (False, True):
+        o = dataclasses.replace(opts, remat_offload=offload)
+        init, step = train.make_mesh_train_step(mesh, view, lr=1e-3, opts=o)
+        new, opt, metrics = step(local, init(local), b0)
+        mine[offload] = _tree.leaves([new, opt.mu, opt.nu])
+        if not offload:
+            with shardctx.activation_sharding(mesh):
+                out["loss_after_mesh"] = float(steps.loss_fn(new, view,
+                                                             b1)[0])
+            out["loss"] = float(metrics["loss"])
+            for k in ("mu", "nu"):
+                out[f"{k}_rel"] = max(
+                    float((got.float() - want.to(got.device)).abs().max())
+                    / max(sc, 1e-30)
+                    for got, want, sc in zip(_tree.leaves(getattr(opt, k)),
+                                             _tree.leaves(ref[k]), scale[k]))
+    out["offload_equal"] = all(torch.equal(a, b)
+                               for a, b in zip(mine[False], mine[True]))
+    out["zero_leaves"] = len(view.zero)
+    out["split"] = view.split
+    del mine, local, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def tz_rank(torch, mesh) -> dict:
+    """A rank of phase 16, in phase 15's world after its (c): (a)
+    ``launch.train.main(TZ_ARGS, mesh=)`` under the recommended options,
+    launches counted and shapes recorded, the collectives timed, the
+    ledger of step TZ_LEDGER_STEP kept, the bytes the rank holds; (b)
+    ``tz_f32_case``."""
+    from repro_torch import shardctx
+    from repro_torch.launch import train
+
+    t_rank = time.perf_counter()
+    out: dict = {}
+    seen: set = set()
+    spent: dict = {}
+    ledgers: list = []
+    real = train.make_mesh_train_step
+
+    def keeping_a_ledger(*a, **k):
+        init, step = real(*a, **k)
+        calls = [0]
+
+        def step_kept(*sa):
+            calls[0] += 1
+            if calls[0] != TZ_LEDGER_STEP + 1:
+                return step(*sa)
+            with shardctx.collective_ledger() as ledger:
+                got = step(*sa)
+            ledgers.append(list(ledger))
+            return got
+        return init, step_kept
+
+    torch.cuda.empty_cache()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train.make_mesh_train_step = keeping_a_ledger
+    try:
+        with recorded_launches(seen), timed_collectives(spent), \
+                train_depth(TM_LAYERS):
+            run = train.main(TZ_ARGS, mesh=mesh)
+    finally:
+        train.make_mesh_train_step = real
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["losses"] = [run["losses"][s] for s in range(TZ_STEPS)]
+    out["step_s"] = run["step_s"]
+    out["microbatches"] = run["microbatches"]
+    out["collectives"] = spent
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["held_bytes"] = (tree_bytes(run["params"]) + tree_bytes(run["opt"])
+                         + 2 * TZ_ROWS * 512 * 4)   # tokens, targets: int32
+    # the first batch's loss after the run (its step-0 loss was before it):
+    # each step draws a new batch of near-uniform tokens, so the loss a
+    # step reports need not fall over 4 steps, but the trained weights fit
+    # the batches they saw
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.models import steps
+    first = for_arch(run["cfg"].whole, batch=8, seq=512,
+                     device="cuda").get_batch(0)
+    with shardctx.activation_sharding(mesh), torch.no_grad():
+        out["first_batch_after"] = float(
+            steps.loss_fn(run["params"], run["cfg"], first)[0])
+    out["coords"] = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+    out["ledger"] = ledgers[0] if ledgers else []
+    out["train_seen"] = set(seen)
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with recorded_launches(seen):
+        out["f32"] = tz_f32_case(torch, mesh)
+    out["f32_s"] = time.perf_counter() - t0
+    out["seen"] = seen
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+class DryRun:
+    """(c)'s dry run, off the card (no CUDA device visible to it, one
+    thread, the lowest priority): DRY_CARD,
+    then DRY_PROD, each ``python -m repro_torch.launch.dryrun`` into
+    DRY_OUT, one after the other on a thread of this process, their output
+    in build/dryrun.log.  Started after the build, it runs beside the
+    phases before 16; ``wait`` returns the records, and ``stop`` ends a
+    process still running (at the smoke's exit too)."""
+
+    def __init__(self):
+        import shutil
+        import threading
+        shutil.rmtree(DRY_OUT, ignore_errors=True)
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                        CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                        MKL_NUM_THREADS="1")
+        self.log = open(ROOT / "build" / "dryrun.log", "w")
+        self.procs: list = []
+        self.seconds: list = []
+        self.codes: list = []
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        for args in (DRY_CARD, DRY_PROD):
+            t0 = time.perf_counter()
+            # one thread at the lowest priority: the timed phases it
+            # runs beside keep the host's cores
+            proc = subprocess.Popen(
+                ["nice", "-n", "19", sys.executable, "-m",
+                 "repro_torch.launch.dryrun", *args, "--out", str(DRY_OUT)],
+                cwd=ROOT, env=self.env, stdout=self.log,
+                stderr=subprocess.STDOUT)
+            self.procs.append(proc)
+            self.codes.append(proc.wait())
+            self.seconds.append(time.perf_counter() - t0)
+
+    def wait(self) -> dict:
+        self.thread.join(DRY_DEADLINE_S)
+        if self.thread.is_alive():
+            self.stop()
+            fail(f"(c) the dry run ran past {DRY_DEADLINE_S:.0f} s")
+        self.log.close()
+        if self.codes != [0, 0]:
+            fail(f"(c) the dry run exited {self.codes}; see build/dryrun.log")
+        out = {}
+        for path in sorted(DRY_OUT.glob("*.json")):
+            out[path.stem] = json.loads(path.read_text())
+        return out
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def zero_phase(torch, ranks: list, p15: dict, dry: DryRun) -> dict:
+    """Phase 16: (a) and (b) held on the ranks' results (``tz_rank``),
+    and (c), the dry run's records against (a)'s rank."""
+    t_phase = time.perf_counter()
+    in_world = max(r["s"] for r in ranks)
+    out: dict = {"in_world_s": in_world}
+    tokens = 8 * 512
+    want = {"flash_attention": TM_FLASH_FWD * TZ_STEPS,
+            "flash_attention_backward": TM_FLASH_BWD * TZ_STEPS,
+            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    log(f"[16] (a) python -m repro_torch.launch.train {' '.join(TZ_ARGS)} "
+        f"under qwen3's recommended options (every layer whole on each "
+        f"model rank, the vocabulary over \"model\", ZeRO-3 over (\"data\", "
+        f"\"model\"), {TM_MICRO} microbatches) on phase 15's (data "
+        f"{TM_DATA}, model {TM_MODEL}) world, full width at {TM_LAYERS} of "
+        f"28 layers; (b) float32 against one rank, remat_offload; (c) the "
+        f"dry run")
+    launched = {"flash_attention": 0, "flash_attention_backward": 0}
+    for r, base in zip(ranks, p15["train"]["ranks"]):
+        if r["launches"] != want:
+            fail(f"(a) rank {r['coords']}: launches {r['launches']}, "
+                 f"expected {want}")
+        if r["microbatches"] != TM_MICRO:
+            fail(f"(a) rank {r['coords']}: {r['microbatches']} microbatches")
+        losses = r["losses"]
+        if not all(x == x and abs(x) < 1e30 for x in losses):
+            fail(f"(a) rank {r['coords']}: a loss is not finite: {losses}")
+        if losses != ranks[0]["losses"]:
+            fail("(a) the ranks report different losses")
+        if not r["first_batch_after"] < losses[0]:
+            fail(f"(a) the first batch's loss did not fall: {losses[0]} "
+                 f"before the run, {r['first_batch_after']} after it")
+        # the same function of the same weights and batches as phase 15
+        # (b)'s baseline layout: bf16 sums in other orders
+        drift = max(abs(a - b) / abs(b) for a, b in
+                    zip(losses, p15["train"]["losses"][:TZ_STEPS]))
+        if drift > TZ_LOSS_RTOL:
+            fail(f"(a) rank {r['coords']}'s losses {losses} part from phase "
+                 f"15 (b)'s {p15['train']['losses']} by {drift:.2e}")
+        for k in launched:
+            launched[k] += r["launches"][k]
+        steps_s = r["step_s"][1:]
+        p50 = sorted(steps_s)[len(steps_s) // 2]
+        share = sum(s for _, s in r["collectives"].values()) / sum(
+            r["step_s"])
+        r["p50_s"], r["share"] = p50, share
+        log(f"    rank {r['coords']}: step p50 {p50 * 1e3:.1f} ms "
+            f"(phase 15 (b) {base['p50_s'] * 1e3:.1f}), "
+            f"{tokens / p50:,.0f} tokens/s over the world, collectives "
+            f"{share:.3f} of the steps' time (phase 15 (b) "
+            f"{base['share']:.3f}; "
+            + ", ".join(f"{k} x{c} {s:.2f} s" for k, (c, s)
+                        in sorted(r["collectives"].items()))
+            + f"), peak memory {r['peak_bytes'] / 1e9:.2f} GB (phase 15 "
+            f"(b) {base['peak_bytes'] / 1e9:.2f}), held "
+            f"{r['held_bytes'] / 1e9:.3f} GB")
+    base = p15["train"]["losses"][:TZ_STEPS]
+    log(f"    losses {['%.6f' % x for x in ranks[0]['losses']]} (phase 15 "
+        f"(b) {['%.6f' % x for x in base]}, within {TZ_LOSS_RTOL:g}); the "
+        f"first batch's {ranks[0]['losses'][0]:.6f} "
+        f"before the run, {ranks[0]['first_batch_after']:.6f} after; "
+        f"launches a rank {ranks[0]['launches']}")
+    train_seen = set().union(*(r["train_seen"] for r in ranks))
+    want_seen = {("flash", "bf16", TM_ROWS, 512, 512, 16, 8, 128, "causal",
+                  False)}
+    if train_seen != want_seen:
+        fail(f"(a) flash launched at {sorted(train_seen)}, expected "
+             f"{sorted(want_seen)}")
+    out["train"] = {
+        "losses": ranks[0]["losses"],
+        "launches_per_rank": ranks[0]["launches"],
+        "step_p50_ms": [r["p50_s"] * 1e3 for r in ranks],
+        "tokens_per_s": tokens / max(r["p50_s"] for r in ranks),
+        "collective_share": [r["share"] for r in ranks],
+        "collectives": [r["collectives"] for r in ranks],
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+        "held_gb": [r["held_bytes"] / 1e9 for r in ranks]}
+    # (b)
+    for r in ranks:
+        c = r["f32"]
+        rel = abs(c["loss_after_mesh"] - c["loss_after_one"]) / abs(
+            c["loss_after_one"])
+        if c["mu_rel"] > 1e-4 or c["nu_rel"] > 2e-4 or rel > LOSS_RTOL:
+            fail(f"(b) rank {r['coords']}: moments {c['mu_rel']:.2e} / "
+                 f"{c['nu_rel']:.2e} of their max, next loss {rel:.2e} "
+                 f"relative, past 1e-4 / 2e-4 / {LOSS_RTOL:g}")
+        if not c["offload_equal"]:
+            fail(f"(b) rank {r['coords']}: the step with remat_offload "
+                 f"parts from the step without it")
+        log(f"    (b) rank {r['coords']} ({c['zero_leaves']} ZeRO-3 "
+            f"leaves, split {c['split']}): moments within "
+            f"{c['mu_rel']:.2e} and {c['nu_rel']:.2e} of their max, next "
+            f"batch's loss {c['loss_after_mesh']:.6f} vs one rank "
+            f"{c['loss_after_one']:.6f} ({rel:.2e}); remat_offload equal "
+            f"bit for bit; {r['f32_s']:.1f} s")
+    out["f32"] = [r["f32"] for r in ranks]
+    seen = set().union(*(r["seen"] for r in ranks))
+    grad_held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
+                 for _, b, sq, sk, h, kv, hd, dt, kind, _, pad
+                 in FLASH_GRAD_CASES}
+    missed = sorted(seen - held_shapes()) + sorted(seen - grad_held)
+    if missed:
+        fail(f"phase 16 launched flash at shapes phases 5 and 12 (a) did "
+             f"not hold: {missed}")
+    log(f"    phase 16 trained at {len(seen)} flash shapes, forward and "
+        f"backward held in phases 5 and 12 (a)")
+    # (c)
+    t0 = time.perf_counter()
+    records = dry.wait()
+    waited = time.perf_counter() - t0
+    log(f"    (c) the dry run (off the card, started after the build): "
+        f"{' + '.join(f'{x:.1f}' for x in dry.seconds)} s, waited "
+        f"{waited:.1f} s for it here")
+    for name, rec in sorted(records.items()):
+        if rec["status"] != "ok":
+            if rec["status"] == "skipped":
+                log(f"    {name}: skipped ({rec['reason']})")
+                continue
+            fail(f"(c) {name}: {rec['status']}: {rec.get('traceback', '')}")
+        mem = rec["memory"]
+        coll = rec["collectives"]
+        log(f"    {name}: rank {rec['rank']} of {rec['devices']}, "
+            f"arguments {mem['argument_bytes'] / 1e9:.3f} GB (policy "
+            f"{rec['policy_argument_bytes'] / 1e9:.3f}), temp "
+            f"{mem['temp_bytes'] / 1e9:.3f} GB, output "
+            f"{mem['output_bytes'] / 1e9:.3f} GB, flops {rec['flops']:.4e}, "
+            f"bytes accessed {rec['bytes_accessed']:.4e}, collectives "
+            f"{coll['total_bytes']:.4e} B ("
+            + ", ".join(f"{k} x{coll['ops_by_kind'][k]} {v:.3e}"
+                        for k, v in coll["bytes_by_kind"].items() if v)
+            + f"), run {rec['compile_s']} s")
+    card = records.get(f"qwen3-0.6b__train_4k__{TM_DATA}x{TM_MODEL}__card")
+    if card is None or card["status"] != "ok":
+        fail("(c) the dry run wrote no record of (a)'s cell")
+    twin = next(r for r in ranks
+                if r["coords"] == (0, card["rank"] % TM_MODEL))
+    if card["memory"]["argument_bytes"] != twin["held_bytes"]:
+        fail(f"(c) the dry run's argument bytes "
+             f"{card['memory']['argument_bytes']} differ from the "
+             f"{twin['held_bytes']} (a)'s rank {twin['coords']} holds")
+    fake = [tuple(e) for e in card["ledger"]]
+    for r in ranks:
+        if [tuple(e) for e in r["ledger"]] != fake:
+            fail(f"(c) rank {r['coords']}'s ledger of step "
+                 f"{TZ_LEDGER_STEP} ({len(r['ledger'])} collectives) "
+                 f"differs from the dry run's ({len(fake)})")
+    predicted = card["memory"]["argument_bytes"] + card["memory"]["temp_bytes"]
+    ratio = predicted / twin["peak_bytes"]
+    log(f"    (c) (a)'s cell on a fake (data {TM_DATA}, model {TM_MODEL}) "
+        f"world: arguments {card['memory']['argument_bytes']:,} B = what "
+        f"(a)'s rank holds; its {len(fake)} collectives a step equal every "
+        f"rank's of step {TZ_LEDGER_STEP}, kind for kind, count for count "
+        f"and byte for byte ({card['collectives']['ops_by_kind']}); "
+        f"predicted peak {predicted / 1e9:.3f} GB (the plain program) vs "
+        f"the card's max_memory_allocated {twin['peak_bytes'] / 1e9:.3f} "
+        f"GB: ratio {ratio:.3f}")
+    out["dryrun"] = {name: {k: rec.get(k) for k in (
+        "status", "rank", "devices", "memory", "flops", "bytes_accessed",
+        "collectives", "policy_argument_bytes", "departure_bytes",
+        "compile_s")} for name, rec in records.items()}
+    out["dryrun_s"] = dry.seconds
+    out["peak_ratio"] = ratio
+    out["launches"] = launched
+    out["s"] = in_world + time.perf_counter() - t_phase
+    log(f"    phase 16: {out['s']:.1f} s of its {TZ_BUDGET_S:.0f} s budget "
+        f"({in_world:.1f} s of it in phase 15's world)"
+        + ("" if out["s"] <= TZ_BUDGET_S else " (OVER)"))
     return out
 
 
@@ -4301,6 +4720,8 @@ def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
              f"{sorted(want_seen)}")
     p50s = [r["p50_s"] for r in ranks]
     out["train"] = {
+        "ranks": [{k: r[k] for k in ("p50_s", "share", "peak_bytes")}
+                  for r in ranks],
         "args": TM_ARGS, "losses": ranks[0]["losses"],
         "launches_per_rank": ranks[0]["launches"],
         "step_p50_ms": [x * 1e3 for x in p50s],
@@ -4358,11 +4779,14 @@ def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
         fail(f"phase 15 launched flash at shapes phases 5 and 12 (a) did "
              f"not hold: {missed}")
     out["launches"] = launched
-    out["bc_s"] = time.perf_counter() - t0
+    # phase 16's ranks ran in this world after (c): their seconds are its
+    out["zero_ranks"] = [r["zero"] for r in ranks]
+    out["zero_s"] = max(r["zero"]["s"] for r in ranks)
+    out["bc_s"] = time.perf_counter() - t0 - out["zero_s"]
     log(f"    (b) and (c) took {out['bc_s']:.1f} s after (a); the world had "
         f"started beside (a), its ranks waiting "
         f"{min(r['waited_s'] for r in ranks):.1f} s for it")
-    out["s"] = time.perf_counter() - t_phase
+    out["s"] = time.perf_counter() - t_phase - out["zero_s"]
     log(f"    phase 15: {out['s']:.1f} s of its {MM_BUDGET_S:.0f} s budget"
         + ("" if out["s"] <= MM_BUDGET_S else " (OVER)"))
     return out
@@ -4426,16 +4850,21 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
     log(f"    {len(libs)} kernels built in {build_s:.1f} s")
     report.update(card=kind, count=count, nvidia_smi=smi, build_s=build_s)
+    # phase 16 (c)'s dry run, off the card, beside the phases before it
+    import atexit
+    dry = DryRun()
+    atexit.register(dry.stop)
 
     phase_s = report["phase_s"] = {}
     clock = [2, time.perf_counter()]
 
-    def phase_done() -> None:
-        """Log and keep the seconds the phase that just ended took."""
+    def phase_done(moved: float = 0.0) -> None:
+        """Log and keep the seconds the phase that just ended took, less
+        ``moved`` seconds of the next phase's work that it ran."""
         now = time.perf_counter()
-        phase_s[clock[0]] = now - clock[1]
-        log(f"    phase {clock[0]} took {now - clock[1]:.1f} s")
-        clock[:] = [clock[0] + 1, now]
+        phase_s[clock[0]] = now - clock[1] - moved
+        log(f"    phase {clock[0]} took {now - clock[1] - moved:.1f} s")
+        clock[:] = [clock[0] + 1, now - moved]
 
     # -- 2. kernel vs plain on the card --------------------------------------
     log("[2] partition_sweep: CUDA kernel vs plain PyTorch")
@@ -4577,6 +5006,8 @@ def main() -> int:
     phase_done()
     report["mesh_train"] = mm = mesh_train_phase(torch, held, policies,
                                                  grid.num_cuts)
+    phase_done(moved=mm["zero_s"])
+    report["zero"] = zr = zero_phase(torch, mm.pop("zero_ranks"), mm, dry)
     phase_done()
 
     kernels = [{
@@ -4603,7 +5034,8 @@ def main() -> int:
             "launches": (serving["launches"][name] + kinds["launches"][name]
                          + training["train"]["launches"][name]
                          + tp["launches"][name]
-                         + mm["launches"].get(name, 0)),
+                         + mm["launches"].get(name, 0)
+                         + zr["launches"].get(name, 0)),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -4633,7 +5065,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/ops.py:61-74",
         "launches": (training["train"]["launches"]["flash_attention_backward"]
-                     + mm["launches"]["flash_attention_backward"]),
+                     + mm["launches"]["flash_attention_backward"]
+                     + zr["launches"]["flash_attention_backward"]),
         "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -66,6 +66,7 @@ from .. import _tree
 from ..launch.mesh import CELLS as CELL_AXIS
 from ..launch.mesh import MODEL as MODEL_AXIS
 from ..launch.mesh import _on_host, pack, unpack
+from ..shardctx import record
 
 __all__ = ["CELL_AXIS", "MODEL_AXIS", "GridSharding", "plan", "pad_cells",
            "cell_index", "local", "gather", "unpad", "calls"]
@@ -266,6 +267,7 @@ def _all_gather(xs: list, group, n: int, dim: int) -> list:
         buf = buf.cpu() if host else buf
         parts = [torch.empty_like(buf) for _ in range(n)]
         dist.all_gather(parts, buf, group=group)
+        record("all-gather", n * buf.numel() * buf.element_size(), dt)
         joined[dt] = parts
     # rank r's buffer holds its part of every tensor: split each, then join
     # the ranks' pieces of one tensor along ``dim``

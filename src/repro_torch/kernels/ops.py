@@ -80,8 +80,8 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                                        pad=pad)
     sq, sk = q.shape[1], k.shape[1]
     if sq * sk <= _BLOCKED_THRESHOLD:
-        return ref.attention_ref(q, k, v, mask=ref.build_mask(kind, sq, sk,
-                                                              window))
+        return ref.attention_ref(q, k, v, mask=ref.build_mask(
+            kind, sq, sk, window, device=q.device))
     return ref.attention_blocked(q, k, v, kind=kind, window=window)
 
 

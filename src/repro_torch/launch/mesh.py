@@ -17,13 +17,18 @@ process group.  So a mesh needs that group first:
   world divides, and :func:`make_host_mesh` a 1 x 1 ``("data", "model")``
   mesh on a one-rank group (joining one where none exists);
 * :func:`run_world` spawns ranks on this host, each joined to one group,
-  with a deadline (what ``torchrun --nproc-per-node N`` does for a CLI).
+  with a deadline (what ``torchrun --nproc-per-node N`` does for a CLI);
+* :func:`fake_world` joins one rank of an ``n``-rank group on torch's
+  ``fake`` backend, whose collectives move nothing: with fake tensors a
+  single process runs one rank of the production mesh
+  (``launch.dryrun``).
 
 A mesh's device type follows the backend: ``"cuda"`` under NCCL, ``"cpu"``
 under gloo (whose collectives run on host copies).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -33,6 +38,7 @@ import torch.distributed as dist
 
 from .. import _tree
 from ..device import resolve_device
+from ..shardctx import record
 
 CELLS, MODEL = "cells", "model"
 
@@ -71,6 +77,26 @@ def init_group(backend: str | None = None, device=None, *,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     return device
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """Rank ``rank`` of an ``n``-rank default process group on torch's
+    ``fake`` backend, in this process: collectives return at once and
+    move nothing, so a mesh of any size (``make_production_mesh``'s 256 or
+    512 ranks) is built and one rank's program runs on fake tensors.  It
+    refuses to start where a default group exists, and destroys its group
+    on exit."""
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs no default process group; "
+                           "one already exists")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(n))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_cells_mesh(n_devices: int | None = None, *, model: int = 1):
@@ -253,6 +279,7 @@ def broadcast_tree(tree, src: int = 0, group=None):
     for dt in buffers:
         buf = buffers[dt].cpu() if host else buffers[dt].contiguous()
         dist.broadcast(buf, src, group=group)
+        record("all-reduce", buf)     # the reference's broadcast_one_to_all
         buffers[dt] = buf
     out = unpack(buffers, layout)
     return _tree.unflatten(tree, [x.to(leaf.device) for x, leaf

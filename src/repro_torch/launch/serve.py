@@ -42,7 +42,7 @@ from ..device import resolve_device
 from ..models import transformer
 from ..serving import kvpool
 from ..serving.engine import Request, ServingEngine
-from .sharding import init_rank_params
+from .sharding import SERVING, init_rank_params
 
 SEED = 0
 
@@ -120,7 +120,7 @@ def _serve(args, mesh) -> dict:
     if mesh is None:
         params = transformer.init_params(SEED, cfg, device)
     else:   # the rank's shard, drawn layer by layer: no whole tree
-        params, cfg = init_rank_params(SEED, mesh, cfg, device)
+        params, cfg = init_rank_params(SEED, mesh, cfg, device, SERVING)
     n_params = transformer.param_count(params)
     print(f"[serve] {cfg.name}: {n_params / 1e6:.2f}M params"
           f"{'' if mesh is None else ' on this rank'} "

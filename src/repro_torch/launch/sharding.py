@@ -18,13 +18,32 @@ Port of ``repro/launch/sharding.py``.  Two things are kept apart:
     the sequence axis -> "model";
   * anything that does not divide its mesh axis stays replicated.
 
-* **The rank-local compute layout** (``place_params``): the shard of each
-  weight that a rank holds and computes with, one process a rank, and the
-  rank's ``shardctx.RankConfig``.  It takes only the "model" entries of
-  the policy (FSDP storage over "data" is a training-memory policy with
-  nothing to run in serving: every "data" replica holds its whole
-  "model" shard), and it departs from the policy where GSPMD would
-  reshard behind the reference's back:
+* **The rank-local layout** (``place_params(mesh, cfg, params, opts)``):
+  the shard of each weight that a rank holds and computes with, one
+  process a rank, and the rank's ``shardctx.RankConfig``.  Under
+  ``ShardingOptions``:
+
+  * ``tp_mode`` chooses the sub-blocks split over "model"
+    (``RankConfig.split``), as ``param_spec``'s ``layer_tp`` / ``moe_tp``
+    do: "full" every one the policy splits, "vocab-only" the vocabulary
+    alone (every layer whole on each model rank), "moe-only" the experts
+    and the vocabulary;
+  * ZeRO-3 storage (``cfg.fsdp``, or ``fsdp_override``): a leaf whose
+    policy spec names "data" (or ("data", "model"), where layers take no
+    TP) is stored as the rank's equal slice of its compute shard on that
+    dim (``RankConfig.zero``), and gathered where it is used
+    (``shardctx.gather_tree``); the optimizer moments mirror it.  The
+    serving stack passes :data:`SERVING`, which stores nothing (every
+    "data" replica holds its whole "model" shard, as the recommended
+    decode options keep the weights resident); a caller that passes
+    ZeRO-3 gets it in serving too (the dry run's prefill and decode
+    cells);
+  * ``expert_shard_dff``, ``expert_mesh="data"`` and ``seq_shard`` (with a
+    "model" axis above 1) raise ``NotImplementedError``: ROADMAP queue 1,
+    item 7c, part 4.
+
+  It departs from the policy where GSPMD would reshard behind the
+  reference's back:
 
   * **The SSD's ``in_proj``** is one fused (d, 2 d_inner + 2 g n + h)
     matrix: 290 columns at reduced width, which ``param_spec`` splits at
@@ -46,6 +65,10 @@ Port of ``repro/launch/sharding.py``.  Two things are kept apart:
   * **The RG-LRU gates** take the full (R, R) ``w_r``/``w_i`` on the full
     u: the rank holds their columns (the policy's split) and u is
     all-gathered once a layer.
+  * **Expert leaves under "moe-only" with ZeRO-3**: the policy names
+    "model" twice (E over "model", d_model over ("data", "model"));
+    the layout splits E over "model" and stores d_model over "data"
+    alone.
 
 ``init_rank_params`` draws a rank's shard without the whole tree, one layer
 at a time on the host.  ``place_params`` is idempotent: a ``RankConfig`` marks parameters that are
@@ -56,6 +79,7 @@ engine on a 1 x 1 mesh equals the engine without one bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Any
 
@@ -102,6 +126,38 @@ class ShardingOptions:
 
 
 BASELINE = ShardingOptions()
+# the serving stack's layout: the model axis alone, weights resident
+SERVING = ShardingOptions(fsdp_override=False)
+TP_MODES = ("full", "vocab-only", "moe-only")
+
+
+def context_knobs(opts: ShardingOptions) -> dict:
+    """``shardctx.activation_sharding``'s keywords for ``opts``, as the
+    reference's dry run passes them."""
+    return dict(seq_shard=opts.seq_shard,
+                moe_dp_groups=not (opts.expert_shard_dff
+                                   or opts.expert_mesh == "data"),
+                remat_offload=opts.remat_offload,
+                expert_axis=opts.expert_mesh)
+
+
+def check_options(opts: ShardingOptions, mesh=None) -> None:
+    """Refuse the options the rank-local layout does not take (ROADMAP
+    queue 1, item 7c, part 4)."""
+    from ..shardctx import PART4
+    if opts.tp_mode not in TP_MODES:
+        raise ValueError(f"tp_mode {opts.tp_mode!r} is not one of {TP_MODES}")
+    if opts.expert_shard_dff:
+        raise NotImplementedError(
+            f"expert_shard_dff (expert F over \"data\", tokens gathered) is "
+            f"not ported: {PART4}")
+    if opts.expert_mesh != "model":
+        raise NotImplementedError(
+            f"expert_mesh={opts.expert_mesh!r} (experts over \"data\", "
+            f"all-to-all dispatch) is not ported: {PART4}")
+    if opts.seq_shard and (mesh is None or _axis_size(mesh, "model") > 1):
+        raise NotImplementedError(
+            f"seq_shard (sequence-parallel attention) is not ported: {PART4}")
 
 
 def recommended_options(cfg, shape_kind: str) -> ShardingOptions:
@@ -376,6 +432,7 @@ class _Layout:
     view: RankConfig         # the rank's
     m: int                   # ranks on "model"
     r: int                   # this rank's index on it
+    coords: tuple = ()       # ((axis, size, this rank's index), ...)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,47 +447,57 @@ class NamedSharding:
 
     def local(self, t):
         if self.layout is not None:
-            return _local_leaf(self.layout, self.path, t)
+            return _store(self.layout, self.path,
+                          _local_leaf(self.layout, self.path, t))
         return _take_spec(self.mesh, self.spec, t)
 
 
-def _splits(m: int, cfg) -> dict:
+def _splits(m: int, cfg, opts: ShardingOptions = BASELINE) -> dict:
     """{sub-block: split?} on an ``m``-way "model" axis, from the policy's
-    own conditions under ``BASELINE`` (and the layout's, for "ssm")."""
+    own conditions under ``opts`` (and the layout's, for "ssm"):
+    ``tp_mode`` "vocab-only" keeps only "vocab", "moe-only" "moe" and
+    "vocab"."""
     if m == 1:
         return {}
+    layer_tp = opts.tp_mode == "full"
+    moe_tp = opts.tp_mode in ("full", "moe-only")
     kinds = set(cfg.block_pattern) | set(cfg.tail_pattern) | (
         {"e"} if cfg.enc_layers else set())
     d_in = cfg.ssm_expand * cfg.d_model
     heads = d_in // cfg.ssm_headdim if cfg.ssm_headdim else 0
     out = {
-        "attn": cfg.n_heads > 0 and cfg.n_heads % m == 0
+        "attn": layer_tp and cfg.n_heads > 0 and cfg.n_heads % m == 0
         and bool(kinds - {"r", "s"}),
-        "ffn": cfg.d_ff > 0 and cfg.d_ff % m == 0
+        "ffn": layer_tp and cfg.d_ff > 0 and cfg.d_ff % m == 0
         and bool(kinds - {"m", "s"}),
-        "shared": "m" in kinds and cfg.shared_expert
+        "shared": layer_tp and "m" in kinds and cfg.shared_expert
         and cfg.resolved_moe_dff % m == 0,
-        "moe": "m" in kinds and cfg.n_experts % m == 0,
-        "rglru": "r" in kinds
+        "moe": moe_tp and "m" in kinds and cfg.n_experts % m == 0,
+        "rglru": layer_tp and "r" in kinds
         and cfg.resolved_rnn_width % m == 0,
-        "ssm": "s" in kinds and heads > 0 and heads % m == 0,
+        "ssm": layer_tp and "s" in kinds and heads > 0 and heads % m == 0,
         "vocab": cfg.vocab % m == 0,
     }
     return {k: v for k, v in out.items() if v}
 
 
-def rank_config(mesh, cfg) -> RankConfig:
-    """This rank's view of ``cfg`` on ``mesh`` (see ``shardctx.RankConfig``);
-    a ``RankConfig`` is returned as it is."""
+def rank_config(mesh, cfg, opts: ShardingOptions = BASELINE) -> RankConfig:
+    """This rank's view of ``cfg`` on ``mesh`` under ``opts`` (see
+    ``shardctx.RankConfig``); a ``RankConfig`` is returned as it is."""
     if isinstance(cfg, RankConfig):
         return cfg
     m = _axis_size(mesh, "model")
-    return rank_view(cfg, m, _coord(mesh, "model") if m > 1 else 0)
+    view = rank_view(cfg, m, _coord(mesh, "model") if m > 1 else 0, opts)
+    sizes = tuple(sorted(mesh_axes(mesh).items()))
+    return dataclasses.replace(
+        view, zero=_zero_table(cfg, sizes, opts, view.split), whole=cfg)
 
 
-def rank_view(cfg, m: int, r: int) -> RankConfig:
-    """Rank ``r``'s view of ``cfg`` on an ``m``-way "model" axis."""
-    split = _splits(m, cfg)
+def rank_view(cfg, m: int, r: int,
+              opts: ShardingOptions = BASELINE) -> RankConfig:
+    """Rank ``r``'s view of ``cfg`` on an ``m``-way "model" axis under
+    ``opts``' ``tp_mode`` (no ZeRO-3 storage: ``rank_config`` adds it)."""
+    split = _splits(m, cfg, opts)
     base = {f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(ArchConfig)}
     over: dict = dict(model_rank=r, model_size=m, split=tuple(sorted(split)),
@@ -559,9 +626,80 @@ def _local_leaf(lay: _Layout, path: str, t):
     return t
 
 
-def _layout(mesh, cfg) -> _Layout:
-    view = rank_config(mesh, cfg)
-    return _Layout(cfg=cfg, view=view, m=view.model_size, r=view.model_rank)
+def _layout(mesh, cfg, opts: ShardingOptions = BASELINE) -> _Layout:
+    check_options(opts, mesh)
+    view = rank_config(mesh, cfg, opts)
+    sizes = mesh_axes(mesh)
+    coords = tuple((a, n, _coord(mesh, a) if n > 1 else 0)
+                   for a, n in sizes.items())
+    return _Layout(cfg=cfg, view=view, m=view.model_size, r=view.model_rank,
+                   coords=coords)
+
+
+class _Axes:
+    """A shape-only mesh: axis names and sizes, for ``param_spec``."""
+
+    def __init__(self, sizes: tuple):
+        self.axis_names = tuple(a for a, _ in sizes)
+        self.shape = dict(sizes)
+
+
+@functools.lru_cache(maxsize=64)
+def _leaf_shapes(cfg) -> tuple:
+    """((path, shape), ...) of ``cfg``'s whole parameters (a meta tree)."""
+    from ..models import transformer
+    out: list = []
+    map_with_paths(lambda path, t: out.append((path, tuple(t.shape))),
+                   transformer.init_params(0, cfg, "meta"))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _zero_table(cfg, sizes: tuple, opts: ShardingOptions,
+                split: tuple) -> tuple:
+    """``RankConfig.zero`` of ``cfg`` on a mesh of axis ``sizes`` under
+    ``opts``: each leaf whose policy spec names "data" is stored on that
+    dim over the entry's axes, "model" dropped where the layout splits
+    the leaf over "model" already; axes of one rank in all store
+    nothing."""
+    mesh = _Axes(sizes)
+    names = dict(sizes)
+    use_fsdp = cfg.fsdp if opts.fsdp_override is None else opts.fsdp_override
+    if not use_fsdp or "data" not in names:
+        return ()
+    m = names.get("model", 1)
+    lay = _Layout(cfg=cfg, view=rank_view(cfg, m, 0, opts), m=m, r=0)
+    out = []
+    for path, shape in _leaf_shapes(cfg):
+        spec = tuple(param_spec(mesh, cfg, path, shape, opts))
+        for dim, entry in enumerate(spec):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if "data" not in axes:
+                continue
+            if "model" in axes and _rule(lay, path)[0] != "whole":
+                axes = tuple(a for a in axes if a != "model")
+            n = 1
+            for a in axes:
+                n *= names[a]
+            if n > 1 and shape[dim] % n == 0:
+                out.append((path, dim - len(shape), axes))
+    return tuple(out)
+
+
+def _store(lay: _Layout, path: str, t):
+    """The rank's ZeRO-3 slice of its compute shard ``t`` where the layout
+    stores the leaf at ``path`` so; ``t`` itself elsewhere."""
+    from ..shardctx import zero_entry
+    entry = zero_entry(lay.view, path)
+    if entry is None:
+        return t
+    dim, axes = entry
+    coords = {a: (n, c) for a, n, c in lay.coords}
+    n, at = 1, 0
+    for a in axes:
+        at = at * coords[a][0] + coords[a][1]
+        n *= coords[a][0]
+    return _part(t, dim, at, n)
 
 
 def map_with_paths(fn, tree):
@@ -576,28 +714,32 @@ def _strip(key: str) -> str:
     return "/".join(p.split(":", 1)[1] for p in key.split("/"))
 
 
-def params_shardings(mesh, cfg, params: Any):
+def params_shardings(mesh, cfg, params: Any,
+                     opts: ShardingOptions = BASELINE):
     """A tree of :class:`NamedSharding`, one a parameter leaf: the policy's
-    spec (``param_spec``) and the rank-local shard it keeps.  ``params``
-    need only give each leaf's shape (a tree on the meta device does).  On a
-    ``("cells", "model")`` mesh weights replicate across "cells" (each
-    cells row holds a full replica) and split their head/FFN/vocab dims
-    over "model"."""
-    lay = _layout(mesh, cfg)
+    spec (``param_spec`` under ``opts``) and the rank-local shard it keeps
+    (its ZeRO-3 slice where it has one).  ``params`` need only give each
+    leaf's shape (a tree on the meta device does; a tree of moments or of
+    (params, moments) takes the same layout).  On a ``("cells",
+    "model")`` mesh weights replicate across "cells" (each cells row
+    holds a full replica) and split their head/FFN/vocab dims over
+    "model"."""
+    lay = _layout(mesh, cfg, opts)
     return map_with_paths(
         lambda path, leaf: NamedSharding(
-            mesh, param_spec(mesh, cfg, path, tuple(leaf.shape)), lay,
+            mesh, param_spec(mesh, cfg, path, tuple(leaf.shape), opts), lay,
             path), params)
 
 
-def place_params(mesh, cfg, params):
-    """(this rank's shard of ``params``, its ``RankConfig``): the serving
-    stack's entry into tensor parallelism.  Every rank passes the whole
-    parameter tree (the same weights); the shards are contiguous copies,
-    so the caller may drop the whole tree after.  ``cfg`` already a
-    ``RankConfig`` means ``params`` are the rank's (from
-    :func:`init_rank_params` or a ``restore`` with ``params_shardings``,
-    which never hold a whole tree): both pass through."""
+def place_params(mesh, cfg, params, opts: ShardingOptions = BASELINE):
+    """(this rank's shard of ``params`` under ``opts``, its
+    ``RankConfig``): the entry into tensor parallelism and ZeRO-3 storage.
+    Every rank passes the whole parameter tree (the same weights); the
+    shards are contiguous copies, so the caller may drop the whole tree
+    after.  ``cfg`` already a ``RankConfig`` means ``params`` are the
+    rank's (from :func:`init_rank_params` or a ``restore`` with
+    ``params_shardings``, which never hold a whole tree): both pass
+    through."""
     if isinstance(cfg, RankConfig):
         if cfg.model_size != _axis_size(mesh, "model"):
             raise ValueError(
@@ -605,9 +747,10 @@ def place_params(mesh, cfg, params):
                 f"given a mesh whose model axis is "
                 f"{_axis_size(mesh, 'model')}")
         return params, cfg
-    lay = _layout(mesh, cfg)
-    return map_with_paths(lambda path, t: _local_leaf(lay, path, t),
-                          params), lay.view
+    lay = _layout(mesh, cfg, opts)
+    return map_with_paths(
+        lambda path, t: _store(lay, path, _local_leaf(lay, path, t)),
+        params), lay.view
 
 
 def _view_layout(view: RankConfig) -> _Layout:
@@ -668,7 +811,7 @@ def gather_params(view: RankConfig, tree):
     into the whole tree, on every rank of the active "model" sub-group
     (``shardctx.activation_sharding``).  ``view`` a plain config: ``tree``
     is already whole.  See :func:`gathered_leaves`."""
-    if not isinstance(view, RankConfig) or view.model_size == 1:
+    if not _sharded(view):
         return tree
     lay = _view_layout(view)
     return map_with_paths(lambda path, t: _whole_leaf(lay, path, t), tree)
@@ -683,7 +826,7 @@ def gathered_leaves(view: RankConfig, tree):
     as they are."""
     items: list = []
     _map_with_path(lambda key, t: items.append((key, t)), tree)
-    if not isinstance(view, RankConfig) or view.model_size == 1:
+    if not _sharded(view):
         yield from items
         return
     lay = _view_layout(view)
@@ -691,12 +834,24 @@ def gathered_leaves(view: RankConfig, tree):
         yield key, _whole_leaf(lay, _strip(key), t)
 
 
+def _sharded(view) -> bool:
+    """Whether ``view`` holds anything less than the whole model."""
+    return isinstance(view, RankConfig) and (view.model_size > 1
+                                             or bool(view.zero))
+
+
 def _whole_leaf(lay: _Layout, path: str, t):
-    """The whole leaf of a rank's shard ``t``.  An equal part is
-    all-gathered; the kv-head runs and the SSD's fused columns, which
-    several ranks hold, are summed over the ranks from each entry's owner
-    alone, so the sum is exact."""
-    from ..shardctx import model_all_gather, model_all_reduce
+    """The whole leaf of a rank's shard ``t``.  A ZeRO-3 slice is first
+    all-gathered over its storage axes; an equal part is all-gathered;
+    the kv-head runs and the SSD's fused columns, which several ranks
+    hold, are summed over the ranks from each entry's owner alone, so the
+    sum is exact."""
+    from ..shardctx import (gather_tree, model_all_gather, model_all_reduce,
+                            param_path)
+    with torch.no_grad():
+        t = gather_tree(lay.view, param_path(path), t)
+    if lay.m == 1:
+        return t
     rule = _rule(lay, path)
     if rule[0] == "whole":
         return t
@@ -780,40 +935,57 @@ def global_norm(view: RankConfig, tree) -> torch.Tensor:
     the whole model's (``place_params``), in float32, the same on every
     rank: each rank sums the squares of the entries it owns (its own
     parts; a replicated leaf is rank 0's; an entry several ranks hold is
-    its lowest holder's), and the sums are added over "model"."""
-    from ..shardctx import model_all_reduce
+    its lowest holder's), and the sums are added over "model".  Where the
+    view stores ZeRO-3 slices, a slice's entries are its rank's (over
+    ("data", "model") every rank's slice is its own; over "data" the
+    model rule above picks among the slices' holders), a leaf the data
+    ranks replicate is data rank 0's, and the sums are added over
+    ("data", "model")."""
+    from ..shardctx import axes_coord, model_all_reduce, storage_all_reduce
+    from ..shardctx import zero_entry
     lay = _view_layout(view)
     total = []
+    data0 = not view.zero or axes_coord(("data",)) == 0
 
     def add(path, g):
-        if _rule(lay, path)[0] == "whole" and lay.r > 0:
+        entry = zero_entry(view, path)
+        if entry is None and not data0:
             return g
-        owned = _owned_index(lay, path)
-        if owned is not None:
-            g = g.index_select(-1, owned[0].to(g.device))
+        if entry is None or "model" not in entry[1]:
+            if _rule(lay, path)[0] == "whole" and lay.r > 0:
+                return g
+            owned = _owned_index(lay, path)
+            if owned is not None:
+                g = g.index_select(-1, owned[0].to(g.device))
         total.append(torch.sum(torch.square(g.float())))
         return g
 
     map_with_paths(add, tree)
     device = _tree.leaves(tree)[0].device
     ss = torch.stack(total).sum() if total else torch.zeros((), device=device)
+    if view.zero:
+        return torch.sqrt(storage_all_reduce(ss.reshape(1),
+                                             ("data", "model"))[0])
     return torch.sqrt(model_all_reduce(ss.reshape(1))[0])
 
 
-def init_rank_params(seed, mesh, cfg, device=None):
+def init_rank_params(seed, mesh, cfg, device=None,
+                     opts: ShardingOptions = BASELINE):
     """(this rank's shard of ``models.transformer.init_params(seed, cfg,
-    "cpu")`` on ``device``, its ``RankConfig``), what ``place_params`` of
-    that whole tree gives, without the whole tree: the host draws one
-    layer at a time and keeps each leaf's shard, which alone goes to
-    ``device``.  So a model larger than one card is placed over the
-    "model" axis; the host holds one layer (and the embedding) at most."""
+    "cpu")`` on ``device`` under ``opts``, its ``RankConfig``), what
+    ``place_params`` of that whole tree gives, without the whole tree: the
+    host draws one layer at a time and keeps each leaf's shard, which
+    alone goes to ``device``.  So a model larger than one card is placed
+    over the mesh; the host holds one layer (and the embedding) at
+    most."""
     from ..device import resolve_device
     from ..models import transformer
     device = resolve_device(device)
-    lay = _layout(mesh, cfg)
+    lay = _layout(mesh, cfg, opts)
     params = transformer.init_params(
         seed, cfg, "cpu",
-        keep=lambda path, t: _local_leaf(lay, path, t).to(device))
+        keep=lambda path, t: _store(lay, path, _local_leaf(lay, path, t))
+        .contiguous().to(device))
     return params, lay.view
 
 

@@ -9,7 +9,8 @@ Port of ``repro/launch/train.py``, on CUDA unless ``--device cpu``:
 same family, float32; on CUDA its heads widen to the attention kernels'
 smallest head dim, as ``launch.serve`` does) trains on the synthetic
 stream with ``models.steps.make_train_step``, in the microbatches the
-reference's sharding policy recommends, checkpointing every
+reference's sharding policy recommends
+(``sharding.recommended_options(cfg, "train")``), checkpointing every
 ``--ckpt-every`` steps (with the stream's ``data_step``) and resuming from
 the latest checkpoint in ``--ckpt-dir``; ``StragglerMonitor`` times every
 step, each ended by a device synchronisation.
@@ -17,10 +18,16 @@ step, each ended by a device synchronisation.
 On a mesh (``main(argv, mesh=...)`` with a ``("data", "model")`` or
 ``("pod", "data", "model")`` ``DeviceMesh``, one process a rank) each rank
 draws its shard of the same initial parameters
-(``launch.sharding.init_rank_params``) and steps with
-``make_mesh_train_step``: its rows of each logical batch over the data
-axes, tensor parallelism over "model", the gradients averaged over the
-data axes once a step.  A checkpoint on a mesh is the whole tree,
+(``launch.sharding.init_rank_params``) under those same recommended
+options (for a model under 8 B parameters: every layer whole on each
+model rank, the vocabulary split over "model", ZeRO-3 storage over
+("data", "model")) and steps with ``make_mesh_train_step``: its rows of
+each logical batch over the data axes, tensor parallelism over "model",
+the gradients averaged over the data axes once a step.  This goes further
+than the reference, whose launcher places nothing (``jax.jit(train_step)``
+without shardings): an explicit-TP port runs the layout its policy
+describes by placing it.  ``main(argv, mesh, opts=)`` takes other
+options.  A checkpoint on a mesh is the whole tree,
 gathered one leaf at a time by the first replica's ranks
 (``sharding.gathered_leaves``) and written by rank 0 as each leaf comes
 (``save_checkpoint``); it is restored with ``restore(shardings=)``, so one
@@ -37,6 +44,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from .. import _tree
 from ..configs.base import get_config, reduced
 from ..data.pipeline import for_arch
 from ..device import resolve_device
@@ -45,74 +53,101 @@ from ..models.common import dtype_of
 from ..models.steps import (default_microbatches, make_train_step,
                             microbatch_grads)
 from ..optim.adam import adam
-from ..profiling.roofline import param_count
 from ..runtime.checkpoint import CheckpointManager
-from ..runtime.compression import make_dp_step
+from ..runtime.compression import make_dp_step, make_grad_sync
 from ..runtime.resilience import StragglerMonitor
 from ..shardctx import RankConfig, activation_sharding, mesh_axes
 from .mesh import data_axes, data_size, is_rank0
 from .serve import kernel_head_dim
-from .sharding import (gathered_leaves, global_norm, init_rank_params,
-                       params_shardings, reduce_partial_grads)
+from .sharding import (BASELINE, ShardingOptions, context_knobs,
+                       gathered_leaves, global_norm, init_rank_params,
+                       map_with_paths, params_shardings, recommended_options,
+                       reduce_partial_grads)
 
 SEED = 0
 
 
-def recommended_microbatches(cfg):
-    """The training microbatch count of the reference's recommended
-    sharding options (``repro/launch/sharding.py::recommended_options(cfg,
-    "train").microbatches``), without the sharding itself: 4 for an MoE
-    whose experts would be resident (over 8 GB of expert weights in bf16),
-    2 for a dense, SSM or hybrid model under 8 B parameters, 8 for a larger
-    dense one; None (take ``default_microbatches``) for the other MoE and
-    the encoder-decoder."""
-    if cfg.n_experts:
-        expert_params = (cfg.n_experts * (3 if cfg.gated_ffn else 2)
-                         * cfg.d_model * cfg.resolved_moe_dff)
-        return 4 if expert_params * 2 > 8e9 else None
-    if cfg.enc_layers:
-        return None
-    return 2 if param_count(cfg) < 8e9 else 8
-
-
 def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
                          weight_decay: float = 0.1, grad_clip: float = 1.0,
-                         microbatches: int = 1):
+                         microbatches: int = 1,
+                         opts: ShardingOptions = BASELINE):
     """``models.steps.make_train_step`` on ``mesh``, a ``("data",
     "model")`` or ``("pod", "data", "model")`` ``DeviceMesh``: ``cfg`` is
     the rank's view and ``params`` its shard (``sharding.place_params`` or
-    ``init_rank_params``).  Returns ``(opt_init, train_step)``, and
-    ``train_step(params, opt_state, batch)`` takes the logical batch: each
-    rank takes its rows over the data axes, accumulates its microbatches
-    under tensor parallelism over "model", sums over "model" the gradients
-    that ranks hold in part (``sharding.reduce_partial_grads``), then
-    averages the gradients over the data axes once a step
-    (``runtime.compression.make_dp_step`` in mode "none", the reference's
-    float32 psum) and clips on the whole model's global norm
-    (``sharding.global_norm``).  Loss, ce and aux are the means over the
-    data ranks."""
+    ``init_rank_params``, under the same ``opts``).  Returns ``(opt_init,
+    train_step)``, and ``train_step(params, opt_state, batch)`` takes the
+    logical batch: each rank takes its rows over the data axes,
+    accumulates its microbatches under tensor parallelism over "model"
+    (under ``shardctx.activation_sharding`` with ``opts``' knobs:
+    ``remat_offload``), sums over "model" the gradients that ranks hold in
+    part (``sharding.reduce_partial_grads``), then averages the gradients
+    over the data axes once a step (``runtime.compression.make_dp_step``
+    in mode "none", the reference's float32 psum) and clips on the whole
+    model's global norm (``sharding.global_norm``).  A ZeRO-3 slice's
+    gradient arrives reduce-scattered, the sum over its storage axes, and
+    is scaled to the data axes' mean instead (a "model" rank in those
+    axes computed the same gradient as the others); Adam then works on
+    the slices.  Loss, ce and aux are the means over the data ranks."""
+    from ..shardctx import zero_entry
     if not data_axes(mesh):
         raise ValueError(f"a train step's mesh needs a data axis; its axes "
                          f"are {tuple(mesh.mesh_dim_names)}")
-    sharded = isinstance(cfg, RankConfig) and cfg.model_size > 1
+    sharded = isinstance(cfg, RankConfig) and (cfg.model_size > 1
+                                               or bool(cfg.zero))
     opt_init, opt_update = adam(
         lr, weight_decay=weight_decay, grad_clip=grad_clip,
         state_dtype=dtype_of(cfg.opt_state_dtype),
         norm=(lambda g: global_norm(cfg, g)) if sharded else None)
     grads_of = microbatch_grads(cfg, microbatches)
+    axes = mesh_axes(mesh)
+    zero = isinstance(cfg, RankConfig) and bool(cfg.zero)
+    outer = tuple(a for a in data_axes(mesh) if a != "data")
+    # the replicas of a slice over "pod" take their mean
+    pod_mean = (make_grad_sync(mesh, outer, "none", False)
+                if zero and outer else None)
+    stored: list = []
+
+    def entries(grads):
+        if not stored:
+            map_with_paths(lambda path, g: stored.append(
+                zero_entry(cfg, path)), grads)
+        return stored
 
     def rank_grads(params, rows):
         loss, ce, aux, grads = grads_of(params, rows)
         if sharded:
             grads = reduce_partial_grads(cfg, grads)
+        if zero:
+            grads = _zero_mean(grads, entries(grads))
         return torch.stack([torch.as_tensor(v, dtype=torch.float32)
                             for v in (loss, ce, aux)]), grads
 
+    def _zero_mean(grads, where):
+        leaves = _tree.leaves(grads)
+        mine = [g for g, e in zip(leaves, where) if e is not None]
+        if pod_mean is not None:
+            mine = pod_mean(mine, None)[0]
+        it = iter(mine)
+        out = []
+        for g, e in zip(leaves, where):
+            if e is None:
+                out.append(g)
+                continue
+            n = 1
+            for a in e[1]:
+                n *= axes[a]
+            out.append(next(it) / n)
+        return _tree.unflatten(grads, out)
+
+    local = None
+    if zero:
+        local = lambda grads: [e is not None for e in entries(grads)]
     step = make_dp_step(mesh, rank_grads, opt_update, data_axes(mesh),
-                        "none", error_feedback=False)
+                        "none", error_feedback=False, local=local)
+    knobs = context_knobs(opts)
 
     def train_step(params, opt_state, batch):
-        with activation_sharding(mesh):
+        with activation_sharding(mesh, **knobs):
             params, opt_state, _, stats = step(params, opt_state, None,
                                                batch)
         loss, ce, aux = stats.unbind()
@@ -124,7 +159,8 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
 def save_checkpoint(mgr, mesh, cfg, step: int, tree) -> None:
     """Checkpoint ``tree`` (params and moments) at ``step``.  On a mesh the
     checkpoint is the whole tree: the ranks of the first replica (every
-    axis but "model" at 0) gather it one leaf at a time
+    axis but "model" at 0; and every "data" rank, where ``cfg`` stores
+    ZeRO-3 slices over it) gather it one leaf at a time
     (``sharding.gathered_leaves``), rank 0 writing each leaf as it comes;
     the other replicas gather nothing.  Every rank returns once the
     checkpoint is on disk."""
@@ -132,8 +168,9 @@ def save_checkpoint(mgr, mesh, cfg, step: int, tree) -> None:
     if mesh is None:
         mgr.save(step, tree, extra=extra)
         return
+    held = ("model", "data") if getattr(cfg, "zero", ()) else ("model",)
     first = all(mesh.get_local_rank(a) == 0
-                for a in mesh.mesh_dim_names if a != "model")
+                for a in mesh.mesh_dim_names if a not in held)
     if first:
         with activation_sharding(mesh):
             leaves = gathered_leaves(cfg, tree)
@@ -162,8 +199,9 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def setup(args, mesh=None) -> dict:
-    """The run's pieces: device, config (on a mesh the rank's view),
+def setup(args, mesh=None, opts: ShardingOptions | None = None) -> dict:
+    """The run's pieces: device, config (on a mesh the rank's view, under
+    ``opts``, by default ``recommended_options(cfg, "train")``),
     parameters and optimizer state (restored from ``--ckpt-dir``'s latest
     checkpoint where one exists), stream, train step, checkpoint manager
     and first step."""
@@ -176,12 +214,14 @@ def setup(args, mesh=None) -> dict:
     model_cfg = get_config(args.arch)
     if args.smoke:
         model_cfg = reduced(model_cfg, **kernel_head_dim(device))
+    if opts is None:
+        opts = recommended_options(model_cfg, "train")
     if mesh is None:
         cfg = model_cfg
         params = transformer.init_params(SEED, cfg, device)
         rows = args.batch
     else:
-        params, cfg = init_rank_params(SEED, mesh, model_cfg, device)
+        params, cfg = init_rank_params(SEED, mesh, model_cfg, device, opts)
         n_data = data_size(mesh)
         if args.batch % n_data:
             raise ValueError(f"--batch {args.batch} does not split over the "
@@ -189,20 +229,20 @@ def setup(args, mesh=None) -> dict:
         rows = args.batch // n_data
     stream = for_arch(model_cfg, batch=args.batch, seq=args.seq,
                       device=device)
-    mb = min(recommended_microbatches(model_cfg)
-             or default_microbatches(model_cfg, rows), rows)
+    mb = min(opts.microbatches or default_microbatches(model_cfg, rows),
+             rows)
     if mesh is None:
         opt_init, train_step = make_train_step(cfg, lr=args.lr,
                                                microbatches=mb)
     else:
-        opt_init, train_step = make_mesh_train_step(mesh, cfg, lr=args.lr,
-                                                    microbatches=mb)
+        opt_init, train_step = make_mesh_train_step(
+            mesh, cfg, lr=args.lr, microbatches=mb, opts=opts)
     opt = opt_init(params)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if mgr and mgr.latest_step() is not None:
         shardings = (None if mesh is None else
-                     params_shardings(mesh, model_cfg, (params, opt)))
+                     params_shardings(mesh, model_cfg, (params, opt), opts))
         (params, opt), manifest = mgr.restore((params, opt),
                                               shardings=shardings)
         start = manifest["step"]
@@ -210,14 +250,16 @@ def setup(args, mesh=None) -> dict:
             print(f"[restore] resuming at step {start}")
     return {"device": device, "cfg": cfg, "params": params, "opt": opt,
             "stream": stream, "microbatches": mb, "train_step": train_step,
-            "mgr": mgr, "start": start, "mesh": mesh}
+            "mgr": mgr, "start": start, "mesh": mesh, "opts": opts}
 
 
-def main(argv=None, mesh=None) -> dict:
+def main(argv=None, mesh=None, opts: ShardingOptions | None = None) -> dict:
     """Train; on ``mesh`` every rank runs this, and returns its shard of
-    the parameters and moments."""
+    the parameters and moments.  ``opts``: the layout (default
+    ``recommended_options(cfg, "train")``, as the reference's launcher
+    takes them)."""
     args = parse_args(argv)
-    run = setup(args, mesh)
+    run = setup(args, mesh, opts)
     device, cfg = run["device"], run["cfg"]
     params, opt, mgr = run["params"], run["opt"], run["mgr"]
     say = print if is_rank0() else (lambda *a, **k: None)
@@ -249,7 +291,7 @@ def main(argv=None, mesh=None) -> dict:
         mgr.wait()
     if mon.events:
         say(f"[stragglers] {len(mon.events)} slow steps flagged")
-    return {"arch": cfg.name, "device": str(device),
+    return {"arch": cfg.name, "device": str(device), "cfg": cfg,
             "microbatches": run["microbatches"], "start": run["start"],
             "params": params, "opt": opt,
             "losses": {s: float(v) for s, v in losses.items()},

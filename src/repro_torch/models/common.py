@@ -27,7 +27,9 @@ def dense_init(gen, shape, dtype, scale: float | None = None, device=None):
     (D, F) slice at a time into the ``dtype`` result, so no float32 copy of
     the whole leaf exists; each slice draws a standard normal and redraws
     only the entries outside +-2, the same distribution at a fraction of
-    ``trunc_normal_``'s draws."""
+    ``trunc_normal_``'s draws.  On the meta device nothing is drawn."""
+    if _meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     if len(shape) >= 3:
@@ -47,7 +49,13 @@ def dense_init(gen, shape, dtype, scale: float | None = None, device=None):
     return (w * std).to(dtype)
 
 
+def _meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
 def embed_init(gen, shape, dtype, device=None):
+    if _meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * 0.02).to(dtype)
 

@@ -146,6 +146,7 @@ def apply_moe(p, cfg, x):
     g = tokens.shape[0] // gsize
     xg = tokens.reshape(g, gsize, d)
     dispatch, combine, aux = route(p["router"], cfg, xg)
+    xg_whole = xg           # what a shared expert held whole reads
     if shardctx.split(cfg, "moe"):
         # the router runs whole on every rank; its outputs enter the
         # rank's experts, so their gradients are summed over "model"
@@ -175,9 +176,11 @@ def apply_moe(p, cfg, x):
         # both partial sums: one all-reduce
         y = shardctx.model_all_reduce(
             y + apply_ffn(p["shared"], cfg, xg, "shared", reduce=False))
-    else:
+    else:   # a whole shared expert ("moe-only") must not read the xg
+        # that entered the split experts: every rank's gradient of it is
+        # the whole one, and "model" would sum it M times
         y = (shardctx.reduce(cfg, "moe", y)
-             + apply_ffn(p["shared"], cfg, xg, "shared"))
+             + apply_ffn(p["shared"], cfg, xg_whole, "shared"))
     y = y.reshape(-1, d)
     if pad:
         y = y[:t]

@@ -124,10 +124,15 @@ def init_params(seed, cfg, device=None, *, keep=None) -> dict:
     ``keep(path, t)``, where given, maps each leaf as it is drawn (a
     unit's one layer at a time, at its unstacked path such as
     "units/slot0/attn/wq") to what the tree holds instead: a rank's shard
-    on another device (``launch.sharding.init_rank_params``)."""
+    on another device (``launch.sharding.init_rank_params``).
+
+    On the meta device nothing is drawn: the tree gives each leaf's shape
+    and dtype (``launch.specs.params_specs``)."""
     device = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator(device=device).manual_seed(int(seed))
+    if device.type == "meta" or isinstance(seed, torch.Generator):
+        gen = seed if isinstance(seed, torch.Generator) else None
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
     keep = keep or (lambda path, t: t)
     dt = dtype_of(cfg.param_dtype)
     norm = lambda path: keep(path, torch.zeros(cfg.d_model, dtype=dt,
@@ -323,9 +328,14 @@ def _unstack(units) -> list:
             for u in range(len(parts[0]))]
 
 
-def _run_unit(unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u):
+def _run_unit(unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u,
+              prefix="units"):
     """One unit's layers over x; with ``caches``, each layer's cache at unit
-    ``u`` is filled in place.  Returns (x, the unit's MoE aux or None)."""
+    ``u`` is filled in place.  Returns (x, the unit's MoE aux or None).
+    The unit's ZeRO-3 leaves (``unit_p`` at ``prefix``) are gathered
+    here, inside any remat region: the recompute gathers them again, and
+    one unit is whole at a time."""
+    unit_p = shardctx.gather_tree(cfg, prefix, unit_p)
     total = None
     for i, kind in enumerate(pattern):
         x, aux, out = _layer_full(unit_p[f"slot{i}"], cfg, kind, x,
@@ -338,23 +348,34 @@ def _run_unit(unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u):
 
 
 def run_units(units, cfg, x, positions, caches=None, pad_mask=None,
-              ctx=None, pattern=None, remat: bool = False):
+              ctx=None, pattern=None, remat: bool = False,
+              prefix: str = "units"):
     """Apply every unit of ``units`` (leaves stacked over units; each unit
     the layers of ``pattern``, by default ``cfg.block_pattern``) to x.
     With ``caches`` ({"slot{i}": unit-stacked cache}), each layer's cache
     is filled in place.  With ``remat``, where a gradient is wanted, each
     unit runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint`` per unit): only its input is kept, and its forward
-    runs again in the backward.  Returns (x, the units' summed MoE aux
-    loss, or None where the pattern has no "m")."""
+    runs again in the backward; under ``shardctx.remat_offload_active()``
+    that input (the carry, and nothing else the checkpoint saves) waits
+    in host memory, pinned on CUDA.  ``prefix`` is the units' path in the
+    parameters ("units", or "encoder/units"), for their ZeRO-3 leaves.
+    Returns (x, the units' summed MoE aux loss, or None where the pattern
+    has no "m")."""
     pattern = cfg.block_pattern if pattern is None else pattern
     unit_params = _unstack(units)
     remat = remat and caches is None and torch.is_grad_enabled() and any(
         t.requires_grad for t in [x, *_tree.leaves(units)])
+    offload = remat and shardctx.remat_offload_active()
     total = None
     for u, unit_p in enumerate(unit_params):
-        args = (unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u)
-        if remat:
+        args = (unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u,
+                prefix)
+        if offload:
+            with _offload_carry(x):
+                x, unit_aux = torch.utils.checkpoint.checkpoint(
+                    _run_unit, *args, use_reentrant=False)
+        elif remat:
             x, unit_aux = torch.utils.checkpoint.checkpoint(
                 _run_unit, *args, use_reentrant=False)
         else:
@@ -363,11 +384,34 @@ def run_units(units, cfg, x, positions, caches=None, pad_mask=None,
     return x, total
 
 
+def _offload_carry(carry):
+    """Saved-tensor hooks under which the checkpoint that takes ``carry``
+    as its input keeps that input in host memory (pinned, where it is a
+    CUDA tensor) until its recompute: the checkpoint saves every tensor
+    argument, the unit's weights too, and only the carry is moved."""
+    def pack(t):
+        if t is not carry:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=t.is_cuda)
+        host.copy_(t, non_blocking=t.is_cuda)
+        return (t.device, host)
+
+    def unpack(saved):
+        if isinstance(saved, tuple):
+            device, host = saved
+            return host.to(device, non_blocking=True)
+        return saved
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
+
+
 def run_tail(tail, cfg, x, positions, caches=None, pad_mask=None, ctx=None):
     """Apply the tail layers, filling their caches in place if given.
     Returns (x, their summed MoE aux loss or None)."""
     total = None
     for j, (p, kind) in enumerate(zip(tail, cfg.tail_pattern)):
+        p = shardctx.gather_tree(cfg, f"tail/{j}", p)
         x, aux, out = _layer_full(p, cfg, kind, x, positions, pad_mask,
                                   want_cache=caches is not None, ctx=ctx)
         total = _add(total, aux)
@@ -381,7 +425,8 @@ def _encode(params, cfg, src_embeds):
     enc = params["encoder"]
     x = src_embeds.to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = run_units(enc["units"], cfg, x, positions, pattern=("e",))
+    x, _ = run_units(enc["units"], cfg, x, positions, pattern=("e",),
+                     prefix="encoder/units")
     return rms_norm(x, enc["final_norm"])
 
 
@@ -399,7 +444,9 @@ def _head(params, cfg, x):
     """Float32 logits of the rank's vocabulary columns (all of them where
     the vocabulary is whole)."""
     x = shardctx.enter(cfg, "vocab", rms_norm(x, params["final_norm"]))
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    head = (shardctx.gather_tree(cfg, "embed", params["embed"]).T
+            if cfg.tie_embeddings else
+            shardctx.gather_tree(cfg, "head", params["head"]))
     return (x @ head).float()
 
 
@@ -421,12 +468,12 @@ def _embed(params, cfg, tokens):
     the vocabulary is split, each rank looks up the tokens among its rows
     (zeros for the others') and the sum over "model" is the row: one
     nonzero term, so it is exact."""
+    table = shardctx.gather_tree(cfg, "embed", params["embed"])
     if not shardctx.split(cfg, "vocab"):
-        return F.embedding(tokens, params["embed"]).to(
-            dtype_of(cfg.compute_dtype))
+        return F.embedding(tokens, table).to(dtype_of(cfg.compute_dtype))
     local = tokens - cfg.vocab_offset
     mine = (local >= 0) & (local < cfg.local_vocab)
-    rows = F.embedding(torch.where(mine, local, 0), params["embed"])
+    rows = F.embedding(torch.where(mine, local, 0), table)
     rows = shardctx.model_all_reduce(rows * mine[..., None].to(rows.dtype))
     return rows.to(dtype_of(cfg.compute_dtype))
 
@@ -543,13 +590,13 @@ def _each_layer(params, cfg, caches):
     """(layer params, kind, layer cache) over the units, then the tail;
     the caches are views of ``caches``' unit-stacked tensors."""
     for u in range(cfg.n_units):
-        unit_p = _unit(params, u)
+        unit_p = shardctx.gather_tree(cfg, "units", _unit(params, u))
         for i, kind in enumerate(cfg.block_pattern):
             yield (unit_p[f"slot{i}"], kind,
                    _tree.index(caches["units"][f"slot{i}"], u))
-    for p, kind, c in zip(params.get("tail", []), cfg.tail_pattern,
-                          caches["tail"]):
-        yield p, kind, c
+    for j, (p, kind, c) in enumerate(zip(params.get("tail", []),
+                                         cfg.tail_pattern, caches["tail"])):
+        yield shardctx.gather_tree(cfg, f"tail/{j}", p), kind, c
 
 
 def decode_step(params, cfg, caches, tokens):

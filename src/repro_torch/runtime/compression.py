@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from .. import _tree
 from ..launch.mesh import _on_host, axes_group, pack, unpack
+from ..shardctx import record
 
 MODES = ("none", "bf16", "int8")
 
@@ -51,11 +52,12 @@ def _bf16_sum(wire: list, group, n: int) -> list:
     flat = buffers[torch.bfloat16]
     size = flat.numel()
     chunk = -(-size // n)
-    host = _on_host(group)
+    host = flat.is_cuda and _on_host(group)
     buf = torch.cat([flat, flat.new_zeros(chunk * n - size)])
     buf = buf.cpu() if host else buf
     got = torch.empty_like(buf)
     dist.all_to_all_single(got, buf, group=group)
+    record("all-to-all", got)
     rows = got.view(n, chunk)
     acc = rows[0].float()
     for i in range(1, n):
@@ -64,6 +66,7 @@ def _bf16_sum(wire: list, group, n: int) -> list:
              for _ in range(n)]
     dist.all_gather(parts, acc.to(torch.bfloat16), group=group)
     out = torch.cat(parts)[:size].to(flat.device)
+    record("all-gather", n * chunk * 2, torch.bfloat16)
     return unpack({torch.bfloat16: out}, layout)
 
 
@@ -72,10 +75,11 @@ def _all_reduce(bufs: list, group, op=dist.ReduceOp.SUM,
     """Each of ``bufs`` reduced over ``group`` (one collective a dtype),
     divided by ``divide``; the results are views of one buffer a dtype."""
     buffers, layout = pack(bufs)
-    host = _on_host(group)
+    host = bufs[0].is_cuda and _on_host(group)
     for dt, buf in buffers.items():
         wire = buf.cpu() if host else buf
         dist.all_reduce(wire, op=op, group=group)
+        record("all-reduce", wire)
         buf = buf.copy_(wire) if host else wire
         buffers[dt] = buf.div_(divide) if divide != 1 else buf
     return unpack(buffers, layout)
@@ -147,7 +151,8 @@ def rows(batch: dict, mesh, axis="data") -> dict:
 
 
 def make_dp_step(mesh, grads_of, opt_update, axis="data",
-                 mode: str = "bf16", error_feedback: bool = True):
+                 mode: str = "bf16", error_feedback: bool = True,
+                 local=None):
     """The data-parallel step that ``make_dp_train_step`` and
     ``launch.train.make_mesh_train_step`` build on: each rank takes its
     rows of the logical batch over ``axis``, ``grads_of(params, rows) ->
@@ -157,14 +162,26 @@ def make_dp_step(mesh, grads_of, opt_update, axis="data",
     params) -> (params, opt_state)``.  Returns ``step(params, opt_state,
     residual, batch) -> (params, opt_state, residual, stats)``, ``stats``
     the mean over the axis's ranks.  Over one rank, mode "none" syncs
-    nothing."""
+    nothing.  ``local(grads)``, where given, marks (one bool a leaf, in
+    ``_tree.leaves`` order) the gradients that are already the mean (a
+    ZeRO-3 slice, reduce-scattered in the backward): they are not synced,
+    and ``residual`` must then be None."""
     sync = make_grad_sync(mesh, axis, mode, error_feedback)
     group, n = axes_group(mesh, axis)
 
     def step(params, opt_state, residual, batch):
         stats, grads = grads_of(params, rows(batch, mesh, axis))
         if n > 1 or mode != "none":
-            grads, residual = sync(grads, residual)
+            if local is None:
+                grads, residual = sync(grads, residual)
+            else:
+                if residual is not None:
+                    raise ValueError("local gradients take no residual")
+                leaves, keep = _tree.leaves(grads), local(grads)
+                synced = iter(sync([g for g, k in zip(leaves, keep)
+                                    if not k], None)[0])
+                grads = _tree.unflatten(grads, [
+                    g if k else next(synced) for g, k in zip(leaves, keep)])
             stats = _all_reduce([stats.detach()], group, divide=n)[0]
         params, opt_state = opt_update(grads, opt_state, params)
         return params, opt_state, residual, stats

@@ -112,8 +112,8 @@ class ServingEngine:
                  sanitize: bool = False, prefill_chunk="auto"):
         self.mesh = mesh
         if mesh is not None:
-            from ..launch.sharding import place_params
-            params, cfg = place_params(mesh, cfg, params)
+            from ..launch.sharding import SERVING, place_params
+            params, cfg = place_params(mesh, cfg, params, SERVING)
         # token requests carry no context: both modes serve g/l/m/r/s only
         kvpool.check_pattern(cfg, sync=sync_batching)
         self.cfg, self.params = cfg, params

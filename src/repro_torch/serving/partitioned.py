@@ -67,9 +67,11 @@ class PartitionedLM:
         self.mesh = mesh
         self.ue_params, self.es_params = split_params(params, self.cut_unit)
         if mesh is not None:
-            from ..launch.sharding import place_params
-            self.ue_params, self.cfg = place_params(mesh, cfg, self.ue_params)
-            self.es_params, _ = place_params(mesh, cfg, self.es_params)
+            from ..launch.sharding import SERVING, place_params
+            self.ue_params, self.cfg = place_params(mesh, cfg, self.ue_params,
+                                                    SERVING)
+            self.es_params, _ = place_params(mesh, cfg, self.es_params,
+                                             SERVING)
 
     def _ue_half(self, tokens):
         x = transformer._embed(self.ue_params, self.cfg, tokens)

@@ -22,7 +22,18 @@ the collectives here, by name, where a sharded contraction ends.  So
   read by a loss every rank repeats takes the rank's slice;
 * the reference's ``constrain`` (a layout constraint that only asks GSPMD
   to move data) has no counterpart: every tensor already lives where the
-  explicit collectives put it.
+  explicit collectives put it;
+* ZeRO-3 storage (``launch.sharding`` under ``ShardingOptions``): a leaf
+  whose policy spec names "data" (or ("data", "model")) is kept as the
+  rank's slice on that dim, and :func:`gather_tree` all-gathers the
+  slices where the leaf is used (one collective a dtype for a unit's
+  leaves), its backward reduce-scattering (summing) the gradient back to
+  the slice;
+* :func:`collective_ledger` records every collective the port issues
+  (these, ``runtime.compression``'s sync, ``core.gridshard``'s gather and
+  ``launch.mesh.broadcast_tree``) by the reference's HLO names, with its
+  result's bytes and dtype: what ``launch.dryrun`` reads where the
+  reference parses HLO text.
 
 Where the "cells" (or "data") axis is larger than 1, each row of the mesh
 is a replica that runs the same requests on its own "model" sub-group,
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -45,7 +57,12 @@ import torch.distributed as dist
 
 from .configs.base import ArchConfig
 
-_CTX: dict = {"active": False, "tp_n": 1, "group": None}
+_CTX: dict = {"active": False, "tp_n": 1, "group": None, "mesh": None,
+              "remat_offload": False}
+_LEDGER: list | None = None
+PART4 = "ROADMAP queue 1, item 7c, part 4"
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
 
 
 def mesh_axes(mesh) -> dict:
@@ -54,6 +71,8 @@ def mesh_axes(mesh) -> dict:
     ``analysis.contracts.ShapeOnlyMesh``)."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
+        if hasattr(mesh, "size"):   # sizes without building the rank tensor
+            return {a: int(mesh.size(i)) for i, a in enumerate(names)}
         return dict(zip(names, mesh.mesh.shape))
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
@@ -80,6 +99,11 @@ class RankConfig(ArchConfig):
     * ``ssm_heads``: the local SSD heads where "ssm" is split;
     * ``expert_offset`` / ``vocab_offset``: the first global expert and
       vocabulary row the rank holds;
+    * ``zero``: the leaves kept as ZeRO-3 storage slices, each
+      ``(path, dim, axes)``: the leaf at ``path`` ("units/slot0/attn/wq",
+      "embed", ...) is the rank's equal part, on ``dim`` (counted from
+      the end, so a unit's leaf and its stack agree), over the mesh axes
+      ``axes``, of its compute shard;
     * ``whole``: the model's ``ArchConfig``.
     """
     model_rank: int = 0
@@ -92,6 +116,7 @@ class RankConfig(ArchConfig):
     expert_offset: int = 0
     local_vocab: int = 0
     vocab_offset: int = 0
+    zero: Tuple[Tuple[str, int, Tuple[str, ...]], ...] = ()
     # the model's own config, for what a rank must know of the others'
     # shards (``launch.sharding``: gathering them, summing the gradients
     # several ranks hold); not part of the view's identity
@@ -106,26 +131,54 @@ def split(cfg, part: str) -> bool:
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh):
+def activation_sharding(mesh, *, seq_shard: bool = False,
+                        moe_dp_groups: bool = True,
+                        remat_offload: bool = False,
+                        expert_axis: str = "model"):
     """Activate the mesh's "model" axis: its size and this rank's "model"
-    sub-group, for the collectives.  The other axes ("cells", "data",
-    "pod") hold replicas, or a train step's own rows of the batch
-    (``launch.train.make_mesh_train_step``), and need nothing here.  The
-    reference's other knobs (sequence sharding, MoE dispatch groups over
-    dp, remat offload, the expert axis) shard nothing under explicit
-    tensor parallelism and are not taken (ROADMAP queue 1, item 7c, part
-    3)."""
-    tp_n = mesh_axes(mesh).get("model", 1)
+    sub-group, for the collectives, and the mesh itself, for the ZeRO-3
+    groups.  The other axes ("cells", "data", "pod") hold replicas, or a
+    train step's own rows of the batch
+    (``launch.train.make_mesh_train_step``).
+
+    The reference's knobs, with its signature: ``remat_offload`` streams
+    each remat unit's saved input to host memory
+    (``models.transformer.run_units``; :func:`remat_offload_active`).
+    The three that would change the computation are not ported: sequence
+    sharding over a "model" axis above 1 (``seq_shard``), MoE dispatch
+    groups kept off a "data" axis above 1 (``moe_dp_groups=False``) and
+    experts over "data" (``expert_axis="data"``) each raise
+    ``NotImplementedError``; at a size of 1 the first two shard nothing."""
+    axes = mesh_axes(mesh)
+    tp_n = axes.get("model", 1)
+    if seq_shard and tp_n > 1:
+        raise NotImplementedError(
+            f"seq_shard (sequence-parallel attention over \"model\") is not "
+            f"ported: {PART4}")
+    if not moe_dp_groups and axes.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"moe_dp_groups=False (MoE dispatch groups over the data rows) "
+            f"is not ported: {PART4}")
+    if expert_axis == "data":
+        raise NotImplementedError(
+            f"expert_axis=\"data\" (all-to-all dispatch over data) is not "
+            f"ported: {PART4}")
     group = None
     if tp_n > 1 and hasattr(mesh, "get_group"):
         group = mesh.get_group("model")
     old = dict(_CTX)
-    _CTX.update(active=True, tp_n=tp_n, group=group)
+    _CTX.update(active=True, tp_n=tp_n, group=group, mesh=mesh,
+                remat_offload=bool(remat_offload))
     try:
         yield
     finally:
         _CTX.clear()
         _CTX.update(old)
+
+
+def remat_offload_active() -> bool:
+    """Whether remat units keep their saved input in host memory."""
+    return bool(_CTX["active"] and _CTX["remat_offload"])
 
 
 def mesh_context(mesh):
@@ -156,11 +209,12 @@ def _on_host(group) -> bool:
     return dist.get_backend(group) != "nccl"
 
 
-def _all_reduce(x, op=dist.ReduceOp.SUM):
-    """The sum (or ``op``) of ``x`` over the "model" sub-group, written
-    into ``x`` (contiguous); under gloo a CUDA tensor goes through a host
-    copy."""
-    group = _group()
+def _all_reduce(x, op=dist.ReduceOp.SUM, group=None):
+    """The sum (or ``op``) of ``x`` over the "model" sub-group (or
+    ``group``), written into ``x`` (contiguous); under gloo a CUDA tensor
+    goes through a host copy."""
+    group = _group() if group is None else group
+    record("all-reduce", x)
     with torch.profiler.record_function("model_all_reduce"):
         if x.is_cuda and _on_host(group):
             buf = x.cpu()
@@ -178,6 +232,7 @@ def _all_gather(x, dim: int):
         parts = [torch.empty_like(buf) for _ in range(_CTX["tp_n"])]
         dist.all_gather(parts, buf, group=group)
         out = torch.cat(parts, dim=dim)
+        record("all-gather", out)
         return out.to(x.device) if host else out
 
 
@@ -288,3 +343,238 @@ def reduce(cfg, part: str, x):
     """``x``, all-reduced over "model" where ``cfg`` splits ``part`` (a
     row-parallel product's partial sum), else as it is."""
     return model_all_reduce(x) if split(cfg, part) else x
+
+
+# ---------------------------------------------------------------------------
+# the collective ledger
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def collective_ledger():
+    """Record every collective the port issues while the block runs: the
+    list it yields gets ``(kind, result bytes, dtype)`` for each, ``kind``
+    one of :data:`KINDS` (the reference's HLO names; a broadcast is an
+    all-reduce, as ``broadcast_one_to_all`` lowers it).  Ledgers nest: an
+    inner one records into its own list only."""
+    global _LEDGER
+    old, _LEDGER = _LEDGER, []
+    try:
+        yield _LEDGER
+    finally:
+        _LEDGER = old
+
+
+def record(kind: str, result, dtype=None) -> None:
+    """Add one collective to the active ledger, if any: ``result`` its
+    result tensor, or its result's bytes with ``dtype``."""
+    if _LEDGER is None:
+        return
+    if isinstance(result, torch.Tensor):
+        nbytes, dtype = result.numel() * result.element_size(), result.dtype
+    else:
+        nbytes = int(result)
+    _LEDGER.append((kind, int(nbytes), str(dtype).replace("torch.", "")))
+
+
+def ledger_totals(entries) -> dict:
+    """The reference's ``collective_bytes`` record of a ledger: bytes and
+    ops by kind, the total, the float32 bytes, and the bf16-wire figure,
+    equal to the total (the port's collectives carry their own types)."""
+    by_kind = {k: 0.0 for k in KINDS}
+    ops = {k: 0 for k in KINDS}
+    f32 = 0.0
+    for kind, nbytes, dtype in entries:
+        by_kind[kind] += nbytes
+        ops[kind] += 1
+        if dtype == "float32":
+            f32 += nbytes
+    total = float(sum(by_kind.values()))
+    return {"bytes_by_kind": by_kind, "ops_by_kind": ops,
+            "total_bytes": total, "f32_bytes": f32,
+            "bf16_wire_corrected_bytes": total}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 storage: the gather where a leaf is used, and its groups
+# ---------------------------------------------------------------------------
+
+_ROOTS = ("embed", "head", "units", "tail", "encoder", "final_norm")
+
+
+def param_path(path: str) -> str:
+    """The parameter's own path within a longer one ("1/mu/units/slot0/
+    attn/wq" -> "units/slot0/attn/wq"): from its first root key on."""
+    parts = path.split("/")
+    for i, p in enumerate(parts):
+        if p in _ROOTS:
+            return "/".join(parts[i:])
+    return path
+
+
+@functools.lru_cache(maxsize=256)
+def _zero_map(zero: tuple) -> dict:
+    return {path: (dim, axes) for path, dim, axes in zero}
+
+
+def zero_entry(cfg, path: str):
+    """``(dim, axes)`` of the ZeRO-3 storage of the leaf at ``path`` (any
+    path that ends in the parameter's, as a tree of moments gives), or
+    None where the rank keeps its whole compute shard."""
+    if not isinstance(cfg, RankConfig) or not cfg.zero:
+        return None
+    return _zero_map(cfg.zero).get(param_path(path))
+
+
+def storage_group(axes: tuple):
+    """(this rank's process group over the mesh axes ``axes`` of the
+    active mesh, its size), made once a mesh."""
+    mesh = _CTX["mesh"] if _CTX["active"] else None
+    if mesh is None or not hasattr(mesh, "get_group"):
+        raise RuntimeError(
+            "a ZeRO-3 leaf is gathered over its mesh axes: run it under "
+            "shardctx.activation_sharding(mesh)")
+    cache = mesh.__dict__.setdefault("_repro_storage_groups", {})
+    if axes not in cache:
+        from .launch.mesh import axes_group
+        cache[axes] = axes_group(mesh, axes)
+    return cache[axes]
+
+
+def axes_coord(axes: tuple) -> int:
+    """This rank's row-major index over the active mesh's ``axes``."""
+    mesh = _CTX["mesh"]
+    sizes = mesh_axes(mesh)
+    at = 0
+    for a in axes:
+        at = at * sizes[a] + mesh.get_local_rank(a)
+    return at
+
+
+def storage_all_reduce(x, axes: tuple):
+    """The sum of ``x`` over the active mesh's ``axes``, outside autograd
+    (a fresh tensor)."""
+    group, n = storage_group(axes)
+    x = x.detach().contiguous().clone()
+    return _all_reduce(x, group=group) if n > 1 else x
+
+
+def _gather_flat(flat, group, n: int):
+    """Every rank's ``flat`` of ``group`` as the rows of an (n, numel)
+    tensor, in rank order (one all-gather; under gloo on a host copy, the
+    result back on ``flat``'s device)."""
+    host = flat.is_cuda and _on_host(group)
+    buf = (flat.cpu() if host else flat).contiguous()
+    out = buf.new_empty(n * buf.numel())
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, buf, group=group)
+    record("all-gather", out)
+    out = out.view(n, -1)
+    return out.to(flat.device) if host else out
+
+
+def _reduce_scatter_flat(send, group, n: int):
+    """The sum over ``group`` of row r of each rank's (n, k) ``send``, on
+    rank r: an all-to-all of the rows, then a float32 sum rounded once to
+    ``send``'s dtype."""
+    host = send.is_cuda and _on_host(group)
+    buf = (send.cpu() if host else send).contiguous()
+    got = torch.empty_like(buf)
+    dist.all_to_all_single(got, buf, group=group)
+    out = got.float().sum(dim=0).to(send.dtype)
+    record("reduce-scatter", out)
+    return out.to(send.device) if host else out
+
+
+def _joined(rows, shape, dim: int):
+    """(n, *shape) rows -> the n blocks joined along ``dim`` in row order."""
+    n = rows.shape[0]
+    dim = dim % len(shape)
+    x = rows.view(n, *shape).movedim(0, dim)
+    return x.reshape(*shape[:dim], n * shape[dim], *shape[dim + 1:])
+
+
+def _blocks(g, shape, dim: int, n: int):
+    """The inverse of ``_joined``: ``g``'s n blocks along ``dim`` as the
+    rows of an (n, numel) tensor."""
+    dim = dim % len(shape)
+    x = g.reshape(*shape[:dim], n, shape[dim], *shape[dim + 1:])
+    return x.movedim(dim, 0).reshape(n, -1)
+
+
+class _ZeroGather(torch.autograd.Function):
+    """Forward: each shard all-gathered along its dim over ``group`` (one
+    collective for all of them); backward: each gradient reduce-scattered
+    (summed) back to the shard (one collective)."""
+
+    @staticmethod
+    def forward(ctx, group, n, dims, *shards):
+        ctx.group, ctx.n, ctx.dims = group, n, dims
+        ctx.shapes = [s.shape for s in shards]
+        rows = _gather_flat(torch.cat([s.reshape(-1) for s in shards]),
+                            group, n)
+        out, at = [], 0
+        for s, dim in zip(shards, dims):
+            k = s.numel()
+            out.append(_joined(rows[:, at:at + k], s.shape, dim))
+            at += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        send = torch.cat([_blocks(g, shape, dim, ctx.n) for g, dim, shape
+                          in zip(grads, ctx.dims, ctx.shapes)], dim=1)
+        summed = _reduce_scatter_flat(send, ctx.group, ctx.n)
+        out, at = [], 0
+        for shape in ctx.shapes:
+            k = shape.numel()
+            out.append(summed[at:at + k].view(shape))
+            at += k
+        return (None, None, None, *out)
+
+
+def _walk(prefix: str, tree, out: list) -> None:
+    if isinstance(tree, torch.Tensor):
+        out.append((prefix, tree))
+        return
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        _walk(f"{prefix}/{k}" if prefix else str(k), v, out)
+
+
+def _rebuild(prefix: str, tree, new: dict):
+    if isinstance(tree, torch.Tensor):
+        return new.get(prefix, tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(f"{prefix}/{k}" if prefix else str(k), v, new)
+                for k, v in tree.items()}
+    return [_rebuild(f"{prefix}/{i}" if prefix else str(i), v, new)
+            for i, v in enumerate(tree)]
+
+
+def gather_tree(cfg, prefix: str, tree):
+    """``tree`` (the parameters at ``prefix``: "units" for one unit's
+    leaves, "tail/0", "embed", ...) with each ZeRO-3 leaf all-gathered
+    over its storage axes into the rank's compute shard: one collective a
+    (storage axes, dtype), whose backward reduce-scatters each gradient
+    back to the slice.  The tree itself where ``cfg`` stores nothing."""
+    if not isinstance(cfg, RankConfig) or not cfg.zero:
+        return tree
+    leaves: list = []
+    _walk(prefix, tree, leaves)
+    table = _zero_map(cfg.zero)
+    groups: dict = {}
+    for path, t in leaves:
+        entry = table.get(path)
+        if entry is not None:
+            groups.setdefault((entry[1], t.dtype), []).append(
+                (path, t, entry[0]))
+    if not groups:
+        return tree
+    new = {}
+    for (axes, _), items in groups.items():
+        group, n = storage_group(axes)
+        outs = _ZeroGather.apply(group, n, tuple(d for _, _, d in items),
+                                 *(t for _, t, _ in items))
+        new.update({path: o for (path, _, _), o in zip(items, outs)})
+    return _rebuild(prefix, tree, new)

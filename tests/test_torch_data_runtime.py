@@ -23,6 +23,7 @@ from repro.runtime import resilience as r_res
 from repro_torch import _tree, train_lm
 from repro_torch.configs import base as p_base
 from repro_torch.data import pipeline as p_pipe
+from repro_torch.launch import sharding as p_sh
 from repro_torch.launch import train as p_train
 from repro_torch.runtime import resilience as p_res
 
@@ -143,11 +144,13 @@ def test_restart_loop_matches_reference():
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_microbatch_rule_matches_reference(name):
+    """The launcher's microbatch count is the recommended options' (full
+    size and reduced), as the reference's launcher takes it."""
     cfg = p_base.get_config(name)
-    assert p_train.recommended_microbatches(cfg) == \
+    assert p_sh.recommended_options(cfg, "train").microbatches == \
         recommended_options(r_get_config(name), "train").microbatches
     small = p_base.reduced(cfg)
-    assert p_train.recommended_microbatches(small) == \
+    assert p_sh.recommended_options(small, "train").microbatches == \
         recommended_options(r_reduced(r_get_config(name)), "train").microbatches
 
 

@@ -98,17 +98,17 @@ def _flat(tree) -> list:
 
 
 class ModelRank:
-    """Rank ``r``'s view of a 2-way "model" axis: what ``place_params``
-    reads of a mesh."""
+    """Rank ``r``'s view of a 2-way "model" axis, at index ``data`` of a
+    2-way "data" axis: what ``place_params`` reads of a mesh."""
 
     mesh_dim_names = ("data", "model")
     mesh = torch.zeros(2, 2)
 
-    def __init__(self, r: int):
-        self.r = r
+    def __init__(self, r: int, data: int = 0):
+        self.r, self.data = r, data
 
     def get_local_rank(self, axis) -> int:
-        return self.r
+        return self.data if axis == "data" else self.r
 
 
 def test_mesh_step_equals_the_reference_one_device_step(world):
@@ -145,7 +145,8 @@ def test_launch_train_on_a_mesh_resumes_bit_for_bit(world):
 def test_mesh_checkpoint_restores_on_one_device(world):
     """The checkpoint is the whole tree: it restores into one device's
     (params, opt) and its shards are each rank's parameters after the
-    first run."""
+    first run (the launcher's layout: the recommended options, ZeRO-3
+    slices over ("data", "model"))."""
     from repro_torch.models.steps import make_train_step
     cfg = p_base.reduced(p_base.get_config(ARCH))
     params = p_tf.init_params(0, cfg, "cpu")
@@ -154,7 +155,9 @@ def test_mesh_checkpoint_restores_on_one_device(world):
         (params, opt))
     assert manifest["step"] == STOP and int(opt.step) == STOP
     for r, out in enumerate(world["ranks"]):
-        mine = sharding.place_params(ModelRank(r % 2), cfg, whole)[0]
+        mine = sharding.place_params(
+            ModelRank(r % 2, r // 2), cfg, whole,
+            sharding.recommended_options(cfg, "train"))[0]
         got = _flat(out["train"]["first"]["params"])
         assert len(got) == len(_tree.leaves(mine))
         for g, w in zip(got, _tree.leaves(mine)):
