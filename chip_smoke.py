@@ -92,9 +92,10 @@ the card:
    flash at recurrentgemma's prefill shapes;
 8. runs ``serve_partitioned.main`` with ``--arch mamba2-1.3b`` (48 layers,
    bf16): controller, split at the chosen and middle unit, a ragged burst
-   of 12 requests; SSD launches must be exactly 48 per monolithic or split
-   pass and per solo prefill or first chunk (later chunks replay the
-   decode step); then profiles 3 decode ticks of 8 slots, checks float32
+   of 6 requests of 8-48 tokens (12 of 8-160 before phase 17 was added);
+   SSD launches must be exactly 48 per monolithic or split pass and per
+   solo prefill or first chunk (later chunks replay the decode step);
+   then profiles 3 decode ticks of 8 slots, checks float32
    engine tokens == solo tokens at 4 layers with preemption, and a 2-layer
    bf16 prefill on the card against the CPU;
 9. runs ``python -m repro_torch.launch.serve``'s ``main`` for
@@ -157,9 +158,10 @@ the card:
    alone beside the plain version, SDPA and the bound; (b) runs
    ``python -m repro_torch.launch.train``'s ``main`` (``TRAIN_ARGS``:
    qwen3-0.6b at full width, 28 layers, bf16, remat, 2 microbatches, B8
-   S512, 12 steps) with exact launches (flash 112 forwards and 56
-   backwards a step, no other kernel), a falling loss, then a run stopped
-   at step 6 and one resumed from its checkpoint, whose parameters and
+   S512, 8 steps; 12 before phase 17 was added) with exact launches
+   (flash 112 forwards and 56 backwards a step, no other kernel), a
+   falling loss, then a run stopped at step 4 and one resumed from its
+   checkpoint, whose parameters and
    moments must equal the uninterrupted run's bit for bit; step time p50,
    tokens/s, MFU (``roofline.step_flops``' model flops over the step time
    and ``roofline.PEAK_FLOPS``), peak memory and a profile of 3 steps;
@@ -190,7 +192,8 @@ the card:
    qwen3-0.6b at full width and depth (bf16; 8 of 16 query heads, 4 of 8
    kv heads, 1,536 of 3,072 FFN columns and 75,968 of 151,936 vocabulary
    rows a rank) through ``PartitionedLM(mesh=).es_engine()`` on phase 6's
-   burst cut to 8 requests, with exact launches a rank (flash 28 a
+   burst cut to 4 requests (8 before phase 17 was added), with exact
+   launches a rank (flash 28 a
    prefill, decode 28 a tick), tick p50/p99 and tokens/s beside phase 6's
    one-rank numbers, and a profile of 3 decode ticks for the collectives'
    share; (b) float32 engines at 4 layers and full width -- qwen3 (g),
@@ -237,7 +240,20 @@ the card:
    collective ledger must equal (a)'s rank's, kind for kind, count for
    count and byte for byte; its predicted peak is printed beside (a)'s
    ``torch.cuda.max_memory_allocated``.  The phase logs its seconds
-   against a 60 s budget.
+   against a 60 s budget;
+17. drives the MoE's knobs on the "data" axis, in phase 15's world after
+   phase 16: moonshot-v1-16b-a3b at full width (1 of its 48 layers, 64
+   experts of F 1,408, top-6, a shared expert, capacity 1.25), B4 S384,
+   so that its 1,024-token dispatch group 0 straddles the two data ranks'
+   768 tokens and group 1 holds 512 zero pads, under (a) the baseline
+   layout, (b) llama4-maverick's recommended training options
+   ("moe-only", ``expert_shard_dff``, ``remat_offload``) and (c)
+   ``expert_mesh="data"``, each with ZeRO-3 off: 3 bf16 steps (exact
+   flash launches, step p50, the collectives' share, peak memory) and one
+   float32 step whose loss, ce and aux (1e-6 relative), router and expert
+   0 gradients (1e-5 of each leaf's max) and kept slots (exactly) are
+   held to one rank's float32 step on the card.  The phase logs its
+   seconds against a 120 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -306,12 +322,15 @@ def call_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_TRIES = 5     # a profile on an H100 once recorded nothing 3 times running
+
+
 def profiled(torch, run):
     """(the CUDA kernels' rows of ``key_averages``, wall seconds) of
     ``run()`` under torch.profiler.  A profile that records no device time
-    is taken again, three times in all; then the run fails."""
+    is taken again, PROFILE_TRIES times in all; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
+    for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -324,7 +343,7 @@ def profiled(torch, run):
         if rows:
             return rows, wall_s
         log(f"    the profiler recorded no device time (try {attempt + 1})")
-    fail("the profiler recorded no device time in three tries")
+    fail(f"the profiler recorded no device time in {PROFILE_TRIES} tries")
 
 
 def flushed_device_ms(torch, fn, iters: int, name: str) -> float:
@@ -1040,6 +1059,15 @@ TZ_FLASH = [
     ("phase 16 (b) qwen3 ZeRO-3 rank", 1, 128, 128, 16, 8, 128, "f32",
      "causal", 0, None)]
 TM_FLASH += TZ_FLASH
+# phase 17: moonshot's layer on a (data 2, model 2) rank (B2 of the B4
+# batch; 8 of 16 heads under full TP, all 16 under "moe-only"), in bf16
+# and float32, and the one-rank float32 step (B4, 16 heads)
+TMOE_FLASH = (
+    [(f"phase 17 moonshot rank, H{h}", 2, 384, 384, h, h, 128, dt, "causal",
+      0, None) for h in (8, 16) for dt in ("bf16", "f32")]
+    + [("phase 17 moonshot one rank", 4, 384, 384, 16, 16, 128, "f32",
+        "causal", 0, None)])
+TM_FLASH += TMOE_FLASH
 FLASH_CASES += TM_FLASH
 DECODE_CASES += [
     ("phase 14 recurrentgemma rank: the ring, 3 slots", 3, 2048, 5, 1, 256,
@@ -1907,8 +1935,13 @@ def scan_phase(torch, ssd, rg, fa, da, ref) -> dict:
 
 # -- phases 8 and 9: mamba2-1.3b and recurrentgemma-2b served on the card ----
 
+# full width, 48 layers, bf16; 6 requests of at most 48 tokens (12 of
+# 160 before phase 17: the run took 57.9-58.9 s of the smoke, nearly all
+# of it in the chunks that replay the decode step a token at a time, ~3 s
+# a 32-token chunk on the card, whatever the request count)
+MAMBA_REQUESTS = 6
 MAMBA_ARGS = ["--arch", "mamba2-1.3b", "--split-seq", "512", "--requests",
-              "12", "--prompt-max", "160"]   # full width, 48 layers, bf16
+              str(MAMBA_REQUESTS), "--prompt-max", "48"]
 RG_ARGS = ["--arch", "recurrentgemma-2b", "--requests", "6", "--slots", "2",
            "--prompt-len", "16", "--max-new", "8"]   # 26 layers, bf16
 RG_BURST = dict(n=12, lo=8, hi=160, max_new=32, slots=8)
@@ -2012,7 +2045,7 @@ def mamba2_phase(torch) -> dict:
 
     log("[8] mamba2-1.3b: python -m repro_torch.serve_partitioned "
         + " ".join(MAMBA_ARGS) + " (full width, 48 layers, bf16)")
-    rep = run_partitioned(torch, MAMBA_ARGS, 12)
+    rep = run_partitioned(torch, MAMBA_ARGS, MAMBA_REQUESTS)
     srv = rep["serving"]
     # the split check runs the whole stack once monolithic and once per
     # cut; chunks after the first replay the decode step, no scan
@@ -3014,9 +3047,12 @@ def flash_grad_phase(torch) -> dict:
 # lr 3e-4 (make_train_step's default): at the launcher's 1e-3 (the
 # reference's default) the loss fell for 6 steps, then rose past its start
 # (12.134 -> 12.053 -> 12.186, measured on one H100)
+# (b): 8 steps, stopped at 4 and resumed (12 and 6 before phase 17 was
+# added: the three runs took 86.6 s of the smoke)
+TRAIN_STEPS, TRAIN_RESUME_AT = 8, 4
 TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512",
-              "--steps", "12", "--ckpt-every", "6", "--lr", "3e-4"]
-TRAIN_STEPS, TRAIN_RESUME_AT = 12, 6
+              "--steps", str(TRAIN_STEPS), "--ckpt-every",
+              str(TRAIN_RESUME_AT), "--lr", "3e-4"]
 TRAIN_PROFILE_STEPS = 3
 # per step at qwen3-0.6b's 28 "g" layers in 2 microbatches with remat: a
 # flash forward per layer and microbatch, the same again when the backward
@@ -3524,7 +3560,10 @@ def mesh_phase(torch, held: dict, phase3: dict, tc: dict) -> dict:
 # -- phase 14: the model axis --------------------------------------------------
 
 TP_RANKS = 2                          # one card: gloo, host copies (NCCL takes one rank a device)
-TP_REQUESTS = 8                       # (a): phase 6's burst cut to 8 requests
+# (a): phase 6's burst cut to its first 4 requests (8 before phase 17:
+# the burst took 35.6 s of the phase on a slow host; a prefix of the same
+# draws, so its kernel shapes are a subset of those held)
+TP_REQUESTS = 4
 TP_SLOTS, TP_S_MAX = 8, 512           # (a): serve_partitioned's engine
 TP_PROFILE_TICKS = 3
 TP_F32_LAYERS = 4                     # (b)
@@ -3610,7 +3649,7 @@ def tp_profile(torch, eng, ticks: int) -> dict:
         if device_us > 0:
             break
     else:
-        fail("the profiler recorded no device time in three tries")
+        fail(f"the profiler recorded no device time in {PROFILE_TRIES} tries")
     coll = {e.key: (e.count, e.cpu_time_total) for e in rows
             if e.key in COLLECTIVES
             and e.device_type == torch.autograd.DeviceType.CPU}
@@ -4184,6 +4223,7 @@ def tm_rank(go_file: str, ready: str) -> dict:
     out["f32_s"] = time.perf_counter() - t0
     out["seen"] = seen
     out["zero"] = tz_rank(torch, mesh)
+    out["moe"] = moe_rank(torch, mesh)
     return out
 
 
@@ -4569,6 +4609,287 @@ def zero_phase(torch, ranks: list, p15: dict, dry: DryRun) -> dict:
     return out
 
 
+# -- phase 17: the MoE's knobs on the "data" axis -----------------------------
+
+TMOE_ROWS, TMOE_SEQ = 4, 384          # 1,536 tokens: 768 a data rank, so
+# dispatch group 0 (1,024) straddles the two data ranks and group 1 holds
+# their last 512 tokens and 512 zero pads
+TMOE_STEPS = 3                        # bf16 steps a layout, p50 over 1-2
+TMOE_BUDGET_S = 120.0                 # the phase's share of the smoke's limit
+TMOE_GRAD_TOL = 1e-5                  # tests/test_torch_model_axis_train.py's
+TMOE_LOSS_RTOL = 1e-6                 # step tolerances, float32
+TMOE_LAYOUTS = ("a", "b", "c")
+
+
+def tmoe_options(layout: str):
+    """Phase 17's layouts, each with ZeRO-3 off (phase 16 drives it) and
+    one microbatch (the 1,536-token stream): (a) the baseline (F2's
+    groups), (b) llama4-maverick's recommended training options
+    ("moe-only", expert_shard_dff, remat_offload), (c) expert_mesh="data"."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding
+    base = {"a": sharding.BASELINE,
+            "b": sharding.recommended_options(
+                get_config("llama4-maverick-400b-a17b"), "train"),
+            "c": sharding.ShardingOptions(expert_mesh="data")}[layout]
+    return dataclasses.replace(base, fsdp_override=False, microbatches=1)
+
+
+@contextlib.contextmanager
+def kept_slots(counts: list):
+    """Append to ``counts`` the kept (token, expert) pairs of every
+    ``models.ffn.route`` call while the block runs (a rank's routed
+    positions: its tokens, and the pad on the last data rank)."""
+    from repro_torch.models import ffn
+    route = ffn.route
+
+    def spy(*args):
+        out = route(*args)
+        counts.append(int(out[0].sum()))
+        return out
+    ffn.route = spy
+    try:
+        yield counts
+    finally:
+        ffn.route = route
+
+
+def tmoe_grads(tree, view=None) -> dict:
+    """The router's and expert 0's leaves of a moonshot tree (one unit),
+    on the host: the whole expert where ``view`` is None, else the
+    rank's F columns of it where the rank holds expert 0 (None where it
+    does not)."""
+    moe = tree["units"]["slot0"]["moe"]
+    out = {"router": moe["router"][0].float().cpu()}
+    if view is None or view.expert_offset == 0:
+        out.update({k: moe[k][0, 0].float().cpu() for k in ("wi", "wg", "wo")})
+        if view is not None:
+            out["cols"] = (view.dff_offset, view.local_dff)
+    return out
+
+
+def moe_rank(torch, mesh) -> dict:
+    """A rank of phase 17, in phase 15's world after phase 16: moonshot-
+    v1-16b-a3b at full width, one of its 48 layers, B4 S384.  Rank 0
+    first takes the one-rank float32 gradient (its kept-slot counts, loss,
+    ce, aux, the router's and expert 0's gradients, to the host) while
+    the others wait.  Then under each of TMOE_LAYOUTS: TMOE_STEPS bf16
+    steps of ``make_mesh_train_step`` (launches counted, shapes recorded,
+    collectives timed), and one float32 step whose Adam first moment
+    (0.1 of the unclipped gradient) and kept-slot counts are kept."""
+    import torch.distributed as dist
+    from repro_torch import _tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import steps, transformer
+
+    t_rank = time.perf_counter()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1)
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32",
+                              opt_state_dtype="float32")
+    batch = _tree.to_device(for_arch(cfg, batch=TMOE_ROWS, seq=TMOE_SEQ,
+                                     seed=5).get_batch(0), "cuda")
+    out: dict = {"coords": (mesh.get_local_rank("data"),
+                            mesh.get_local_rank("model"))}
+    seen: set = set()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if dist.get_rank() == 0:
+        params = transformer.init_params(SEED_KINDS, f32, "cuda")
+        kept: list = []
+        with kept_slots(kept), recorded_launches(seen):
+            (loss, (ce, aux)), grads = steps.value_and_grad(params, f32,
+                                                            batch)
+        out["one"] = {"loss": float(loss), "ce": float(ce),
+                      "aux": float(aux), "kept": kept,
+                      "grads": tmoe_grads(grads)}
+        del params, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["one_s"] = time.perf_counter() - t0
+    for layout in TMOE_LAYOUTS:
+        opts = tmoe_options(layout)
+        row: dict = {}
+        t0 = time.perf_counter()
+        whole = transformer.init_params(SEED_KINDS, cfg, "cuda")
+        local, view = sharding.place_params(mesh, cfg, whole, opts)
+        del whole
+        torch.cuda.empty_cache()
+        init, step = train.make_mesh_train_step(mesh, view, lr=1e-4,
+                                                microbatches=1, opts=opts)
+        opt = init(local)
+        row["setup_s"] = time.perf_counter() - t0
+        spent: dict = {}
+        step_s, losses = [], []
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_launches(seen), timed_collectives(spent):
+            for _ in range(TMOE_STEPS):
+                dist.barrier()
+                t0 = time.perf_counter()
+                local, opt, metrics = step(local, opt, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+        row.update(launches=read_counts(), step_s=step_s, losses=losses,
+                   collectives=spent,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   held_bytes=tree_bytes(local) + tree_bytes(opt),
+                   split=view.split, moe_data=view.moe_data,
+                   expert_mesh=view.expert_mesh)
+        del local, opt
+        torch.cuda.empty_cache()
+        # the float32 step, held against the one-rank gradient
+        t0 = time.perf_counter()
+        whole = transformer.init_params(SEED_KINDS, f32, "cuda")
+        local, view = sharding.place_params(mesh, f32, whole, opts)
+        del whole
+        torch.cuda.empty_cache()
+        init, step = train.make_mesh_train_step(
+            mesh, view, lr=1e-3, grad_clip=None, microbatches=1, opts=opts)
+        kept = []
+        with kept_slots(kept), recorded_launches(seen):
+            new, opt, metrics = step(local, init(local), batch)
+        row["f32"] = {k: float(v) for k, v in metrics.items()}
+        row["f32"]["kept"] = kept
+        row["f32"]["grads"] = {k: v / 0.1 if isinstance(v, torch.Tensor)
+                               else v for k, v in
+                               tmoe_grads(opt.mu, view).items()}
+        del new, opt, local
+        torch.cuda.empty_cache()
+        dist.barrier()
+        row["f32_s"] = time.perf_counter() - t0
+        out[layout] = row
+    out["seen"] = seen
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+def moe_phase(torch, ranks: list) -> dict:
+    """Phase 17: each layout's steps and holds (``moe_rank``) on phase 15's
+    world."""
+    t_phase = time.perf_counter()
+    in_world = max(r["s"] for r in ranks)
+    out: dict = {"in_world_s": in_world}
+    tokens = TMOE_ROWS * TMOE_SEQ
+    one = next(r["one"] for r in ranks if "one" in r)
+    log(f"[17] moonshot-v1-16b-a3b at full width (1 of 48 layers, 64 "
+        f"experts of F 1,408, top-6, a shared expert, capacity 1.25, "
+        f"dispatch groups of 1,024), B{TMOE_ROWS} S{TMOE_SEQ} on phase 15's "
+        f"(data {TM_DATA}, model {TM_MODEL}) world: (a) the baseline, (b) "
+        f"llama4's recommended options, (c) expert_mesh=\"data\"; "
+        f"{TMOE_STEPS} bf16 steps each, and a float32 step against one "
+        f"rank's (loss {one['loss']:.6f}, ce {one['ce']:.6f}, aux "
+        f"{one['aux']:.6f}, {one['kept']} kept slots)")
+    want_launch = {"flash_attention": 2 * TMOE_STEPS,
+                   "flash_attention_backward": TMOE_STEPS,
+                   "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    launched = {"flash_attention": 0, "flash_attention_backward": 0}
+    for layout in TMOE_LAYOUTS:
+        rows = [r[layout] for r in ranks]
+        for r, row in zip(ranks, rows):
+            where = f"({layout}) rank {r['coords']}"
+            if row["launches"] != want_launch:
+                fail(f"{where}: launches {row['launches']}, expected "
+                     f"{want_launch}")
+            if not all(x == x and abs(x) < 1e30 for x in row["losses"]):
+                fail(f"{where}: a loss is not finite: {row['losses']}")
+            if row["losses"] != rows[0]["losses"]:
+                fail(f"({layout}) the ranks report different losses")
+            for k in launched:
+                launched[k] += row["launches"][k]
+            c = row["f32"]
+            for k in ("loss", "ce", "aux"):
+                rel = abs(c[k] - one[k]) / abs(one[k])
+                if rel > TMOE_LOSS_RTOL:
+                    fail(f"{where}: float32 {k} {c[k]} vs one rank "
+                         f"{one[k]} ({rel:.2e} relative)")
+            g, w = c["grads"], one["grads"]
+            errs = {"router": float((g["router"] - w["router"]).abs().max())
+                    / float(w["router"].abs().max())}
+            if "wi" in g:
+                at, n = g["cols"]
+                for k in ("wi", "wg", "wo"):
+                    ref = (w[k][:, at:at + n] if k != "wo"
+                           else w[k][at:at + n])
+                    errs[k] = float((g[k] - ref).abs().max()) / float(
+                        ref.abs().max())
+            bad = {k: v for k, v in errs.items() if v > TMOE_GRAD_TOL}
+            if bad:
+                fail(f"{where}: float32 gradients past {TMOE_GRAD_TOL:g} of "
+                     f"each leaf's max: {bad}")
+            row["grad_err"] = errs
+        # the kept slots: each data rank's, summed, on the model rank 0s
+        kept = [sum(x) for x in zip(*(r[layout]["f32"]["kept"] for r in ranks
+                                      if r["coords"][1] == 0))]
+        if kept != one["kept"]:
+            fail(f"({layout}) kept slots {kept}, one rank {one['kept']}")
+        p50s, shares = [], []
+        for r, row in zip(ranks, rows):
+            steps_s = row["step_s"][1:]
+            p50 = sorted(steps_s)[len(steps_s) // 2]
+            share = sum(x for _, x in row["collectives"].values()) / sum(
+                row["step_s"])
+            p50s.append(p50)
+            shares.append(share)
+            log(f"    ({layout}) rank {r['coords']} (split {row['split']}, "
+                f"experts over {row['expert_mesh']}, data splits "
+                f"{row['moe_data'] or 'nothing'}): step p50 "
+                f"{p50 * 1e3:.1f} ms ({tokens / p50:,.0f} tokens/s over the "
+                f"world), collectives {share:.3f} of the steps' time ("
+                + ", ".join(f"{k} x{n} {x:.2f} s" for k, (n, x)
+                            in sorted(row["collectives"].items()))
+                + f"), peak {row['peak_bytes'] / 1e9:.2f} GB, held "
+                f"{row['held_bytes'] / 1e9:.3f} GB; float32 gradients "
+                + ", ".join(f"{k} {v:.1e}" for k, v in row["grad_err"].items())
+                + " of their max")
+        slowest = lambda f: max(f(row) for row in rows)
+        log(f"    ({layout}) set-up {slowest(lambda x: x['setup_s']):.1f} s, "
+            f"{TMOE_STEPS} bf16 steps "
+            f"{slowest(lambda x: sum(x['step_s'])):.1f} s (step 0 "
+            f"{slowest(lambda x: x['step_s'][0]):.1f}), the float32 step "
+            f"and its set-up {slowest(lambda x: x['f32_s']):.1f} s; losses "
+            f"{['%.5f' % x for x in rows[0]['losses']]}; "
+            f"float32 loss {rows[0]['f32']['loss']:.6f}, ce "
+            f"{rows[0]['f32']['ce']:.6f}, aux {rows[0]['f32']['aux']:.6f}, "
+            f"kept slots {kept} = one rank's")
+        out[layout] = {
+            "losses": rows[0]["losses"],
+            "step_p50_ms": [x * 1e3 for x in p50s],
+            "tokens_per_s": tokens / max(p50s), "collective_share": shares,
+            "collectives": [row["collectives"] for row in rows],
+            "peak_gb": [row["peak_bytes"] / 1e9 for row in rows],
+            "held_gb": [row["held_bytes"] / 1e9 for row in rows],
+            "f32": [{k: v for k, v in row["f32"].items() if k != "grads"}
+                    for row in rows],
+            "grad_err": [row["grad_err"] for row in rows],
+            "setup_s": [row["setup_s"] for row in rows],
+            "step_s": [row["step_s"] for row in rows],
+            "f32_s": [row["f32_s"] for row in rows]}
+    seen = set().union(*(r["seen"] for r in ranks))
+    grad_held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
+                 for _, b, sq, sk, h, kv, hd, dt, kind, _, pad
+                 in FLASH_GRAD_CASES}
+    missed = sorted(seen - held_shapes()) + sorted(seen - grad_held)
+    if missed:
+        fail(f"phase 17 launched flash at shapes phases 5 and 12 (a) did "
+             f"not hold: {missed}")
+    log(f"    phase 17 trained at {len(seen)} flash shapes, forward and "
+        f"backward held in phases 5 and 12 (a); launches {launched}")
+    out["launches"] = launched
+    out["one"] = {k: one[k] for k in ("loss", "ce", "aux", "kept")}
+    out["one_s"] = max(r["one_s"] for r in ranks)
+    log(f"    the one-rank float32 gradient on rank 0, the others waiting: "
+        f"{out['one_s']:.1f} s")
+    out["s"] = in_world + time.perf_counter() - t_phase
+    log(f"    phase 17: {out['s']:.1f} s of its {TMOE_BUDGET_S:.0f} s budget "
+        f"({in_world:.1f} s of it in phase 15's world)"
+        + ("" if out["s"] <= TMOE_BUDGET_S else " (OVER)"))
+    return out
+
+
 def gm_part(torch, held: dict, phase3: dict, cuts: int, ready: str,
             out: dict) -> int:
     """Phase 15 (a): the grid's model axis on GM_RANKS ranks, held to phase
@@ -4779,14 +5100,19 @@ def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
         fail(f"phase 15 launched flash at shapes phases 5 and 12 (a) did "
              f"not hold: {missed}")
     out["launches"] = launched
-    # phase 16's ranks ran in this world after (c): their seconds are its
+    # phases 16 and 17's ranks ran in this world after (c): their seconds
+    # are theirs
     out["zero_ranks"] = [r["zero"] for r in ranks]
     out["zero_s"] = max(r["zero"]["s"] for r in ranks)
-    out["bc_s"] = time.perf_counter() - t0 - out["zero_s"]
+    out["moe_ranks"] = [r["moe"] for r in ranks]
+    out["moe_s"] = max(r["moe"]["s"] for r in ranks)
+    out["bc_s"] = (time.perf_counter() - t0 - out["zero_s"]
+                   - out["moe_s"])
     log(f"    (b) and (c) took {out['bc_s']:.1f} s after (a); the world had "
         f"started beside (a), its ranks waiting "
         f"{min(r['waited_s'] for r in ranks):.1f} s for it")
-    out["s"] = time.perf_counter() - t_phase - out["zero_s"]
+    out["s"] = (time.perf_counter() - t_phase - out["zero_s"]
+                - out["moe_s"])
     log(f"    phase 15: {out['s']:.1f} s of its {MM_BUDGET_S:.0f} s budget"
         + ("" if out["s"] <= MM_BUDGET_S else " (OVER)"))
     return out
@@ -5006,8 +5332,10 @@ def main() -> int:
     phase_done()
     report["mesh_train"] = mm = mesh_train_phase(torch, held, policies,
                                                  grid.num_cuts)
-    phase_done(moved=mm["zero_s"])
+    phase_done(moved=mm["zero_s"] + mm["moe_s"])
     report["zero"] = zr = zero_phase(torch, mm.pop("zero_ranks"), mm, dry)
+    phase_done(moved=mm["moe_s"])
+    report["moe"] = mo = moe_phase(torch, mm.pop("moe_ranks"))
     phase_done()
 
     kernels = [{
@@ -5035,7 +5363,8 @@ def main() -> int:
                          + training["train"]["launches"][name]
                          + tp["launches"][name]
                          + mm["launches"].get(name, 0)
-                         + zr["launches"].get(name, 0)),
+                         + zr["launches"].get(name, 0)
+                         + mo["launches"].get(name, 0)),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -5066,7 +5395,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ops.py:61-74",
         "launches": (training["train"]["launches"]["flash_attention_backward"]
                      + mm["launches"]["flash_attention_backward"]
-                     + zr["launches"]["flash_attention_backward"]),
+                     + zr["launches"]["flash_attention_backward"]
+                     + mo["launches"]["flash_attention_backward"]),
         "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

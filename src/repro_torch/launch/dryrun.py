@@ -62,10 +62,15 @@ plays one rank of the mesh and runs the cell's real step on meta tensors.
   issues every collective it makes, so no loop-trip multipliers are
   needed.
 
-Cells under ``expert_shard_dff``, ``expert_mesh="data"`` or ``seq_shard``
-(``--recommended`` gives the first two for llama4) raise
+Cells under ``seq_shard`` on a "model" axis above 1 raise
 ``NotImplementedError`` and get an ``error`` record: ROADMAP queue 1, item
-7c, part 4.
+7c, part 4.  Cells under ``expert_shard_dff`` or ``expert_mesh="data"``
+(``--recommended`` gives the first for llama4's train and prefill) run
+the MoE's data-axis collectives (``models.ffn``): the dispatched tokens
+all-gathered and the partial outputs reduce-scattered over "data", or
+both moved by all-to-alls.  Where a rank's rows are its share of the
+batch, the dispatch groups and their counts span the data ranks, as in
+a train step.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh single --recommended
@@ -204,6 +209,8 @@ def build_step(cfg, shape: specs.ShapeSpec,
                      for k, v in rows.items()}
             return step(p, opt, whole)
         return train_step, args, (0, 1)
+    # the rank's rows are its share of the batch, as in a train step
+    knobs["data_rows"] = _rows(mesh, shape) < shape.batch
     if shape.kind == "prefill":
         s_max = specs.decoder_seq(cfg, shape) + specs.DECODE_MARGIN
 

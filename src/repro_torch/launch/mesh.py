@@ -287,8 +287,9 @@ def broadcast_tree(tree, src: int = 0, group=None):
 
 
 def _world_rank(rank: int, fn, nprocs: int, backend: str, device: str,
-                store_dir: str, args: tuple) -> None:
+                store_dir: str) -> None:
     torch.set_num_threads(1)
+    args = torch.load(os.path.join(store_dir, "args.pt"), weights_only=False)
     init_group(backend, device, rank=rank, world_size=nprocs,
                init_method="file://" + os.path.join(store_dir, "store"))
     try:
@@ -306,12 +307,16 @@ def run_world(fn, nprocs: int, *, args: tuple = (), backend: str = "gloo",
     rank.  ``fn`` must be importable by name (a module-level function) and
     return what ``torch.save`` can write.  A rank that raises fails the
     world: the others are ended and the error is raised here.  So is a
-    world still running after ``deadline_s`` seconds."""
+    world still running after ``deadline_s`` seconds.  ``args`` go to the
+    ranks through a file in the world's directory: a spawned process
+    reads its pickled arguments from a pipe only once it has started, so
+    arguments larger than the pipe's buffer would start the ranks one
+    after another."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="repro_world_") as store_dir:
+        torch.save(tuple(args), os.path.join(store_dir, "args.pt"))
         ctx = mp.start_processes(
-            _world_rank, args=(fn, nprocs, backend, str(device), store_dir,
-                               tuple(args)),
+            _world_rank, args=(fn, nprocs, backend, str(device), store_dir),
             nprocs=nprocs, join=False, start_method="spawn")
         end = time.monotonic() + deadline_s
         try:

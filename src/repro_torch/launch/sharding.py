@@ -38,9 +38,17 @@ Port of ``repro/launch/sharding.py``.  Two things are kept apart:
     decode options keep the weights resident); a caller that passes
     ZeRO-3 gets it in serving too (the dry run's prefill and decode
     cells);
-  * ``expert_shard_dff``, ``expert_mesh="data"`` and ``seq_shard`` (with a
-    "model" axis above 1) raise ``NotImplementedError``: ROADMAP queue 1,
-    item 7c, part 4.
+  * ``expert_shard_dff``: each expert's F over "data" (its E over
+    "model" where ``tp_mode`` splits the experts), the rank holding its F
+    columns (``RankConfig.moe_data`` "dff", ``local_dff`` from
+    ``dff_offset``); ``expert_mesh="data"``: the experts over "data"
+    ("experts") and each one's F over "model" (``RankConfig.expert_mesh``;
+    "moe" in ``split`` then means that F split).  A leaf so split over
+    "data" is the rank's own: its gradient already sums every data
+    rank's tokens (``launch.train.make_mesh_train_step`` scales it to the
+    mean and syncs nothing), and a gather joins it over "data";
+  * ``seq_shard`` (with a "model" axis above 1) raises
+    ``NotImplementedError``: ROADMAP queue 1, item 7c, part 4.
 
   It departs from the policy where GSPMD would reshard behind the
   reference's back:
@@ -142,19 +150,15 @@ def context_knobs(opts: ShardingOptions) -> dict:
 
 
 def check_options(opts: ShardingOptions, mesh=None) -> None:
-    """Refuse the options the rank-local layout does not take (ROADMAP
-    queue 1, item 7c, part 4)."""
+    """Refuse the options the rank-local layout does not take: unknown
+    modes, and ``seq_shard`` on a "model" axis above 1 (ROADMAP queue 1,
+    item 7c, part 4)."""
     from ..shardctx import PART4
     if opts.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {opts.tp_mode!r} is not one of {TP_MODES}")
-    if opts.expert_shard_dff:
-        raise NotImplementedError(
-            f"expert_shard_dff (expert F over \"data\", tokens gathered) is "
-            f"not ported: {PART4}")
-    if opts.expert_mesh != "model":
-        raise NotImplementedError(
-            f"expert_mesh={opts.expert_mesh!r} (experts over \"data\", "
-            f"all-to-all dispatch) is not ported: {PART4}")
+    if opts.expert_mesh not in ("model", "data"):
+        raise ValueError(f"expert_mesh {opts.expert_mesh!r} is not "
+                         f"\"model\" or \"data\"")
     if opts.seq_shard and (mesh is None or _axis_size(mesh, "model") > 1):
         raise NotImplementedError(
             f"seq_shard (sequence-parallel attention) is not ported: {PART4}")
@@ -472,7 +476,10 @@ def _splits(m: int, cfg, opts: ShardingOptions = BASELINE) -> dict:
         and bool(kinds - {"m", "s"}),
         "shared": layer_tp and "m" in kinds and cfg.shared_expert
         and cfg.resolved_moe_dff % m == 0,
-        "moe": moe_tp and "m" in kinds and cfg.n_experts % m == 0,
+        # the experts over "model", or under expert_mesh="data" their F
+        "moe": "m" in kinds and (
+            cfg.resolved_moe_dff % m == 0 if opts.expert_mesh == "data"
+            else moe_tp and cfg.n_experts % m == 0),
         "rglru": layer_tp and "r" in kinds
         and cfg.resolved_rnn_width % m == 0,
         "ssm": layer_tp and "s" in kinds and heads > 0 and heads % m == 0,
@@ -489,8 +496,34 @@ def rank_config(mesh, cfg, opts: ShardingOptions = BASELINE) -> RankConfig:
     m = _axis_size(mesh, "model")
     view = rank_view(cfg, m, _coord(mesh, "model") if m > 1 else 0, opts)
     sizes = tuple(sorted(mesh_axes(mesh).items()))
+    over = {}
+    n = _axis_size(mesh, "data")
+    how = _moe_data(cfg, n, opts)
+    if how:
+        at = _coord(mesh, "data")
+        if how == "dff":
+            f = cfg.resolved_moe_dff // n
+            over.update(moe_data=how, local_dff=f, dff_offset=at * f)
+        else:
+            e = cfg.n_experts // n
+            over.update(moe_data=how, local_experts=e, expert_offset=at * e)
     return dataclasses.replace(
-        view, zero=_zero_table(cfg, sizes, opts, view.split), whole=cfg)
+        view, zero=_zero_table(cfg, sizes, opts, view.split), whole=cfg,
+        **over)
+
+
+def _moe_data(cfg, n: int, opts: ShardingOptions) -> str:
+    """What an ``n``-way "data" axis splits of ``cfg``'s expert leaves
+    under ``opts``, as the policy's specs say: "experts" (E,
+    ``expert_mesh="data"``), "dff" (each expert's F,
+    ``expert_shard_dff``) or "" (nothing, or a dim it does not divide)."""
+    if n == 1 or not cfg.n_experts:
+        return ""
+    if opts.expert_mesh == "data":
+        return "experts" if cfg.n_experts % n == 0 else ""
+    if opts.expert_shard_dff and cfg.resolved_moe_dff % n == 0:
+        return "dff"
+    return ""
 
 
 def rank_view(cfg, m: int, r: int,
@@ -526,7 +559,14 @@ def rank_view(cfg, m: int, r: int,
     if "ssm" in split:
         over["ssm_heads"] = cfg.ssm_expand * cfg.d_model \
             // cfg.ssm_headdim // m
-    if "moe" in split:
+    if cfg.n_experts:
+        over["expert_mesh"] = opts.expert_mesh
+        over["local_dff"] = cfg.resolved_moe_dff
+    if "moe" in split and opts.expert_mesh == "data":
+        over["local_experts"] = cfg.n_experts
+        over["local_dff"] = cfg.resolved_moe_dff // m
+        over["dff_offset"] = r * (cfg.resolved_moe_dff // m)
+    elif "moe" in split:
         over["local_experts"] = cfg.n_experts // m
         over["expert_offset"] = r * (cfg.n_experts // m)
     if "vocab" in split:
@@ -595,6 +635,8 @@ def _rule(lay: _Layout, path: str) -> tuple:
         if name == "w2":
             return ("part", -2)
     if parent == "moe" and "moe" in split and name in ("wi", "wg", "wo"):
+        if lay.view.expert_mesh == "data":      # each expert's F
+            return ("part", -2 if name == "wo" else -1)
         return ("part", -3)
     if parent == "rglru" and "rglru" in split:
         if name in ("w_x", "w_gate", "conv", "w_r", "w_i", "lam"):
@@ -611,9 +653,26 @@ def _rule(lay: _Layout, path: str) -> tuple:
     return ("whole",)
 
 
+def expert_data_dim(view: RankConfig, path: str):
+    """The dim of the leaf at ``path`` that "data" splits in ``view``'s
+    layout (an expert leaf's E or F, ``RankConfig.moe_data``), or None."""
+    how = view.moe_data
+    parts = path.split("/")
+    if not how or len(parts) < 2 or parts[-2] != "moe" \
+            or parts[-1] not in ("wi", "wg", "wo"):
+        return None
+    if how == "experts":
+        return -3
+    return -2 if parts[-1] == "wo" else -1
+
+
 def _local_leaf(lay: _Layout, path: str, t):
     """The shard of parameter ``t`` (at ``path``) that the rank computes
     with; the tensor itself where the rank holds all of it."""
+    dim = expert_data_dim(lay.view, path)
+    if dim is not None:
+        coords = {a: (n, c) for a, n, c in lay.coords}
+        t = _part(t, dim, coords["data"][1], coords["data"][0])
     rule = _rule(lay, path)
     if rule[0] == "part":
         return _part(t, rule[1], lay.r, lay.m)
@@ -661,16 +720,21 @@ def _zero_table(cfg, sizes: tuple, opts: ShardingOptions,
     ``opts``: each leaf whose policy spec names "data" is stored on that
     dim over the entry's axes, "model" dropped where the layout splits
     the leaf over "model" already; axes of one rank in all store
-    nothing."""
+    nothing, and an expert leaf that the layout splits over "data" for
+    its computation (``RankConfig.moe_data``) stores no slice of it."""
     mesh = _Axes(sizes)
     names = dict(sizes)
     use_fsdp = cfg.fsdp if opts.fsdp_override is None else opts.fsdp_override
     if not use_fsdp or "data" not in names:
         return ()
     m = names.get("model", 1)
-    lay = _Layout(cfg=cfg, view=rank_view(cfg, m, 0, opts), m=m, r=0)
+    view = dataclasses.replace(rank_view(cfg, m, 0, opts),
+                               moe_data=_moe_data(cfg, names["data"], opts))
+    lay = _Layout(cfg=cfg, view=view, m=m, r=0)
     out = []
     for path, shape in _leaf_shapes(cfg):
+        if expert_data_dim(view, path) is not None:   # a compute split
+            continue
         spec = tuple(param_spec(mesh, cfg, path, shape, opts))
         for dim, entry in enumerate(spec):
             axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
@@ -836,8 +900,8 @@ def gathered_leaves(view: RankConfig, tree):
 
 def _sharded(view) -> bool:
     """Whether ``view`` holds anything less than the whole model."""
-    return isinstance(view, RankConfig) and (view.model_size > 1
-                                             or bool(view.zero))
+    return isinstance(view, RankConfig) and (
+        view.model_size > 1 or bool(view.zero) or bool(view.moe_data))
 
 
 def _whole_leaf(lay: _Layout, path: str, t):
@@ -845,11 +909,15 @@ def _whole_leaf(lay: _Layout, path: str, t):
     all-gathered over its storage axes; an equal part is all-gathered;
     the kv-head runs and the SSD's fused columns, which several ranks
     hold, are summed over the ranks from each entry's owner alone, so the
-    sum is exact."""
-    from ..shardctx import (gather_tree, model_all_gather, model_all_reduce,
-                            param_path)
+    sum is exact.  An expert leaf split over "data" is all-gathered over
+    it."""
+    from ..shardctx import (data_all_gather, gather_tree, model_all_gather,
+                            model_all_reduce, param_path)
     with torch.no_grad():
         t = gather_tree(lay.view, param_path(path), t)
+        dim = expert_data_dim(lay.view, path)
+        if dim is not None:
+            t = data_all_gather(t, dim)
     if lay.m == 1:
         return t
     rule = _rule(lay, path)
@@ -940,16 +1008,19 @@ def global_norm(view: RankConfig, tree) -> torch.Tensor:
     ("data", "model") every rank's slice is its own; over "data" the
     model rule above picks among the slices' holders), a leaf the data
     ranks replicate is data rank 0's, and the sums are added over
-    ("data", "model")."""
+    ("data", "model").  So is an expert leaf that "data" splits
+    (``RankConfig.moe_data``): each data rank's part is its own."""
     from ..shardctx import axes_coord, model_all_reduce, storage_all_reduce
     from ..shardctx import zero_entry
     lay = _view_layout(view)
     total = []
-    data0 = not view.zero or axes_coord(("data",)) == 0
+    over_data = bool(view.zero) or bool(view.moe_data)
+    data0 = not over_data or axes_coord(("data",)) == 0
 
     def add(path, g):
         entry = zero_entry(view, path)
-        if entry is None and not data0:
+        if (entry is None and not data0
+                and expert_data_dim(view, path) is None):
             return g
         if entry is None or "model" not in entry[1]:
             if _rule(lay, path)[0] == "whole" and lay.r > 0:
@@ -963,7 +1034,7 @@ def global_norm(view: RankConfig, tree) -> torch.Tensor:
     map_with_paths(add, tree)
     device = _tree.leaves(tree)[0].device
     ss = torch.stack(total).sum() if total else torch.zeros((), device=device)
-    if view.zero:
+    if over_data:
         return torch.sqrt(storage_all_reduce(ss.reshape(1),
                                              ("data", "model"))[0])
     return torch.sqrt(model_all_reduce(ss.reshape(1))[0])

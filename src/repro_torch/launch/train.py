@@ -76,53 +76,69 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
     the rank's view and ``params`` its shard (``sharding.place_params`` or
     ``init_rank_params``, under the same ``opts``).  Returns ``(opt_init,
     train_step)``, and ``train_step(params, opt_state, batch)`` takes the
-    logical batch: each rank takes its rows over the data axes,
-    accumulates its microbatches under tensor parallelism over "model"
-    (under ``shardctx.activation_sharding`` with ``opts``' knobs:
-    ``remat_offload``), sums over "model" the gradients that ranks hold in
-    part (``sharding.reduce_partial_grads``), then averages the gradients
-    over the data axes once a step (``runtime.compression.make_dp_step``
-    in mode "none", the reference's float32 psum) and clips on the whole
+    logical batch.  Its microbatches are the reference's, rows
+    [m b, (m + 1) b) of the batch (b = B / microbatches), and each rank
+    takes its equal part of each over the data axes, in rank order
+    (``reference_microbatches``), so that the MoE's dispatch groups,
+    formed over each microbatch's whole token stream across the data
+    ranks (``activation_sharding(..., data_rows=True)``), are the
+    reference's.  The rank accumulates its microbatches under tensor
+    parallelism over "model" (under ``shardctx.activation_sharding`` with
+    ``opts``' knobs: ``remat_offload``, and the MoE's), sums over "model"
+    the gradients that ranks hold in part
+    (``sharding.reduce_partial_grads``), then averages the gradients over
+    the data axes once a step (``runtime.compression.make_dp_step`` in
+    mode "none", the reference's float32 psum) and clips on the whole
     model's global norm (``sharding.global_norm``).  A ZeRO-3 slice's
     gradient arrives reduce-scattered, the sum over its storage axes, and
     is scaled to the data axes' mean instead (a "model" rank in those
-    axes computed the same gradient as the others); Adam then works on
-    the slices.  Loss, ce and aux are the means over the data ranks."""
+    axes computed the same gradient as the others); so is an expert leaf
+    that "data" splits (``expert_shard_dff``, ``expert_mesh="data"``),
+    whose gradient sums every data rank's tokens.  Adam then works on the
+    slices.  Loss, ce and aux are the means over the data ranks."""
     from ..shardctx import zero_entry
+    from .sharding import expert_data_dim
     if not data_axes(mesh):
         raise ValueError(f"a train step's mesh needs a data axis; its axes "
                          f"are {tuple(mesh.mesh_dim_names)}")
-    sharded = isinstance(cfg, RankConfig) and (cfg.model_size > 1
-                                               or bool(cfg.zero))
+    sharded = isinstance(cfg, RankConfig) and (
+        cfg.model_size > 1 or bool(cfg.zero) or bool(cfg.moe_data))
     opt_init, opt_update = adam(
         lr, weight_decay=weight_decay, grad_clip=grad_clip,
         state_dtype=dtype_of(cfg.opt_state_dtype),
         norm=(lambda g: global_norm(cfg, g)) if sharded else None)
     grads_of = microbatch_grads(cfg, microbatches)
     axes = mesh_axes(mesh)
-    zero = isinstance(cfg, RankConfig) and bool(cfg.zero)
+    # the leaves each data rank holds its own part of: ZeRO-3 slices (the
+    # sum over their storage axes) and expert leaves split over "data"
+    owned = isinstance(cfg, RankConfig) and (bool(cfg.zero)
+                                             or bool(cfg.moe_data))
     outer = tuple(a for a in data_axes(mesh) if a != "data")
     # the replicas of a slice over "pod" take their mean
     pod_mean = (make_grad_sync(mesh, outer, "none", False)
-                if zero and outer else None)
+                if owned and outer else None)
     stored: list = []
 
     def entries(grads):
         if not stored:
-            map_with_paths(lambda path, g: stored.append(
-                zero_entry(cfg, path)), grads)
+            def entry(path, g):
+                e = zero_entry(cfg, path)
+                if e is None and expert_data_dim(cfg, path) is not None:
+                    e = (None, ("data",))
+                stored.append(e)
+            map_with_paths(entry, grads)
         return stored
 
     def rank_grads(params, rows):
         loss, ce, aux, grads = grads_of(params, rows)
         if sharded:
             grads = reduce_partial_grads(cfg, grads)
-        if zero:
-            grads = _zero_mean(grads, entries(grads))
+        if owned:
+            grads = _owned_mean(grads, entries(grads))
         return torch.stack([torch.as_tensor(v, dtype=torch.float32)
                             for v in (loss, ce, aux)]), grads
 
-    def _zero_mean(grads, where):
+    def _owned_mean(grads, where):
         leaves = _tree.leaves(grads)
         mine = [g for g, e in zip(leaves, where) if e is not None]
         if pod_mean is not None:
@@ -140,14 +156,17 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
         return _tree.unflatten(grads, out)
 
     local = None
-    if zero:
+    if owned:
         local = lambda grads: [e is not None for e in entries(grads)]
     step = make_dp_step(mesh, rank_grads, opt_update, data_axes(mesh),
                         "none", error_feedback=False, local=local)
     knobs = context_knobs(opts)
 
+    n_data = data_size(mesh)
+
     def train_step(params, opt_state, batch):
-        with activation_sharding(mesh, **knobs):
+        batch = reference_microbatches(batch, n_data, microbatches)
+        with activation_sharding(mesh, **knobs, data_rows=True):
             params, opt_state, _, stats = step(params, opt_state, None,
                                                batch)
         loss, ce, aux = stats.unbind()
@@ -156,11 +175,32 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
     return opt_init, train_step
 
 
+def reference_microbatches(batch: dict, n: int, microbatches: int) -> dict:
+    """The logical batch with its rows reordered so that the n data
+    ranks' equal contiguous blocks (``runtime.compression.rows``) are each
+    rank's part of the reference's microbatches in turn: block i holds
+    rows [m b + i b / n, m b + (i + 1) b / n) for m = 0 .. microbatches -
+    1 (b = B / microbatches), which ``models.steps.microbatch_grads``
+    then cuts in order.  A batch that does not split so is returned as it
+    is, for the rows' and the microbatches' own checks to refuse."""
+    if n == 1 or microbatches == 1:
+        return batch
+    out = {}
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % (n * microbatches):
+            return batch
+        out[key] = x.reshape(microbatches, n, b // (n * microbatches),
+                             *x.shape[1:]).transpose(0, 1).reshape(x.shape)
+    return out
+
+
 def save_checkpoint(mgr, mesh, cfg, step: int, tree) -> None:
     """Checkpoint ``tree`` (params and moments) at ``step``.  On a mesh the
     checkpoint is the whole tree: the ranks of the first replica (every
     axis but "model" at 0; and every "data" rank, where ``cfg`` stores
-    ZeRO-3 slices over it) gather it one leaf at a time
+    ZeRO-3 slices or expert leaves split over it) gather it one leaf at a
+    time
     (``sharding.gathered_leaves``), rank 0 writing each leaf as it comes;
     the other replicas gather nothing.  Every rank returns once the
     checkpoint is on disk."""
@@ -168,7 +208,8 @@ def save_checkpoint(mgr, mesh, cfg, step: int, tree) -> None:
     if mesh is None:
         mgr.save(step, tree, extra=extra)
         return
-    held = ("model", "data") if getattr(cfg, "zero", ()) else ("model",)
+    held = (("model", "data") if getattr(cfg, "zero", ())
+            or getattr(cfg, "moe_data", "") else ("model",))
     first = all(mesh.get_local_rank(a) == 0
                 for a in mesh.mesh_dim_names if a not in held)
     if first:

@@ -388,10 +388,14 @@ def _offload_carry(carry):
     """Saved-tensor hooks under which the checkpoint that takes ``carry``
     as its input keeps that input in host memory (pinned, where it is a
     CUDA tensor) until its recompute: the checkpoint saves every tensor
-    argument, the unit's weights too, and only the carry is moved."""
+    argument, the unit's weights too, and only the carry is moved.  A
+    meta tensor (``launch.dryrun``'s) has no data to move: the recompute
+    gets a new one of its shape."""
     def pack(t):
         if t is not carry:
             return t
+        if t.is_meta:
+            return (t.device, (t.shape, t.dtype))
         host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
                            pin_memory=t.is_cuda)
         host.copy_(t, non_blocking=t.is_cuda)
@@ -400,6 +404,8 @@ def _offload_carry(carry):
     def unpack(saved):
         if isinstance(saved, tuple):
             device, host = saved
+            if device.type == "meta":
+                return torch.empty(host[0], dtype=host[1], device=device)
             return host.to(device, non_blocking=True)
         return saved
 

@@ -29,6 +29,17 @@ the collectives here, by name, where a sharded contraction ends.  So
   slices where the leaf is used (one collective a dtype for a unit's
   leaves), its backward reduce-scattering (summing) the gradient back to
   the slice;
+* the MoE's collectives over the data axes (``models.ffn.apply_moe``):
+  where a train step's rows are the rank's share of the logical batch
+  (``activation_sharding(..., data_rows=True)``), the dispatch groups
+  are the reference's, formed over the whole microbatch's token stream
+  across the data ranks: :func:`dp_gather_counts` (each round's
+  per-group expert counts, outside autograd) and :func:`dp_sum` (the aux
+  loss's sums; its backward sums too, as every rank's aux reads the
+  group's).  The dispatched tokens go over "data" by
+  :func:`data_all_gather` (backward a reduce-scatter) and come back by
+  :func:`data_reduce_scatter` (backward an all-gather), or go out and
+  back by :func:`data_all_to_all` (its own reverse backward);
 * :func:`collective_ledger` records every collective the port issues
   (these, ``runtime.compression``'s sync, ``core.gridshard``'s gather and
   ``launch.mesh.broadcast_tree``) by the reference's HLO names, with its
@@ -58,7 +69,7 @@ import torch.distributed as dist
 from .configs.base import ArchConfig
 
 _CTX: dict = {"active": False, "tp_n": 1, "group": None, "mesh": None,
-              "remat_offload": False}
+              "remat_offload": False, "moe_dp": True, "data_rows": False}
 _LEDGER: list | None = None
 PART4 = "ROADMAP queue 1, item 7c, part 4"
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -99,6 +110,14 @@ class RankConfig(ArchConfig):
     * ``ssm_heads``: the local SSD heads where "ssm" is split;
     * ``expert_offset`` / ``vocab_offset``: the first global expert and
       vocabulary row the rank holds;
+    * ``expert_mesh``: the axis the experts lie on ("model", or "data",
+      where "model" splits each expert's F instead: "moe" in ``split``
+      then means that F split);
+    * ``moe_data``: what "data" splits of the expert leaves: "" nothing,
+      "dff" each expert's F (``expert_shard_dff``), "experts" the experts
+      (``expert_mesh="data"``); ``local_dff`` / ``dff_offset``: the
+      rank's F columns of each expert it holds (the whole F from 0 where
+      nothing splits it);
     * ``zero``: the leaves kept as ZeRO-3 storage slices, each
       ``(path, dim, axes)``: the leaf at ``path`` ("units/slot0/attn/wq",
       "embed", ...) is the rank's equal part, on ``dim`` (counted from
@@ -116,6 +135,10 @@ class RankConfig(ArchConfig):
     expert_offset: int = 0
     local_vocab: int = 0
     vocab_offset: int = 0
+    expert_mesh: str = "model"
+    moe_data: str = ""
+    local_dff: int = 0
+    dff_offset: int = 0
     zero: Tuple[Tuple[str, int, Tuple[str, ...]], ...] = ()
     # the model's own config, for what a rank must know of the others'
     # shards (``launch.sharding``: gathering them, summing the gradients
@@ -134,41 +157,49 @@ def split(cfg, part: str) -> bool:
 def activation_sharding(mesh, *, seq_shard: bool = False,
                         moe_dp_groups: bool = True,
                         remat_offload: bool = False,
-                        expert_axis: str = "model"):
+                        expert_axis: str = "model",
+                        data_rows: bool = False):
     """Activate the mesh's "model" axis: its size and this rank's "model"
     sub-group, for the collectives, and the mesh itself, for the ZeRO-3
-    groups.  The other axes ("cells", "data", "pod") hold replicas, or a
-    train step's own rows of the batch
+    and data-axis groups.  The other axes ("cells", "data", "pod") hold
+    replicas, or a train step's own rows of the batch
     (``launch.train.make_mesh_train_step``).
 
     The reference's knobs, with its signature: ``remat_offload`` streams
     each remat unit's saved input to host memory
-    (``models.transformer.run_units``; :func:`remat_offload_active`).
-    The three that would change the computation are not ported: sequence
-    sharding over a "model" axis above 1 (``seq_shard``), MoE dispatch
-    groups kept off a "data" axis above 1 (``moe_dp_groups=False``) and
-    experts over "data" (``expert_axis="data"``) each raise
-    ``NotImplementedError``; at a size of 1 the first two shard nothing."""
+    (``models.transformer.run_units``; :func:`remat_offload_active`);
+    ``moe_dp_groups=False`` runs each MoE expert on the dispatched tokens
+    of every data rank (all-gathered over "data" before the experts, the
+    outputs reduce-scattered or sliced back after: what the reference's
+    unsharded group dim means), which ``expert_shard_dff`` needs;
+    ``expert_axis`` names the axis the experts lie on ("data": the rank
+    layout's ``RankConfig.expert_mesh`` then sends the tokens by an
+    all-to-all).  Sequence sharding over a "model" axis above 1
+    (``seq_shard``) is not ported and raises ``NotImplementedError``; at
+    a size of 1 it shards nothing.
+
+    ``data_rows`` (the port's own): the activations are this rank's equal
+    share of a logical batch split over the data axes ("pod", "data"),
+    in rank order, as a train step's are; the MoE then forms its dispatch
+    groups over the whole token stream across those ranks, as the
+    reference forms them (:func:`dp_rows`).  Without it each data rank is
+    a replica that groups its own tokens."""
     axes = mesh_axes(mesh)
     tp_n = axes.get("model", 1)
     if seq_shard and tp_n > 1:
         raise NotImplementedError(
             f"seq_shard (sequence-parallel attention over \"model\") is not "
             f"ported: {PART4}")
-    if not moe_dp_groups and axes.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"moe_dp_groups=False (MoE dispatch groups over the data rows) "
-            f"is not ported: {PART4}")
-    if expert_axis == "data":
-        raise NotImplementedError(
-            f"expert_axis=\"data\" (all-to-all dispatch over data) is not "
-            f"ported: {PART4}")
+    if expert_axis not in ("model", "data"):
+        raise ValueError(f"expert_axis {expert_axis!r} is not \"model\" or "
+                         f"\"data\"")
     group = None
     if tp_n > 1 and hasattr(mesh, "get_group"):
         group = mesh.get_group("model")
     old = dict(_CTX)
     _CTX.update(active=True, tp_n=tp_n, group=group, mesh=mesh,
-                remat_offload=bool(remat_offload))
+                remat_offload=bool(remat_offload),
+                moe_dp=bool(moe_dp_groups), data_rows=bool(data_rows))
     try:
         yield
     finally:
@@ -578,3 +609,142 @@ def gather_tree(cfg, prefix: str, tree):
                                  *(t for _, t, _ in items))
         new.update({path: o for (path, _, _), o in zip(items, outs)})
     return _rebuild(prefix, tree, new)
+
+
+# ---------------------------------------------------------------------------
+# the MoE's collectives over the data axes
+# ---------------------------------------------------------------------------
+
+def _dp_axes() -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh_axes(_CTX["mesh"]))
+
+
+def dp_rows() -> Tuple[int, int]:
+    """(this rank's row-major index, ranks) over the active mesh's data
+    axes ("pod", "data") where the activations are the rank's equal share
+    of a logical batch (``activation_sharding(..., data_rows=True)``);
+    (0, 1) elsewhere."""
+    if not (_CTX["active"] and _CTX["data_rows"]):
+        return 0, 1
+    axes = _dp_axes()
+    n = 1
+    for a in axes:
+        n *= mesh_axes(_CTX["mesh"])[a]
+    return (axes_coord(axes), n) if n > 1 else (0, 1)
+
+
+def data_size() -> int:
+    """Ranks on the active mesh's "data" axis (1 outside a mesh)."""
+    if not _CTX["active"]:
+        return 1
+    return mesh_axes(_CTX["mesh"]).get("data", 1)
+
+
+def gathers_experts() -> bool:
+    """Whether the MoE runs each expert on every data rank's dispatched
+    tokens (``moe_dp_groups=False`` on a "data" axis above 1)."""
+    return _CTX["active"] and not _CTX["moe_dp"] and data_size() > 1
+
+
+def dp_gather_counts(x):
+    """Every data rank's ``x`` (over the ``dp_rows`` ranks), stacked in
+    rank order, outside autograd: one all-gather."""
+    group, n = storage_group(_dp_axes())
+    return _gather_flat(x.detach().reshape(-1), group, n).view(n, *x.shape)
+
+
+class _DataSum(torch.autograd.Function):
+    """All-reduce over ``group`` forward; all-reduce of the gradient
+    backward (each rank's computation reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _all_reduce(g.contiguous().clone(), group=ctx.group)
+
+
+def dp_sum(x):
+    """The sum of ``x`` over the ``dp_rows`` ranks.  Where autograd
+    records, its gradient is summed over them too: every rank computes
+    the same function of the sum (the MoE's aux loss), so each rank's
+    share of the data-parallel mean is 1 / n of it, and the sum makes that
+    up for the terms of ``x`` the rank alone holds."""
+    group, _ = storage_group(_dp_axes())
+    if _tracked(x):
+        return _DataSum.apply(group, x)
+    return _all_reduce(x.detach().contiguous().clone(), group=group)
+
+
+def _data_group():
+    return storage_group(("data",))
+
+
+def data_all_gather(x, dim: int):
+    """Every "data" rank's ``x`` joined along ``dim`` in rank order; the
+    backward reduce-scatters (sums, then keeps the rank's block)."""
+    group, n = _data_group()
+    return _ZeroGather.apply(group, n, (dim,), x)[0]
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over ``group`` of each rank's ``x``, the rank keeping its
+    block along ``dim`` (n equal blocks); backward the all-gather."""
+
+    @staticmethod
+    def forward(ctx, group, n, dim, x):
+        dim = dim % x.dim()
+        shape = list(x.shape)
+        shape[dim] //= n
+        ctx.group, ctx.n, ctx.dim, ctx.shape = group, n, dim, tuple(shape)
+        send = _blocks(x, ctx.shape, dim, n)
+        return _reduce_scatter_flat(send, group, n).view(ctx.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = _gather_flat(g.reshape(-1), ctx.group, ctx.n)
+        return None, None, None, _joined(rows, ctx.shape, ctx.dim)
+
+
+def data_reduce_scatter(x, dim: int):
+    """The sum of ``x`` over the "data" ranks, each keeping its block
+    along ``dim`` (a float32 sum rounded once); the backward
+    all-gathers."""
+    group, n = _data_group()
+    return _ReduceScatter.apply(group, n, dim, x)
+
+
+def _all_to_all(x, group):
+    host = x.is_cuda and _on_host(group)
+    buf = (x.cpu() if host else x).contiguous()
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    record("all-to-all", out)
+    return out.to(x.device) if host else out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block r of dim 0 to rank r, block r back from rank r; the backward
+    is the same exchange (its own reverse)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _all_to_all(g, ctx.group)
+
+
+def data_all_to_all(x):
+    """``x`` (n, ...) over the n "data" ranks: block r of dim 0 goes to
+    rank r, and block r of the result came from rank r."""
+    group, n = _data_group()
+    if x.shape[0] != n:
+        raise ValueError(f"an all-to-all over {n} data ranks takes {n} "
+                         f"blocks, got {x.shape[0]}")
+    return _AllToAll.apply(group, x)

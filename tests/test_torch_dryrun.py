@@ -16,7 +16,14 @@
 * **A production cell.**  qwen3-0.6b's full-width ``decode_32k`` on the
   256-rank mesh through ``main``, which writes the reference's keys,
   skips records that exist, writes ``skipped`` for ``long_500k`` and an
-  ``error`` naming ROADMAP queue 1, item 7c, part 4 for ``--expert-dff``.
+  ``error`` naming ROADMAP queue 1, item 7c, part 4 for ``--seq-shard``.
+* **The MoE knobs.**  llama4-maverick's ``--recommended`` train_4k cell
+  (``expert_shard_dff`` under "moe-only") and its ``--expert-mesh data``
+  cell, full width at 2 layers on a (data 2, model 2) fake world, give
+  ``ok`` records whose ledgers hold the data axis's token collectives:
+  the dispatched slots all-gathered and the partial outputs
+  reduce-scattered, or both moved by all-to-alls, at the sizes the
+  dispatch groups give.
 * **qwen1.5-110b's train_4k arguments** on the 256-rank mesh (ZeRO-3 over
   "data") equal the reference policy's per-device bytes less the
   documented departure (a rank holds the one kv head its query heads
@@ -153,7 +160,7 @@ def test_main_on_the_production_mesh(tmp_path):
         out, "qwen3-0.6b__long_500k__single.json")))
     assert skipped["status"] == "skipped" and "sub-quadratic" in \
         skipped["reason"]
-    dryrun.main(argv + ["--shape", "train_4k", "--expert-dff", "--tag", "e"])
+    dryrun.main(argv + ["--shape", "train_4k", "--seq-shard", "--tag", "e"])
     err = json.load(open(os.path.join(
         out, "qwen3-0.6b__train_4k__single__e.json")))
     assert err["status"] == "error"
@@ -232,3 +239,43 @@ def test_terms_for_takes_a_records_bytes_by_kind():
     assert terms.wire_bytes_per_dev == want > 0
     assert terms.collective_s == want / roofline.LINK_BW
     assert torch.isfinite(torch.tensor(terms.compute_s))
+
+
+LLAMA4_CELL = ["--arch", "llama4-maverick-400b-a17b", "--shape", "train_4k",
+               "--mesh-shape", "2x2", "--layers", "2", "--batch", "8",
+               "--seq", "256"]
+
+
+@pytest.mark.parametrize("knob", ["recommended", "expert-mesh-data"])
+def test_llama4_moe_knob_cells_record_the_data_axis_collectives(tmp_path,
+                                                                knob):
+    from repro_torch.models import ffn
+    extra = (["--recommended"] if knob == "recommended"
+             else ["--expert-mesh", "data", "--tag", "ed"])
+    dryrun.main(LLAMA4_CELL + extra + ["--out", str(tmp_path)])
+    name = "llama4-maverick-400b-a17b__train_4k__2x2" + (
+        "" if knob == "recommended" else "__ed")
+    rec = json.load(open(tmp_path / f"{name}.json"))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["departure_bytes"] == {}
+    cfg = get_config("llama4-maverick-400b-a17b")
+    # 4 rows a rank, microbatches of one row: a 512-token stream of one
+    # group over the two data ranks, C slots an expert
+    st = ffn.stream(256, 0, 2)
+    cap = ffn.moe_capacity(cfg, st.gsize)
+    slots = st.local * cap * cfg.d_model * 2                  # bf16
+    seen = {}
+    for kind, nbytes, dtype in rec["ledger"]:
+        seen.setdefault((kind, nbytes, dtype), 0)
+        seen[(kind, nbytes, dtype)] += 1
+    if knob == "recommended":
+        assert rec["split"] == ["moe", "vocab"]
+        local = cfg.n_experts // 2          # the experts over "model"
+        # every data rank's slots gathered, the partial sums scattered back
+        assert seen.get(("all-gather", 2 * local * slots, "bfloat16"), 0) > 0
+        assert seen.get(("reduce-scatter", local * slots, "bfloat16"), 0) > 0
+        assert rec["collectives"]["ops_by_kind"]["all-to-all"] == 0
+    else:
+        # every expert's slots out, and back, each a forward and backward
+        assert seen.get(("all-to-all", cfg.n_experts * slots, "bfloat16"),
+                        0) >= 4

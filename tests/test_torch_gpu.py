@@ -1229,3 +1229,43 @@ def test_model_axis_training_under_nccl_matches_one_rank(ranks):
         assert r["mu"] <= 1e-4 and r["nu"] <= 2e-4, r
         assert abs(r["loss_mesh"] - r["loss_one"]) <= 1e-5 * abs(
             r["loss_one"]), r
+
+
+def _leaves_np(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_np(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_np(v)]
+    return [np.asarray(tree)]
+
+
+@pytest.mark.gpu
+def test_moe_data_axis_step_on_card_matches_the_cpu():
+    """A (data 2) step of reduced moonshot (16 experts, capacity 1.25, 2
+    microbatches of 1,280 tokens: the 1,024-token dispatch group straddles
+    the two ranks, the last one padded): two ranks on the one card over
+    gloo against the same world on the CPU, float32.  Every MoE call's
+    kept (token, expert) set is the same; loss, ce and aux within 1e-5
+    relative; Adam's moments within 1e-4 / 2e-4 of each leaf's max."""
+    _need_card()
+    import _moe_data_axis as md
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+    _build.build_all(_build.all_libraries())      # once, not once a rank
+    card = run_world(md.card_world, 2, args=("cuda",), backend="gloo",
+                     device="cuda:0", deadline_s=300)
+    cpu = run_world(md.card_world, 2, args=("cpu",), deadline_s=300)
+    for c, h in zip(card, cpu):
+        # one layer, two microbatches
+        assert len(c["kept"]) == len(h["kept"]) == 2
+        for (at_c, m_c), (at_h, m_h) in zip(c["kept"], h["kept"]):
+            assert at_c == at_h
+            np.testing.assert_array_equal(m_c, m_h)
+        for k in ("loss", "ce", "aux"):
+            assert abs(c["metrics"][k] - h["metrics"][k]) <= 1e-5 * abs(
+                h["metrics"][k]), (k, c["metrics"], h["metrics"])
+        for part, tol in (("mu", 1e-4), ("nu", 2e-4)):
+            for i, (g, w) in enumerate(zip(_leaves_np(c[part]),
+                                           _leaves_np(h[part]))):
+                bound = tol * max(float(np.abs(w).max()), 1e-30)
+                assert float(np.abs(g - w).max()) <= bound, (part, i)

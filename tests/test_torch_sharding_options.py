@@ -3,7 +3,8 @@ policy, in this process (no world).
 
 * **Storage shapes.**  For every registered architecture, on shape-only
   (2, 2), (16, 16) and (2, 16, 16) meshes, under BASELINE, "vocab-only",
-  "moe-only", and ``fsdp_override`` True and False, the shape a rank
+  "moe-only", ``fsdp_override`` True and False, ``expert_shard_dff``
+  (under "full" and "moe-only") and ``expert_mesh="data"``, the shape a rank
   stores of each leaf (``place_params`` of the full-size tree on the meta
   device, through a stand-in mesh that answers as rank 0) equals the
   reference policy's per-device shape (``repro.launch.sharding.
@@ -11,8 +12,9 @@ policy, in this process (no world).
   the product of its axes), except for the departures the layout
   documents (``launch/sharding.py``'s docstring), listed here by name.
 * **Splits.**  ``RankConfig.split`` is as ``tp_mode`` says.
-* **Refusals.**  The knobs of ROADMAP queue 1, item 7c, part 4 raise
-  ``NotImplementedError`` naming it.
+* **Refusals.**  ``seq_shard`` on a "model" axis above 1 raises
+  ``NotImplementedError`` naming ROADMAP queue 1, item 7c, part 4; the
+  MoE knobs of that item are taken.
 """
 import dataclasses
 
@@ -34,6 +36,10 @@ OPTIONS = {
     "moe-only": p_sh.ShardingOptions(tp_mode="moe-only"),
     "fsdp": p_sh.ShardingOptions(fsdp_override=True),
     "no-fsdp": p_sh.ShardingOptions(fsdp_override=False),
+    "expert-dff": p_sh.ShardingOptions(expert_shard_dff=True),
+    "moe-only-dff": p_sh.ShardingOptions(tp_mode="moe-only",
+                                         expert_shard_dff=True),
+    "expert-data": p_sh.ShardingOptions(expert_mesh="data"),
 }
 PART4 = "ROADMAP queue 1, item 7c, part 4"
 
@@ -169,20 +175,31 @@ def test_zero_storage_follows_fsdp():
 
 
 def test_refusals_name_part_4():
+    """``seq_shard`` on a "model" axis above 1 is still refused, naming
+    ROADMAP queue 1, item 7c, part 4; the MoE knobs of that item are
+    taken: ``moe_dp_groups=False`` and ``expert_axis="data"`` in the
+    context, ``expert_shard_dff`` and ``expert_mesh="data"`` (and so
+    llama4's recommended training and prefill options) in the layout."""
     mesh = _rank0(MESHES["2x2"])
     cfg = p_base.get_config("llama4-maverick-400b-a17b")
-    for kw in (dict(seq_shard=True), dict(moe_dp_groups=False),
-               dict(expert_axis="data")):
-        with pytest.raises(NotImplementedError, match=PART4):
-            with shardctx.activation_sharding(mesh, **kw):
-                pass
-    for opts in (p_sh.ShardingOptions(expert_shard_dff=True),
-                 p_sh.ShardingOptions(expert_mesh="data"),
-                 p_sh.ShardingOptions(seq_shard=True),
-                 p_sh.recommended_options(cfg, "train")):
-        with pytest.raises(NotImplementedError, match=PART4):
-            p_sh.place_params(mesh, cfg, {}, opts)
-    # at a size of 1 the first two shard nothing and are taken
+    with pytest.raises(NotImplementedError, match=PART4):
+        with shardctx.activation_sharding(mesh, seq_shard=True):
+            pass
+    with pytest.raises(NotImplementedError, match=PART4):
+        p_sh.place_params(mesh, cfg, {}, p_sh.ShardingOptions(seq_shard=True))
+    with shardctx.activation_sharding(mesh, moe_dp_groups=False,
+                                      expert_axis="data"):
+        assert shardctx.gathers_experts()
+    with shardctx.activation_sharding(mesh):
+        assert not shardctx.gathers_experts()
+    whole = specs.params_specs(cfg)
+    for opts, how in ((p_sh.ShardingOptions(expert_shard_dff=True), "dff"),
+                      (p_sh.ShardingOptions(expert_mesh="data"), "experts"),
+                      (p_sh.recommended_options(cfg, "train"), "dff"),
+                      (p_sh.recommended_options(cfg, "prefill"), "dff")):
+        _, view = p_sh.place_params(mesh, cfg, whole, opts)
+        assert view.moe_data == how, opts
+    # at a size of 1 seq_shard shards nothing and is taken
     one = _rank0(dict(data=1, model=1))
     with shardctx.activation_sharding(one, seq_shard=True,
                                       moe_dp_groups=False):
@@ -191,3 +208,6 @@ def test_refusals_name_part_4():
         assert shardctx.remat_offload_active()
     with pytest.raises(ValueError):
         p_sh.place_params(mesh, cfg, {}, p_sh.ShardingOptions(tp_mode="x"))
+    with pytest.raises(ValueError):
+        p_sh.place_params(mesh, cfg, {},
+                          p_sh.ShardingOptions(expert_mesh="pod"))
