@@ -99,7 +99,7 @@ the card:
    engine tokens == solo tokens at 4 layers with preemption, and a 2-layer
    bf16 prefill on the card against the CPU;
 9. runs ``python -m repro_torch.launch.serve``'s ``main`` for
-   recurrentgemma-2b (26 layers, bf16), then a ragged burst of 12 requests
+   recurrentgemma-2b (26 layers, bf16), then a ragged burst of 8 requests
    of 8-160 prompt tokens through an engine built as the launcher builds
    it; RG-LRU launches must be exactly 18 and flash 8 per solo prefill or
    first chunk, decode attention 8 per decode tick and per prompt token a
@@ -132,7 +132,7 @@ the card:
    Prometheus text parses and the Chrome trace round-trips;
 11. drives the remaining layer kinds at full width: (a) moonshot-v1-16b-a3b
    (48 "m" layers, 56.3 GB in bf16) through ``serve_partitioned.main``
-   (``MOON_ARGS``: controller, split, 16 requests with whole-prompt
+   (``MOON_ARGS``: controller, split, 8 requests with whole-prompt
    prefill; its init may peak at the parameters plus one layer) and the
    same burst through the sync engine ``launch.serve --sync-batching``
    builds, a profile of 3 decode ticks, float32 engine tokens == solo
@@ -884,9 +884,7 @@ def learning_phase(torch, smi) -> dict:
 # engines prefill a wave that is not listed here
 QWEN3_WAVES = [(8, 275, [18, 39, 0, 27, 255, 181, 229, 129]),
                (8, 274, [135, 115, 0, 67, 189, 125, 31, 99])]
-RG_WAVES = [(8, 144, [6, 120, 72, 8, 0, 16, 109, 74]),
-            (8, 128, [67, 94, 116, 14, 67, 67, 67, 67]),
-            (2, 16, None)]
+RG_WAVES = [(8, 144, [6, 120, 72, 8, 0, 16, 109, 74]), (2, 16, None)]
 
 FLASH_CASES = [
     # (label, B, Sq, Sk, H, KV, hd, dtype, kind, window, pad)
@@ -1068,12 +1066,43 @@ TMOE_FLASH = (
     + [("phase 17 moonshot one rank", 4, 384, 384, 16, 16, 128, "f32",
         "causal", 0, None)])
 TM_FLASH += TMOE_FLASH
+# phase 18 (b): gemma3-1b's wave (KV_PROMPTS left-padded to 1,100) on a
+# rank (2 of 4 heads) and on one rank, float32, the rings' local layers
+# and the global ones; its decode ticks on one rank, against the whole
+# 1,160-position cache and the 1,024-slot ring
+KV_PROMPTS = (1100, 700, 300, 60)
+KV_PAD = [max(KV_PROMPTS) - n for n in KV_PROMPTS]
+TM_FLASH += [
+    (f"phase 18 (b) gemma3-1b {who}", 4, 1100, 1100, h, 1, 256, "f32", kind,
+     1024 if kind == "local" else 0, KV_PAD)
+    for who, h in (("rank", 2), ("one rank", 4))
+    for kind in ("local", "causal")]
+DECODE_CASES += [
+    ("phase 18 (b) gemma3-1b one rank: the dense cache", 4, 1160, 4, 1, 256,
+     "f32", False),
+    ("phase 18 (b) gemma3-1b one rank: the ring", 4, 1024, 4, 1, 256, "f32",
+     False)]
 FLASH_CASES += TM_FLASH
 DECODE_CASES += [
     ("phase 14 recurrentgemma rank: the ring, 3 slots", 3, 2048, 5, 1, 256,
      "f32", True),
     ("phase 14 recurrentgemma rank: a chunk's replay", 1, 2048, 5, 1, 256,
      "f32", False)]
+# the decode kernel's partial entry (``with_ml``), which the sequence-split
+# caches run (ROADMAP 7d): each case is also cut in two halves whose
+# merged partials are held to the whole-S kernel.  Phase 14's
+# recurrentgemma rank replays a chunk's tokens against its half of the
+# 2,048-slot ring with all 10 heads; phase 18 (b)'s gemma3-1b rank decodes
+# 4 slots against its half of the 1,160-position cache and of the
+# 1,024-slot ring, all 4 heads over the one kv head
+DECODE_ML_CASES = [
+    ("phase 14 recurrentgemma rank: a chunk's replay, half the ring", 1,
+     1024, 10, 1, 256, "f32", False),
+    ("phase 18 gemma3-1b rank: half the dense cache", 4, 580, 4, 1, 256,
+     "f32", True),
+    ("phase 18 gemma3-1b rank: half the ring", 4, 512, 4, 1, 256, "f32",
+     True),
+    ("bf16, a kv head each", 3, 300, 16, 8, 128, "bf16", True)]
 PAGED_CASES += [
     ("phase 14 qwen3 rank: 8 slots x 32 blocks of 16", 8, 32, 16, 8, 4, 128,
      "bf16", [0, 15, 16, 511, 100, 300, 1, 64]),
@@ -1089,6 +1118,7 @@ def held_shapes() -> set:
     held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
             for _, b, sq, sk, h, kv, hd, dt, kind, _, pad in FLASH_CASES}
     held |= {("decode", c[6], *c[1:6]) for c in DECODE_CASES}
+    held |= {("decode_ml", c[6], *c[1:6]) for c in DECODE_ML_CASES}
     held |= {("paged", c[7], *c[1:7]) for c in PAGED_CASES}
     held |= {("ssd", c[8], *c[1:7]) for c in SSD_CASES}
     held |= {("rglru", c[4], *c[1:4]) for c in RGLRU_CASES}
@@ -1132,7 +1162,11 @@ def check_flash(torch, fa, ref, gen, case) -> float:
     return err
 
 
-def check_decode(torch, da, ref, gen, case) -> float:
+def check_decode(torch, da, ref, gen, case, with_ml: bool = False) -> float:
+    """The dense entry against the plain version; ``with_ml`` the partial
+    entry (its output, and each (row, head)'s softmax max and sum within
+    1e-4), and the merge of its two halves' partials
+    (``ref.merge_partials``) against the whole-S kernel."""
     label, b, s, h, kv, hd, dt, dead_row, *pad = case
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
@@ -1152,17 +1186,42 @@ def check_decode(torch, da, ref, gen, case) -> float:
         valid[0, 64:128] = False
     if dead_row:
         valid[-1] = False        # no valid key: the uniform average
-    got = da.decode_attention_cuda(q, k, v, valid)
-    torch.cuda.synchronize()
-    want = ref.decode_attention_ref(q, k, v, valid)
     tol = att_tol(torch, dtype)
+    if with_ml:
+        got, m, l = da.decode_attention_cuda(q, k, v, valid, with_ml=True)
+        torch.cuda.synchronize()
+        want, m_ref, l_ref = ref.decode_attention_ref(q, k, v, valid,
+                                                      with_ml=True)
+        for name, g_t, w_t in (("max", m, m_ref), ("sum", l, l_ref)):
+            if not torch.allclose(g_t, w_t, rtol=1e-4, atol=1e-4):
+                fail(f"decode (partial) {label}: softmax {name} outside "
+                     f"1e-4 ({float((g_t - w_t).abs().max()):.3e})")
+        half = s // 2
+        parts = [da.decode_attention_cuda(
+            q, k[:, a:e].contiguous(), v[:, a:e].contiguous(),
+            valid[:, a:e].contiguous(), with_ml=True)
+            for a, e in ((0, half), (half, s))]
+        merged = ref.merge_partials(*(torch.stack(t) for t in zip(
+            *((o[:, 0], mm, ll) for o, mm, ll in parts))))
+        whole = da.decode_attention_cuda(q, k, v, valid)[:, 0].float()
+        merr = float((merged.to(dtype).float() - whole).abs().max())
+        if not torch.allclose(merged.to(dtype).float(), whole, rtol=tol,
+                              atol=tol):
+            fail(f"decode (partial) {label}: two halves merged part from "
+                 f"the whole-S kernel ({merr:.3e})")
+    else:
+        got = da.decode_attention_cuda(q, k, v, valid)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, valid)
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"decode {label}: outside {tol} (max abs err {err:.3e})")
-    log(f"  decode {dt:4s} B{b} S{s} H{h}/{kv} hd{hd}"
+    log(f"  decode{' (partial)' if with_ml else ''} {dt:4s} B{b} S{s} "
+        f"H{h}/{kv} hd{hd}"
         f"{' all-invalid row' if dead_row else ''}"
         f"{f' pad={pad[0]}' if pad else ''}: ok, max abs err "
-        f"{err:.3e} ({label})")
+        f"{err:.3e}{f', halves merged {merr:.3e}' if with_ml else ''} "
+        f"({label})")
     return err
 
 
@@ -1328,6 +1387,30 @@ def time_paged(torch, da, ref, gen, b, m, bs, h, kv, hd, lens) -> dict:
     return t
 
 
+def time_decode_ml(torch, da, ref, gen, b, s, h, kv, hd, dtype,
+                   label) -> dict:
+    """The partial entry (``with_ml``) under prefix lengths, beside the
+    plain version's partial and the bound of the valid keys' bytes (and
+    the (m, l) it writes); no single PyTorch call returns the softmax's
+    max and sum."""
+    q, k, v = attention_inputs(torch, gen, b, 1, s, h, kv, hd, dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    n_valid = int(valid.sum())
+    size = q.element_size()
+    n_bytes = ((2 * q.numel() + 2 * n_valid * kv * hd) * size
+               + valid.numel() + 2 * b * h * 4)
+    peak = PEAK_F32_S if dtype == torch.float32 else PEAK_BF16_S
+    t = time_kernel(
+        torch, lambda: da.decode_attention_cuda(q, k, v, valid, with_ml=True),
+        lambda: ref.decode_attention_ref(q, k, v, valid, with_ml=True),
+        None, 4 * h * hd * n_valid, n_bytes, peak)
+    t["shape"] = (f"B{b} S{s} H{h}/{kv} hd{hd} "
+                  f"{'f32' if dtype == torch.float32 else 'bf16'}, "
+                  f"{n_valid} valid keys ({label})")
+    return t
+
+
 def log_timed(key: str, t: dict) -> None:
     lib = ("no single PyTorch call" if t["library_ms"] is None else
            f"sdpa {t['library_ms']:.4f} ms device, "
@@ -1343,6 +1426,8 @@ def attention_phase(torch, fa, da, ref) -> dict:
     log("[5] attention kernels vs plain PyTorch on the card")
     flash_errs = [check_flash(torch, fa, ref, gen, c) for c in FLASH_CASES]
     decode_errs = [check_decode(torch, da, ref, gen, c) for c in DECODE_CASES]
+    decode_errs += [check_decode(torch, da, ref, gen, c, with_ml=True)
+                    for c in DECODE_ML_CASES]
     paged_errs = [check_paged(torch, da, ref, gen, c) for c in PAGED_CASES]
     out = {"flash_max_abs_err": max(flash_errs),
            "decode_max_abs_err": max(decode_errs + paged_errs)}
@@ -1364,7 +1449,13 @@ def attention_phase(torch, fa, da, ref) -> dict:
     lens = (lens - 1).to(torch.int32)            # keys 0 .. seq_lens[b]
     out["decode_paged"] = t = time_paged(torch, da, ref, gen, b, 32, 16, h,
                                          kv, hd, lens)
-    for key in ("flash", "flash_engine", "decode", "decode_paged"):
+    # the partial entry at phase 18 (b)'s rank shape: gemma3-1b's half of
+    # the dense cache, 4 slots, float32 (the run's type)
+    out["decode_ml"] = time_decode_ml(torch, da, ref, gen, 4, 580, 4, 1, 256,
+                                      torch.float32,
+                                      "phase 18's gemma3-1b rank")
+    for key in ("flash", "flash_engine", "decode", "decode_paged",
+                "decode_ml"):
         log_timed(key, out[key])
     log(f"    gather + dense kernel at the paged shape: device "
         f"{t['gather_dense_ms']:.4f} ms, wall {t['gather_dense_call_ms']:.4f} "
@@ -1944,7 +2035,10 @@ MAMBA_ARGS = ["--arch", "mamba2-1.3b", "--split-seq", "512", "--requests",
               str(MAMBA_REQUESTS), "--prompt-max", "48"]
 RG_ARGS = ["--arch", "recurrentgemma-2b", "--requests", "6", "--slots", "2",
            "--prompt-len", "16", "--max-new", "8"]   # 26 layers, bf16
-RG_BURST = dict(n=12, lo=8, hi=160, max_new=32, slots=8)
+# the first 8 of 12 requests before phase 18 (the same draws' prefix:
+# RG_WAVES' first wave, a subset of the held shapes), a timed run cut to
+# make room, as MOON_BURST's
+RG_BURST = dict(n=8, lo=8, hi=160, max_new=32, slots=8)
 
 
 def scan_counters():
@@ -2438,9 +2532,13 @@ def engines_phase(torch, report: dict, smi: str) -> dict:
 
 # -- phase 11: the remaining layer kinds -------------------------------------
 
+# full width, 48 layers, bf16; the first 8 of serve_partitioned's 16
+# requests (16 before phase 18: its 44 s, and the sync engine's, were the
+# timed runs cut to make room; the same draws' prefix, so one wave of
+# MOON_WAVES' and a subset of the solo buckets)
 MOON_ARGS = ["--arch", "moonshot-v1-16b-a3b", "--split-seq", "512",
-             "--prompt-max", "256"]   # full width, 48 layers, bf16, 16 requests
-MOON_BURST = dict(n=16, lo=8, hi=256, max_new=32, slots=8)   # MOON_ARGS'
+             "--prompt-max", "256", "--requests", "8"]
+MOON_BURST = dict(n=8, lo=8, hi=256, max_new=32, slots=8)   # MOON_ARGS'
 INIT_SLACK = 256 << 20        # temporaries beside the stack and one layer
 F32_STEPS = 8                 # greedy steps of the float32 token checks
 SEED_KINDS = 0                # (b)-(d)'s weights
@@ -2467,10 +2565,11 @@ def recorded_launches(seen: set):
         return saved["flash_attention"](q, k, v, kind=kind, window=window,
                                         pad_mask=pad_mask)
 
-    def decode(q, k, v, valid_mask):
-        seen.add(("decode", dt(q), q.shape[0], k.shape[1], q.shape[2],
-                  k.shape[2], q.shape[3]))
-        return saved["decode_attention"](q, k, v, valid_mask)
+    def decode(q, k, v, valid_mask, *, with_ml=False):
+        seen.add(("decode_ml" if with_ml else "decode", dt(q), q.shape[0],
+                  k.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+        return saved["decode_attention"](q, k, v, valid_mask,
+                                         with_ml=with_ml)
 
     def paged(q, k_pool, v_pool, block_table, seq_lens):
         seen.add(("paged", dt(q), q.shape[0], block_table.shape[1],
@@ -3952,7 +4051,7 @@ TM_F32_LAYERS = 4                     # (c)
 TM_F32_MOON_LAYERS, TM_F32_MOON_SEQ = 1, 1024
 TM_F32_SEQ = 128                      # (c)'s qwen3 and gemma3, B2 over data 2
 TM_SYNC_MODES = ("bf16", "int8")
-TM_DEADLINE_S = 400.0                 # a spawned world still running then is ended
+TM_DEADLINE_S = 600.0                 # a spawned world still running then is ended
 TM_READY_S = 120.0                    # (a) waits at most this for (b)'s ranks
 MM_BUDGET_S = 90.0                    # the phase's share of the smoke's time limit
 DIST_CALLS = ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
@@ -4224,6 +4323,7 @@ def tm_rank(go_file: str, ready: str) -> dict:
     out["seen"] = seen
     out["zero"] = tz_rank(torch, mesh)
     out["moe"] = moe_rank(torch, mesh)
+    out["seq"] = seq_rank(torch, mesh)
     return out
 
 
@@ -4233,7 +4333,7 @@ TZ_BUDGET_S = 60.0                    # the phase's share of the smoke's limit
 TZ_LEDGER_STEP = 1                    # (a): the step whose collectives (c) holds
 TZ_ROWS = 8 // TM_DATA                # (a): a rank's rows of each batch
 TZ_LOSS_RTOL = 1e-3                   # (a) against phase 15 (b), both bf16
-TZ_STEPS = 3                          # (a): p50 over steps 1-2
+TZ_STEPS = 2                          # (a): step 1 timed (3 before phase 18)
 TZ_ARGS = TM_ARGS[:-1] + [str(TZ_STEPS)]
 DRY_OUT = ROOT / "build" / "dryrun"
 # (c): (a)'s cell on its mesh, then qwen3's cells on the single-pod mesh
@@ -4614,7 +4714,7 @@ def zero_phase(torch, ranks: list, p15: dict, dry: DryRun) -> dict:
 TMOE_ROWS, TMOE_SEQ = 4, 384          # 1,536 tokens: 768 a data rank, so
 # dispatch group 0 (1,024) straddles the two data ranks and group 1 holds
 # their last 512 tokens and 512 zero pads
-TMOE_STEPS = 3                        # bf16 steps a layout, p50 over 1-2
+TMOE_STEPS = 2                        # bf16 steps a layout, step 1 timed (3 before phase 18)
 TMOE_BUDGET_S = 120.0                 # the phase's share of the smoke's limit
 TMOE_GRAD_TOL = 1e-5                  # tests/test_torch_model_axis_train.py's
 TMOE_LOSS_RTOL = 1e-6                 # step tolerances, float32
@@ -4890,6 +4990,365 @@ def moe_phase(torch, ranks: list) -> dict:
     return out
 
 
+# -- phase 18: seq_shard training; the KV cache's sequence over "model" ----
+
+SQ_STEPS = 2                          # (a): bf16 steps, step 1 timed
+SQ_ROWS, SQ_SEQ = 2, 512              # (a): a rank's rows of each batch
+SQ_NORMS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm")
+KV_NEW = 16                           # (b): new tokens a request
+KV_S_MAX = 1160                       # (b): the dense caches, 580 a rank
+SQ_BUDGET_S = 120.0                   # the phase's share of the smoke's limit
+
+
+def sq_f32_case(torch, mesh) -> dict:
+    """(a): one float32 step of qwen3 at TM_F32_LAYERS layers from the same
+    weights and batch (B2 S128) on one rank and on the mesh under
+    ``seq_shard`` (each rank's block of a row: 64 positions).  The
+    rank's worst moment errors over each leaf's max, those of the norm
+    scales by name (their gradients are summed over "model" from the
+    ranks' blocks), and the next batch's loss both ways."""
+    from repro_torch import _tree, shardctx
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import steps, transformer
+
+    cfg = tm_f32_configs()[0][1]
+    opts = sharding.ShardingOptions(seq_shard=True, fsdp_override=False)
+    stream = for_arch(cfg, batch=2, seq=TM_F32_SEQ, seed=3)
+    b0 = _tree.to_device(stream.get_batch(0), "cuda")
+    b1 = _tree.to_device(stream.get_batch(1), "cuda")
+    out: dict = {}
+    params = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    local, view = sharding.place_params(mesh, cfg, params, opts)
+    init, step = steps.make_train_step(cfg, lr=1e-3)
+    new, opt, _ = step(params, init(params), b0)
+    out["loss_after_one"] = float(steps.loss_fn(new, cfg, b1)[0])
+    ref = {k: _tree.to_device(sharding.place_params(mesh, cfg, tree,
+                                                    opts)[0], "cpu")
+           for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+    scale = {k: [float(t.abs().max()) for t in _tree.leaves(tree)]
+             for k, tree in (("mu", opt.mu), ("nu", opt.nu))}
+    del params, new, opt
+    torch.cuda.empty_cache()
+    init, step = train.make_mesh_train_step(mesh, view, lr=1e-3, opts=opts)
+    new, opt, metrics = step(local, init(local), b0)
+    with shardctx.activation_sharding(mesh):
+        out["loss_after_mesh"] = float(steps.loss_fn(new, view, b1)[0])
+    out["loss"] = float(metrics["loss"])
+    paths: list = []
+    sharding.map_with_paths(lambda path, t: paths.append(path), opt.mu)
+    norms: dict = {}
+    for k in ("mu", "nu"):
+        errs = [float((got.float() - want.to(got.device)).abs().max())
+                / max(sc, 1e-30)
+                for got, want, sc in zip(_tree.leaves(getattr(opt, k)),
+                                         _tree.leaves(ref[k]), scale[k])]
+        out[f"{k}_rel"] = max(errs)
+        for path, err in zip(paths, errs):
+            name = path.rsplit("/", 1)[-1]
+            if k == "mu" and name in SQ_NORMS:
+                norms[name] = max(norms.get(name, 0.0), err)
+    out["norms_mu_rel"] = norms
+    del local, new, opt, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_requests(cfg):
+    """(b)'s wave: KV_PROMPTS tokens drawn from seed 18, KV_NEW new tokens
+    each."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(18)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), max_new=KV_NEW) for i, n in enumerate(KV_PROMPTS)]
+
+
+def kv_engine(torch, cfg, params, mesh=None) -> dict:
+    """(b): the sync engine (4 slots, KV_S_MAX) on ``kv_requests``: each
+    request's tokens, the launches, the engine's counters, and the bytes
+    of the wave's cache."""
+    from repro_torch import _tree
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, slots=4, s_max=KV_S_MAX,
+                        sync_batching=True, mesh=mesh)
+    reqs = kv_requests(cfg)
+    for r in reqs:
+        eng.submit(r)
+    zero_counts()
+    from repro_torch.kernels import decode_attention
+    decode_attention.decode_attention_cuda.ml_launches = 0
+    t0 = time.perf_counter()
+    eng.step()                                   # the wave's prefill
+    cache = eng.cache
+    types = sorted({type(c).__name__ for c in
+                    [*cache["units"].values(), *cache["tail"]]})
+    nbytes = sum(t.numel() * t.element_size() for t in _tree.leaves(
+        {"units": cache["units"], "tail": cache["tail"]}))
+    run = _run_layout_bytes(eng.cfg, cache)
+    del cache
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return {"tokens": [list(map(int, r.out)) for r in reqs],
+            "launches": read_counts(),
+            "ml_launches": decode_attention.decode_attention_cuda.ml_launches,
+            "decode_steps": eng.decode_steps,
+            "prefill_steps": eng.prefill_steps,
+            "s": time.perf_counter() - t0, "types": types,
+            "cache_bytes": nbytes, "run_layout_bytes": run}
+
+
+def _run_layout_bytes(view, cache) -> int:
+    """The bytes ``cache`` would hold in the layout before the sequence
+    split: every sequence-split leaf at the whole length, the rank's run
+    of kv heads."""
+    from repro_torch import _tree
+    from repro_torch.models import attention
+    total = 0
+    for c in [*cache["units"].values(), *cache["tail"]]:
+        for t in _tree.leaves(c):
+            n = t.numel() * t.element_size()
+            if attention.is_seq_split(c):
+                n *= view.model_size
+                if t.dim() >= 4:
+                    n = n * view.n_kv // t.shape[-2]
+            total += n
+    return total
+
+
+def seq_rank(torch, mesh) -> dict:
+    """A rank of phase 18, in phase 15's world after phase 17.  (a)
+    qwen3-0.6b at full width and TM_LAYERS layers under ``seq_shard``
+    (each rank's SQ_ROWS rows of SQ_SEQ tokens, its residual stream a
+    block of 256 positions): SQ_STEPS bf16 steps of
+    ``make_mesh_train_step`` (launches counted, shapes recorded,
+    collectives timed and counted by kind), and ``sq_f32_case``.  (b)
+    gemma3-1b at full width and depth in float32: rank 0 serves
+    ``kv_requests`` through a one-rank sync engine while the others wait;
+    then every rank serves them through the sync engine on the mesh (the
+    data rows replicas, each a "model" pair whose dense and ring caches
+    hold their blocks of the sequence)."""
+    import torch.distributed as dist
+    from repro_torch import _tree, shardctx
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import transformer
+
+    t_rank = time.perf_counter()
+    out: dict = {"coords": (mesh.get_local_rank("data"),
+                            mesh.get_local_rank("model"))}
+    seen: set = set()                   # (a)'s shapes: trained
+    served: set = set()                 # (b)'s: served
+    torch.cuda.empty_cache()
+    # (a) seq_shard training, bf16
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=TM_LAYERS)
+    opts = sharding.ShardingOptions(seq_shard=True, microbatches=1)
+    batch = _tree.to_device(for_arch(cfg, batch=SQ_ROWS * TM_DATA,
+                                     seq=SQ_SEQ, seed=7).get_batch(0),
+                            "cuda")
+    whole = transformer.init_params(SEED_KINDS, cfg, "cuda")
+    local, view = sharding.place_params(mesh, cfg, whole, opts)
+    del whole
+    torch.cuda.empty_cache()
+    init, step = train.make_mesh_train_step(mesh, view, lr=3e-4,
+                                            microbatches=1, opts=opts)
+    opt = init(local)
+    a: dict = {"setup_s": time.perf_counter() - t0}
+    spent: dict = {}
+    step_s, losses = [], []
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_launches(seen), timed_collectives(spent), \
+            shardctx.collective_ledger() as ledger:
+        for _ in range(SQ_STEPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            local, opt, metrics = step(local, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    kinds: dict = {}
+    for kind, nbytes, _ in ledger:
+        n, b = kinds.get(kind, (0, 0))
+        kinds[kind] = (n + 1, b + nbytes)
+    a.update(launches=read_counts(), step_s=step_s, losses=losses,
+             collectives=spent, kinds=kinds,
+             peak_bytes=torch.cuda.max_memory_allocated())
+    del local, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with recorded_launches(seen):
+        a["f32"] = sq_f32_case(torch, mesh)
+    a["f32_s"] = time.perf_counter() - t0
+    out["a"] = a
+    dist.barrier()
+    # (b) gemma3-1b served with sequence-split caches
+    f32 = dataclasses.replace(get_config("gemma3-1b"), param_dtype="float32",
+                              compute_dtype="float32")
+    b: dict = {}
+    t0 = time.perf_counter()
+    if dist.get_rank() == 0:
+        params = transformer.init_params(SEED_KINDS, f32, "cuda")
+        with recorded_launches(served):
+            b["one"] = kv_engine(torch, f32, params)
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    b["one_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED_KINDS, f32, "cuda")
+    with recorded_launches(served):
+        b["mesh"] = kv_engine(torch, f32, params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    b["mesh_s"] = time.perf_counter() - t0
+    out["b"] = b
+    out["seen"], out["served"] = seen, served
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+def seq_phase(torch, ranks: list) -> dict:
+    """Phase 18: (a) and (b) of ``seq_rank``, on phase 15's world."""
+    t_phase = time.perf_counter()
+    in_world = max(r["s"] for r in ranks)
+    out: dict = {"in_world_s": in_world}
+    log(f"[18] (a) qwen3-0.6b at full width ({TM_LAYERS} of 28 layers) under "
+        f"seq_shard on phase 15's (data {TM_DATA}, model {TM_MODEL}) world: "
+        f"B{SQ_ROWS} S{SQ_SEQ} a rank, the residual stream a rank's block "
+        f"of {SQ_SEQ // TM_MODEL} positions; {SQ_STEPS} bf16 steps and a "
+        f"float32 step against one rank's.  (b) gemma3-1b at full width "
+        f"and depth in float32, the sync engine on {len(KV_PROMPTS)} "
+        f"prompts of {KV_PROMPTS} tokens and {KV_NEW} new each: one rank, "
+        f"then the mesh with sequence-split caches")
+    # (a)
+    want = {"flash_attention": 2 * TM_LAYERS * SQ_STEPS,
+            "flash_attention_backward": TM_LAYERS * SQ_STEPS,
+            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    launched = {k: 0 for k in ("flash_attention", "flash_attention_backward",
+                               "decode_attention")}
+    tokens = SQ_ROWS * TM_DATA * SQ_SEQ
+    p50s, shares = [], []
+    for r in ranks:
+        a = r["a"]
+        where = f"(a) rank {r['coords']}"
+        if a["launches"] != want:
+            fail(f"{where}: launches {a['launches']}, expected {want}")
+        if not all(x == x and abs(x) < 1e30 for x in a["losses"]):
+            fail(f"{where}: a loss is not finite: {a['losses']}")
+        if a["losses"] != ranks[0]["a"]["losses"]:
+            fail("(a) the ranks report different losses")
+        if "reduce-scatter" not in a["kinds"]:
+            fail(f"{where}: no reduce-scatter over the sequence: "
+                 f"{a['kinds']}")
+        for k in ("flash_attention", "flash_attention_backward"):
+            launched[k] += a["launches"][k]
+        c = a["f32"]
+        rel = abs(c["loss_after_mesh"] - c["loss_after_one"]) / abs(
+            c["loss_after_one"])
+        bad_norms = {k: v for k, v in c["norms_mu_rel"].items() if v > 1e-4}
+        if (c["mu_rel"] > 1e-4 or c["nu_rel"] > 2e-4 or rel > LOSS_RTOL
+                or bad_norms or set(c["norms_mu_rel"]) != set(SQ_NORMS)):
+            fail(f"{where}: float32 moments {c['mu_rel']:.2e} / "
+                 f"{c['nu_rel']:.2e} of their max, the norm scales' "
+                 f"{c['norms_mu_rel']}, next loss {rel:.2e} relative, past "
+                 f"1e-4 / 2e-4 / {LOSS_RTOL:g}")
+        steps_s = a["step_s"][1:]                 # step 0 warms
+        p50 = sorted(steps_s)[len(steps_s) // 2]
+        share = sum(x for _, x in a["collectives"].values()) / sum(
+            a["step_s"])
+        p50s.append(p50)
+        shares.append(share)
+        log(f"    (a) rank {r['coords']}: step p50 {p50 * 1e3:.1f} ms "
+            f"({tokens / p50:,.0f} tokens/s over the world), collectives "
+            f"{share:.3f} of the steps' time ("
+            + ", ".join(f"{k} x{n} {x:.2f} s" for k, (n, x)
+                        in sorted(a["collectives"].items()))
+            + "); by kind "
+            + ", ".join(f"{k} x{n} {b / 1e6:.1f} MB" for k, (n, b)
+                        in sorted(a["kinds"].items()))
+            + f"; peak {a['peak_bytes'] / 1e9:.2f} GB; float32 moments "
+            f"within {c['mu_rel']:.2e} / {c['nu_rel']:.2e} of their max, "
+            f"the norm scales' first moments "
+            + ", ".join(f"{k} {v:.1e}" for k, v
+                        in sorted(c["norms_mu_rel"].items()))
+            + f", next batch's loss {c['loss_after_mesh']:.6f} vs one rank "
+            f"{c['loss_after_one']:.6f} ({rel:.2e})")
+    out["a"] = {"losses": ranks[0]["a"]["losses"],
+                "step_p50_ms": [x * 1e3 for x in p50s],
+                "tokens_per_s": tokens / max(p50s),
+                "collective_share": shares,
+                "kinds": ranks[0]["a"]["kinds"],
+                "peak_gb": [r["a"]["peak_bytes"] / 1e9 for r in ranks],
+                "f32": [r["a"]["f32"] for r in ranks],
+                "setup_s": max(r["a"]["setup_s"] for r in ranks),
+                "f32_s": max(r["a"]["f32_s"] for r in ranks)}
+    # (b)
+    one = next(r["b"]["one"] for r in ranks if "one" in r["b"])
+    layers = 26
+    for label, run in [("one rank", one)] + [
+            (f"rank {r['coords']}", r["b"]["mesh"]) for r in ranks]:
+        want = {"flash_attention": layers * run["prefill_steps"],
+                "flash_attention_backward": 0, "ssd_scan": 0,
+                "rglru_scan": 0,
+                "decode_attention": layers * run["decode_steps"]}
+        if run["launches"] != want or run["prefill_steps"] != 1:
+            fail(f"(b) {label}: launches {run['launches']} over "
+                 f"{run['prefill_steps']} prefill and {run['decode_steps']} "
+                 f"decode steps, expected {want}")
+        partial = run["decode_steps"] * layers if run is not one else 0
+        if run["ml_launches"] != partial:
+            fail(f"(b) {label}: {run['ml_launches']} launches of the "
+                 f"partial entry, expected {partial}")
+        if run is not one:
+            if run["types"] != ["SeqKVCache", "SeqRingCache"]:
+                fail(f"(b) {label}: caches {run['types']}, expected the "
+                     f"sequence-split ones")
+            if run["tokens"] != one["tokens"]:
+                fail(f"(b) {label}: tokens {run['tokens']} part from one "
+                     f"rank's {one['tokens']}")
+        for k in ("flash_attention", "decode_attention"):
+            launched[k] += run["launches"][k]
+        log(f"    (b) {label}: {run['decode_steps']} decode ticks, "
+            f"launches {run['launches']} ({run['ml_launches']} of the "
+            f"partial entry), cache {run['cache_bytes'] / 1e6:.1f} MB "
+            f"({', '.join(run['types'])}) against "
+            f"{run['run_layout_bytes'] / 1e6:.1f} MB in the layout before "
+            f"the split, {run['s']:.1f} s; tokens "
+            + ("" if run is one else "= one rank's: ")
+            + f"{run['tokens'][0][:6]}...")
+    out["b"] = {"tokens": one["tokens"],
+                "cache_bytes": [r["b"]["mesh"]["cache_bytes"] for r in ranks],
+                "run_layout_bytes": [r["b"]["mesh"]["run_layout_bytes"]
+                                     for r in ranks],
+                "one_cache_bytes": one["cache_bytes"],
+                "one_s": max(r["b"]["one_s"] for r in ranks),
+                "mesh_s": max(r["b"]["mesh_s"] for r in ranks)}
+    seen = set().union(*(r["seen"] for r in ranks))
+    served = set().union(*(r["served"] for r in ranks))
+    grad_held = {("flash", dt, b, sq, sk, h, kv, hd, kind, pad is not None)
+                 for _, b, sq, sk, h, kv, hd, dt, kind, _, pad
+                 in FLASH_GRAD_CASES}
+    missed = (sorted((seen | served) - held_shapes())
+              + sorted(seen - grad_held))
+    if missed:
+        fail(f"phase 18 launched at shapes phases 5 and 12 (a) did not "
+             f"hold: {missed}")
+    log(f"    phase 18 trained at {len(seen)} flash shapes (forward and "
+        f"backward held in phases 5 and 12 (a)) and served at "
+        f"{len(served)} flash and decode shapes (held in phase 5); "
+        f"launches {launched}")
+    out["launches"] = launched
+    out["s"] = in_world + time.perf_counter() - t_phase
+    log(f"    phase 18: {out['s']:.1f} s of its {SQ_BUDGET_S:.0f} s budget "
+        f"({in_world:.1f} s of it in phase 15's world)"
+        + ("" if out["s"] <= SQ_BUDGET_S else " (OVER)"))
+    return out
+
+
 def gm_part(torch, held: dict, phase3: dict, cuts: int, ready: str,
             out: dict) -> int:
     """Phase 15 (a): the grid's model axis on GM_RANKS ranks, held to phase
@@ -5100,19 +5559,21 @@ def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
         fail(f"phase 15 launched flash at shapes phases 5 and 12 (a) did "
              f"not hold: {missed}")
     out["launches"] = launched
-    # phases 16 and 17's ranks ran in this world after (c): their seconds
-    # are theirs
+    # phases 16, 17 and 18's ranks ran in this world after (c): their
+    # seconds are theirs
     out["zero_ranks"] = [r["zero"] for r in ranks]
     out["zero_s"] = max(r["zero"]["s"] for r in ranks)
     out["moe_ranks"] = [r["moe"] for r in ranks]
     out["moe_s"] = max(r["moe"]["s"] for r in ranks)
+    out["seq_ranks"] = [r["seq"] for r in ranks]
+    out["seq_s"] = max(r["seq"]["s"] for r in ranks)
     out["bc_s"] = (time.perf_counter() - t0 - out["zero_s"]
-                   - out["moe_s"])
+                   - out["moe_s"] - out["seq_s"])
     log(f"    (b) and (c) took {out['bc_s']:.1f} s after (a); the world had "
         f"started beside (a), its ranks waiting "
         f"{min(r['waited_s'] for r in ranks):.1f} s for it")
     out["s"] = (time.perf_counter() - t_phase - out["zero_s"]
-                - out["moe_s"])
+                - out["moe_s"] - out["seq_s"])
     log(f"    phase 15: {out['s']:.1f} s of its {MM_BUDGET_S:.0f} s budget"
         + ("" if out["s"] <= MM_BUDGET_S else " (OVER)"))
     return out
@@ -5332,10 +5793,12 @@ def main() -> int:
     phase_done()
     report["mesh_train"] = mm = mesh_train_phase(torch, held, policies,
                                                  grid.num_cuts)
-    phase_done(moved=mm["zero_s"] + mm["moe_s"])
+    phase_done(moved=mm["zero_s"] + mm["moe_s"] + mm["seq_s"])
     report["zero"] = zr = zero_phase(torch, mm.pop("zero_ranks"), mm, dry)
-    phase_done(moved=mm["moe_s"])
+    phase_done(moved=mm["moe_s"] + mm["seq_s"])
     report["moe"] = mo = moe_phase(torch, mm.pop("moe_ranks"))
+    phase_done(moved=mm["seq_s"])
+    report["seq"] = sq = seq_phase(torch, mm.pop("seq_ranks"))
     phase_done()
 
     kernels = [{
@@ -5364,7 +5827,8 @@ def main() -> int:
                          + tp["launches"][name]
                          + mm["launches"].get(name, 0)
                          + zr["launches"].get(name, 0)
-                         + mo["launches"].get(name, 0)),
+                         + mo["launches"].get(name, 0)
+                         + sq["launches"].get(name, 0)),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -5396,7 +5860,8 @@ def main() -> int:
         "launches": (training["train"]["launches"]["flash_attention_backward"]
                      + mm["launches"]["flash_attention_backward"]
                      + zr["launches"]["flash_attention_backward"]
-                     + mo["launches"]["flash_attention_backward"]),
+                     + mo["launches"]["flash_attention_backward"]
+                     + sq["launches"]["flash_attention_backward"]),
         "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -49,6 +49,14 @@
 // past seq_lens[b] + 1) writes m = -1e30, l = 0 and acc = 0, which add
 // nothing.  With one split the block writes the output itself and no merge
 // runs.
+//
+// The partial entry (ml non-null) also writes each (row, head)'s softmax
+// max m and sum l = sum_j exp(s_j - m), float32, beside its normalised
+// output: what a caller needs to merge attention over several blocks of
+// one sequence held apart (the KV cache's sequence split over ranks),
+// with this kernel's merge rule.  A wholly masked block gives m = -1e30
+// and l = its key count, so it weighs zero beside any block with a valid
+// key, and where no block has one the merge is the uniform average.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,8 +161,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ seq_lens, int table_width,
                     int block_size, T* __restrict__ out,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int s_len, int heads, int kv_heads, int groups,
-                    int chunk, float scale) {
+                    float* __restrict__ ml, int s_len, int heads,
+                    int kv_heads, int groups, int chunk, float scale) {
   using L = Layout<T, HD, NR>;
   constexpr int kTk = L::kTk, kEpc = L::kEpc, kLdk = L::kLdk;
   constexpr int kChunks = HD / kEpc;           // 16-byte pieces of a row
@@ -366,8 +374,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) a += red[(g * NR + r) * HD + d];
     if (splits == 1) {
-      store1(out + (static_cast<size_t>(b) * heads + h0 + r) * HD + d,
-             a / fmaxf(l_s[r], 1e-20f));
+      const size_t row = static_cast<size_t>(b) * heads + h0 + r;
+      store1(out + row * HD + d, a / fmaxf(l_s[r], 1e-20f));
+      if (ml != nullptr && d == 0) {           // m, then l, each (B, H)
+        ml[row] = m_s[r];
+        ml[static_cast<size_t>(gridDim.y) * heads + row] = l_s[r];
+      }
     } else {
       const size_t pr = part + static_cast<size_t>(r) * splits;
       part_acc[pr * HD + d] = a;
@@ -386,7 +398,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
                                     const float* __restrict__ part_ml,
-                                    T* __restrict__ out, int splits, int hd) {
+                                    T* __restrict__ out,
+                                    float* __restrict__ ml, int splits,
+                                    int hd) {
   extern __shared__ float ml_s[];              // [splits][2]: (m, l)
   const size_t row = blockIdx.x;               // b * heads + h
   const int d = threadIdx.x;
@@ -403,11 +417,15 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
     a += w * acc[static_cast<size_t>(s) * hd];
   }
   store1(out + row * hd + d, a / fmaxf(lsum, 1e-20f));
+  if (ml != nullptr && d == 0) {
+    ml[row] = mx;
+    ml[gridDim.x + row] = lsum;
+  }
 }
 
 struct Args {
   const void *q, *k, *v, *mask, *table, *seq_lens;
-  void *out, *part_acc, *part_ml;
+  void *out, *part_acc, *part_ml, *ml;
   int batch, s_len, heads, kv_heads, table_width, block_size, chunk, splits;
   float scale;
 };
@@ -428,12 +446,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const int*>(a.table), static_cast<const int*>(a.seq_lens),
       a.table_width, a.block_size, static_cast<T*>(a.out),
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
-      a.s_len, a.heads, a.kv_heads, groups, a.chunk, a.scale);
+      static_cast<float*>(a.ml), a.s_len, a.heads, a.kv_heads, groups,
+      a.chunk, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   decode_merge_kernel<T><<<a.batch * a.heads, HD, a.splits * 8, stream>>>(
       static_cast<const float*>(a.part_acc), static_cast<const float*>(a.part_ml),
-      static_cast<T*>(a.out), a.splits, HD);
+      static_cast<T*>(a.out), static_cast<float*>(a.ml), a.splits, HD);
   return cudaGetLastError();
 }
 
@@ -468,20 +487,22 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
 //     block_size.
 // chunk: keys of a split (a multiple of 64); splits: ceil(s_len / chunk).
 // With splits > 1, part_acc (B * H * splits * hd) and part_ml
-// (B * H * splits * 2) are float32 scratch.  Returns the CUDA error code.
+// (B * H * splits * 2) are float32 scratch.  ml, where not null, gets the
+// float32 softmax max (its first B * H entries) and sum (the next B * H)
+// of each (row, head).  Returns the CUDA error code.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* mask,
     const void* table, const void* seq_lens, void* out, void* part_acc,
-    void* part_ml, int batch, int s_len, int heads, int kv_heads, int hd,
+    void* part_ml, void* ml, int batch, int s_len, int heads, int kv_heads, int hd,
     int dtype, int table_width, int block_size, int chunk, int splits,
     float scale, int device, void* stream) {
   if (heads % kv_heads != 0 || chunk % 64 != 0 || splits < 1
       || (table == nullptr) == (mask == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Args a{q, k, v, mask, table, seq_lens, out, part_acc, part_ml, batch,
-               s_len, heads, kv_heads, table_width, block_size, chunk, splits,
-               scale};
+  const Args a{q, k, v, mask, table, seq_lens, out, part_acc, part_ml, ml,
+               batch, s_len, heads, kv_heads, table_width, block_size, chunk,
+               splits, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_hd<float>(hd, a, s);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, s);

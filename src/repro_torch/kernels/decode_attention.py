@@ -9,8 +9,14 @@ in a second, small kernel.  The plain version is
 ``kernels.ref.decode_attention_ref`` (the paged entry: the gather of
 ``ops.decode_attention_paged`` on the CPU, then that).
 
+Both wrappers take ``with_ml``: the partial entry, which also returns each
+(row, head)'s float32 softmax max and sum (``kernels.ref.merge_partials``
+merges such partials of one sequence's blocks).
+
 ``decode_attention_cuda.launches`` counts launches: it rises by one each
-time either wrapper launches the kernel, and nowhere else.
+time either wrapper launches the kernel, and nowhere else;
+``decode_attention_cuda.ml_launches`` counts the partial entry's among
+them.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ MAX_ROWS = 16              # query heads of a block; more make head groups
 
 def _bind(lib) -> None:
     fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -55,7 +61,7 @@ def decode_splits(batch: int, kv_heads: int, s: int) -> tuple[int, int]:
 
 
 def _launch(q, k, v, mask, table, seq_lens, s: int, table_width: int,
-            block_size: int):
+            block_size: int, with_ml: bool = False):
     b, _, h, hd = q.shape
     kv = k.shape[2]
     splits, chunk = decode_splits(b, kv * head_groups(h // kv), s)
@@ -67,24 +73,32 @@ def _launch(q, k, v, mask, table, seq_lens, s: int, table_width: int,
                                device=q.device)
         part_ml = torch.empty(b * h * splits * 2, dtype=torch.float32,
                               device=q.device)
+    ml = (torch.empty((2, b, h), dtype=torch.float32, device=q.device)
+          if with_ml else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     device = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(table),
-        ptr(seq_lens), out.data_ptr(), ptr(part_acc), ptr(part_ml), b, s, h,
+        ptr(seq_lens), out.data_ptr(), ptr(part_acc), ptr(part_ml), ptr(ml),
+        b, s, h,
         kv, hd, DTYPES[q.dtype], table_width, block_size, chunk, splits,
         1.0 / (hd ** 0.5), device,
         torch.cuda.current_stream(q.device).cuda_stream)
     LIBRARY.check(err)
     decode_attention_cuda.launches += 1
-    return out
+    if not with_ml:
+        return out
+    decode_attention_cuda.ml_launches += 1
+    return out, ml[0], ml[1]
 
 
-def decode_attention_cuda(q, k, v, valid_mask):
+def decode_attention_cuda(q, k, v, valid_mask, *, with_ml: bool = False):
     """q (B, 1, H, hd), k/v (B, S, KV, hd), valid_mask (B, S) bool ->
     (B, 1, H, hd) in q's dtype.  A row with no valid key gets the uniform
-    average of its S values (the reference's semantics)."""
+    average of its S values (the reference's semantics).  ``with_ml``:
+    (out, m, l), m and l the float32 softmax max and sum of each (row,
+    head), (B, H) each (masked keys score -1e30)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, hd), got {tuple(q.shape)}")
     check_qkv(q, k, v)
@@ -94,17 +108,20 @@ def decode_attention_cuda(q, k, v, valid_mask):
             or not valid_mask.is_contiguous()):
         raise ValueError(f"valid_mask must be a contiguous ({b}, {s}) bool "
                          f"tensor on {q.device}")
-    return _launch(q, k, v, valid_mask, None, None, s, 0, 0)
+    return _launch(q, k, v, valid_mask, None, None, s, 0, 0, with_ml)
 
 
-def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, seq_lens):
+def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
+                                with_ml: bool = False):
     """q (B, 1, H, hd); pools (n_blocks, bs, KV, hd); block_table (B, M)
     int32; seq_lens (B,) int32 -> (B, 1, H, hd) in q's dtype.
 
     The same result as gathering ``k_pool[block_table]`` into
     (B, M * bs, KV, hd) and calling ``decode_attention_cuda`` with the mask
     ``j <= seq_lens[b]``; the kernel reads the pool through the table and
-    never reads a key past ``min(seq_lens[b] + 1, M * bs)``.
+    never reads a key past ``min(seq_lens[b] + 1, M * bs)``.  ``with_ml``
+    as for ``decode_attention_cuda`` (the keys past that bound weigh
+    nothing in l).
     """
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, hd), got {tuple(q.shape)}")
@@ -141,7 +158,8 @@ def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, seq_lens):
                              "aligned")
     bs = k_pool.shape[1]
     return _launch(q, k_pool, v_pool, None, block_table, seq_lens, m * bs, m,
-                   bs)
+                   bs, with_ml)
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.ml_launches = 0

@@ -85,15 +85,18 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     return ref.attention_blocked(q, k, v, kind=kind, window=window)
 
 
-def decode_attention(q, k, v, valid_mask):
+def decode_attention(q, k, v, valid_mask, *, with_ml: bool = False):
     """Single-token GQA attention.  q (B, 1, H, hd), k/v (B, S, KV, hd),
-    valid_mask (B, S) bool."""
+    valid_mask (B, S) bool.  ``with_ml``: (out, m, l), the float32 softmax
+    max and sum of each (row, head), (B, H) each: a block's partial of a
+    sequence held in blocks (``ref.merge_partials``)."""
     if q.is_cuda:
         from .decode_attention import decode_attention_cuda
         refuse_grad("decode_attention", q, k, v)
         return decode_attention_cuda(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), valid_mask.contiguous())
-    return ref.decode_attention_ref(q, k, v, valid_mask)
+                                     v.contiguous(), valid_mask.contiguous(),
+                                     with_ml=with_ml)
+    return ref.decode_attention_ref(q, k, v, valid_mask, with_ml=with_ml)
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_table, seq_lens):
@@ -120,15 +123,19 @@ def decode_attention_paged(q, k_pool, v_pool, block_table, seq_lens):
     return ref.decode_attention_ref(q, k_rows, v_rows, valid)
 
 
-def chunk_attention(q, k, v, *, start: int):
+def chunk_attention(q, k, v, *, start: int, first: int = 0,
+                    with_ml: bool = False):
     """Chunked-prefill GQA attention: q (B, C, H, hd) holds the tokens at
     positions ``start .. start + C - 1``; k/v (B, S, KV, hd) are dense
-    scratch caches.  Query row i sees key j iff j <= start + i.  Plain torch
-    on every device: the reference has no kernel for it either."""
+    scratch caches, or the block of one from position ``first`` on.
+    Query row i sees key j iff first + j <= start + i.  ``with_ml`` also
+    returns each row's softmax max and sum, (B, C, H) each (a block's
+    partial).  Plain torch on every device: the reference has no kernel
+    for it either."""
     sq, sk = q.shape[1], k.shape[1]
-    mask = (torch.arange(sk, device=q.device)[None, :]
+    mask = (first + torch.arange(sk, device=q.device)[None, :]
             <= (start + torch.arange(sq, device=q.device))[:, None])
-    return ref.attention_ref(q, k, v, mask=mask)
+    return ref.attention_ref(q, k, v, mask=mask, with_ml=with_ml)
 
 
 def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):

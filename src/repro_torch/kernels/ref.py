@@ -19,12 +19,14 @@ def _scale(hd: int) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
 
 
-def attention_ref(q, k, v, mask=None):
+def attention_ref(q, k, v, mask=None, *, with_ml: bool = False):
     """GQA attention with dense scores.
 
     q (B, Sq, H, hd); k, v (B, Sk, KV, hd); ``mask`` (Sq, Sk), shared across
     the batch, or (B, Sq, Sk).  Softmax in float32; a fully masked row gets
-    the uniform average.  Returns (B, Sq, H, hd) in q's dtype.
+    the uniform average.  Returns (B, Sq, H, hd) in q's dtype; with
+    ``with_ml`` also each row's float32 softmax max and sum (masked keys
+    score -1e30), (B, Sq, H) each, as ``merge_partials`` takes them.
     """
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
@@ -37,7 +39,31 @@ def attention_ref(q, k, v, mask=None):
         scores = torch.where(m, scores, _NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    out = out.reshape(b, sq, h, hd).to(q.dtype)
+    if not with_ml:
+        return out
+    return (out, *(t.permute(0, 3, 1, 2).reshape(b, sq, h)
+                   for t in _max_sum(scores)))
+
+
+def _max_sum(scores):
+    """The softmax max and sum over the last axis of float32 scores."""
+    top = torch.amax(scores, dim=-1)
+    return top, torch.sum(torch.exp(scores - top[..., None]), dim=-1)
+
+
+def merge_partials(out, m, l):
+    """Attention over a sequence from its blocks' partials, as the decode
+    kernel's merge combines its splits: ``out`` (n, ..., hd) each block's
+    normalised output, ``m`` and ``l`` (n, ...) its softmax max and sum
+    (``with_ml``).  Each block weighs exp(m - max m) times its sum, so a
+    wholly masked block (m = -1e30) weighs nothing beside a block with a
+    valid key, and where no block has one the result is the uniform
+    average over every key.  Returns (..., hd) in float32."""
+    top = torch.amax(m, dim=0).clamp(min=_NEG)
+    w = torch.exp(m - top) * l
+    acc = torch.sum(w[..., None] * out.float(), dim=0)
+    return acc / torch.clamp(torch.sum(w, dim=0), min=1e-20)[..., None]
 
 
 def build_mask(kind: str, sq: int, sk: int, window: int = 0, device=None):
@@ -118,11 +144,13 @@ def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
     return attention_ref(q, k, v, mask=mask)
 
 
-def decode_attention_ref(q, k, v, valid_mask):
+def decode_attention_ref(q, k, v, valid_mask, *, with_ml: bool = False):
     """One query token's GQA attention against a cache.
 
     q (B, 1, H, hd); k, v (B, S, KV, hd); valid_mask (B, S) bool.  A row with
-    no valid key gets the uniform average of its S values.
+    no valid key gets the uniform average of its S values.  ``with_ml``:
+    (out, m, l), the float32 softmax max and sum of each (row, head),
+    (B, H) each, as the kernel's partial entry gives them.
     """
     b, _, h, hd = q.shape
     kvh = k.shape[2]
@@ -133,7 +161,10 @@ def decode_attention_ref(q, k, v, valid_mask):
     scores = torch.where(valid_mask[:, None, None, :], scores, _NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    out = out.reshape(b, 1, h, hd).to(q.dtype)
+    if not with_ml:
+        return out
+    return (out, *(t.reshape(b, h) for t in _max_sum(scores)))
 
 
 def ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):

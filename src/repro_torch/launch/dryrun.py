@@ -62,9 +62,12 @@ plays one rank of the mesh and runs the cell's real step on meta tensors.
   issues every collective it makes, so no loop-trip multipliers are
   needed.
 
-Cells under ``seq_shard`` on a "model" axis above 1 raise
-``NotImplementedError`` and get an ``error`` record: ROADMAP queue 1, item
-7c, part 4.  Cells under ``expert_shard_dff`` or ``expert_mesh="data"``
+Cells under ``seq_shard`` run sequence-parallel (``shardctx.seq_parallel``):
+the ledger shows each sub-block's input all-gathered over the sequence
+and its partial output reduce-scattered where the baseline all-reduces.
+A decode cell whose kv heads the "model" axis does not divide holds its
+cache's sequence over "model", as the policy's ``cache_spec`` does
+(``models.attention.SeqKVCache``).  Cells under ``expert_shard_dff`` or ``expert_mesh="data"``
 (``--recommended`` gives the first for llama4's train and prefill) run
 the MoE's data-axis collectives (``models.ffn``): the dispatched tokens
 all-gathered and the partial outputs reduce-scattered over "data", or

@@ -47,8 +47,19 @@ Port of ``repro/launch/sharding.py``.  Two things are kept apart:
     "data" is the rank's own: its gradient already sums every data
     rank's tokens (``launch.train.make_mesh_train_step`` scales it to the
     mean and syncs nothing), and a gather joins it over "data";
-  * ``seq_shard`` (with a "model" axis above 1) raises
-    ``NotImplementedError``: ROADMAP queue 1, item 7c, part 4.
+  * ``seq_shard``: sequence parallelism in Megatron's sense
+    (``shardctx.seq_parallel``).  It moves no weight: in a full-sequence
+    call whose length "model" divides, the residual stream between
+    sub-blocks is the rank's block of the sequence; each sub-block
+    all-gathers its input over the sequence and reduce-scatters its
+    partial output, so attention, the scans and the experts still see
+    the whole sequence of the rank's heads, channels or experts.  The
+    norms run on the block, and so does a whole dense FFN; a whole
+    sub-block that reads other positions (attention, a scan, the MoE)
+    runs on the gathered sequence and keeps its block.  The gradients of
+    those leaves are then the rank's rows' alone, and
+    ``reduce_partial_grads(..., seq=True)`` sums them over "model"
+    (:func:`seq_partial`).
 
   It departs from the policy where GSPMD would reshard behind the
   reference's back:
@@ -68,8 +79,12 @@ Port of ``repro/launch/sharding.py``.  Two things are kept apart:
     each at 64/8 over 16).  Where that run serves its kv heads unevenly
     (6/3 over 2: kv heads (0, 0, 1) and (1, 2, 2)), each local query head
     reads its own kv head (``models.attention._kv_for_q``); no uniform
-    group is assumed.  The policy shards the sequence dim of such caches
-    (``cache_spec``); the layout does not.
+    group is assumed.  Its dense and ring KV caches follow the policy
+    (``cache_spec``): every kv head, for the rank's block of positions or
+    ring slots (``shardctx.seq_caches``; ``models.attention``'s decode
+    and chunk paths get the other ranks' kv heads of a new token by an
+    all-gather); the paged pool keeps the run, as ``kvpool``'s policy
+    does.
   * **The RG-LRU gates** take the full (R, R) ``w_r``/``w_i`` on the full
     u: the rank holds their columns (the policy's split) and u is
     all-gathered once a layer.
@@ -95,7 +110,7 @@ import torch
 
 from .. import _tree
 from ..configs.base import ArchConfig
-from ..shardctx import RankConfig, mesh_axes
+from ..shardctx import RankConfig, kv_run, mesh_axes
 from ..runtime.checkpoint import _map_with_path
 
 
@@ -151,17 +166,12 @@ def context_knobs(opts: ShardingOptions) -> dict:
 
 def check_options(opts: ShardingOptions, mesh=None) -> None:
     """Refuse the options the rank-local layout does not take: unknown
-    modes, and ``seq_shard`` on a "model" axis above 1 (ROADMAP queue 1,
-    item 7c, part 4)."""
-    from ..shardctx import PART4
+    modes."""
     if opts.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {opts.tp_mode!r} is not one of {TP_MODES}")
     if opts.expert_mesh not in ("model", "data"):
         raise ValueError(f"expert_mesh {opts.expert_mesh!r} is not "
                          f"\"model\" or \"data\"")
-    if opts.seq_shard and (mesh is None or _axis_size(mesh, "model") > 1):
-        raise NotImplementedError(
-            f"seq_shard (sequence-parallel attention) is not ported: {PART4}")
 
 
 def recommended_options(cfg, shape_kind: str) -> ShardingOptions:
@@ -545,8 +555,7 @@ def rank_view(cfg, m: int, r: int,
             over["n_kv"] = cfg.n_kv // m
             over["kv_offset"] = r * (cfg.n_kv // m)
         else:   # the kv heads this rank's query heads read, and no others
-            group = cfg.n_heads // cfg.n_kv
-            kv = [(r * h + j) // group for j in range(h)]
+            kv = kv_run(cfg.n_heads, cfg.n_kv, m, r)
             n = kv[-1] + 1 - kv[0]
             over["n_kv"], over["kv_offset"] = n, kv[0]
             if h % n or any(k - kv[0] != j // (h // n)
@@ -951,17 +960,45 @@ def _partial_grad(lay: _Layout, path: str):
     return None
 
 
-def reduce_partial_grads(view: RankConfig, grads):
+def seq_partial(view: RankConfig, path: str) -> bool:
+    """Whether, under sequence parallelism (``seq_shard``), the gradient of
+    the leaf at ``path`` is the rank's rows' alone, so that the sum over
+    "model" is the whole one: every norm scale of the decoder stack
+    (``norm1``, ``norm2``, ``norm_x``, the SSD's ``norm``,
+    ``final_norm``), which runs on the rank's block, and each leaf of a
+    sub-block the layout leaves whole (its output is the rank's block).
+    The embedding's, the router's and the head's gradients are whole on
+    every rank, and the encoder runs no sequence parallelism."""
+    parts = path.split("/")
+    if parts[0] == "encoder":
+        return False
+    if path == "final_norm":
+        return True
+    name, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+    if name in ("norm1", "norm2", "norm_x") or (parent, name) == ("ssm",
+                                                               "norm"):
+        return True
+    part = {"xattn": "attn"}.get(parent, parent)
+    if part == "moe":
+        return name in ("wi", "wg", "wo") and "moe" not in view.split
+    return (part in ("attn", "ffn", "shared", "rglru", "ssm")
+            and part not in view.split)
+
+
+def reduce_partial_grads(view: RankConfig, grads, *, seq: bool = False):
     """``grads`` with the gradients that ranks hold in part summed over
     the active "model" sub-group (one all-reduce a dtype): the QK-norm
     scales, which each rank applies to its own heads; the SSD's B and C
     columns, which each rank's heads read; a kv head that several ranks'
-    query heads read.  Every other gradient is already the rank's whole
+    query heads read; and with ``seq`` (the step ran under sequence
+    parallelism) the leaves of :func:`seq_partial`, but for a ZeRO-3
+    slice stored over "model", whose gather's backward summed it over
+    "model" already.  Every other gradient is already the rank's whole
     share: its own shard's, or a replicated leaf's that the replicated
     residual stream gives every rank in full."""
     if not isinstance(view, RankConfig) or view.model_size == 1:
         return grads
-    from ..shardctx import model_all_reduce
+    from ..shardctx import model_all_reduce, zero_entry
     from .mesh import pack, unpack
     lay = _view_layout(view)
     at = view.kv_offset * lay.cfg.resolved_head_dim
@@ -969,6 +1006,11 @@ def reduce_partial_grads(view: RankConfig, grads):
 
     def take(path, g):
         where = _partial_grad(lay, path)
+        if seq and seq_partial(view, path):
+            entry = zero_entry(view, path)
+            if entry is not None and "model" in entry[1]:
+                return g
+            where = slice(None)
         if where == "kv":         # the rank's run within all the kv heads
             part = g.new_zeros(_whole_shape(lay, path, g.shape))
             part[..., at:at + g.shape[-1]] = g

@@ -56,13 +56,14 @@ from ..optim.adam import adam
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.compression import make_dp_step, make_grad_sync
 from ..runtime.resilience import StragglerMonitor
-from ..shardctx import RankConfig, activation_sharding, mesh_axes
+from ..shardctx import (RankConfig, activation_sharding, mesh_axes,
+                        seq_block, seq_parallel)
 from .mesh import data_axes, data_size, is_rank0
 from .serve import kernel_head_dim
 from .sharding import (BASELINE, ShardingOptions, context_knobs,
                        gathered_leaves, global_norm, init_rank_params,
                        map_with_paths, params_shardings, recommended_options,
-                       reduce_partial_grads)
+                       reduce_partial_grads, seq_partial)
 
 SEED = 0
 
@@ -84,15 +85,16 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
     ranks (``activation_sharding(..., data_rows=True)``), are the
     reference's.  The rank accumulates its microbatches under tensor
     parallelism over "model" (under ``shardctx.activation_sharding`` with
-    ``opts``' knobs: ``remat_offload``, and the MoE's), sums over "model"
-    the gradients that ranks hold in part
+    ``opts``' knobs: ``remat_offload``, ``seq_shard`` and the MoE's), sums
+    over "model" the gradients that ranks hold in part
     (``sharding.reduce_partial_grads``), then averages the gradients over
     the data axes once a step (``runtime.compression.make_dp_step`` in
     mode "none", the reference's float32 psum) and clips on the whole
     model's global norm (``sharding.global_norm``).  A ZeRO-3 slice's
     gradient arrives reduce-scattered, the sum over its storage axes, and
     is scaled to the data axes' mean instead (a "model" rank in those
-    axes computed the same gradient as the others); so is an expert leaf
+    axes computed the same gradient as the others, or under
+    ``seq_shard`` its part of it); so is an expert leaf
     that "data" splits (``expert_shard_dff``, ``expert_mesh="data"``),
     whose gradient sums every data rank's tokens.  Adam then works on the
     slices.  Loss, ce and aux are the means over the data ranks."""
@@ -125,20 +127,23 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
                 e = zero_entry(cfg, path)
                 if e is None and expert_data_dim(cfg, path) is not None:
                     e = (None, ("data",))
+                if e is not None:
+                    e = (*e, seq_partial(cfg, path))
                 stored.append(e)
             map_with_paths(entry, grads)
         return stored
 
     def rank_grads(params, rows):
         loss, ce, aux, grads = grads_of(params, rows)
+        seq = seq_block(seq_parallel(cfg, rows["tokens"].shape[1]))
         if sharded:
-            grads = reduce_partial_grads(cfg, grads)
+            grads = reduce_partial_grads(cfg, grads, seq=seq)
         if owned:
-            grads = _owned_mean(grads, entries(grads))
+            grads = _owned_mean(grads, entries(grads), seq)
         return torch.stack([torch.as_tensor(v, dtype=torch.float32)
                             for v in (loss, ce, aux)]), grads
 
-    def _owned_mean(grads, where):
+    def _owned_mean(grads, where, seq: bool):
         leaves = _tree.leaves(grads)
         mine = [g for g, e in zip(leaves, where) if e is not None]
         if pod_mean is not None:
@@ -151,7 +156,10 @@ def make_mesh_train_step(mesh, cfg, lr: float = 3e-4,
                 continue
             n = 1
             for a in e[1]:
-                n *= axes[a]
+                # under sequence parallelism a slice's "model" ranks held
+                # parts of its gradient, and their sum is the whole one
+                if not (a == "model" and seq and e[2]):
+                    n *= axes[a]
             out.append(next(it) / n)
         return _tree.unflatten(grads, out)
 

@@ -13,21 +13,27 @@ caller that needs the old state clones it first.
 Under tensor parallelism (``cfg`` a ``shardctx.RankConfig`` that splits
 "attn") the rank projects its own query heads and the kv heads they read
 (its own share where the kv heads divide the "model" axis; where they do
-not, the run of kv heads its query heads' groups cover, and its cache
-holds just those).  Uneven groups are gathered per query head
-(``_kv_for_q``).  The output projection is row-parallel: its partial sum
+not, the run of kv heads its query heads' groups cover).  Uneven groups
+are gathered per query head (``_kv_for_q``).  Where the kv heads do not
+divide the axis, the dense and ring caches are split over "model" along
+the sequence (``SeqKVCache``, ``SeqRingCache``; ROADMAP 7d): a rank holds
+every kv head of its block of positions, the new tokens' query and kv
+heads are all-gathered, each rank attends every query head against its
+block, and the blocks' partials (max, sum, output) are merged for the
+rank's own heads.  The output projection is row-parallel: its partial sum
 is all-reduced over "model".  In training, the replicated inputs enter the
 split block through ``shardctx.enter`` (their gradient summed over
 "model").
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from .. import shardctx
-from ..kernels import ops
+from ..kernels import ops, ref
 from .common import dense_init, dtype_of, head_rms_norm, rope
 
 class KVCache(NamedTuple):
@@ -42,6 +48,24 @@ class RingCache(NamedTuple):
     k: torch.Tensor     # (B, W, KV, hd)
     v: torch.Tensor
     pos: torch.Tensor   # (B, W) int32
+
+
+class SeqKVCache(KVCache):
+    """A ``KVCache`` whose sequence is split over "model" (ROADMAP 7d): rank
+    r holds every kv head of positions [r L, (r + 1) L), L its own length
+    (``shardctx.seq_caches``)."""
+    __slots__ = ()
+
+
+class SeqRingCache(RingCache):
+    """A ``RingCache`` split so: rank r holds every kv head of ring slots
+    [r L, (r + 1) L), and their positions, of a ring of M L slots."""
+    __slots__ = ()
+
+
+def is_seq_split(cache) -> bool:
+    """Whether ``cache`` is a rank's block of a sequence-split cache."""
+    return isinstance(cache, (SeqKVCache, SeqRingCache))
 
 
 def init_attention(gen, cfg, *, cross: bool = False, device=None) -> dict:
@@ -140,9 +164,13 @@ def cross_attention(p, cfg, x, context_kv):
 
 def context_kv(p, cfg, context):
     """The cross-attention K/V of context embeddings (B, Sk, D), once per
-    prefill: a ``KVCache`` (k, v), each (B, Sk, KV, hd)."""
-    return KVCache(*_project_kv(p, cfg, shardctx.enter(cfg, "attn",
-                                                       context)))
+    prefill: a ``KVCache`` (k, v), each (B, Sk, KV, hd).  The context is
+    no residual stream: under sequence parallelism it is whole on every
+    rank, and its gradient was summed over "model" where it entered the
+    stack (``transformer._sequence_parallel``)."""
+    if not shardctx.seq_block(cfg):
+        context = shardctx.enter(cfg, "attn", context)
+    return KVCache(*_project_kv(p, cfg, context))
 
 
 def decode_cross_attention(p, cfg, x, context_cache):
@@ -155,46 +183,159 @@ def decode_cross_attention(p, cfg, x, context_cache):
     return _out(p, cfg, out, x)
 
 
-def init_kv_cache(cfg, batch: int, s_max: int, dtype, device=None) -> KVCache:
-    kv, hd = cfg.n_kv, cfg.resolved_head_dim
-    return KVCache(
-        k=torch.zeros(batch, s_max, kv, hd, dtype=dtype, device=device),
-        v=torch.zeros(batch, s_max, kv, hd, dtype=dtype, device=device))
+def _seq_parts(cfg, length: int, seq: bool) -> int:
+    """The ranks a cache of ``length`` positions or slots is split over
+    along its sequence: "model" where ``cfg`` keeps sequence-split caches
+    and the axis divides the length (the policy's ``cache_spec``), else
+    1."""
+    if seq and shardctx.seq_caches(cfg) and length % cfg.model_size == 0:
+        return cfg.model_size
+    return 1
 
 
-def init_ring_cache(cfg, batch, dtype, device=None) -> RingCache:
-    """Empty ring; ``batch`` is the row count or a tuple of leading dims
-    (units, rows)."""
+def init_kv_cache(cfg, batch, s_max: int, dtype, device=None, *,
+                  seq: bool = True) -> KVCache:
+    """A zeroed dense cache of ``s_max`` positions; ``batch`` is the row
+    count or a tuple of leading dims (units, rows).  Where ``cfg`` keeps
+    sequence-split caches (and ``seq``), the rank's ``SeqKVCache``."""
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
-    shape = (*lead, cfg.window, cfg.n_kv, cfg.resolved_head_dim)
-    return RingCache(
+    parts = _seq_parts(cfg, s_max, seq)
+    kv = cfg.whole.n_kv if parts > 1 else cfg.n_kv
+    shape = (*lead, s_max // parts, kv, cfg.resolved_head_dim)
+    return (SeqKVCache if parts > 1 else KVCache)(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_ring_cache(cfg, batch, dtype, device=None, *,
+                    seq: bool = True) -> RingCache:
+    """Empty ring; ``batch`` is the row count or a tuple of leading dims
+    (units, rows).  Where ``cfg`` keeps sequence-split caches (and
+    ``seq``), the rank's ``SeqRingCache``."""
+    lead = (batch,) if isinstance(batch, int) else tuple(batch)
+    parts = _seq_parts(cfg, cfg.window, seq)
+    kv = cfg.whole.n_kv if parts > 1 else cfg.n_kv
+    w = cfg.window // parts
+    shape = (*lead, w, kv, cfg.resolved_head_dim)
+    return (SeqRingCache if parts > 1 else RingCache)(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        pos=torch.full((*lead, cfg.window), -1, dtype=torch.int32,
-                       device=device))
+        pos=torch.full((*lead, w), -1, dtype=torch.int32, device=device))
 
 
-def prefill_into_ring(cache: RingCache, k, v, length: int) -> RingCache:
+@functools.lru_cache(maxsize=64)
+def _kv_sources(n_heads: int, n_kv: int, m: int) -> tuple:
+    """(run width, (rank, index in its run) of each kv head): where in the
+    ranks' gathered kv-head runs (each padded to the widest) every kv head
+    is, from the lowest rank that holds it."""
+    runs = [shardctx.kv_run(n_heads, n_kv, m, r) for r in range(m)]
+    width = max(run[-1] + 1 - run[0] for run in runs)
+    src = []
+    for j in range(n_kv):
+        r = next(r for r, run in enumerate(runs) if run[0] <= j <= run[-1])
+        src.append((r, j - runs[r][0]))
+    return width, tuple(src)
+
+
+def whole_heads(cfg, q, k, v):
+    """Every rank's query heads and every kv head of the same positions:
+    q (B, C, H / M, hd) or None, k and v (B, C, n_kv, hd) the rank's
+    run -> (q (B, C, H, hd) or None, k, v (B, C, KV, hd)), in one
+    all-gather over "model" (outside autograd: a serving path)."""
+    whole = cfg.whole
+    width, src = _kv_sources(whole.n_heads, whole.n_kv, cfg.model_size)
+    b, c, n, hd = k.shape
+    pad = lambda t: torch.cat([t, t.new_zeros((b, c, width - n, hd))], 2) \
+        if n < width else t
+    parts = [pad(k).reshape(b, c, -1), pad(v).reshape(b, c, -1)]
+    if q is not None:
+        parts.insert(0, q.reshape(b, c, -1))
+    rows = shardctx.model_gather_rows(torch.cat(parts, -1))
+    m = rows.shape[0]
+    at = 0
+    if q is not None:
+        h = q.shape[2]
+        q = rows[..., :h * hd].reshape(m, b, c, h, hd).permute(1, 2, 0, 3, 4)
+        q = q.reshape(b, c, m * h, hd)
+        at = h * hd
+    ranks = torch.tensor([r for r, _ in src], device=k.device)
+    index = torch.tensor([i for _, i in src], device=k.device)
+
+    def heads(flat):
+        t = flat.reshape(m, b, c, width, hd)[ranks, :, :, index]
+        return t.permute(1, 2, 0, 3).contiguous()       # (B, C, KV, hd)
+
+    k = heads(rows[..., at:at + width * hd])
+    v = heads(rows[..., at + width * hd:])
+    return q, k, v
+
+
+def _merge(cfg, out, m, l):
+    """The rank's query heads (B, C, H / M, hd) of attention whose ranks
+    each attended every query head against their block of the sequence:
+    ``out`` (B, C, H, hd), ``m``, ``l`` (B, C, H) are this rank's partials,
+    all-gathered over "model" (one collective) and merged as the decode
+    kernel merges its splits (``ref.merge_partials``)."""
+    b, c, h, hd = out.shape
+    part = torch.cat([out.float(), m[..., None], l[..., None]], -1)
+    rows = shardctx.model_gather_rows(part)              # (M, B, C, H, hd + 2)
+    mine = h // cfg.model_size
+    rows = rows[:, :, :, cfg.model_rank * mine:(cfg.model_rank + 1) * mine]
+    merged = ref.merge_partials(rows[..., :hd], rows[..., hd],
+                                rows[..., hd + 1])
+    return merged.to(out.dtype)
+
+
+def prefill_into_ring(cache: RingCache, k, v, length: int, *,
+                      parts: int = 1, block: int = 0) -> RingCache:
     """Store the last ``window`` entries of a prefilled sequence (in place)
     at their ring slots, slot = position % window, so that decode writes
-    continue from there."""
-    w = cache.k.shape[1]
+    continue from there.  ``cache`` may be block ``block`` of a ring split
+    into ``parts`` blocks of slots (a ``SeqRingCache``; k and v then hold
+    every kv head): it takes the entries whose slots it holds."""
+    wl = cache.k.shape[1]
+    w = wl * parts
     s = k.shape[1]
-    take = min(w, s)
-    pos = torch.arange(s - take, s, device=k.device)
-    slots = pos % w
-    cache.k[:, slots] = k[:, s - take:].to(cache.k.dtype)
-    cache.v[:, slots] = v[:, s - take:].to(cache.v.dtype)
+    # the last window's positions whose slots the block holds (host ints:
+    # no shape that depends on a tensor's values, as on the meta device)
+    held = [p for p in range(max(s - w, 0), s)
+            if block * wl <= p % w < (block + 1) * wl]
+    pos = torch.tensor(held, dtype=torch.long, device=k.device)
+    slots = pos % w - block * wl
+    cache.k[:, slots] = k[:, pos].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, pos].to(cache.v.dtype)
     cache.pos[:, slots] = pos.to(torch.int32)
     return cache
 
 
-def prefill_into_kv(cache: KVCache, k, v) -> KVCache:
-    """Write a prefilled sequence at positions 0.. of the cache (in place)."""
-    s = k.shape[1]
-    cache.k[:, :s] = k
-    cache.v[:, :s] = v
+def prefill_into_kv(cache: KVCache, k, v, *, first: int = 0) -> KVCache:
+    """Write a prefilled sequence at positions 0.. of the cache (in place);
+    ``cache`` may be the block of a sequence-split cache whose first
+    position is ``first`` (a ``SeqKVCache``; k and v then hold every kv
+    head): it takes the positions it holds."""
+    s = min(k.shape[1] - first, cache.k.shape[1])
+    if s > 0:
+        cache.k[:, :s] = k[:, first:first + s]
+        cache.v[:, :s] = v[:, first:first + s]
     return cache
+
+
+def fill_prefill(cfg, cache, k, v):
+    """``prefill_into_kv`` or ``prefill_into_ring`` of the rank's run of kv
+    heads k, v (B, S, n_kv, hd) over a whole prompt: where ``cache`` is
+    split over the sequence, every kv head is gathered first
+    (``whole_heads``) and the rank writes its block."""
+    ring = isinstance(cache, RingCache)
+    if not is_seq_split(cache):
+        if ring:
+            return prefill_into_ring(cache, k, v, k.shape[1])
+        return prefill_into_kv(cache, k, v)
+    _, k, v = whole_heads(cfg, None, k, v)
+    if ring:
+        return prefill_into_ring(cache, k, v, k.shape[1],
+                                 parts=cfg.model_size, block=cfg.model_rank)
+    return prefill_into_kv(cache, k, v,
+                           first=cfg.model_rank * cache.k.shape[1])
 
 
 def decode_self_attention(p, cfg, x, cache, pos: int, *, kind: str,
@@ -217,21 +358,56 @@ def decode_self_attention(p, cfg, x, cache, pos: int, *, kind: str,
             pvec = (pos - pad)[:, None]
         q = rope(q, pvec, cfg.rope_theta)
         k_new = rope(k_new, pvec, cfg.rope_theta)
-    b, s = cache.k.shape[:2]
+    if is_seq_split(cache):
+        return _decode_seq(p, cfg, x, cache, pos, kind, pad, q, k_new, v_new)
+    s = cache.k.shape[1]
     at = pos % s if kind == "l" else pos
     cache.k[:, at] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, at] = v_new[:, 0].to(cache.v.dtype)
     if kind == "l":
         cache.pos[:, at] = pos
-        valid = (cache.pos >= 0) & (cache.pos >= pos - s + 1)
-        if pad is not None:
-            valid = valid & (cache.pos >= pad[:, None])
-    else:
-        slots = torch.arange(s, device=x.device)
-        valid = (slots <= pos)[None, :].expand(b, s)
-        if pad is not None:
-            valid = valid & (slots[None, :] >= pad[:, None])
+    valid = _valid(cache, pos, pad, 0, s)
     out = ops.decode_attention(q, *_kv_for_q(cfg, cache.k, cache.v), valid)
+    return _out(p, cfg, out, x), cache
+
+
+def _valid(cache, pos: int, pad, first: int, window: int):
+    """(B, L) validity of the cache's entries for the token at ``pos``:
+    a ring's slots of the last ``window`` positions, a dense cache's
+    positions up to ``pos`` (its first at ``first``), both at or past
+    each row's left pad."""
+    b, s = cache.k.shape[:2]
+    if isinstance(cache, RingCache):
+        valid = (cache.pos >= 0) & (cache.pos >= pos - window + 1)
+        return valid if pad is None else valid & (cache.pos >= pad[:, None])
+    slots = first + torch.arange(s, device=cache.k.device)
+    valid = (slots <= pos)[None, :].expand(b, s)
+    return valid if pad is None else valid & (slots[None, :] >= pad[:, None])
+
+
+def _decode_seq(p, cfg, x, cache, pos: int, kind: str, pad, q, k_new,
+                v_new):
+    """``decode_self_attention`` against the rank's block of a
+    sequence-split cache (ROADMAP 7d): the token's query heads and kv heads
+    are all-gathered over "model"; the rank that holds the token's
+    position (or ring slot) writes its K/V; each rank attends every query
+    head against its block (the decode kernel's partial entry), and the
+    blocks' partials are merged for the rank's own heads, which go through
+    the row-parallel ``wo``."""
+    q, k_new, v_new = whole_heads(cfg, q, k_new, v_new)
+    lb = cache.k.shape[1]
+    at = (pos % (lb * cfg.model_size) if kind == "l" else pos) \
+        - cfg.model_rank * lb
+    if 0 <= at < lb:
+        cache.k[:, at] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, at] = v_new[:, 0].to(cache.v.dtype)
+        if kind == "l":
+            cache.pos[:, at] = pos
+    valid = _valid(cache, pos, pad, cfg.model_rank * lb,
+                   lb * cfg.model_size)
+    out, m, l = ops.decode_attention(q, cache.k, cache.v, valid,
+                                     with_ml=True)
+    out = _merge(cfg, out, m[:, None], l[:, None])
     return _out(p, cfg, out, x), cache
 
 
@@ -249,12 +425,25 @@ def chunk_self_attention(p, cfg, x, cache: KVCache, start: int, positions):
     # the reference's dynamic_update_slice clamps the start so the chunk
     # fits; a chunk never crosses s_max on the engine's path
     s_max, c = cache.k.shape[1], x.shape[1]
-    at = min(start, s_max - c)
-    cache.k[:, at:at + c] = k_new.to(cache.k.dtype)
-    cache.v[:, at:at + c] = v_new.to(cache.v.dtype)
-    out = ops.chunk_attention(q, *_kv_for_q(cfg, cache.k, cache.v),
-                              start=start)
-    return _out(p, cfg, out, x), cache
+    if not is_seq_split(cache):
+        at = min(start, s_max - c)
+        cache.k[:, at:at + c] = k_new.to(cache.k.dtype)
+        cache.v[:, at:at + c] = v_new.to(cache.v.dtype)
+        out = ops.chunk_attention(q, *_kv_for_q(cfg, cache.k, cache.v),
+                                  start=start)
+        return _out(p, cfg, out, x), cache
+    # the rank's block of a sequence-split scratch: as _decode_seq does,
+    # for the chunk's C tokens at once
+    q, k_new, v_new = whole_heads(cfg, q, k_new, v_new)
+    first = cfg.model_rank * s_max
+    at = min(start, s_max * cfg.model_size - c) - first
+    lo, hi = max(at, 0), min(at + c, s_max)
+    if lo < hi:
+        cache.k[:, lo:hi] = k_new[:, lo - at:hi - at].to(cache.k.dtype)
+        cache.v[:, lo:hi] = v_new[:, lo - at:hi - at].to(cache.v.dtype)
+    out, m, l = ops.chunk_attention(q, cache.k, cache.v, start=start,
+                                    first=first, with_ml=True)
+    return _out(p, cfg, _merge(cfg, out, m, l), x), cache
 
 
 def decode_self_attention_paged(p, cfg, x, cache, *, kind: str,

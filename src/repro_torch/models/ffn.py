@@ -260,6 +260,30 @@ def _experts(p, cfg, xe):
     return _expert_ffn(p, xe)
 
 
+def _seq_out(p, cfg, xg, y, st: Stream, shape):
+    """Under sequence parallelism: the rank's block of the MoE's output
+    (B, S / M, D) from the combine's ``y`` (groups) and the shared
+    expert's output on ``xg``: the partial sums (of split experts, of a
+    split shared expert) reduce-scattered over the sequence in one
+    collective, a whole output's block kept."""
+    d = shape[-1]
+    unflat = lambda v: v.reshape(-1, d)[st.lead:st.lead + st.tokens] \
+        .reshape(shape)
+    outs = [(y, shardctx.split(cfg, "moe"))]
+    if "shared" in p:
+        outs.append((apply_ffn(p["shared"], cfg, xg, "shared", reduce=False),
+                     shardctx.split(cfg, "shared")))
+    partial = [v for v, part in outs if part]
+    whole = [v for v, part in outs if not part]
+    out = None
+    if partial:
+        out = shardctx.model_reduce_scatter(unflat(sum(partial)), 1)
+    if whole:
+        mine = shardctx.own_block(unflat(sum(whole)))
+        out = mine if out is None else out + mine
+    return out
+
+
 def apply_moe(p, cfg, x):
     """x (..., S, D) -> (y, aux).  The tokens are flattened into groups of
     ``MOE_GROUP`` (all of them where fewer), the last group padded with zero
@@ -269,26 +293,42 @@ def apply_moe(p, cfg, x):
     microbatch (``shardctx.dp_rows``), the groups are the whole
     microbatch's (``stream``): the rank lays its tokens out at their
     places in the groups it touches, routes them with the earlier ranks'
-    counts, and runs its own slots."""
+    counts, and runs its own slots.  Under sequence parallelism x is the
+    rank's block of the sequence: the whole sequence is gathered first,
+    so the groups are the reference's, and the rank returns its block."""
+    seq = shardctx.seq_block(cfg)
+    x_route = x
+    if seq:     # the whole sequence: for the experts, and for the router
+        x, x_route = shardctx.seq_gather_pair(x)
     orig_shape = x.shape
     d = orig_shape[-1]
-    tokens = x.reshape(-1, d)
-    t = tokens.shape[0]
-    st = stream(t, *shardctx.dp_rows())
+    st = stream(x.reshape(-1, d).shape[0], *shardctx.dp_rows())
+    t = st.tokens
     after = st.local * st.gsize - st.lead - t
-    if st.lead or after:
-        tokens = torch.cat([tokens.new_zeros((st.lead, d)), tokens,
-                            tokens.new_zeros((after, d))])
     g, gsize = st.local, st.gsize
-    xg = tokens.reshape(g, gsize, d)
-    dispatch, gates, aux = route(p["router"], cfg, xg, st)
+
+    def groups(v):
+        v = v.reshape(-1, d)
+        if st.lead or after:
+            v = torch.cat([v.new_zeros((st.lead, d)), v,
+                           v.new_zeros((after, d))])
+        return v.reshape(g, gsize, d)
+
+    xg = groups(x)
+    dispatch, gates, aux = route(p["router"], cfg,
+                                 groups(x_route) if seq else xg, st)
     xg_whole = xg           # what a shared expert held whole reads
+    if seq:
+        # every rank routes the whole sequence alike; the combine reads
+        # the gates for the rank's experts, or for its block's rows
+        gates = shardctx.sum_grad(gates)
     if shardctx.split(cfg, "moe"):
         # the router runs whole on every rank; its outputs enter the
         # rank's experts (or its F columns of every expert), so their
         # gradients are summed over "model"
-        xg = shardctx.enter(cfg, "moe", xg)
-        gates = shardctx.enter(cfg, "moe", gates)     # before the slice
+        if not seq:
+            xg = shardctx.enter(cfg, "moe", xg)
+            gates = shardctx.enter(cfg, "moe", gates)     # before the slice
         if cfg.expert_mesh == "model":
             mine = slice(cfg.expert_offset,
                          cfg.expert_offset + cfg.local_experts)
@@ -305,6 +345,8 @@ def apply_moe(p, cfg, x):
     ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
     y = torch.bmm(combine.to(cdt).reshape(g, gsize, e * cap), ye)
 
+    if seq:
+        return _seq_out(p, cfg, xg, y, st, orig_shape), aux
     if "shared" not in p:
         y = shardctx.reduce(cfg, "moe", y)
     elif shardctx.split(cfg, "moe") and shardctx.split(cfg, "shared"):

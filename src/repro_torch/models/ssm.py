@@ -120,7 +120,7 @@ def apply_ssm(params, cfg, x, want_cache: bool = False, pad_mask=None):
         reset = pad_reset(pad_mask)
     xbc = F.silu(conv_full(params["conv"], xbc_pre)).to(xbc_pre.dtype)
     xs, b, c = _split_xbc(cfg, xbc)
-    bsz, s = x.shape[0], x.shape[1]
+    bsz, s = normed.shape[0], normed.shape[1]     # the whole sequence
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     y, state = ops.ssd_scan(xs.reshape(bsz, s, h, p), dt, params["a_log"],
                             b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n),

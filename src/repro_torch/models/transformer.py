@@ -39,7 +39,13 @@ and run unchanged: each layer module calls its own collectives, and where
 the config splits "vocab" the embedding is a masked lookup of the rank's
 rows, all-reduced, and the logits of the rank's columns are all-gathered
 before anyone takes an argmax, so ties break on the first index as they
-do unsharded.
+do unsharded.  Under ``seq_shard`` (``shardctx.seq_parallel``) the
+decoder stack of ``forward_train`` and ``prefill`` runs on each rank's
+block of the sequence between sub-blocks: the embedding is
+reduce-scattered over it, and the final norm's output all-gathered.  A
+view whose kv heads the "model" axis does not divide keeps its dense and
+ring caches split over the sequence (``attention.SeqKVCache``,
+``SeqRingCache``); ``pool_layout`` gathers them into the paged pool's.
 """
 from __future__ import annotations
 
@@ -204,28 +210,28 @@ def _unit(params, u: int) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
-def new_cache(cfg, kind: str, lead, s_max: int, device, ctx_len: int = 0):
+def new_cache(cfg, kind: str, lead, s_max: int, device, ctx_len: int = 0,
+              *, seq: bool = True):
     """A zeroed cache of one layer of ``kind`` with leading dims ``lead``
     ((rows,) or (units, rows)), as ``prefill`` fills it; ``ctx_len`` sizes
-    the context K/V of "x" and "d" layers."""
+    the context K/V of "x" and "d" layers.  Where ``cfg`` keeps its dense
+    and ring caches split over the sequence (``shardctx.seq_caches``), the
+    self-attention caches are the rank's blocks, unless ``seq`` is False
+    (the paged pool's rings); the context K/V stays the rank's kv heads."""
     dt = dtype_of(cfg.compute_dtype)
     if kind == "s":
         return ssm_mod.init_ssm_cache(cfg, lead, dt, device)
     if kind == "r":
         return rglru_mod.init_rglru_cache(cfg, lead, dt, device)
     if kind == "l":
-        return attn.init_ring_cache(cfg, lead, dt, device)
-
-    def kv(length):
-        shape = (*lead, length, cfg.n_kv, cfg.resolved_head_dim)
-        return attn.KVCache(torch.zeros(shape, dtype=dt, device=device),
-                            torch.zeros(shape, dtype=dt, device=device))
-
+        return attn.init_ring_cache(cfg, lead, dt, device, seq=seq)
+    kv = lambda n, split: attn.init_kv_cache(cfg, lead, n, dt, device,
+                                             seq=split)
     if kind == "x":
-        return {"ctx_kv": kv(ctx_len)}
+        return {"ctx_kv": kv(ctx_len, False)}
     if kind == "d":
-        return {"self": kv(s_max), "ctx_kv": kv(ctx_len)}
-    return kv(s_max)
+        return {"self": kv(s_max, seq), "ctx_kv": kv(ctx_len, False)}
+    return kv(s_max, seq)
 
 
 def _init_caches(cfg, batch: int, s_max: int, device, ctx_len: int = 0):
@@ -241,23 +247,55 @@ def _copy(dst, src) -> None:
         d.copy_(s)
 
 
-def _fill(kind, cache, out) -> None:
+def _fill(cfg, kind, cache, out) -> None:
     """Write one layer's prefill result ``out`` into its cache, in place:
     K/V at positions 0.. ("g", "m"), the last window of K/V at their ring
     slots ("l"), the context's K/V ("x"; with the self K/V, "d"), the
-    recurrent state ("r", "s")."""
-    if kind in ("g", "m"):
-        attn.prefill_into_kv(cache, *out)
-    elif kind == "l":
-        k, v = out
-        attn.prefill_into_ring(cache, k, v, k.shape[1])
+    recurrent state ("r", "s").  A sequence-split cache takes its block
+    (``attention.fill_prefill``)."""
+    if kind in ("g", "m", "l"):
+        attn.fill_prefill(cfg, cache, *out)
     elif kind == "x":
         _copy(cache["ctx_kv"], out)
     elif kind == "d":
-        attn.prefill_into_kv(cache["self"], *out[0])
+        attn.fill_prefill(cfg, cache["self"], *out[0])
         _copy(cache["ctx_kv"], out[1])
     else:
         _copy(cache, out)
+
+
+def pool_layout(cfg, caches) -> dict:
+    """``caches`` ({"units", "tail"}) with each sequence-split leaf in the
+    paged pool's layout (``serving.kvpool``): the blocks all-gathered over
+    "model" into the whole sequence, and of its kv heads the rank's run.
+    One all-gather a dtype, outside autograd.  The caches themselves
+    where nothing is split."""
+    from ..launch.mesh import pack, unpack
+    split = [c for c in [*caches["units"].values(), *caches["tail"]]
+             if attn.is_seq_split(c)]
+    if not split:
+        return caches
+    leaves = [t for c in split for t in c]
+    buffers, layout = pack(leaves)
+    rows = {dt: shardctx.model_gather_rows(b) for dt, b in buffers.items()}
+    ranks = [unpack({dt: r[i] for dt, r in rows.items()}, layout)
+             for i in range(cfg.model_size)]
+    # the sequence dim: K/V (..., L, KV, hd), a ring's positions (..., L)
+    whole = iter([torch.cat(parts, dim=parts[0].dim() - (
+        3 if parts[0].dim() >= 4 else 1)) for parts in zip(*ranks)])
+    run = slice(cfg.kv_offset, cfg.kv_offset + cfg.n_kv)
+
+    def unsplit(c):
+        if not attn.is_seq_split(c):
+            return c
+        k, v = next(whole)[..., run, :], next(whole)[..., run, :]
+        if isinstance(c, attn.RingCache):
+            return attn.RingCache(k, v, next(whole))
+        return attn.KVCache(k, v)
+
+    return {"units": {name: unsplit(c) for name, c in
+                      caches["units"].items()},
+            "tail": [unsplit(c) for c in caches["tail"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +381,7 @@ def _run_unit(unit_p, cfg, pattern, x, positions, pad_mask, ctx, caches, u,
                                   want_cache=caches is not None, ctx=ctx)
         total = _add(total, aux)
         if caches is not None:
-            _fill(kind, _tree.index(caches[f"slot{i}"], u), out)
+            _fill(cfg, kind, _tree.index(caches[f"slot{i}"], u), out)
     return x, total
 
 
@@ -422,7 +460,7 @@ def run_tail(tail, cfg, x, positions, caches=None, pad_mask=None, ctx=None):
                                   want_cache=caches is not None, ctx=ctx)
         total = _add(total, aux)
         if caches is not None:
-            _fill(kind, caches[j], out)
+            _fill(cfg, kind, caches[j], out)
     return x, total
 
 
@@ -448,8 +486,17 @@ def _context(params, cfg, batch):
 
 def _head(params, cfg, x):
     """Float32 logits of the rank's vocabulary columns (all of them where
-    the vocabulary is whole)."""
-    x = shardctx.enter(cfg, "vocab", rms_norm(x, params["final_norm"]))
+    the vocabulary is whole).  Under sequence parallelism the final norm
+    runs on the rank's block, which is then all-gathered over the
+    sequence: its gradient reduce-scattered back where each rank's
+    columns give part of it, or sliced where every rank computes the
+    whole loss."""
+    x = rms_norm(x, params["final_norm"])
+    if shardctx.seq_block(cfg):
+        x = shardctx.seq_gather(x, backward="reduce_scatter"
+                                if shardctx.split(cfg, "vocab") else "slice")
+    else:
+        x = shardctx.enter(cfg, "vocab", x)
     head = (shardctx.gather_tree(cfg, "embed", params["embed"]).T
             if cfg.tie_embeddings else
             shardctx.gather_tree(cfg, "head", params["head"]))
@@ -473,14 +520,21 @@ def _embed(params, cfg, tokens):
     on the CPU), so a training step gives the same bits every time.  Where
     the vocabulary is split, each rank looks up the tokens among its rows
     (zeros for the others') and the sum over "model" is the row: one
-    nonzero term, so it is exact."""
+    nonzero term, so it is exact.  Under sequence parallelism the result
+    is the rank's block of the sequence: the sum is reduce-scattered, or
+    a whole lookup keeps its block (the table's gradient whole on every
+    rank either way)."""
+    seq = shardctx.seq_block(cfg)
     table = shardctx.gather_tree(cfg, "embed", params["embed"])
     if not shardctx.split(cfg, "vocab"):
-        return F.embedding(tokens, table).to(dtype_of(cfg.compute_dtype))
+        rows = F.embedding(tokens, table).to(dtype_of(cfg.compute_dtype))
+        return shardctx.seq_split(rows) if seq else rows
     local = tokens - cfg.vocab_offset
     mine = (local >= 0) & (local < cfg.local_vocab)
     rows = F.embedding(torch.where(mine, local, 0), table)
-    rows = shardctx.model_all_reduce(rows * mine[..., None].to(rows.dtype))
+    rows = rows * mine[..., None].to(rows.dtype)
+    rows = (shardctx.model_reduce_scatter(rows, 1) if seq
+            else shardctx.model_all_reduce(rows))
     return rows.to(dtype_of(cfg.compute_dtype))
 
 
@@ -495,6 +549,17 @@ def _run_stack(params, cfg, x, positions, ctx, caches=None, pad_mask=None,
     return x, _add(aux, tail_aux)
 
 
+def _sequence_parallel(cfg, s: int, ctx):
+    """(the view the decoder stack runs under for ``s`` positions, its
+    context): under ``seq_shard`` (``shardctx.seq_parallel``) each rank's
+    decoder reads the context for its block's rows alone, so the
+    context's gradient is summed over "model" as it enters."""
+    run = shardctx.seq_parallel(cfg, s)
+    if run is not cfg and ctx is not None:
+        ctx = shardctx.sum_grad(ctx)
+    return run, ctx
+
+
 def forward_train(params, cfg, batch, *, local_logits: bool = False):
     """Teacher-forced logits.  batch: {"tokens": (B, S)} plus
     ``image_embeds`` (vision) or ``src_embeds`` (an encoder's frames),
@@ -505,8 +570,9 @@ def forward_train(params, cfg, batch, *, local_logits: bool = False):
     alone, (B, S, cfg.local_vocab), for a vocabulary-parallel loss
     (``models.steps.cross_entropy(vocab_offset=)``)."""
     tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens)
     ctx = _context(params, cfg, batch)
+    cfg, ctx = _sequence_parallel(cfg, tokens.shape[1], ctx)
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, aux = _run_stack(params, cfg, x, positions, ctx, remat=cfg.remat)
     if aux is None:
@@ -531,8 +597,9 @@ def prefill(params, cfg, batch, s_max: int, pad=None):
     tokens = batch["tokens"]
     device = tokens.device
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
     ctx = _context(params, cfg, batch)
+    run, ctx = _sequence_parallel(cfg, s, ctx)
+    x = _embed(params, run, tokens)
     if pad is None:
         positions = torch.arange(s, device=device)
         pad_mask = None
@@ -543,7 +610,9 @@ def prefill(params, cfg, batch, s_max: int, pad=None):
         pad_mask = ar >= pad[:, None]
     caches = _init_caches(cfg, b, s_max, device,
                           0 if ctx is None else ctx.shape[1])
-    x, _ = _run_stack(params, cfg, x, positions, ctx, caches, pad_mask)
+    x, _ = _run_stack(params, run, x, positions, ctx, caches, pad_mask)
+    if shardctx.seq_block(run):
+        x = shardctx.seq_gather(x, backward="slice")
     caches["pos"] = s
     if pad is not None:
         caches["pad"] = pad

@@ -280,7 +280,10 @@ class ServingEngine:
         nxt = int(torch.argmax(logits[0], -1))
         if self.obs is not None:
             self.obs.on_prefill(self, t0, batch=1, width=width)
-        return nxt, {"units": cache["units"], "tail": cache["tail"]}, pad
+        # a sequence-split cache goes into the pool's layout: one
+        # all-gather an admission (``transformer.pool_layout``)
+        return nxt, transformer.pool_layout(
+            self.cfg, {"units": cache["units"], "tail": cache["tail"]}), pad
 
     def _admit_continuous(self):
         """Admit from the queue head into free slots, one solo prefill per
@@ -375,8 +378,9 @@ class ServingEngine:
         if self._guards is not None:
             self._guards.guard_blocks(self, "commit_chunk", ids, [c - 1])
         self._stream_ids = self._tensor(ids)
-        kvpool.commit_chunk(self._pool_state, cache, 0, c, slot,
-                            self._stream_ids, block_size=self.kv_block)
+        kvpool.commit_chunk(self._pool_state,
+                            transformer.pool_layout(self.cfg, cache), 0, c,
+                            slot, self._stream_ids, block_size=self.kv_block)
         self._stream_req, self._stream_slot = req, slot
         self._stream_cache, self._stream_done = cache, c
         self._occupy(slot, req, blocks, seq_len=0, last=0)
@@ -403,8 +407,10 @@ class ServingEngine:
         if self._guards is not None:
             self._guards.guard_blocks(self, "commit_chunk", self._stream_ids,
                                       [start + n_valid - 1])
-        kvpool.commit_chunk(self._pool_state, cache, start, n_valid, slot,
-                            self._stream_ids, block_size=self.kv_block)
+        kvpool.commit_chunk(self._pool_state,
+                            transformer.pool_layout(self.cfg, cache), start,
+                            n_valid, slot, self._stream_ids,
+                            block_size=self.kv_block)
         if self.obs is not None:
             self.obs.on_prefill(self, t0, batch=1, width=c, chunked=True)
         self._stream_cache = cache

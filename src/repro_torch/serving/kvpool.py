@@ -164,7 +164,8 @@ def init_decode_state(cfg, params, slots: int, n_blocks: int,
 
     def build(kind, lead):
         if kind not in ("g", "m"):
-            return transformer.new_cache(cfg, kind, (*lead, slots), 0, device)
+            return transformer.new_cache(cfg, kind, (*lead, slots), 0, device,
+                                         seq=False)
         shape = (*lead, n_blocks, block_size, cfg.n_kv,
                  cfg.resolved_head_dim)
         return KVCache(torch.zeros(shape, dtype=dt, device=device),

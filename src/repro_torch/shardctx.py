@@ -40,6 +40,14 @@ the collectives here, by name, where a sharded contraction ends.  So
   :func:`data_all_gather` (backward a reduce-scatter) and come back by
   :func:`data_reduce_scatter` (backward an all-gather), or go out and
   back by :func:`data_all_to_all` (its own reverse backward);
+* sequence parallelism (``seq_shard``, Megatron's sense): where a
+  full-sequence call's length divides "model", the residual stream
+  between sub-blocks is the rank's block of the sequence
+  (:func:`seq_parallel` marks the call's view, ``RankConfig.seq_block``);
+  :func:`enter` then all-gathers a sub-block's input over the sequence
+  (backward a reduce-scatter) and :func:`reduce` reduce-scatters its
+  partial output (:func:`model_reduce_scatter`, backward an
+  all-gather), where it all-reduced them before;
 * :func:`collective_ledger` records every collective the port issues
   (these, ``runtime.compression``'s sync, ``core.gridshard``'s gather and
   ``launch.mesh.broadcast_tree``) by the reference's HLO names, with its
@@ -69,9 +77,12 @@ import torch.distributed as dist
 from .configs.base import ArchConfig
 
 _CTX: dict = {"active": False, "tp_n": 1, "group": None, "mesh": None,
-              "remat_offload": False, "moe_dp": True, "data_rows": False}
+              "remat_offload": False, "moe_dp": True, "data_rows": False,
+              "seq_shard": False}
 _LEDGER: list | None = None
-PART4 = "ROADMAP queue 1, item 7c, part 4"
+# the sub-blocks that read other positions of the sequence: under
+# sequence parallelism a whole one gathers its input and keeps its block
+MIXING = ("attn", "rglru", "ssm")
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
          "collective-permute")
 
@@ -118,6 +129,9 @@ class RankConfig(ArchConfig):
       (``expert_mesh="data"``); ``local_dff`` / ``dff_offset``: the
       rank's F columns of each expert it holds (the whole F from 0 where
       nothing splits it);
+    * ``seq_block``: this call's residual stream is the rank's block of
+      the sequence (``seq_shard``; set for one full-sequence call by
+      :func:`seq_parallel`, never by the layout);
     * ``zero``: the leaves kept as ZeRO-3 storage slices, each
       ``(path, dim, axes)``: the leaf at ``path`` ("units/slot0/attn/wq",
       "embed", ...) is the rank's equal part, on ``dim`` (counted from
@@ -140,6 +154,7 @@ class RankConfig(ArchConfig):
     local_dff: int = 0
     dff_offset: int = 0
     zero: Tuple[Tuple[str, int, Tuple[str, ...]], ...] = ()
+    seq_block: bool = False
     # the model's own config, for what a rank must know of the others'
     # shards (``launch.sharding``: gathering them, summing the gradients
     # several ranks hold); not part of the view's identity
@@ -174,9 +189,9 @@ def activation_sharding(mesh, *, seq_shard: bool = False,
     unsharded group dim means), which ``expert_shard_dff`` needs;
     ``expert_axis`` names the axis the experts lie on ("data": the rank
     layout's ``RankConfig.expert_mesh`` then sends the tokens by an
-    all-to-all).  Sequence sharding over a "model" axis above 1
-    (``seq_shard``) is not ported and raises ``NotImplementedError``; at
-    a size of 1 it shards nothing.
+    all-to-all).  ``seq_shard`` splits the residual stream's sequence
+    over "model" in every full-sequence call whose length the axis
+    divides (:func:`seq_parallel`); at a size of 1 it shards nothing.
 
     ``data_rows`` (the port's own): the activations are this rank's equal
     share of a logical batch split over the data axes ("pod", "data"),
@@ -186,10 +201,6 @@ def activation_sharding(mesh, *, seq_shard: bool = False,
     a replica that groups its own tokens."""
     axes = mesh_axes(mesh)
     tp_n = axes.get("model", 1)
-    if seq_shard and tp_n > 1:
-        raise NotImplementedError(
-            f"seq_shard (sequence-parallel attention over \"model\") is not "
-            f"ported: {PART4}")
     if expert_axis not in ("model", "data"):
         raise ValueError(f"expert_axis {expert_axis!r} is not \"model\" or "
                          f"\"data\"")
@@ -199,7 +210,8 @@ def activation_sharding(mesh, *, seq_shard: bool = False,
     old = dict(_CTX)
     _CTX.update(active=True, tp_n=tp_n, group=group, mesh=mesh,
                 remat_offload=bool(remat_offload),
-                moe_dp=bool(moe_dp_groups), data_rows=bool(data_rows))
+                moe_dp=bool(moe_dp_groups), data_rows=bool(data_rows),
+                seq_shard=bool(seq_shard) and tp_n > 1)
     try:
         yield
     finally:
@@ -267,8 +279,9 @@ def _all_gather(x, dim: int):
         return out.to(x.device) if host else out
 
 
-def _own_slice(g, dim: int):
-    """This rank's part of ``g`` along ``dim`` (M equal parts)."""
+def own_block(g, dim: int = 1):
+    """This rank's part of ``g`` along ``dim`` (M equal parts, in rank
+    order); under autograd the gradient of the rest is zero."""
     size = g.shape[dim] // _CTX["tp_n"]
     return g.narrow(dim, dist.get_rank(_group()) * size, size)
 
@@ -315,7 +328,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         if ctx.scatter:
             g = _all_reduce(g.contiguous().clone())
-        return _own_slice(g, ctx.dim).contiguous(), None, None
+        return own_block(g, ctx.dim).contiguous(), None, None
 
 
 def _tracked(x) -> bool:
@@ -359,21 +372,168 @@ def model_all_gather(x, dim: int = -1, *, backward: str = "reduce_scatter"):
     return _all_gather(x, dim)
 
 
+def sum_grad(x):
+    """``x`` forward; where autograd records, its gradient summed over
+    "model" backward: a replicated tensor that each rank reads in part (a
+    split sub-block's input, or under sequence parallelism the rows of
+    the rank's block)."""
+    return _Enter.apply(x) if _tracked(x) else x
+
+
 def enter(cfg, part: str, x):
-    """``x`` as it enters ``part``'s shard where ``cfg`` splits ``part``:
-    the same tensor forward, and where autograd records, its gradient
-    summed over "model" backward (each rank's shard contributes its part
-    of the replicated input's gradient).  Call it once on each replicated
-    tensor that a split sub-block reads."""
-    if split(cfg, part) and _tracked(x):
-        return _Enter.apply(x)
+    """``x`` as it enters ``part``'s sub-block.  Under tensor parallelism,
+    where ``cfg`` splits ``part``: the same tensor forward, and where
+    autograd records, its gradient summed over "model" backward (each
+    rank's shard contributes its part of the replicated input's
+    gradient).  Under sequence parallelism (``cfg.seq_block``): x is the
+    rank's block of the sequence, all-gathered over it (backward a
+    reduce-scatter) where the sub-block is split or reads other
+    positions (:data:`MIXING`); a whole row-wise sub-block (a dense FFN)
+    runs on the block.  Call it once on each residual-stream tensor that
+    a sub-block reads."""
+    if seq_block(cfg):
+        return seq_gather(x) if split(cfg, part) or part in MIXING else x
+    if split(cfg, part):
+        return sum_grad(x)
     return x
 
 
 def reduce(cfg, part: str, x):
-    """``x``, all-reduced over "model" where ``cfg`` splits ``part`` (a
-    row-parallel product's partial sum), else as it is."""
+    """``x``, the sub-block's output (``(B, S, D)`` under sequence
+    parallelism), back into the residual stream: all-reduced over
+    "model" where ``cfg`` splits ``part`` (a row-parallel product's
+    partial sum), else as it is.  Under sequence parallelism the partial
+    sum is reduce-scattered over the sequence instead, and a whole
+    :data:`MIXING` sub-block, which ran on the gathered sequence, keeps
+    the rank's block."""
+    if seq_block(cfg):
+        if split(cfg, part):
+            return model_reduce_scatter(x, 1)
+        return own_block(x) if part in MIXING else x
     return model_all_reduce(x) if split(cfg, part) else x
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism over "model" (seq_shard)
+# ---------------------------------------------------------------------------
+
+def seq_parallel(cfg, s: int):
+    """The view a full-sequence call of ``s`` positions runs under: ``cfg``
+    with ``seq_block`` set where ``seq_shard`` is active on a "model" axis
+    above 1 that divides ``s`` (the reference's rule: a dim its axis
+    does not divide is not split, so a decode step at S = 1 runs the
+    plain tensor-parallel path), else ``cfg`` itself."""
+    if (not (_CTX["active"] and _CTX["seq_shard"])
+            or not isinstance(cfg, RankConfig) or cfg.model_size == 1
+            or s % cfg.model_size or cfg.seq_block):
+        return cfg
+    return dataclasses.replace(cfg, seq_block=True)
+
+
+def seq_block(cfg) -> bool:
+    """Whether ``cfg``'s residual stream is the rank's block of the
+    sequence (:func:`seq_parallel`)."""
+    return isinstance(cfg, RankConfig) and cfg.seq_block
+
+
+def model_reduce_scatter(x, dim: int):
+    """The sum of ``x`` over the "model" sub-group, each rank keeping its
+    block along ``dim`` (a float32 sum rounded once); the backward
+    all-gathers the gradient."""
+    return _ReduceScatter.apply(_group(), _CTX["tp_n"], dim, x)
+
+
+def seq_gather(x, *, backward: str = "reduce_scatter"):
+    """Every rank's block of the sequence (dim 1), joined in rank order:
+    one all-gather.  Where autograd records, each rank's gradient is
+    summed over the ranks and the rank keeps its block
+    (``"reduce_scatter"``: each rank's computation reads the whole in
+    part, as its shard of a split sub-block does), or the rank takes its
+    block of a gradient every rank computed whole (``"slice"``: the
+    hidden before a loss every rank repeats)."""
+    if backward == "slice":
+        return model_all_gather(x, 1, backward="slice")
+    if backward != "reduce_scatter":
+        raise ValueError(f"unknown backward {backward!r}")
+    return _ZeroGather.apply(_group(), _CTX["tp_n"], (1,), x)[0]
+
+
+class _GatherPair(torch.autograd.Function):
+    """One all-gather along dim 1, two results: the first's gradient
+    reduce-scattered back, the second's sliced (see :func:`seq_gather`)."""
+
+    @staticmethod
+    def forward(ctx, group, n, x):
+        ctx.group, ctx.n, ctx.shape = group, n, x.shape
+        rows = _gather_flat(x.reshape(-1), group, n)
+        out = _joined(rows, x.shape, 1)
+        return out, out.clone()
+
+    @staticmethod
+    def backward(ctx, g_sum, g_rep):
+        send = _blocks(g_sum, ctx.shape, 1, ctx.n)
+        g = _reduce_scatter_flat(send, ctx.group, ctx.n).view(ctx.shape)
+        return None, None, g + own_block(g_rep, 1)
+
+
+def seq_gather_pair(x):
+    """``(seq_gather(x), seq_gather(x, backward="slice"))`` from one
+    all-gather: what split computation reads, beside what computation
+    every rank repeats whole reads (the MoE's experts and its router)."""
+    if _tracked(x):
+        return _GatherPair.apply(_group(), _CTX["tp_n"], x)
+    out = _all_gather(x, 1)
+    return out, out
+
+
+class _Split(torch.autograd.Function):
+    """The rank's block along dim 1 forward; the all-gather of the
+    blocks' gradients backward (every rank computed the whole)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return own_block(x, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), 1)
+
+
+def seq_split(x):
+    """The rank's block of the sequence of ``x``, a tensor every rank
+    holds whole (the embedding of the whole sequence); where autograd
+    records, its gradient is every rank's block all-gathered, so the whole
+    tensor's gradient is whole on every rank."""
+    return _Split.apply(x) if _tracked(x) else own_block(x, 1)
+
+
+def model_gather_rows(x):
+    """Every rank's ``x`` of the "model" sub-group, stacked in rank order
+    (M, *x.shape), outside autograd: one all-gather."""
+    return _gather_flat(x.detach().reshape(-1), _group(),
+                        _CTX["tp_n"]).view(_CTX["tp_n"], *x.shape)
+
+
+# ---------------------------------------------------------------------------
+# the KV cache's sequence over "model" (ROADMAP 7d)
+# ---------------------------------------------------------------------------
+
+def kv_run(n_heads: int, n_kv: int, m: int, r: int) -> Tuple[int, ...]:
+    """The kv heads rank ``r`` of an ``m``-way "model" axis reads, each of
+    its ``n_heads / m`` query heads' (GQA: query head h reads kv head
+    h // (n_heads / n_kv))."""
+    h, group = n_heads // m, n_heads // n_kv
+    return tuple((r * h + j) // group for j in range(h))
+
+
+def seq_caches(cfg) -> bool:
+    """Whether ``cfg``, a rank's view, keeps its dense and ring KV caches
+    split over "model" along the sequence, every kv head of the rank's
+    block of positions: where its query heads are split and the kv heads
+    do not divide the axis, as the policy's ``cache_spec`` splits them
+    (its ``model_size`` must also divide the cache's length)."""
+    return (split(cfg, "attn") and cfg.whole is not None
+            and cfg.whole.n_kv % cfg.model_size != 0)
 
 
 # ---------------------------------------------------------------------------

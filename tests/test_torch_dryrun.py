@@ -148,10 +148,13 @@ def test_main_on_the_production_mesh(tmp_path):
     assert set(rec["collectives"]) == {
         "bytes_by_kind", "ops_by_kind", "total_bytes", "f32_bytes",
         "bf16_wire_corrected_bytes"}
-    # full width on the 16-way model axis: the rank's kv run and cache
-    # K and V of 28 layers, 8 rows, 1 kv head, bf16; and the int32 pos
+    # full width on the 16-way model axis: the rank's cache is the
+    # policy's, its sequence over "model" (the 8 kv heads do not divide
+    # it): K and V of 28 layers, 8 rows, all 8 kv heads of 32,896 / 16
+    # positions, bf16; and the int32 pos
     assert rec["memory"]["alias_bytes"] == \
-        28 * 2 * 8 * 32896 * 1 * 128 * 2 + 4
+        28 * 2 * 8 * (32896 // 16) * 8 * 128 * 2 + 4
+    assert not [p for p in rec["departure_bytes"] if p.startswith("1/")]
     os.utime(path, (0, 0))
     dryrun.main(argv + ["--shape", "decode_32k"])
     assert os.stat(path).st_mtime == 0                  # skipped, untouched
@@ -161,10 +164,12 @@ def test_main_on_the_production_mesh(tmp_path):
     assert skipped["status"] == "skipped" and "sub-quadratic" in \
         skipped["reason"]
     dryrun.main(argv + ["--shape", "train_4k", "--seq-shard", "--tag", "e"])
-    err = json.load(open(os.path.join(
+    seq = json.load(open(os.path.join(
         out, "qwen3-0.6b__train_4k__single__e.json")))
-    assert err["status"] == "error"
-    assert "ROADMAP queue 1, item 7c, part 4" in err["traceback"]
+    assert seq["status"] == "ok" and seq["options"]["seq_shard"]
+    # sequence parallelism: the sub-blocks' partial sums are
+    # reduce-scattered over the sequence where they were all-reduced
+    assert seq["collectives"]["ops_by_kind"]["reduce-scatter"] > 0
 
 
 def test_qwen1_5_arguments_equal_the_policy_less_the_kv_departure():

@@ -350,6 +350,107 @@ def test_paged_decode_matches_gather_and_plain(dtype, tol, b, m, bs, h, kv,
         rtol=tol, atol=tol)
 
 
+def _ring_valid(b, w, pos, seed):
+    """The mask of a full ring of ``w`` slots after the token at ``pos``:
+    slot j holds the latest position congruent to j, valid at or past
+    each row's left pad (none on row 0, past every slot on the last)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    slots = torch.arange(w, device="cuda")
+    at = pos - (pos - slots) % w
+    pad = torch.randint(0, pos + 1, (b,), generator=g, device="cuda")
+    pad[0], pad[-1] = 0, pos + 1
+    return at[None] >= pad[:, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layout,b,s,h,kv,hd", [
+    ("dense", 4, 1028, 4, 1, 256),     # gemma3-1b's global cache, a rank's half
+    ("dense", 3, 33, 4, 2, 32),        # one split
+    ("ring", 4, 512, 4, 1, 256),       # gemma3-1b's ring, a rank's half
+    ("paged", 3, 9, 4, 2, 32)])
+def test_partial_decode_entry_matches_plain(dtype, tol, layout, b, s, h, kv,
+                                            hd):
+    """The partial entry (``with_ml``): the output, and each (row, head)'s
+    float32 softmax max and sum, against the plain version's, on a dense
+    cache, a ring and a pool; one row with no valid key (max -1e30, its
+    sum the key count); one launch a call, counted with the others."""
+    _need_card()
+    q, k, v = _att_inputs(b, 1, s, h, kv, hd, dtype, s + 7)
+    if layout == "paged":
+        bs, n_blocks = 16, b * s + 2
+        g = torch.Generator(device="cuda").manual_seed(s)
+        k_pool = torch.randn((n_blocks, bs, kv, hd), generator=g,
+                             device="cuda").to(dtype)
+        v_pool = torch.randn((n_blocks, bs, kv, hd), generator=g,
+                             device="cuda").to(dtype)
+        table = torch.randperm(n_blocks, generator=g, device="cuda")[:b * s]
+        table = table.reshape(b, s).to(torch.int32)
+        lens = torch.tensor([0, 100, s * bs - 1][:b], dtype=torch.int32,
+                            device="cuda")
+        before = (p_da.decode_attention_cuda.launches,
+                  p_da.decode_attention_cuda.ml_launches)
+        got = p_da.decode_attention_paged_cuda(q, k_pool, v_pool, table,
+                                               lens, with_ml=True)
+        k = k_pool[table.long()].reshape(b, s * bs, kv, hd)
+        v = v_pool[table.long()].reshape(b, s * bs, kv, hd)
+        valid = torch.arange(s * bs, device="cuda")[None] <= lens[:, None]
+    else:
+        valid = (_ring_valid(b, s, 2 * s + 5, s) if layout == "ring" else
+                 _split_masks(b, s, s, dead_row=True, dead_split=s >= 130))
+        before = (p_da.decode_attention_cuda.launches,
+                  p_da.decode_attention_cuda.ml_launches)
+        got = p_ops.decode_attention(q, k, v, valid, with_ml=True)
+    torch.cuda.synchronize()
+    assert (p_da.decode_attention_cuda.launches,
+            p_da.decode_attention_cuda.ml_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = p_ref.decode_attention_ref(q, k, v, valid, with_ml=True)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    for g_t, w_t in zip(got[1:], want[1:]):
+        assert g_t.dtype == torch.float32 and g_t.shape == (b, h)
+        torch.testing.assert_close(g_t, w_t, rtol=1e-4, atol=1e-4)
+    if layout != "paged":
+        dead = ~valid.any(1)
+        assert dead.any()
+        assert (got[1][dead] == -1e30).all()
+        assert (got[2][dead] == s).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(4, 2056, 4, 1, 256),
+                                         (3, 1024, 16, 8, 128),
+                                         (4, 64, 4, 2, 32)])
+def test_two_block_merge_matches_the_whole_kernel(dtype, tol, b, s, h, kv,
+                                                  hd):
+    """A sequence attended in two halves by the partial entry and merged
+    (``ref.merge_partials``, the kernel's merge rule) against the kernel
+    on the whole sequence: a row valid in the second half alone (its first
+    half weighs nothing) and a row with no valid key anywhere (the uniform
+    average of all S values)."""
+    _need_card()
+    q, k, v = _att_inputs(b, 1, s, h, kv, hd, dtype, s + 11)
+    valid = _split_masks(b, s, s, dead_row=True, dead_split=False)
+    valid[0] = False
+    valid[0, s // 2 + 3:] = True
+    whole = p_ops.decode_attention(q, k, v, valid)
+    parts = [p_ops.decode_attention(q, kh.contiguous(), vh.contiguous(),
+                                    mh.contiguous(), with_ml=True)
+             for kh, vh, mh in zip(k.chunk(2, 1), v.chunk(2, 1),
+                                   valid.chunk(2, 1))]
+    assert (parts[0][1][0] == -1e30).all()
+    merged = p_ref.merge_partials(*(torch.stack(t) for t in zip(
+        *((o[:, 0], m, l) for o, m, l in parts))))
+    torch.testing.assert_close(merged.to(dtype).float(), whole[:, 0].float(),
+                               rtol=tol, atol=tol)
+    uniform = v[-1].float().mean(0).repeat_interleave(h // kv, 0)
+    torch.testing.assert_close(merged[-1], uniform, rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 def test_attention_wrappers_reject_bad_inputs_on_card():
     _need_card()

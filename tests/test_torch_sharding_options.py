@@ -12,9 +12,10 @@ policy, in this process (no world).
   the product of its axes), except for the departures the layout
   documents (``launch/sharding.py``'s docstring), listed here by name.
 * **Splits.**  ``RankConfig.split`` is as ``tp_mode`` says.
-* **Refusals.**  ``seq_shard`` on a "model" axis above 1 raises
-  ``NotImplementedError`` naming ROADMAP queue 1, item 7c, part 4; the
-  MoE knobs of that item are taken.
+* **The knobs of ROADMAP queue 1, item 7c, part 4** are taken:
+  ``seq_shard`` (on "model" axes of 2, 4 and 16 it moves no weight, and
+  marks the full-sequence calls whose length the axis divides) and the
+  MoE knobs.
 """
 import dataclasses
 
@@ -22,7 +23,7 @@ import pytest
 
 from repro.analysis.contracts import ShapeOnlyMesh
 from repro.launch import sharding as r_sh
-from repro_torch import shardctx
+from repro_torch import _tree, shardctx
 from repro_torch.configs import base as p_base
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch import sharding as p_sh
@@ -41,7 +42,6 @@ OPTIONS = {
                                          expert_shard_dff=True),
     "expert-data": p_sh.ShardingOptions(expert_mesh="data"),
 }
-PART4 = "ROADMAP queue 1, item 7c, part 4"
 
 
 def _rank0(axes: dict):
@@ -175,24 +175,41 @@ def test_zero_storage_follows_fsdp():
 
 
 def test_refusals_name_part_4():
-    """``seq_shard`` on a "model" axis above 1 is still refused, naming
-    ROADMAP queue 1, item 7c, part 4; the MoE knobs of that item are
-    taken: ``moe_dp_groups=False`` and ``expert_axis="data"`` in the
-    context, ``expert_shard_dff`` and ``expert_mesh="data"`` (and so
-    llama4's recommended training and prefill options) in the layout."""
+    """Every knob of ROADMAP queue 1, item 7c, part 4 is taken.
+    ``seq_shard`` on "model" axes of 2, 4 and 16: ``place_params`` holds
+    the baseline's shards and view (sequence parallelism moves no
+    weight), and under ``activation_sharding(seq_shard=True)`` a
+    full-sequence call whose length the axis divides runs on the rank's
+    block (``seq_parallel`` marks its view), one it does not divide (a
+    decode step at S = 1) on the plain path.  The MoE knobs:
+    ``moe_dp_groups=False`` and ``expert_axis="data"`` in the context,
+    ``expert_shard_dff`` and ``expert_mesh="data"`` (and so llama4's
+    recommended training and prefill options) in the layout."""
     mesh = _rank0(MESHES["2x2"])
     cfg = p_base.get_config("llama4-maverick-400b-a17b")
-    with pytest.raises(NotImplementedError, match=PART4):
-        with shardctx.activation_sharding(mesh, seq_shard=True):
-            pass
-    with pytest.raises(NotImplementedError, match=PART4):
-        p_sh.place_params(mesh, cfg, {}, p_sh.ShardingOptions(seq_shard=True))
+    whole = specs.params_specs(cfg)
+    seq = p_sh.ShardingOptions(seq_shard=True)
+    for axes in (MESHES["2x2"], dict(data=1, model=4), MESHES["16x16"]):
+        m = axes["model"]
+        placed, view = p_sh.place_params(_rank0(axes), cfg, whole, seq)
+        base, base_view = p_sh.place_params(_rank0(axes), cfg, whole)
+        assert view == base_view and view.model_size == m
+        assert [t.shape for t in _tree.leaves(placed)] == \
+            [t.shape for t in _tree.leaves(base)]
+        assert shardctx.seq_parallel(view, 4 * m) is view    # no context
+        with shardctx.activation_sharding(_rank0(axes), seq_shard=True):
+            run = shardctx.seq_parallel(view, 4 * m)
+            assert shardctx.seq_block(run) and run.model_size == m
+            assert shardctx.seq_parallel(view, 1) is view
+            assert shardctx.seq_parallel(view, 4 * m + 1) is view
+            assert shardctx.seq_parallel(run, 4 * m) is run
+        with shardctx.activation_sharding(_rank0(axes)):
+            assert shardctx.seq_parallel(view, 4 * m) is view
     with shardctx.activation_sharding(mesh, moe_dp_groups=False,
                                       expert_axis="data"):
         assert shardctx.gathers_experts()
     with shardctx.activation_sharding(mesh):
         assert not shardctx.gathers_experts()
-    whole = specs.params_specs(cfg)
     for opts, how in ((p_sh.ShardingOptions(expert_shard_dff=True), "dff"),
                       (p_sh.ShardingOptions(expert_mesh="data"), "experts"),
                       (p_sh.recommended_options(cfg, "train"), "dff"),
