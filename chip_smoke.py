@@ -38,7 +38,7 @@ the card:
    per slot, the kernels that take the most device time);
 4. runs the learning loop: ``python -m repro_torch.quickstart``'s ``main``
    (``QS_ARGS``: PPO with the categorical head trains on the paper scenario
-   for 1 episode of 8 slots, is evaluated at 2.5 req/s, and the Local,
+   for 1 episode of 4 slots, is evaluated at 2.5 req/s, and the Local,
    Edge, Random and Oracle baselines run beside it; the sweep's launches
    must equal the Oracle's slots, Adam's step epochs x episodes, the
    metrics finite and the Oracle no worse than Local or Edge), joint mode
@@ -254,6 +254,21 @@ the card:
    0 gradients (1e-5 of each leaf's max) and kept slots (exactly) are
    held to one rank's float32 step on the card.  The phase logs its
    seconds against a 120 s budget.
+18. drives ``seq_shard`` (qwen3-0.6b trained sequence-parallel) and the
+   sequence-split KV caches (gemma3-1b's sync engine) in phase 15's
+   world; the phase logs its seconds against a 120 s budget.
+19. runs ``repro_torch.analysis``'s probes on the card, in this process:
+   (a) the retrace probes' serving and chunked engines (reduced
+   qwen3-0.6b, float32, the reference's two waves each) stay within their
+   prefill-signature bounds and give every request the greedy tokens the
+   same probe gives on the CPU; (b) three Oracle rollouts of a 3-cell
+   grid build no kernel and load no library again; (c) the donation
+   probe: every pool leaf keeps its storage over a tick and both commits,
+   and the tick's peak memory grows by less than one pool (both figures
+   logged); (d) ``--lint --json`` exits 0.  Its launches are counted
+   exactly, each shape is one phase 5 held, and
+   at the end every kernel library is loaded once in this process.  The
+   phase logs its seconds against a 30 s budget.
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -622,7 +637,8 @@ def profile_grid(torch, grid, slots: int) -> dict:
 # so are phases 3, 4 and 10's slot counts, to keep the smoke inside its
 # time limit on a slow host (PERF.md lists the cuts)
 # one training episode (two before PR 25, which cut it for phase 16)
-QS_ARGS = ["--episodes", "1", "--steps", "8", "--eval-episodes", "1"]
+# and 4 slots an episode (8 before phase 19 was added)
+QS_ARGS = ["--episodes", "1", "--steps", "4", "--eval-episodes", "1"]
 JOINT_EPISODES, PAPER_K = 2, 200
 EVAL_CELLS, EVAL_SLOTS = 4096, 3     # timed
 EVAL_CHECK_SLOTS = 10                # the Oracle card vs CPU on that grid
@@ -1110,6 +1126,19 @@ PAGED_CASES += [
      "f32", [0, 16, 127]),
     ("phase 14 moonshot rank: 3 slots x 8 blocks of 16", 3, 8, 16, 8, 8, 128,
      "f32", [100, 0, 31])]
+# phase 19: the analysis probes' engines, reduced qwen3-0.6b in float32 at
+# the kernels' head dim 32 (H4/4): solo prefills in the 8, 16 and 32
+# buckets (ragged) and a first chunk of 16 (whole); the paged tick of 2
+# slots over 4 blocks of 16 (s_max 64), and the donation probe's over 2
+# (s_max 32).  Phase 19 fails if it launches at any other shape.
+FLASH_CASES += [
+    (f"phase 19 probes, bucket {w}", 1, w, w, 4, 4, 32, "f32", "causal", 0,
+     pad) for w, pad in ((8, [3]), (16, [5]), (16, None), (32, [15]))]
+PAGED_CASES += [
+    ("phase 19 probes: 2 slots x 4 blocks of 16", 2, 4, 16, 4, 4, 32, "f32",
+     [63, 9]),
+    ("phase 19 donation probe: 2 slots x 2 blocks of 16", 2, 2, 16, 4, 4, 32,
+     "f32", [0, 31])]
 
 
 def held_shapes() -> set:
@@ -5349,6 +5378,133 @@ def seq_phase(torch, ranks: list) -> dict:
     return out
 
 
+# -- phase 19: the analysis layers' probes on the card ---------------------------
+
+AN_BUDGET_S = 30.0                    # the phase's share of the smoke's limit
+AN_LAYERS = 2                         # reduced qwen3-0.6b's (the probes' engines)
+AN_ROLLOUT_ORACLE_SLOTS = 3 * 4       # (b): three rollouts of 4 Oracle slots
+
+
+def analysis_phase(torch) -> dict:
+    """Phase 19: ``repro_torch.analysis``'s probes on the card.  (a) The
+    retrace probes' serving and chunked engines (reduced qwen3-0.6b,
+    float32) pass their bounds, and every wave's greedy tokens equal the
+    same probe's on the CPU; (b) three Oracle rollouts build nothing and
+    load no library again; (c) the donation probe: every pool leaf keeps
+    its storage over a tick and both commits, and the tick's peak memory
+    grows by less than one pool; (d) ``python -m repro_torch.analysis
+    --lint --json`` exits 0 here, where no JAX is installed.  The kernels'
+    launches over (a)-(c) are counted exactly; each shape they launch at
+    is one phase 5 held."""
+    import contextlib
+    import io
+    from repro_torch.analysis import retrace, shardcheck
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    log("[19] the analysis layers on the card: (a) the retrace probes' "
+        "serving and chunked engines (reduced qwen3-0.6b, float32, waves "
+        f"{retrace.SERVING_WAVES} and {retrace.CHUNKED_WAVES}) against the "
+        "same probes on the CPU; (b) three Oracle rollouts of a 3-cell "
+        "fixed_rate grid; (c) the donation probe; (d) --lint --json")
+    out: dict = {}
+    seen: set = set()
+    zero_all_counts()
+    with recorded_launches(seen):
+        t0 = time.perf_counter()
+        card = [retrace.serving_probe(device="cuda"),
+                retrace.chunked_probe(device="cuda")]
+        torch.cuda.synchronize()
+        probes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rollout = retrace.rollout_probe(device="cuda")
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        fails, figures = shardcheck.donation_probe("cuda")
+    launched = {**read_counts(), "partition_sweep": sweep_launches()}
+    # (a)
+    prefills = decode_ticks = 0
+    for probe in card:
+        cpu = getattr(retrace, f"{probe.name}_probe")(
+            device="cpu", head_dim=min(ops.HEAD_DIMS))
+        if probe.failures or cpu.failures:
+            fail(f"(a) {probe.name} probe: "
+                 f"{[f.render() for f in probe.failures + cpu.failures]}")
+        if probe.prefill_compiles != cpu.prefill_compiles:
+            fail(f"(a) {probe.name}: prefill signatures {probe.prefill_compiles}"
+                 f" on the card, {cpu.prefill_compiles} on the CPU")
+        if probe.tokens != cpu.tokens:
+            parted = sorted(r for r in cpu.tokens
+                            if probe.tokens.get(r) != cpu.tokens[r])
+            fail(f"(a) {probe.name}: greedy tokens of requests {parted} part "
+                 f"from the CPU's")
+        prefills += probe.steps["prefill_steps"] - probe.steps["chunk_steps"]
+        decode_ticks += probe.steps["decode_steps"]
+        log(f"    (a) {probe.name}: prefill signatures after each wave "
+            f"{probe.prefill_compiles}"
+            + (f", prefill_chunk input signatures "
+               f"{len(probe.chunk_signatures)}" if probe.name == "chunked"
+               else "")
+            + f"; {len(probe.tokens)} requests' greedy tokens = the CPU's; "
+            f"engine {probe.steps}")
+        out[probe.name] = {"prefill_compiles": probe.prefill_compiles,
+                           "steps": probe.steps}
+    # (b)
+    if rollout.failures:
+        fail(f"(b) {[f.render() for f in rollout.failures]}")
+    for name, c in rollout.libraries.items():
+        if c["builds"] or c["loads"] or c["total_loads"] > 1:
+            fail(f"(b) library {name}: {c} over the rollouts (nothing is "
+                 f"built or loaded again, once a process at most)")
+    log(f"    (b) 3 rollouts in {rollout_s:.1f} s; libraries built / "
+        f"loaded during them: "
+        + ", ".join(f"{n} {c['builds']}/{c['loads']} ({c['total_loads']} "
+                    f"loads in the process)"
+                    for n, c in rollout.libraries.items()))
+    out["rollout"] = {"libraries": rollout.libraries, "s": rollout_s}
+    # (c)
+    if fails:
+        fail(f"(c) donation probe: {[f.render() for f in fails]}")
+    log(f"    (c) pool leaves keep their storage over two ticks, "
+        f"commit_prefill and commit_chunk; the second tick's peak memory grew "
+        f"{figures['tick_peak_growth_bytes']} B against a pool of "
+        f"{figures['pool_bytes']} B")
+    out["donation"] = figures
+    # the launches of (a)-(c), exactly: a flash forward a layer per solo
+    # prefill or first chunk, a paged decode a layer per tick (the
+    # donation probe's one-layer engine: one prefill, two ticks), a sweep
+    # an Oracle slot
+    want = {"flash_attention": AN_LAYERS * prefills + 1,
+            "flash_attention_backward": 0, "ssd_scan": 0, "rglru_scan": 0,
+            "decode_attention": AN_LAYERS * decode_ticks + 2,
+            "partition_sweep": AN_ROLLOUT_ORACLE_SLOTS}
+    if launched != want:
+        fail(f"phase 19 launches {launched}, expected {want}")
+    log(f"    launches over (a)-(c): {launched}")
+    out["launches"] = launched
+    missed = sorted(seen - held_shapes(), key=str)
+    if missed:
+        fail(f"phase 19 launched kernels at shapes phase 5 did not hold: "
+             f"{missed}")
+    log(f"    (a)-(c) launched the attention kernels at {len(seen)} shapes, "
+        f"each held in phase 5")
+    # (d)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--lint", "--json"])
+    lint = json.loads(buf.getvalue())["lint"]
+    if rc != 0 or lint["new"]:
+        fail(f"(d) --lint --json exited {rc}: {lint}")
+    log(f"    (d) --lint --json: exit 0, {len(lint['new'])} findings, "
+        f"{len(lint['baselined'])} baselined ({time.perf_counter() - t0:.1f} s)")
+    out["probes_s"] = probes_s
+    out["s"] = time.perf_counter() - t_phase
+    log(f"    phase 19: {out['s']:.1f} s of its {AN_BUDGET_S:.0f} s budget"
+        + ("" if out["s"] <= AN_BUDGET_S else " (OVER)"))
+    return out
+
+
 def gm_part(torch, held: dict, phase3: dict, cuts: int, ready: str,
             out: dict) -> int:
     """Phase 15 (a): the grid's model axis on GM_RANKS ranks, held to phase
@@ -5800,12 +5956,22 @@ def main() -> int:
     phase_done(moved=mm["seq_s"])
     report["seq"] = sq = seq_phase(torch, mm.pop("seq_ranks"))
     phase_done()
+    report["analysis"] = an = analysis_phase(torch)
+    phase_done()
+    # every kernel library this process launched was loaded once
+    loads = {lib.name: lib.loads for lib in libs}
+    if any(n != 1 for n in loads.values()):
+        fail(f"kernel libraries loaded {loads} times in this process, "
+             f"expected once each")
+    log(f"    loads of each kernel library in this process: {loads}")
+    report["library_loads"] = loads
 
     kernels = [{
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep.py:175",
-        "launches": launches + mesh["sweep_launches"] + mm["sweep_launches"],
+        "launches": (launches + mesh["sweep_launches"] + mm["sweep_launches"]
+                     + an["launches"]["partition_sweep"]),
         "max_abs_err": max(errs), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -5828,7 +5994,8 @@ def main() -> int:
                          + mm["launches"].get(name, 0)
                          + zr["launches"].get(name, 0)
                          + mo["launches"].get(name, 0)
-                         + sq["launches"].get(name, 0)),
+                         + sq["launches"].get(name, 0)
+                         + an["launches"][name]),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

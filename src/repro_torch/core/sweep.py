@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from ..kernels.partition_sweep import check_scalar_rows
 from ..kernels.ref import SCALAR_NAMES
 from . import convex, energymem, queueing
 
@@ -103,7 +102,7 @@ def scalar_rows_p(params) -> torch.Tensor:
     raises ValueError), on CPU ones not (the plain sweep has no limit)."""
     rows = _stack_scalars(params)
     if rows.is_cuda:
-        check_scalar_rows(rows)
+        ops.check_scalar_rows(rows)
     return rows
 
 

@@ -40,7 +40,9 @@ class Library:
     error code, and ``<name>_error_string``.  ``bind(lib)`` sets the launch
     functions' ``argtypes``/``restype`` when the library is first loaded.
     ``build_log`` holds what nvcc printed (``-Xptxas -v``: registers, shared
-    memory, spills) after a build in this process.
+    memory, spills) after a build in this process.  ``builds`` and
+    ``loads`` count the nvcc runs and the ``ctypes`` loads of this library
+    in this process: each is at most 1 (``analysis.retrace``).
     """
 
     def __init__(self, name: str, source: pathlib.Path, bind,
@@ -51,6 +53,8 @@ class Library:
         self._bind = bind
         self._lib = None
         self.build_log = ""
+        self.builds = 0
+        self.loads = 0
 
     def path(self) -> pathlib.Path:
         digest = hashlib.sha256(self.source.read_bytes()
@@ -68,6 +72,7 @@ class Library:
     def load(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
+            self.loads += 1
             self._bind(lib)
             err_str = getattr(lib, f"{self.name}_error_string")
             err_str.argtypes = [ctypes.c_int]
@@ -103,6 +108,7 @@ def build_all(libraries) -> list[pathlib.Path]:
         os.close(fd)
         proc = subprocess.Popen(lib._command(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        lib.builds += 1
         jobs.append((lib, out, tmp, proc))
     errors = []
     for lib, out, tmp, proc in jobs:

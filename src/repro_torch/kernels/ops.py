@@ -17,6 +17,12 @@ from __future__ import annotations
 import torch
 
 from . import ref
+# names that callers outside kernels/ need of the kernel modules and the
+# build, re-exported here so that nothing else imports those directly (the
+# kernel-wrapper lint rule, ``analysis.rules``)
+from ._build import all_libraries as all_libraries
+from .flash_attention import HEAD_DIMS as HEAD_DIMS
+from .partition_sweep import check_scalar_rows as check_scalar_rows
 
 # kernel -> the ROADMAP item that will give it a backward
 NO_BACKWARD = {

@@ -51,7 +51,7 @@ def kernel_head_dim(device) -> dict:
     """The ``reduced`` override that a reduced config needs to run on
     ``device``: on CUDA the attention kernels' smallest head dim (the
     reduced configs' 16 is below it), printed; nothing on the CPU."""
-    from ..kernels.flash_attention import HEAD_DIMS
+    from ..kernels.ops import HEAD_DIMS
     if torch.device(device).type != "cuda":
         return {}
     print(f"[reduced] head dim widened from 16 to {min(HEAD_DIMS)} on "

@@ -277,7 +277,7 @@ class ServingEngine:
         self.prefill_steps += 1
         self._finite("prefill", logits)
         # admission's one sync: a single token id
-        nxt = int(torch.argmax(logits[0], -1))
+        nxt = int(torch.argmax(logits[0], -1))  # reprolint: ignore[host-sync]
         if self.obs is not None:
             self.obs.on_prefill(self, t0, batch=1, width=width)
         # a sequence-split cache goes into the pool's layout: one
@@ -517,7 +517,7 @@ class ServingEngine:
         self.decode_steps += 1
         self._finite("decode_step_paged", logits)
         # the tick's one sync: (slots,) token ids
-        nxt = torch.argmax(logits, -1).cpu().numpy()
+        nxt = torch.argmax(logits, -1).cpu().numpy()  # reprolint: ignore[host-sync]
         if sampled:
             obs.on_decode_tick(self, t0, len(live))
         for i in live:
@@ -571,7 +571,7 @@ class ServingEngine:
         self.prefill_steps += 1
         self._finite("prefill", logits)
         # admission's one sync: (slots,) token ids
-        nxt = torch.argmax(logits, -1).cpu().numpy()
+        nxt = torch.argmax(logits, -1).cpu().numpy()  # reprolint: ignore[host-sync]
         if self.obs is not None:
             self.obs.on_prefill(self, t0, batch=len(batch), width=width)
         for i, r in enumerate(batch):
@@ -608,7 +608,7 @@ class ServingEngine:
         self.decode_steps += 1
         self._finite("decode_step", logits)
         # the tick's one sync: (slots,) token ids
-        nxt = torch.argmax(logits, -1).cpu().numpy()
+        nxt = torch.argmax(logits, -1).cpu().numpy()  # reprolint: ignore[host-sync]
         if sampled:
             obs.on_decode_tick(self, t0, live)
         self._last = nxt
