@@ -9,16 +9,18 @@ LyMDO controller deciding and scoring slots for a 4096-cell x 8-UE grid
 full width on the ES tier: qwen3-0.6b, mamba2-1.3b and the MoE
 moonshot-v1-16b-a3b through the partitioned server, recurrentgemma-2b
 through the serving launcher, and llama4-maverick, llama-3.2-vision and
-seamless-m4t through the model's entry points; qwen3-0.6b trained at full
-width through the training launcher; the grid sharded over a cells mesh
+seamless-m4t through the model's entry points; qwen3-0.6b, mamba2-1.3b
+and recurrentgemma-2b trained at full width through the training
+launcher; the grid sharded over a cells mesh
 of processes; qwen3-0.6b served tensor-parallel over two ranks; the
 grid's per-cell model axis; qwen3-0.6b trained over a (data, model) mesh
 of processes -- and
 checks every kernel of those paths against its plain PyTorch version on
 the card:
 
-1. builds the five CUDA kernel sources in this checkout (flash attention's
-   holds its backward too), one nvcc process per source, all at once;
+1. builds the five CUDA kernel sources in this checkout (flash
+   attention's, the SSD scan's and the RG-LRU scan's hold their backwards
+   too), one nvcc process per source, all at once;
 2. holds each kernel against its plain version at the main path's shapes
    and more -- the learning loop's one-cell Oracle (5 UEs, through the
    one-cell entry) and its 4096 x 5 grid of Fig. 4 cells, an LM-shaped
@@ -47,9 +49,9 @@ the card:
    the trained agent through ``eval_policy_batched`` beside the Oracle on
    a 4096-cell grid of Fig. 4's fixed rates for 3 slots (the Oracle also
    for 10 slots on the card and on a CPU copy of that grid on the same
-   draws, held as phase 3 holds its small grid), and profiles of 3
-   rollout slots and of one K = 200 update, composed into a training
-   slot (a rollout slot and 1/K of an update);
+   draws, held as phase 3 holds its small grid), and profiles of
+   PROFILE_SLOTS rollout slots and of one K = 200 update, composed into a
+   training slot (a rollout slot and 1/K of an update);
 5. holds the flash and decode attention kernels against their plain
    versions at the serving path's shapes (phase 11's among them) and at
    the reference's own kernel test cases, each float32 case with a bf16 twin for flash's tensor-core
@@ -160,17 +162,16 @@ the card:
    qwen3-0.6b at full width, 28 layers, bf16, remat, 2 microbatches, B8
    S512, 8 steps; 12 before phase 17 was added) with exact launches
    (flash 112 forwards and 56 backwards a step, no other kernel), a
-   falling loss, then a run stopped at step 4 and one resumed from its
-   checkpoint, whose parameters and
-   moments must equal the uninterrupted run's bit for bit; step time p50,
+   falling loss, and a checkpoint at step 5, from which a second run
+   resumes (until phase 20 a third run, stopped at step 4, wrote it);
+   the resumed run's parameters and moments must equal the uninterrupted
+   run's bit for bit; step time p50,
    tokens/s, MFU (``roofline.step_flops``' model flops over the step time
    and ``roofline.PEAK_FLOPS``), peak memory and a profile of 3 steps;
    (c) one float32 step card against CPU at 4 layers and full width
    (qwen3-0.6b, the whole ``make_train_step`` step; gemma3-1b as (l, g);
-   moonshot at the no-drop capacity factor), and checks that a
-   recurrentgemma or mamba2 train step on the card raises
-   NotImplementedError; (d) ``python -m repro_torch.train_lm --steps 100``,
-   whose loss must fall;
+   moonshot at the no-drop capacity factor); (d) ``python -m
+   repro_torch.train_lm --steps 100``, whose loss must fall;
 13. drives the cells mesh (``launch.mesh``, ``core.gridshard``,
    ``ScenarioGrid.use_mesh``): (a) ``python -m repro_torch.scenario_sweep``'s
    ``main`` (``MESH_SWEEP_ARGS``) on a one-rank NCCL mesh, its sharded leg
@@ -269,6 +270,39 @@ the card:
    exactly, each shape is one phase 5 held, and
    at the end every kernel library is loaded once in this process.  The
    phase logs its seconds against a 30 s budget.
+20. trains the "s" and "r" kinds on the card, in this process: (a) holds
+   the SSD and RG-LRU backward kernels (through ``ops.ssd_scan`` /
+   ``ops.rglru_scan`` with a gradient wanted, so ``SsdScan`` /
+   ``RglruScan``) against autograd through the float32 plain versions
+   (1e-4 of max(1, max |g|) in float32, 2e-2 for a gradient that comes out
+   in bf16; each case twice, equal bit for bit): the SSD at mamba2's
+   training shape (B4 S512 H64 P64 N128) in bf16 and float32, S = 1, 63,
+   64, 65 and 333 (the one-kernel path and the chunk edges), G 2 over 4
+   heads, resets at step 0, on a chunk boundary and twice in one chunk,
+   the final state's cotangent absent (as in training), zero and drawn;
+   the RG-LRU at B4 S512 R2560 in float32 and bf16, S = 1, an odd S with
+   resets on a segment's first and last step and on a tile boundary, R
+   not a multiple of the channel tile; flash's backward at
+   recurrentgemma's "l" shape (B4 S512 H10/1 hd256, window 2,048); and
+   times each backward alone at its training shape beside the plain
+   version's autograd and the bound; (b) ``launch.train.main``
+   (``MAMBA_TRAIN_ARGS``: mamba2-1.3b at full width and depth, 48 "s"
+   layers, bf16, remat, B8 S512 in 2 microbatches, 5 steps, lr 3e-4) with
+   exact launches (SSD forward 2 x 48 a microbatch, backward 48, no other
+   kernel), a falling loss, step p50, tokens/s, MFU, peak memory and a
+   profile of 3 steps; (c) the same for recurrentgemma-2b at full width
+   and ``RG_TRAIN_LAYERS`` = 5 layers, one (r, r, l) unit and the (r, r)
+   tail (RG-LRU forward 6 and backward 4 a microbatch, flash 2 and 1); (d)
+   one float32 step card against CPU at full width and 4 layers
+   (``train_card_vs_cpu``; mamba2's "s" x 4, recurrentgemma's (r, r, l,
+   r)) with exact launches.  (a) also checks that decode attention (dense
+   and paged) and the sweep, which have no backward, still raise
+   NotImplementedError on the card where a gradient is wanted through
+   them, and run under no_grad.  The phase logs its
+   seconds against a 75 s budget.  To pay for it, phase 12 (b) resumes
+   from its uninterrupted run's checkpoint instead of a third run stopped
+   at step 4, phases 3 and 4 (e) profile one slot instead of 3, and every
+   profile traces the device's activity only (``profiled``).
 
 It exits nonzero, printing no result, where CUDA is unavailable or any
 check fails.  It logs the seconds each phase takes.  The last lines are the
@@ -304,7 +338,10 @@ SMALL_CELLS, SMALL_SLOTS = 8, 20
 # card against the port's CPU path on the same draws: the P3/P5 minimizers
 # are flat to float32 rounding, so cuts may differ in a few places
 SAME_CUT_MIN, SUMMARY_RTOL = 0.95, 1e-2
-PROFILE_SLOTS = 3
+# the grid's and the training loop's profiles: one slot (3 before phase
+# 20 was added; every slot issues the same ~33,800 device ops, and the
+# profiler took ~0.35 ms an op to average them)
+PROFILE_SLOTS = 1
 # the card's bf16 logits may stand this many times as far from a float32
 # evaluation as the CPU's bf16 logits (1.015-1.027 in the chip runs that
 # set it, on qwen3-0.6b, mamba2-1.3b and recurrentgemma-2b)
@@ -342,12 +379,15 @@ PROFILE_TRIES = 5     # a profile on an H100 once recorded nothing 3 times runni
 
 def profiled(torch, run):
     """(the CUDA kernels' rows of ``key_averages``, wall seconds) of
-    ``run()`` under torch.profiler.  A profile that records no device time
-    is taken again, PROFILE_TRIES times in all; then the run fails."""
+    ``run()`` under torch.profiler, tracing the device's activity only:
+    every caller reads the device's rows, and tracing the host's ops too
+    made a 3-step profile of a mamba2-1.3b training step take ~50 s on an
+    H100 (20 s without them), its wall time inflated with it.  A profile
+    that records no device time is taken again, PROFILE_TRIES times in
+    all; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -654,8 +694,9 @@ def finite_tree(torch, tree) -> bool:
 
 def window(torch, run, calls: int) -> dict:
     """Per call of ``run()``, which makes ``calls`` calls (slots, updates):
-    wall ms, device ms, device ops and the busy share under torch.profiler,
-    and the kernels that take the most device time over the window."""
+    wall ms, device ms, device ops and the busy share under torch.profiler
+    (``profiled``), and the kernels that take the most device time over
+    the window."""
     rows, wall_s = profiled(torch, run)
     device_ms = sum(e.device_time_total for e in rows) / 1e3
     top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
@@ -2078,7 +2119,15 @@ def scan_counters():
             "flash_attention": flash_attention.flash_attention_cuda,
             "flash_attention_backward":
                 flash_attention.flash_attention_backward_cuda,
-            "decode_attention": decode_attention.decode_attention_cuda}
+            "decode_attention": decode_attention.decode_attention_cuda,
+            "ssd_scan_backward": ssd_scan.ssd_scan_backward_cuda,
+            "rglru_scan_backward": rglru_scan.rglru_scan_backward_cuda}
+
+
+def launches_of(**counts) -> dict:
+    """The launches expected of every counted kernel: ``counts``, 0 for
+    each kernel they do not name."""
+    return {name: counts.get(name, 0) for name in scan_counters()}
 
 
 def zero_counts() -> None:
@@ -3175,9 +3224,11 @@ def flash_grad_phase(torch) -> dict:
 # lr 3e-4 (make_train_step's default): at the launcher's 1e-3 (the
 # reference's default) the loss fell for 6 steps, then rose past its start
 # (12.134 -> 12.053 -> 12.186, measured on one H100)
-# (b): 8 steps, stopped at 4 and resumed (12 and 6 before phase 17 was
-# added: the three runs took 86.6 s of the smoke)
-TRAIN_STEPS, TRAIN_RESUME_AT = 8, 4
+# (b): 8 steps, whose checkpoint at step 5 a second run resumes from (12
+# steps and a resume at 6 before phase 17 was added: the three runs took
+# 86.6 s of the smoke; until phase 20 was added a third run, stopped at
+# step 4, wrote the checkpoint the resumed run started from)
+TRAIN_STEPS, TRAIN_RESUME_AT = 8, 5
 TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512",
               "--steps", str(TRAIN_STEPS), "--ckpt-every",
               str(TRAIN_RESUME_AT), "--lr", "3e-4"]
@@ -3217,13 +3268,15 @@ def train_depth(layers: int):
         train.get_config = full
 
 
-def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
+def train_card_vs_cpu(torch, label, cfg, full_step: bool,
+                      part: str = "c") -> dict:
     """One float32 training step of ``cfg`` on the card and on the CPU from
     the same parameters (drawn on the card) and batch: the loss within
     LOSS_RTOL, each gradient leaf within 1e-4 of its max |g|; with
     ``full_step`` the whole ``make_train_step`` step: Adam's first moments
     within 1e-4 of each leaf's max, its second moments within
-    MOMENT2_TOL, and the loss on the next batch within LOSS_RTOL."""
+    MOMENT2_TOL, and the loss on the next batch within LOSS_RTOL.
+    ``part`` names the phase's part in the log."""
     from repro_torch import _tree
     from repro_torch.data.pipeline import for_arch
     from repro_torch.models import steps, transformer
@@ -3246,11 +3299,11 @@ def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
         scale = float(w.abs().max())
         err = float((g.cpu() - w).abs().max())
         if err > 1e-4 * scale:
-            fail(f"(c) {label}: a gradient leaf {tuple(w.shape)} off by "
+            fail(f"({part}) {label}: a gradient leaf {tuple(w.shape)} off by "
                  f"{err:.3e}, above 1e-4 of its max {scale:.3e}")
         worst = max(worst, err / max(scale, 1e-30))
     if rel > LOSS_RTOL:
-        fail(f"(c) {label}: card loss {float(loss):.7f} vs CPU "
+        fail(f"({part}) {label}: card loss {float(loss):.7f} vs CPU "
              f"{float(cpu_loss):.7f} ({rel:.2e} relative)")
     del grads, cpu_grads
     out.update(loss=float(loss), loss_rel=rel, grad_rel=worst)
@@ -3273,7 +3326,7 @@ def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
                 scale = float(w.abs().max())
                 err = float((a.cpu() - w).abs().max())
                 if err > tol * scale:
-                    fail(f"(c) {label}: a {name} moment leaf "
+                    fail(f"({part}) {label}: a {name} moment leaf "
                          f"{tuple(w.shape)} off by {err:.3e}, above {tol} "
                          f"of its max {scale:.3e}")
                 rel = max(rel, err / max(scale, 1e-30))
@@ -3283,32 +3336,113 @@ def train_card_vs_cpu(torch, label, cfg, full_step: bool) -> dict:
         cpu_after = float(steps.loss_fn(cpu_new, cfg, stream.get_batch(1))[0])
         out["loss_after_rel"] = abs(after - cpu_after) / abs(cpu_after)
         if out["loss_after_rel"] > LOSS_RTOL:
-            fail(f"(c) {label}: after a step the next batch's loss differs "
-                 f"by {out['loss_after_rel']:.2e} relative")
+            fail(f"({part}) {label}: after a step the next batch's loss "
+                 f"differs by {out['loss_after_rel']:.2e} relative")
     step_note = (f"; after a step moments within {out['momentf_rel']:.2e} "
                  f"and {out['moments_rel']:.2e} of their max, next loss "
                  f"{out['loss_after_rel']:.2e} relative"
                  if full_step else "")
-    log(f"    (c) {label}: loss {out['loss']:.6f}, {rel:.2e} relative; "
+    log(f"    ({part}) {label}: loss {out['loss']:.6f}, {rel:.2e} relative; "
         f"worst gradient leaf {worst:.2e} of its max{step_note} (card "
         f"{out['card_s']:.1f} s, CPU {out['cpu_s']:.1f} s)")
     return out
 
 
+def train_run(torch, args: list, smi: str, launches: dict,
+              depth: int | None = None):
+    """``launch.train.main(args)`` (at ``depth`` layers where given) with
+    every kernel's launches held to ``launches`` (0 for the others), a
+    finite loss that falls (the last 3 steps' sum below the first 3's), and
+    its numbers: step p50 (step 0, which warms up, left out), tokens/s,
+    MFU (``roofline.step_flops``' model flops over the p50 and the dense
+    bf16 peak) and peak memory.  Returns (the run's result, the numbers)."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import train
+    from repro_torch.profiling import roofline
+    zero_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with train_depth(depth) if depth else contextlib.nullcontext():
+        run = train.main(args)
+    run_s = time.perf_counter() - t0
+    got = {**read_counts(), "partition_sweep": sweep_launches()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: launches.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{run['arch']}: launches {got}, expected {want}")
+    losses = [run["losses"][k] for k in sorted(run["losses"])]
+    if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
+        fail(f"{run['arch']}: non-finite loss: {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"{run['arch']}: the loss did not fall: {losses}")
+    cfg = run["cfg"]
+    a = train.parse_args(args)
+    step_s = run["step_s"][1:]
+    p50 = sorted(step_s)[len(step_s) // 2]
+    model_flops = roofline.step_flops(
+        cfg, SimpleNamespace(batch=a.batch, seq=a.seq), "train")["model"]
+    stats = {
+        "args": args, "layers": cfg.n_layers, "losses": losses,
+        "launches": got, "microbatches": run["microbatches"], "run_s": run_s,
+        "step_p50_ms": p50 * 1e3, "step_min_ms": min(step_s) * 1e3,
+        "step_max_ms": max(step_s) * 1e3,
+        "tokens_per_s": a.batch * a.seq / p50,
+        "model_tflop_per_step": model_flops / 1e12,
+        "mfu": model_flops / p50 / roofline.PEAK_FLOPS,
+        "peak_memory_gb": peak_gb, "stragglers": run["stragglers"],
+        "nvidia_smi": smi}
+    log(f"    {cfg.name} at {cfg.n_layers} layers: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {len(losses)} steps, {run['microbatches']} "
+        f"microbatches; launches {got}")
+    log(f"    step p50 {p50 * 1e3:.1f} ms (min {min(step_s) * 1e3:.1f}, max "
+        f"{max(step_s) * 1e3:.1f}), {a.batch * a.seq / p50:,.0f} tokens/s, "
+        f"MFU {stats['mfu']:.4f} ({model_flops / 1e12:.2f} TFLOP of model "
+        f"flops a step over {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s), peak "
+        f"memory {peak_gb:.2f} GB ({smi})")
+    return run, stats
+
+
+def train_profile(torch, args: list, depth: int | None = None) -> dict:
+    """A profile of TRAIN_PROFILE_STEPS steps of ``launch.train``'s step
+    (at ``depth`` layers where given), after one step that warms up."""
+    from repro_torch.launch import train
+    with train_depth(depth) if depth else contextlib.nullcontext():
+        run = train.setup(train.parse_args(args))
+    state = [run["params"], run["opt"]]
+
+    def one(step):
+        state[0], state[1], _ = run["train_step"](
+            state[0], state[1], run["stream"].get_batch(step))
+
+    one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof = window(torch, lambda: [one(i) for i in range(
+        1, 1 + TRAIN_PROFILE_STEPS)], TRAIN_PROFILE_STEPS)
+    prof["profile_s"] = time.perf_counter() - t0
+    del run, state
+    log(f"    profile of {TRAIN_PROFILE_STEPS} steps ("
+        f"{prof['profile_s']:.1f} s): {prof['wall_ms']:.1f} "
+        f"ms wall, {prof['device_ms']:.1f} ms device a step, device busy "
+        f"{prof['device_busy_share']:.3f}, {prof['device_ops']:.0f} device "
+        f"ops a step")
+    for row in prof["top"]:
+        log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
+            f"{row['name']}")
+    return prof
+
+
 def training_phase(torch, smi: str) -> dict:
     """Phase 12: the flash backward (a), then LM training on the card: (b)
-    ``launch.train`` at full width, killed and resumed, profiled; (c)
-    float32 steps card against CPU and the scan kinds' refusal; (d) the
-    ``train_lm`` twin."""
+    ``launch.train`` at full width, resumed from its own checkpoint,
+    profiled; (c) float32 steps card against CPU; (d) the ``train_lm``
+    twin."""
     import shutil
-    from types import SimpleNamespace
 
     from repro_torch import train_lm
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import for_arch
     from repro_torch.launch import train
-    from repro_torch.models import steps, transformer
-    from repro_torch.profiling import roofline
     t_part = time.perf_counter()
     out = {"flash_grad": flash_grad_phase(torch), "part_s": {}}
 
@@ -3321,30 +3455,15 @@ def training_phase(torch, smi: str) -> dict:
 
     part_done("a")
 
-    # (b) full width: uninterrupted, then stopped at 6 and resumed
+    # (b) full width: uninterrupted, writing a checkpoint at
+    # TRAIN_RESUME_AT, then resumed from it
     log(f"[12] (b) python -m repro_torch.launch.train {' '.join(TRAIN_ARGS)}")
-    zero_all_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    whole = train.main(TRAIN_ARGS)
-    whole_s = time.perf_counter() - t0
-    launches = {**read_counts(), "partition_sweep": sweep_launches()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: 0 for k in launches}
-    want["flash_attention"] = TRAIN_FLASH_FWD * TRAIN_STEPS
-    want["flash_attention_backward"] = TRAIN_FLASH_BWD * TRAIN_STEPS
-    if launches != want:
-        fail(f"(b) launches {launches}, expected {want}")
-    losses = [whole["losses"][s] for s in range(TRAIN_STEPS)]
-    if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
-        fail(f"(b) non-finite loss: {losses}")
-    if not sum(losses[-3:]) < sum(losses[:3]):
-        fail(f"(b) the loss did not fall: {losses}")
     ckpt = ROOT / "build" / "phase12_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     part = ["--ckpt-dir", str(ckpt)]
-    first = train.main([*TRAIN_ARGS, "--steps", str(TRAIN_RESUME_AT), *part])
-    del first
+    whole, train_out = train_run(torch, TRAIN_ARGS + part, smi, {
+        "flash_attention": TRAIN_FLASH_FWD * TRAIN_STEPS,
+        "flash_attention_backward": TRAIN_FLASH_BWD * TRAIN_STEPS})
     # the resumed run writes no checkpoint of its own: 6 GB less to disk
     resumed = train.main([*TRAIN_ARGS, "--ckpt-every", str(TRAIN_STEPS + 1),
                           *part])
@@ -3356,56 +3475,16 @@ def training_phase(torch, smi: str) -> dict:
     if resume_diff != 0.0:
         fail(f"(b) the resumed run's parameters or moments differ from the "
              f"uninterrupted run's by {resume_diff:.3e}")
-    cfg = get_config("qwen3-0.6b")
-    b, s = 8, 512
-    step_s = whole["step_s"][1:]                 # step 0 builds and warms
-    p50 = sorted(step_s)[len(step_s) // 2]
-    model_flops = roofline.step_flops(cfg, SimpleNamespace(batch=b, seq=s),
-                                      "train")["model"]
-    out["train"] = train_out = {
-        "args": TRAIN_ARGS, "losses": losses, "launches": launches,
-        "microbatches": whole["microbatches"], "run_s": whole_s,
-        "step_p50_ms": p50 * 1e3, "step_min_ms": min(step_s) * 1e3,
-        "step_max_ms": max(step_s) * 1e3, "tokens_per_s": b * s / p50,
-        "model_tflop_per_step": model_flops / 1e12,
-        "mfu": model_flops / p50 / roofline.PEAK_FLOPS,
-        "peak_memory_gb": peak_gb, "resume_max_diff": resume_diff,
-        "stragglers": whole["stragglers"], "nvidia_smi": smi}
+    out["train"] = train_out
+    train_out["resume_max_diff"] = resume_diff
     del whole, resumed
-    log(f"    loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} "
-        f"steps; resumed at {TRAIN_RESUME_AT} == uninterrupted, bit for bit; "
-        f"launches {launches}")
-    log(f"    step p50 {p50 * 1e3:.1f} ms (min {min(step_s) * 1e3:.1f}, max "
-        f"{max(step_s) * 1e3:.1f}), {b * s / p50:,.0f} tokens/s, MFU "
-        f"{train_out['mfu']:.4f} ({model_flops / 1e12:.2f} TFLOP of model "
-        f"flops a step over {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s), peak "
-        f"memory {peak_gb:.2f} GB ({smi})")
-
-    # (b) a profile of TRAIN_PROFILE_STEPS steps
-    run = train.setup(train.parse_args(TRAIN_ARGS))
-    state = [run["params"], run["opt"]]
-
-    def one(step):
-        state[0], state[1], _ = run["train_step"](
-            state[0], state[1], run["stream"].get_batch(step))
-
-    one(0)
-    torch.cuda.synchronize()
-    prof = window(torch, lambda: [one(i) for i in range(
-        1, 1 + TRAIN_PROFILE_STEPS)], TRAIN_PROFILE_STEPS)
-    del run, state
-    train_out["profile"] = prof
-    log(f"    profile of {TRAIN_PROFILE_STEPS} steps: {prof['wall_ms']:.1f} "
-        f"ms wall, {prof['device_ms']:.1f} ms device a step, device busy "
-        f"{prof['device_busy_share']:.3f}, {prof['device_ops']:.0f} device "
-        f"ops a step")
-    for row in prof["top"]:
-        log(f"      {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
-            f"{row['name']}")
+    log(f"    resumed from the uninterrupted run's checkpoint at step "
+        f"{TRAIN_RESUME_AT}: == uninterrupted, bit for bit")
+    train_out["profile"] = train_profile(torch, TRAIN_ARGS)
 
     part_done("b")
 
-    # (c) float32, card against CPU; the scan kinds refuse
+    # (c) float32, card against CPU
     log("[12] (c) float32 training steps, card vs CPU (4 layers, full width)")
     f32 = dict(param_dtype="float32", compute_dtype="float32",
                opt_state_dtype="float32")
@@ -3420,16 +3499,6 @@ def training_phase(torch, smi: str) -> dict:
         "gemma3": train_card_vs_cpu(torch, "gemma3-1b (l, g)", gemma, False),
         "moonshot": train_card_vs_cpu(torch, "moonshot-v1-16b-a3b", moon,
                                       False)}
-    for name in ("recurrentgemma-2b", "mamba2-1.3b"):
-        cfg_r = reduced_for_card(get_config(name))
-        params = transformer.init_params(0, cfg_r, "cuda")
-        batch = for_arch(cfg_r, 2, 32, device="cuda").get_batch(0)
-        try:
-            steps.value_and_grad(params, cfg_r, batch)
-        except NotImplementedError as e:
-            log(f"    (c) {name}: {e}")
-        else:
-            fail(f"(c) a {name} train step on the card did not raise")
 
     part_done("c")
 
@@ -4575,9 +4644,8 @@ def zero_phase(torch, ranks: list, p15: dict, dry: DryRun) -> dict:
     in_world = max(r["s"] for r in ranks)
     out: dict = {"in_world_s": in_world}
     tokens = 8 * 512
-    want = {"flash_attention": TM_FLASH_FWD * TZ_STEPS,
-            "flash_attention_backward": TM_FLASH_BWD * TZ_STEPS,
-            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    want = launches_of(flash_attention=TM_FLASH_FWD * TZ_STEPS,
+                       flash_attention_backward=TM_FLASH_BWD * TZ_STEPS)
     log(f"[16] (a) python -m repro_torch.launch.train {' '.join(TZ_ARGS)} "
         f"under qwen3's recommended options (every layer whole on each "
         f"model rank, the vocabulary over \"model\", ZeRO-3 over (\"data\", "
@@ -4912,9 +4980,8 @@ def moe_phase(torch, ranks: list) -> dict:
         f"{TMOE_STEPS} bf16 steps each, and a float32 step against one "
         f"rank's (loss {one['loss']:.6f}, ce {one['ce']:.6f}, aux "
         f"{one['aux']:.6f}, {one['kept']} kept slots)")
-    want_launch = {"flash_attention": 2 * TMOE_STEPS,
-                   "flash_attention_backward": TMOE_STEPS,
-                   "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    want_launch = launches_of(flash_attention=2 * TMOE_STEPS,
+                              flash_attention_backward=TMOE_STEPS)
     launched = {"flash_attention": 0, "flash_attention_backward": 0}
     for layout in TMOE_LAYOUTS:
         rows = [r[layout] for r in ranks]
@@ -5254,9 +5321,8 @@ def seq_phase(torch, ranks: list) -> dict:
         f"prompts of {KV_PROMPTS} tokens and {KV_NEW} new each: one rank, "
         f"then the mesh with sequence-split caches")
     # (a)
-    want = {"flash_attention": 2 * TM_LAYERS * SQ_STEPS,
-            "flash_attention_backward": TM_LAYERS * SQ_STEPS,
-            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    want = launches_of(flash_attention=2 * TM_LAYERS * SQ_STEPS,
+                       flash_attention_backward=TM_LAYERS * SQ_STEPS)
     launched = {k: 0 for k in ("flash_attention", "flash_attention_backward",
                                "decode_attention")}
     tokens = SQ_ROWS * TM_DATA * SQ_SEQ
@@ -5320,10 +5386,8 @@ def seq_phase(torch, ranks: list) -> dict:
     layers = 26
     for label, run in [("one rank", one)] + [
             (f"rank {r['coords']}", r["b"]["mesh"]) for r in ranks]:
-        want = {"flash_attention": layers * run["prefill_steps"],
-                "flash_attention_backward": 0, "ssd_scan": 0,
-                "rglru_scan": 0,
-                "decode_attention": layers * run["decode_steps"]}
+        want = launches_of(flash_attention=layers * run["prefill_steps"],
+                           decode_attention=layers * run["decode_steps"])
         if run["launches"] != want or run["prefill_steps"] != 1:
             fail(f"(b) {label}: launches {run['launches']} over "
                  f"{run['prefill_steps']} prefill and {run['decode_steps']} "
@@ -5474,9 +5538,8 @@ def analysis_phase(torch) -> dict:
     # prefill or first chunk, a paged decode a layer per tick (the
     # donation probe's one-layer engine: one prefill, two ticks), a sweep
     # an Oracle slot
-    want = {"flash_attention": AN_LAYERS * prefills + 1,
-            "flash_attention_backward": 0, "ssd_scan": 0, "rglru_scan": 0,
-            "decode_attention": AN_LAYERS * decode_ticks + 2,
+    want = {**launches_of(flash_attention=AN_LAYERS * prefills + 1,
+                          decode_attention=AN_LAYERS * decode_ticks + 2),
             "partition_sweep": AN_ROLLOUT_ORACLE_SLOTS}
     if launched != want:
         fail(f"phase 19 launches {launched}, expected {want}")
@@ -5502,6 +5565,366 @@ def analysis_phase(torch) -> dict:
     out["s"] = time.perf_counter() - t_phase
     log(f"    phase 19: {out['s']:.1f} s of its {AN_BUDGET_S:.0f} s budget"
         + ("" if out["s"] <= AN_BUDGET_S else " (OVER)"))
+    return out
+
+
+# -- phase 20: training the "s" and "r" kinds --------------------------------
+
+SG_BUDGET_S = 75.0                    # the phase's share of the smoke's limit
+SSD_GRAD_CHUNK = 64                   # the plain version's chunk, S padded
+SSD_GRAD_NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
+# (a): (label, b, s, h, p, g, n, dtype, resets, the final state's cotangent:
+# None (the state not differentiated, as in training), "zero" or "random");
+# mamba2's H 64, P 64, N 128 at the training shape (a microbatch of B8 S512
+# in 2), and its P and N at the one-kernel path (S <= 64) and the chunk
+# edges; S 333 with resets at step 0, on the boundary of chunk 2 and twice
+# inside it; G 2 over 4 heads
+SSD_GRAD_CASES = [
+    ("train", 4, 512, 64, 64, 1, 128, "bf16", None, None),
+    ("train", 4, 512, 64, 64, 1, 128, "f32", None, None),
+    ("S1", 2, 1, 8, 64, 1, 128, "f32", ((1, 0),), "random"),
+    ("S1", 2, 1, 8, 64, 1, 128, "bf16", None, "random"),
+    ("S63", 2, 63, 8, 64, 1, 128, "f32", ((0, 0),), "random"),
+    ("S63", 2, 63, 8, 64, 1, 128, "bf16", ((0, 0),), "random"),
+    ("S64", 2, 64, 8, 64, 1, 128, "f32", ((1, 10), (1, 40)), "random"),
+    ("S65", 2, 65, 8, 64, 1, 128, "f32", ((0, 64), (1, 0)), "random"),
+    ("S65", 2, 65, 8, 64, 1, 128, "bf16", ((0, 64), (1, 0)), "random"),
+    ("S333", 1, 333, 8, 64, 1, 128, "f32",
+     ((0, 0), (0, 128), (0, 140), (0, 150)), "random"),
+    ("S333", 1, 333, 8, 64, 1, 128, "bf16",
+     ((0, 0), (0, 128), (0, 140), (0, 150)), "random"),
+    ("G2 H4", 2, 197, 4, 32, 2, 16, "f32", ((0, 64), (1, 70), (1, 100)),
+     "random"),
+    ("G2 H4", 2, 197, 4, 32, 2, 16, "bf16", ((0, 64), (1, 70), (1, 100)),
+     "random"),
+    ("final state's cotangent 0", 2, 130, 8, 64, 1, 128, "f32", ((0, 64),),
+     "zero"),
+]
+# (label, b, s, r, dtype, resets): recurrentgemma's R 2,560 at the training
+# shape; S 1; an odd S (plan: segments of 8 steps, tiles of 128) with
+# resets on a segment's first (8) and last (15) step and on a tile boundary
+# (128); R not a multiple of the 16-channel tile
+RGLRU_GRAD_CASES = [
+    ("train", 4, 512, 2560, "f32", None),
+    ("train", 4, 512, 2560, "bf16", None),
+    ("S1", 2, 1, 16, "f32", ((1, 0),)),
+    ("odd S", 2, 197, 37, "f32",
+     ((0, 8), (0, 15), (0, 128), (1, 127), (1, 130), (1, 133))),
+    ("odd S", 2, 197, 37, "bf16",
+     ((0, 8), (0, 15), (0, 128), (1, 127), (1, 130), (1, 133))),
+    ("R 40", 1, 300, 40, "f32", ((0, 0), (0, 256), (0, 299))),
+]
+# (c)'s "l" layers: the flash backward at recurrentgemma's training shape
+RG_FLASH_GRAD = ("recurrentgemma local", 4, 512, 512, 10, 1, 256, "bf16",
+                 "local", 2048, None)
+SSD_BWD_SHAPE = (4, 512, 64, 64, 1, 128)        # timed: (b)'s microbatch
+RGLRU_BWD_SHAPE = (4, 512, 2560)                # timed: (c)'s microbatch
+# (b) and (c): B8 S512 in 2 microbatches (recommended_options), bf16, remat,
+# lr 3e-4 as phase 12 (b)
+SG_STEPS = 5
+MAMBA_TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--batch", "8", "--seq", "512",
+                    "--steps", str(SG_STEPS), "--lr", "3e-4"]
+RG_TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "8", "--seq",
+                 "512", "--steps", str(SG_STEPS), "--lr", "3e-4"]
+RG_TRAIN_LAYERS = 5          # (c): one (r, r, l) unit and the (r, r) tail
+SG_MICRO = 2
+# per step: each unit's layers run forward twice a microbatch (once more
+# when the backward recomputes the unit), a tail layer's once, each
+# layer's backward once
+MAMBA_LAUNCHES = {"ssd_scan": 2 * 48 * SG_MICRO * SG_STEPS,
+                  "ssd_scan_backward": 48 * SG_MICRO * SG_STEPS}
+RG_LAUNCHES = {"rglru_scan": (2 * 2 + 2) * SG_MICRO * SG_STEPS,
+               "rglru_scan_backward": 4 * SG_MICRO * SG_STEPS,
+               "flash_attention": 2 * SG_MICRO * SG_STEPS,
+               "flash_attention_backward": SG_MICRO * SG_STEPS}
+# (d): one float32 step at 4 layers, one microbatch: mamba2 (4 "s" units),
+# recurrentgemma as (r, r, l) + an (r,) tail
+SG_F32_LAUNCHES = {
+    "mamba2-1.3b": {"ssd_scan": 8, "ssd_scan_backward": 4},
+    "recurrentgemma-2b": {"rglru_scan": 5, "rglru_scan_backward": 3,
+                          "flash_attention": 2,
+                          "flash_attention_backward": 1}}
+
+
+def check_grads(torch, label: str, names, got, want) -> tuple:
+    """Each kernel gradient finite and within GRAD_TOL_F32 (GRAD_TOL_BF16
+    where it comes out in bf16) of max(1, max |plain gradient|); returns
+    the largest absolute error and the largest error over its bound."""
+    err = over = 0.0
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape:
+            fail(f"{label}: {name} of shape {tuple(g.shape)}, the plain "
+                 f"version's {tuple(w.shape)}")
+        if not bool(torch.isfinite(g.float()).all()):
+            fail(f"{label}: non-finite {name}")
+        tol = GRAD_TOL_BF16 if g.dtype == torch.bfloat16 else GRAD_TOL_F32
+        e = float((g.float() - w.float()).abs().max())
+        bound = tol * max(1.0, float(w.abs().max()))
+        if e > bound:
+            fail(f"{label}: {name} max abs err {e:.3e} above {bound:.3e}")
+        err, over = max(err, e), max(over, e / bound)
+    return err, over
+
+
+def grads_of(torch, outs, leaves, cots) -> list:
+    """``torch.autograd.grad``, with zeros for a leaf the outputs do not
+    use (the plain RG-LRU at S = 1 never reads a)."""
+    got = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, leaves)]
+
+
+def same_bits(torch, label: str, got, again) -> None:
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{label}: two calls on the same inputs differ")
+
+
+def check_ssd_grad(torch, gen, case) -> tuple:
+    """The SSD backward (through ``ops.ssd_scan`` with a gradient wanted)
+    against autograd through the float32 plain version, and a second call
+    equal to the first bit for bit."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+    label, b, s, h, p, g, n, dt, at, final = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    inputs = ssd_inputs(torch, gen, b, s, h, p, g, n, dtype)
+    reset = resets_tensor(torch, b, s, at)
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dstate = (None if final is None else
+              torch.zeros(b, h, n, p, device="cuda") if final == "zero" else
+              torch.randn(b, h, n, p, generator=gen, device="cuda"))
+
+    def grads(fn, values, cot):
+        leaves = [t.detach().requires_grad_(True) for t in values]
+        y, state = fn(*leaves)
+        if dstate is None:
+            return grads_of(torch, y, leaves, cot)
+        return grads_of(torch, [y, state], leaves, [cot, dstate])
+
+    def kernel(*leaves):
+        return ops.ssd_scan(*leaves, chunk=SSD_GRAD_CHUNK, reset=reset)
+
+    before = ssd.ssd_scan_backward_cuda.launches
+    got, again = grads(kernel, inputs, dy), grads(kernel, inputs, dy)
+    torch.cuda.synchronize()
+    if ssd.ssd_scan_backward_cuda.launches != before + 2:
+        fail(f"ssd backward {label} {dt}: two gradients launched the "
+             f"backward {ssd.ssd_scan_backward_cuda.launches - before} times")
+    want = grads(lambda *v: ref.ssd_scan_padded(*v, SSD_GRAD_CHUNK,
+                                                reset=reset),
+                 [t.float() for t in inputs], dy.float())
+    where = f"ssd backward {label} {dt}"
+    err, over = check_grads(torch, where, SSD_GRAD_NAMES, got, want)
+    same_bits(torch, where, got, again)
+    log(f"  ssd bwd   {dt:4s} B{b} S{s} H{h} P{p} G{g} N{n} resets={at} "
+        f"final state's cotangent {final}: ok, max abs err {err:.3e} "
+        f"({over:.3f} of its bound), repeat bit-equal ({label})")
+    return err, over
+
+
+def check_rglru_grad(torch, gen, case) -> tuple:
+    """The RG-LRU backward (through ``ops.rglru_scan`` with a gradient
+    wanted) against autograd through the float32 plain version, and a
+    second call equal to the first bit for bit."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg
+    label, b, s, r, dt, at = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    x, a = rglru_inputs(torch, gen, b, s, r, dtype)
+    reset = resets_tensor(torch, b, s, at)
+    dh = torch.randn(b, s, r, generator=gen, device="cuda").to(dtype)
+
+    def grads(fn, values, cot):
+        leaves = [t.detach().requires_grad_(True) for t in values]
+        return grads_of(torch, fn(*leaves, reset), leaves, cot)
+
+    before = rg.rglru_scan_backward_cuda.launches
+    got, again = (grads(ops.rglru_scan, (x, a), dh),
+                  grads(ops.rglru_scan, (x, a), dh))
+    torch.cuda.synchronize()
+    if rg.rglru_scan_backward_cuda.launches != before + 2:
+        fail(f"rglru backward {label} {dt}: two gradients launched the "
+             f"backward {rg.rglru_scan_backward_cuda.launches - before} "
+             f"times")
+    want = grads(ref.rglru_scan_ref, (x.float(), a.float()), dh.float())
+    where = f"rglru backward {label} {dt}"
+    err, over = check_grads(torch, where, ("dx", "da"), got, want)
+    same_bits(torch, where, got, again)
+    log(f"  rglru bwd {dt:4s} B{b} S{s} R{r} resets={at}: ok, max abs err "
+        f"{err:.3e} ({over:.3f} of its bound), repeat bit-equal ({label}; "
+        f"plan {rg.plan(b, s, r)})")
+    return err, over
+
+
+def time_ssd_bwd(torch, gen, b, s, h, p, g, n) -> dict:
+    """The bf16 SSD backward alone (``ssd_scan_backward_cuda``, y's
+    cotangent only, as in training) beside the plain version's autograd
+    from a saved graph; its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    args = ssd_inputs(torch, gen, b, s, h, p, g, n, torch.bfloat16)
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    y_plain, _ = ref.ssd_scan_padded(*leaves, SSD_GRAD_CHUNK)
+    t = time_kernel(
+        torch, lambda: ssd.ssd_scan_backward_cuda(*args, dy),
+        lambda: torch.autograd.grad(y_plain, leaves, dy, retain_graph=True),
+        None, ssd.backward_op_count(b, s, h, p, n),
+        ssd.backward_byte_count(b, s, h, p, g, n, 2, False), PEAK_BF16_S)
+    t["shape"] = (f"B{b} S{s} H{h} P{p} G{g} N{n} bf16, backward (ops over "
+                  f"the bf16 peak)")
+    t["plan"] = ssd_plan(ssd, b, s, h, p)
+    return t
+
+
+def time_rglru_bwd(torch, gen, b, s, r) -> dict:
+    """The float32 RG-LRU backward alone (the training gates are float32)
+    beside the plain version's autograd from a saved graph; its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    x, a = rglru_inputs(torch, gen, b, s, r, torch.float32)
+    h = rg.rglru_scan_cuda(x, a)
+    dh = torch.randn(b, s, r, generator=gen, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (x, a)]
+    h_plain = ref.rglru_scan_ref(*leaves)
+    t = time_kernel(
+        torch, lambda: rg.rglru_scan_backward_cuda(dh, a, h),
+        lambda: torch.autograd.grad(h_plain, leaves, dh, retain_graph=True),
+        None, rg.backward_op_count(b, s, r),
+        rg.backward_byte_count(b, s, r, 4, False), PEAK_F32_S)
+    t["shape"] = f"B{b} S{s} R{r} float32, backward"
+    t["plan"] = rg.plan(b, s, r)
+    return t
+
+
+def check_refusals(torch) -> list:
+    """The kernels without a backward -- decode attention, dense and paged,
+    and the partition sweep -- raise NotImplementedError on the card where
+    a gradient is wanted through them, and run under no_grad.  Returns the
+    messages."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    q = rnd(2, 1, 4, 32).requires_grad_(True)
+    k, v = rnd(2, 16, 2, 32), rnd(2, 16, 2, 32)
+    valid = torch.ones(2, 16, dtype=torch.bool, device="cuda")
+    pools = rnd(4, 8, 2, 32), rnd(4, 8, 2, 32)
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    lens = torch.tensor([5, 11], dtype=torch.int32, device="cuda")
+    sweep = list(random_sweep_args(torch, np, 2, 3, 5, seed=21))
+    sweep[0] = sweep[0].requires_grad_(True)
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(q, k, v, valid),
+        "decode_attention_paged": lambda: ops.decode_attention_paged(
+            q, *pools, table, lens),
+        "partition_sweep": lambda: ops.partition_sweep_batched(*sweep)}
+    messages = []
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            messages.append(str(e))
+        else:
+            fail(f"(a) {name} on the card took a gradient it has no "
+                 f"backward for")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    return messages
+
+
+def scan_grad_phase(torch) -> dict:
+    """Phase 20 (a): both backward kernels at every listed case, flash's
+    backward at recurrentgemma's training shape, the kernels without a
+    backward refusing a gradient (``check_refusals``), and both backwards
+    timed alone at their training shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    log(f"[20] (a) the SSD and RG-LRU backward kernels vs autograd through "
+        f"the float32 plain versions ({GRAD_TOL_F32} of max(1, max |g|) in "
+        f"float32, {GRAD_TOL_BF16} for a gradient that comes out in bf16), "
+        f"each case twice, bit for bit")
+    out = {}
+    for key, check, cases in (("ssd", check_ssd_grad, SSD_GRAD_CASES),
+                              ("rglru", check_rglru_grad, RGLRU_GRAD_CASES)):
+        errs, overs = zip(*(check(torch, gen, c) for c in cases))
+        out[f"{key}_max_err"], out[f"{key}_err_over_tol"] = (max(errs),
+                                                             max(overs))
+    out["rg_flash_max_err"] = check_flash_grad(torch, gen, RG_FLASH_GRAD)
+    out["refusals"] = check_refusals(torch)
+    for msg in out["refusals"]:
+        log(f"    refused on the card: {msg}")
+    out["ssd_bwd"] = time_ssd_bwd(torch, gen, *SSD_BWD_SHAPE)
+    out["rglru_bwd"] = time_rglru_bwd(torch, gen, *RGLRU_BWD_SHAPE)
+    log_timed("ssd bwd", out["ssd_bwd"])
+    log_timed("rglru bwd", out["rglru_bwd"])
+    log(f"    ssd bwd plan (the forward's, for the recompute): "
+        f"{out['ssd_bwd']['plan']}; rglru bwd plan {out['rglru_bwd']['plan']}")
+    return out
+
+
+def scan_training_phase(torch, smi: str) -> dict:
+    """Phase 20: (a) ``scan_grad_phase``; (b) mamba2-1.3b and (c)
+    recurrentgemma-2b (at RG_TRAIN_LAYERS) trained through
+    ``launch.train.main`` with exact launches, a falling loss, their
+    numbers and a profile; (d) one float32 step of each at 4 layers, card
+    against CPU (``train_card_vs_cpu``), with exact launches."""
+    from repro_torch.configs.base import get_config
+    t_phase = t_part = time.perf_counter()
+    out: dict = {"part_s": {}}
+
+    def part_done(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        log(f"    ({name}) took {now - t_part:.1f} s")
+        t_part = now
+
+    out["grad"] = scan_grad_phase(torch)
+    part_done("a")
+    log(f"[20] (b) python -m repro_torch.launch.train "
+        f"{' '.join(MAMBA_TRAIN_ARGS)} (full width, 48 layers, bf16, remat)")
+    _, out["mamba2"] = train_run(torch, MAMBA_TRAIN_ARGS, smi, MAMBA_LAUNCHES)
+    out["mamba2"]["profile"] = train_profile(torch, MAMBA_TRAIN_ARGS)
+    part_done("b")
+    log(f"[20] (c) python -m repro_torch.launch.train "
+        f"{' '.join(RG_TRAIN_ARGS)} (full width at {RG_TRAIN_LAYERS} of 26 "
+        f"layers: one (r, r, l) unit and the (r, r) tail; bf16, remat)")
+    _, out["recurrentgemma"] = train_run(torch, RG_TRAIN_ARGS, smi,
+                                         RG_LAUNCHES, RG_TRAIN_LAYERS)
+    out["recurrentgemma"]["profile"] = train_profile(torch, RG_TRAIN_ARGS,
+                                                     RG_TRAIN_LAYERS)
+    part_done("c")
+    log("[20] (d) float32 training steps, card vs CPU (4 layers, full width)")
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               opt_state_dtype="float32")
+    out["card_vs_cpu"], f32_launches = {}, {}
+    for name, cfg in (
+            ("mamba2-1.3b", dataclasses.replace(get_config("mamba2-1.3b"),
+                                                n_layers=4, **f32)),
+            ("recurrentgemma-2b", dataclasses.replace(
+                get_config("recurrentgemma-2b"), n_layers=4,
+                tail_pattern=("r",), **f32))):
+        zero_all_counts()
+        out["card_vs_cpu"][name] = train_card_vs_cpu(
+            torch, f"{name} {''.join(cfg.block_pattern + cfg.tail_pattern)}",
+            cfg, False, part="d")
+        got = read_counts()
+        want = {k: SG_F32_LAUNCHES[name].get(k, 0) for k in got}
+        if got != want:
+            fail(f"(d) {name}: launches {got}, expected {want}")
+        f32_launches[name] = got
+    part_done("d")
+    runs = [out["mamba2"]["launches"], out["recurrentgemma"]["launches"],
+            *f32_launches.values()]
+    out["launches"] = {k: sum(r.get(k, 0) for r in runs)
+                       for k in ("ssd_scan", "ssd_scan_backward", "rglru_scan",
+                                 "rglru_scan_backward", "flash_attention",
+                                 "flash_attention_backward")}
+    out["s"] = time.perf_counter() - t_phase
+    log(f"    phase 20: {out['s']:.1f} s of its {SG_BUDGET_S:.0f} s budget"
+        + ("" if out["s"] <= SG_BUDGET_S else " (OVER)"))
     return out
 
 
@@ -5613,9 +6036,8 @@ def mesh_train_phase(torch, held: dict, phase3: dict, cuts: int) -> dict:
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     out["sweep_launches"] = grid_part
-    want = {"flash_attention": TM_FLASH_FWD * TM_STEPS,
-            "flash_attention_backward": TM_FLASH_BWD * TM_STEPS,
-            "ssd_scan": 0, "rglru_scan": 0, "decode_attention": 0}
+    want = launches_of(flash_attention=TM_FLASH_FWD * TM_STEPS,
+                       flash_attention_backward=TM_FLASH_BWD * TM_STEPS)
     launched = {"flash_attention": 0, "flash_attention_backward": 0}
     tokens = 8 * 512
     for r in ranks:
@@ -5958,6 +6380,8 @@ def main() -> int:
     phase_done()
     report["analysis"] = an = analysis_phase(torch)
     phase_done()
+    report["scan_training"] = sg = scan_training_phase(torch, smi)
+    phase_done()
     # every kernel library this process launched was loaded once
     loads = {lib.name: lib.loads for lib in libs}
     if any(n != 1 for n in loads.values()):
@@ -5995,7 +6419,8 @@ def main() -> int:
                          + zr["launches"].get(name, 0)
                          + mo["launches"].get(name, 0)
                          + sq["launches"].get(name, 0)
-                         + an["launches"][name]),
+                         + an["launches"][name]
+                         + sg["launches"].get(name, 0)),
             "max_abs_err": att[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -6003,12 +6428,12 @@ def main() -> int:
             ("ssd_scan", "ssd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:135",
              report["mamba2"]["launches"]["ssd_scan"]
-             + tp["launches"]["ssd_scan"]),
+             + tp["launches"]["ssd_scan"] + sg["launches"]["ssd_scan"]),
             ("rglru_scan", "rglru",
              "src/repro_torch/kernels/csrc/rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:97",
              report["recurrentgemma"]["launches"]["rglru_scan"]
-             + tp["launches"]["rglru_scan"])):
+             + tp["launches"]["rglru_scan"] + sg["launches"]["rglru_scan"])):
         t = scans[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -6028,10 +6453,32 @@ def main() -> int:
                      + mm["launches"]["flash_attention_backward"]
                      + zr["launches"]["flash_attention_backward"]
                      + mo["launches"]["flash_attention_backward"]
-                     + sq["launches"]["flash_attention_backward"]),
-        "max_abs_err": training["flash_grad"]["max_err"], "ms": t["ms"],
+                     + sq["launches"]["flash_attention_backward"]
+                     + sg["launches"]["flash_attention_backward"]),
+        "max_abs_err": max(training["flash_grad"]["max_err"],
+                           sg["grad"]["rg_flash_max_err"]), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the scans' backwards alone at their training shapes, beside the plain
+    # versions' autograd; no single PyTorch call computes either, and no
+    # Pallas kernel has a backward, so each stands in for the reference's
+    # differentiated non-Pallas arm
+    for name, key, source, replaces in (
+            ("ssd_scan_backward", "ssd",
+             "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ops.py:108-133"),
+            ("rglru_scan_backward", "rglru",
+             "src/repro_torch/kernels/csrc/rglru_scan.cu",
+             "src/repro/kernels/ops.py:136-143")):
+        t = sg["grad"][f"{key}_bwd"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sg["launches"][name],
+            "max_abs_err": sg["grad"][f"{key}_max_err"],
+            "max_err_over_tol": sg["grad"][f"{key}_err_over_tol"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     report["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

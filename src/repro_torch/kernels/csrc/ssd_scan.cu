@@ -582,6 +582,59 @@ __device__ void y_product(const Layout& L, const float* xs, const float* cs,
 
 }  // namespace f32
 
+// What a chunk's prefix sums end on: the sum of A dt over the chunk and the
+// segment id of its last step.
+struct ChunkEnd {
+  double total;
+  int seg_end;
+  // [no reset in the chunk] exp(total): what carries a state across it
+  __device__ float carry() const {
+    return seg_end == 0 ? expf(static_cast<float>(total)) : 0.f;
+  }
+};
+
+// Called by every lane of one warp, 2 steps a lane: the in-chunk prefix sums
+// of A dt (float64) and of the resets (seg holds each step's reset flag on
+// entry and its segment id on return), then the per-step factors inter (of
+// the entering state) and coef (of the chunk's own state), both 0 past len.
+__device__ __forceinline__ ChunkEnd chunk_rows(float av, int len,
+                                               const float* dts, double* cum,
+                                               int* seg, float* inter,
+                                               float* coef) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = 2 * lane, i1 = i0 + 1;
+  const float dt0 = dts[i0], dt1 = dts[i1];
+  const double v0 = av * dt0, v1 = av * dt1;
+  const int r0 = seg[i0], r1 = seg[i1];
+  double sv = v0 + v1;
+  int sr = r0 + r1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double tv = __shfl_up_sync(kFull, sv, o);
+    const int tr = __shfl_up_sync(kFull, sr, o);
+    if (lane >= o) { sv += tv; sr += tr; }
+  }
+  double ev = __shfl_up_sync(kFull, sv, 1);
+  int er = __shfl_up_sync(kFull, sr, 1);
+  if (lane == 0) { ev = 0.0; er = 0; }
+  const double c0 = ev + v0, c1 = (ev + v0) + v1;
+  const int s0 = er + r0, s1 = er + r0 + r1;
+  const int last = len - 1;
+  const double total = __shfl_sync(kFull, (last & 1) ? c1 : c0, last >> 1);
+  const int seg_end = __shfl_sync(kFull, (last & 1) ? s1 : s0, last >> 1);
+  cum[i0] = c0;
+  cum[i1] = c1;
+  seg[i0] = s0;
+  seg[i1] = s1;
+  inter[i0] = (i0 < len && s0 == 0) ? expf(static_cast<float>(c0)) : 0.f;
+  inter[i1] = (i1 < len && s1 == 0) ? expf(static_cast<float>(c1)) : 0.f;
+  coef[i0] = (i0 < len && s0 == seg_end)
+                 ? expf(static_cast<float>(total - c0)) * dt0 : 0.f;
+  coef[i1] = (i1 < len && s1 == seg_end)
+                 ? expf(static_cast<float>(total - c1)) * dt1 : 0.f;
+  return ChunkEnd{total, seg_end};
+}
+
 // One block per (chunk x column group, head, batch row).  kOne: y and the
 // final state of a one-chunk sequence; kState: the chunk's state and carry;
 // kScan: y from the state entering the chunk.  Every global load is issued
@@ -643,43 +696,12 @@ chunk_kernel(const Params a) {
   cp_async_wait<0>();
   __syncthreads();
 
-  // 2. one warp, 2 steps a lane: in-chunk prefix sums of A dt (float64) and
-  //    of the resets, then the per-step factors inter (entering state) and
-  //    coef (the chunk's state), and the chunk's carry
+  // 2. one warp: the in-chunk prefix sums and per-step factors, and the
+  //    chunk's carry
   if (tid < 32) {
-    const int i0 = 2 * tid, i1 = i0 + 1;
-    const float dt0 = dts[i0], dt1 = dts[i1];
-    const double v0 = av * dt0, v1 = av * dt1;
-    const int r0 = seg[i0], r1 = seg[i1];
-    double sv = v0 + v1;
-    int sr = r0 + r1;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double tv = __shfl_up_sync(kFull, sv, o);
-      const int tr = __shfl_up_sync(kFull, sr, o);
-      if (tid >= o) { sv += tv; sr += tr; }
-    }
-    double ev = __shfl_up_sync(kFull, sv, 1);
-    int er = __shfl_up_sync(kFull, sr, 1);
-    if (tid == 0) { ev = 0.0; er = 0; }
-    const double c0 = ev + v0, c1 = (ev + v0) + v1;
-    const int s0 = er + r0, s1 = er + r0 + r1;
-    const int last = len - 1;
-    const double total = __shfl_sync(kFull, (last & 1) ? c1 : c0, last >> 1);
-    const int seg_end = __shfl_sync(kFull, (last & 1) ? s1 : s0, last >> 1);
-    cum[i0] = c0;
-    cum[i1] = c1;
-    seg[i0] = s0;
-    seg[i1] = s1;
-    inter[i0] = (i0 < len && s0 == 0) ? expf(static_cast<float>(c0)) : 0.f;
-    inter[i1] = (i1 < len && s1 == 0) ? expf(static_cast<float>(c1)) : 0.f;
-    coef[i0] = (i0 < len && s0 == seg_end)
-                   ? expf(static_cast<float>(total - c0)) * dt0 : 0.f;
-    coef[i1] = (i1 < len && s1 == seg_end)
-                   ? expf(static_cast<float>(total - c1)) * dt1 : 0.f;
+    const ChunkEnd e = chunk_rows(av, len, dts, cum, seg, inter, coef);
     if (kMode == kState && tid == 0 && cg == 0)
-      a.carry[bh * a.chunks + ch] =
-          seg_end == 0 ? expf(static_cast<float>(total)) : 0.f;
+      a.carry[bh * a.chunks + ch] = e.carry();
   }
   __syncthreads();
 
@@ -764,8 +786,9 @@ chunk_kernel(const Params a) {
 // state.  The state entering chunk c >= 1 goes where the output pass reads
 // it: for bf16 x, split into hi and lo bf16 parts (slot c of entering,
 // the layout the tensor cores take, so the output pass copies it with
-// cp.async); for float32 x, in place of S_c.  Loads run 8 chunks ahead of
-// the chain.
+// cp.async); for float32 x, and for the backward, which reads float32
+// states, in place of S_c.  Loads run 8 chunks ahead of the chain.  A null
+// state skips the final state (the backward has no use for it).
 template <bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 state_pass(const float* __restrict__ carry, float* chunk_states,
@@ -804,7 +827,7 @@ state_pass(const float* __restrict__ carry, float* chunk_states,
                       k * m.w + v[i].w);
     }
   }
-  reinterpret_cast<float4*>(state)[bh * np4 + e] = m;
+  if (state != nullptr) reinterpret_cast<float4*>(state)[bh * np4 + e] = m;
 }
 
 template <typename T, int kMode>
@@ -832,6 +855,649 @@ cudaError_t launch(const Params& a, int batch, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_chunk<T, kScan>(a, batch, stream);
+}
+
+// -- the backward ----------------------------------------------------------------
+
+constexpr int kBThreads = 256;   // 16 row tiles of 4 steps x 16 column lanes
+constexpr int kLanes = 16;       // column lanes: each row's partial sums
+constexpr int kLd = kT + 4;      // row stride of the W and dCB tiles
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+struct BwdParams {
+  const void* x;
+  const float* dt;
+  const float* a_log;
+  const void* b;
+  const void* c;
+  const float* d_skip;
+  const uint8_t* reset;
+  const void* dy;          // (B, S, H, P), x's type
+  const float* dstate;     // (B, H, N, P), or null: no final-state gradient
+  void* dx;                // (B, S, H, P), x's type
+  float* ddt;              // (B, S, H)
+  float* da_log;           // (H,)
+  void* db;                // (B, S, G, N), x's type
+  void* dc;
+  float* dd_skip;          // (H,)
+  float* chunk_states;     // (B, H, chunks, N, P): the states entering chunks
+  float* carry;            // (B, H, chunks)
+  float* adj;              // (B, H, chunks, N, P): the adjoints leaving chunks
+  float* db_part;          // (B, S, H, N): each head's share of db
+  float* dc_part;
+  float* head_part;        // (2, B, chunks, H): dA and dD of each block
+  int batch, s_len, heads, groups, n, p, chunks;
+};
+
+// Byte offsets of a backward block's shared memory (kernels/ssd_scan.py::
+// backward_shared_bytes mirrors it): the per-step rows, the 16 column
+// lanes' partial sums of four per-step dot products, then the float32 tiles:
+// C and dY (every backward block), and for the chunk's gradients X, B, the
+// entering state, the leaving adjoint, W and dCB.
+struct BwdLayout {
+  int ldx, ldn;          // row strides of the (kT x P) and (kT x N) tiles
+  size_t cum, dts, inter, coef, seg, sdiag, diag, rowp, colp, coefp,
+      interp, red, cs, dys, xs, bs, mp, dm, w, dcb, bytes;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int n, int p, bool full) {
+  BwdLayout L{};
+  L.ldx = p + 4;
+  L.ldn = n + 4;
+  size_t o = 0;
+  L.cum = take(o, kT * 8);
+  L.dts = take(o, kT * 4);
+  L.inter = take(o, kT * 4);
+  L.coef = take(o, kT * 4);
+  L.seg = take(o, kT * 4);
+  L.sdiag = take(o, kT * 4);
+  L.diag = take(o, kT * 4);
+  L.rowp = take(o, kT * kLanes * 4);
+  L.colp = take(o, kT * kLanes * 4);
+  L.coefp = take(o, kT * kLanes * 4);
+  L.interp = take(o, kT * kLanes * 4);
+  L.red = take(o, 32 * 8);
+  L.cs = take(o, static_cast<size_t>(kT) * L.ldn * 4);
+  L.dys = take(o, static_cast<size_t>(kT) * L.ldx * 4);
+  if (full) {
+    L.xs = take(o, static_cast<size_t>(kT) * L.ldx * 4);
+    L.bs = take(o, static_cast<size_t>(kT) * L.ldn * 4);
+    L.mp = take(o, static_cast<size_t>(n) * p * 4);
+    L.dm = take(o, static_cast<size_t>(n) * p * 4);
+    L.w = take(o, kT * kLd * 4);
+    L.dcb = take(o, kT * kLd * 4);
+  }
+  L.bytes = o;
+  return L;
+}
+
+// dst[r][j] (row stride ld) = float(src[r * stride + j]) for r < rows,
+// zeros for rows .. rows_pad - 1; j < width
+template <typename T>
+__device__ void load_rows(float* dst, int ld, int rows_pad, int width,
+                          const T* src, size_t stride, int rows) {
+  for (int i = threadIdx.x; i < rows_pad * width; i += blockDim.x) {
+    const int r = i / width, j = i - r * width;
+    dst[r * ld + j] = r < rows ? to_f32(src[r * stride + j]) : 0.f;
+  }
+}
+
+using f32::at;
+using f32::ld4;
+
+// the sum over the warp, the same on every lane, in a fixed order
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The start both per-chunk backward kernels share, for chunk ch of block
+// (., head, batch row): the chunk's dt and resets, C and dY as float32
+// (rows past len zero); then, after a barrier,
+// the prefix sums and factors (chunk_rows), whose end goes to *end; then a
+// barrier.  `more` issues the caller's other loads before the first one.
+template <typename T, typename More>
+__device__ void begin_chunk(const BwdParams& a, const BwdLayout& L, char* base,
+                            int ch, float av, ChunkEnd* end, More more) {
+  const int h = blockIdx.y, bb = blockIdx.z, tid = threadIdx.x;
+  const int heads = a.heads, n = a.n, p = a.p;
+  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
+  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
+  const int grp = h / (heads / a.groups);
+  float* dts = reinterpret_cast<float*>(base + L.dts);
+  int* seg = reinterpret_cast<int*>(base + L.seg);
+  if (tid < kT) {
+    const bool live = tid < len;
+    dts[tid] = live ? a.dt[(row0 + tid) * heads + h] : 0.f;
+    seg[tid] = (a.reset != nullptr && live) ? (a.reset[row0 + tid] != 0) : 0;
+  }
+  load_rows<T>(reinterpret_cast<float*>(base + L.cs), L.ldn, kT, n,
+               static_cast<const T*>(a.c) + (row0 * a.groups + grp) * n,
+               static_cast<size_t>(a.groups) * n, len);
+  load_rows<T>(reinterpret_cast<float*>(base + L.dys), L.ldx, kT, p,
+               static_cast<const T*>(a.dy) + (row0 * heads + h) * p,
+               static_cast<size_t>(heads) * p, len);
+  more(len, row0, grp);
+  __syncthreads();
+  if (tid < 32) {
+    const ChunkEnd e = chunk_rows(
+        av, len, dts, reinterpret_cast<double*>(base + L.cum), seg,
+        reinterpret_cast<float*>(base + L.inter),
+        reinterpret_cast<float*>(base + L.coef));
+    if (tid == 0) *end = e;
+  }
+  __syncthreads();
+}
+
+// U_c = sum_q inter_q c_q dY_q^T of chunk c >= 1 (what the state entering
+// the chunk receives from the chunk's y), into slot c of adj; one block per
+// (chunk 1.., head, batch row), 4 x 4 register tiles of (N, P).
+template <typename T>
+__global__ void __launch_bounds__(kBThreads)
+chunk_adjoint(const BwdParams a) {
+  extern __shared__ uint4 smem16[];
+  char* base = reinterpret_cast<char*>(smem16);
+  __shared__ ChunkEnd end;
+  const int n = a.n, p = a.p;
+  const BwdLayout L = bwd_layout(n, p, false);
+  const float av = -expf(a.a_log[blockIdx.y]);
+  const int ch = blockIdx.x + 1, len = min(kT, a.s_len - ch * kT);
+  begin_chunk<T>(a, L, base, ch, av, &end, [](int, size_t, int) {});
+  const size_t bh = static_cast<size_t>(blockIdx.z) * a.heads + blockIdx.y;
+  const float* inter = reinterpret_cast<const float*>(base + L.inter);
+  const float* cs = reinterpret_cast<const float*>(base + L.cs);
+  const float* dys = reinterpret_cast<const float*>(base + L.dys);
+  float* out = a.adj + (bh * a.chunks + ch) * n * p;
+  const int pt = p / 4;
+  for (int tile = threadIdx.x; tile < (n / 4) * pt; tile += kBThreads) {
+    const int n0 = (tile / pt) * 4, p0 = (tile % pt) * 4;
+    float acc[4][4] = {};
+    for (int q = 0; q < len; ++q) {
+      const float iv = inter[q];
+      const float4 cv = ld4(cs + q * L.ldn + n0);
+      const float4 dv = ld4(dys + q * L.ldx + p0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ci = at(cv, i) * iv;
+        acc[i][0] += ci * dv.x;
+        acc[i][1] += ci * dv.y;
+        acc[i][2] += ci * dv.z;
+        acc[i][3] += ci * dv.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(n0 + i) * p + p0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// The adjoint pass, the state pass run backward: per (head, batch row),
+// from the final state's gradient (or 0), slot c of adj becomes D_c, the
+// gradient reaching the state that leaves chunk c from later steps, and
+// D_{c-1} = carry_c D_c + U_c; four elements a thread.
+__global__ void __launch_bounds__(kThreads)
+adjoint_pass(const float* __restrict__ carry, float* adj,
+             const float* __restrict__ dstate, int chunks, int np4) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= np4) return;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const float* cr = carry + bh * chunks;
+  float4* s = reinterpret_cast<float4*>(adj) + bh * chunks * np4 + e;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 m = dstate != nullptr
+                 ? reinterpret_cast<const float4*>(dstate)[bh * np4 + e]
+                 : zero4;
+  for (int c = chunks - 1; c >= 0; --c) {
+    const float4 v = c > 0 ? s[static_cast<size_t>(c) * np4] : zero4;
+    s[static_cast<size_t>(c) * np4] = m;
+    const float k = cr[c];
+    m = make_float4(k * m.x + v.x, k * m.y + v.y, k * m.z + v.z,
+                    k * m.w + v.w);
+  }
+}
+
+// The chunk's gradients; one block per (chunk, head, batch row), thread
+// (row tile rt, lane cl) takes steps 4 rt .. 4 rt + 3 and the column tiles
+// cl, cl + 16, ... of each product, and keeps its per-row partial sums in
+// lane cl's column, so that every sum is taken in one fixed order.  With
+// S = C.B^T and dS = dY.X^T over the causal triangle, E the masked decay,
+// V = dS E: W = S E dt_r, dCB = V dt_r, G = V S dt_r; then
+//   dX_r  = sum_q W_qr dY_q + coef_r (B_r D) + D_h dY_r
+//   dB_r  = sum_q dCB_qr C_q + coef_r (D X_r)     (this head's share)
+//   dC_q  = sum_r dCB_qr B_r + inter_q (M dY_q)   (this head's share)
+// and the gradient of the prefix sums, dcum_q = sum_{r<q} G_qr -
+// sum_{r>q} G_rq + inter_q dinter_q - coef_q dcoef_q, plus at the last
+// step sum_r coef_r dcoef_r + carry <D, M>, whose reverse cumulative sum
+// (float64) is the gradient of each step's A dt.
+template <typename T>
+__global__ void __launch_bounds__(kBThreads)
+chunk_backward(const BwdParams a) {
+  extern __shared__ uint4 smem16[];
+  char* base = reinterpret_cast<char*>(smem16);
+  __shared__ ChunkEnd end;
+  __shared__ double dcarry;
+  const int h = blockIdx.y, bb = blockIdx.z, tid = threadIdx.x;
+  const int n = a.n, p = a.p, heads = a.heads, ch = blockIdx.x;
+  const BwdLayout L = bwd_layout(n, p, true);
+  const size_t bh = static_cast<size_t>(bb) * heads + h;
+  const float av = -expf(a.a_log[h]);
+  const float dskip = a.d_skip[h];
+  const bool has_prev = ch > 0;
+  const float* dm_src = a.chunks > 1 ? a.adj + (bh * a.chunks + ch) * n * p
+                        : (a.dstate != nullptr ? a.dstate + bh * n * p : nullptr);
+  const bool has_dm = dm_src != nullptr;
+  float* xs = reinterpret_cast<float*>(base + L.xs);
+  float* bs = reinterpret_cast<float*>(base + L.bs);
+  float* mp = reinterpret_cast<float*>(base + L.mp);
+  float* dm = reinterpret_cast<float*>(base + L.dm);
+  begin_chunk<T>(a, L, base, ch, av, &end,
+                 [&](int len, size_t row0, int grp) {
+    load_rows<T>(xs, L.ldx, kT, p,
+                 static_cast<const T*>(a.x) + (row0 * heads + h) * p,
+                 static_cast<size_t>(heads) * p, len);
+    load_rows<T>(bs, L.ldn, kT, n,
+                 static_cast<const T*>(a.b) + (row0 * a.groups + grp) * n,
+                 static_cast<size_t>(a.groups) * n, len);
+    if (has_prev)
+      load_rows<float>(mp, p, n, p, a.chunk_states + (bh * a.chunks + ch) * n * p,
+                       p, n);
+    if (has_dm) load_rows<float>(dm, p, n, p, dm_src, p, n);
+  });
+  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
+  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
+  const double* cum = reinterpret_cast<const double*>(base + L.cum);
+  const float* dts = reinterpret_cast<const float*>(base + L.dts);
+  const float* inter = reinterpret_cast<const float*>(base + L.inter);
+  const float* coef = reinterpret_cast<const float*>(base + L.coef);
+  const int* seg = reinterpret_cast<const int*>(base + L.seg);
+  const float* cs = reinterpret_cast<const float*>(base + L.cs);
+  const float* dys = reinterpret_cast<const float*>(base + L.dys);
+  float* sdiag = reinterpret_cast<float*>(base + L.sdiag);
+  float* diag = reinterpret_cast<float*>(base + L.diag);
+  float* rowp = reinterpret_cast<float*>(base + L.rowp);
+  float* colp = reinterpret_cast<float*>(base + L.colp);
+  float* coefp = reinterpret_cast<float*>(base + L.coefp);
+  float* interp = reinterpret_cast<float*>(base + L.interp);
+  double* red = reinterpret_cast<double*>(base + L.red);
+  float* w = reinterpret_cast<float*>(base + L.w);
+  float* dcb = reinterpret_cast<float*>(base + L.dcb);
+  const int rt = tid / kLanes, cl = tid % kLanes;
+  const int r0 = rt * 4;        // this thread's four rows of every product
+
+  // 1. C.B^T and dY.X^T on the tile (rows r0.., columns 4 cl..), W, dCB,
+  //    and G's row and column sums off the diagonal
+  {
+    const int q0 = r0, k0 = cl * 4;
+    const bool tri = k0 <= q0 + 3 && q0 < len;
+    float sc[4][4] = {}, ds[4][4] = {};
+    if (tri) {
+      for (int k = 0; k < n; k += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cv[i] = ld4(cs + (q0 + i) * L.ldn + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = ld4(bs + (k0 + j) * L.ldn + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sc[i][j] += cv[i].x * bv[j].x + cv[i].y * bv[j].y +
+                        cv[i].z * bv[j].z + cv[i].w * bv[j].w;
+      }
+      for (int k = 0; k < p; k += 4) {
+        float4 dv[4], xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = ld4(dys + (q0 + i) * L.ldx + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xv[j] = ld4(xs + (k0 + j) * L.ldx + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            ds[i][j] += dv[i].x * xv[j].x + dv[i].y * xv[j].y +
+                        dv[i].z * xv[j].z + dv[i].w * xv[j].w;
+      }
+    }
+    float rowacc[4] = {}, colacc[4] = {};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = k0 + j;
+        const bool keep = tri && r <= q && q < len && seg[q] == seg[r];
+        float wv = 0.f, dv = 0.f, gt = 0.f;
+        if (keep) {
+          const float e = expf(static_cast<float>(cum[q] - cum[r]));
+          const float v = ds[i][j] * e;
+          wv = sc[i][j] * e * dts[r];
+          dv = v * dts[r];
+          gt = v * sc[i][j];
+          if (r < q) {
+            rowacc[i] += gt * dts[r];
+            colacc[j] += gt;
+          }
+        }
+        if (q == r) {
+          diag[q] = gt;
+          sdiag[q] = keep ? ds[i][j] : 0.f;
+        }
+        w[q * kLd + r] = wv;
+        dcb[q * kLd + r] = dv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      rowp[(q0 + i) * kLanes + cl] = rowacc[i];
+      colp[(k0 + i) * kLanes + rt] = colacc[i];
+    }
+  }
+  __syncthreads();
+
+  // 2. dX = W^T dY + coef (B D) + D_h dY, and dcoef_r = (B_r D) . X_r
+  {
+    T* dx = static_cast<T*>(a.dx) + (row0 * heads + h) * p;
+    float part[4] = {};
+    for (int ct = cl; ct < p / 4; ct += kLanes) {
+      const int p0 = ct * 4;
+      float acc[4][4] = {}, bd[4][4] = {};
+      if (r0 < len) {
+        for (int q = r0; q < len; ++q) {
+          const float4 dv = ld4(dys + q * L.ldx + p0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float wv = w[q * kLd + r0 + i];
+            acc[i][0] += wv * dv.x;
+            acc[i][1] += wv * dv.y;
+            acc[i][2] += wv * dv.z;
+            acc[i][3] += wv * dv.w;
+          }
+        }
+        if (has_dm) {
+          for (int k = 0; k < n; k += 4) {
+            float4 bv[4], mv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) bv[i] = ld4(bs + (r0 + i) * L.ldn + k);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) mv[kk] = ld4(dm + (k + kk) * p + p0);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const float bik = at(bv[i], kk);
+                bd[i][0] += bik * mv[kk].x;
+                bd[i][1] += bik * mv[kk].y;
+                bd[i][2] += bik * mv[kk].z;
+                bd[i][3] += bik * mv[kk].w;
+              }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i;
+        if (r >= len) break;
+        const float4 xv = ld4(xs + r * L.ldx + p0);
+        const float4 dv = ld4(dys + r * L.ldx + p0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          put(dx + static_cast<size_t>(r) * heads * p + p0 + j,
+              acc[i][j] + coef[r] * bd[i][j] + dskip * at(dv, j));
+          part[i] += bd[i][j] * at(xv, j);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) coefp[(r0 + i) * kLanes + cl] = part[i];
+  }
+
+  // 3. this head's dB = dCB^T C + coef (D X), and dC = dCB B + inter (M dY)
+  //    with dinter_q = C_q . (M dY_q)
+  {
+    float* dbp = a.db_part + (row0 * heads + h) * n;
+    float* dcp = a.dc_part + (row0 * heads + h) * n;
+    const size_t stride = static_cast<size_t>(heads) * n;
+    float part[4] = {};
+    for (int ct = cl; ct < n / 4; ct += kLanes) {
+      const int n0 = ct * 4;
+      float acc[4][4] = {}, dxm[4][4] = {};
+      if (r0 < len) {
+        for (int q = r0; q < len; ++q) {
+          const float4 cv = ld4(cs + q * L.ldn + n0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float g = dcb[q * kLd + r0 + i];
+            acc[i][0] += g * cv.x;
+            acc[i][1] += g * cv.y;
+            acc[i][2] += g * cv.z;
+            acc[i][3] += g * cv.w;
+          }
+        }
+        if (has_dm) {
+          for (int k = 0; k < p; k += 4) {
+            float4 xv[4], mv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) xv[i] = ld4(xs + (r0 + i) * L.ldx + k);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mv[j] = ld4(dm + (n0 + j) * p + k);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                dxm[i][j] += xv[i].x * mv[j].x + xv[i].y * mv[j].y +
+                             xv[i].z * mv[j].z + xv[i].w * mv[j].w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+          if (r >= len) break;
+          *reinterpret_cast<float4*>(dbp + r * stride + n0) = make_float4(
+              acc[i][0] + coef[r] * dxm[i][0], acc[i][1] + coef[r] * dxm[i][1],
+              acc[i][2] + coef[r] * dxm[i][2], acc[i][3] + coef[r] * dxm[i][3]);
+        }
+      }
+      float acc2[4][4] = {}, mdy[4][4] = {};
+      if (r0 < len) {
+        const int rmax = min(r0 + 4, len);
+        for (int r = 0; r < rmax; ++r) {
+          const float4 bv = ld4(bs + r * L.ldn + n0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float g = dcb[(r0 + i) * kLd + r];
+            acc2[i][0] += g * bv.x;
+            acc2[i][1] += g * bv.y;
+            acc2[i][2] += g * bv.z;
+            acc2[i][3] += g * bv.w;
+          }
+        }
+        if (has_prev) {
+          for (int k = 0; k < p; k += 4) {
+            float4 dv[4], mv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dv[i] = ld4(dys + (r0 + i) * L.ldx + k);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mv[j] = ld4(mp + (n0 + j) * p + k);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                mdy[i][j] += dv[i].x * mv[j].x + dv[i].y * mv[j].y +
+                             dv[i].z * mv[j].z + dv[i].w * mv[j].w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = r0 + i;
+          if (q >= len) break;
+          const float4 cv = ld4(cs + q * L.ldn + n0);
+          *reinterpret_cast<float4*>(dcp + q * stride + n0) = make_float4(
+              acc2[i][0] + inter[q] * mdy[i][0], acc2[i][1] + inter[q] * mdy[i][1],
+              acc2[i][2] + inter[q] * mdy[i][2], acc2[i][3] + inter[q] * mdy[i][3]);
+          part[i] += cv.x * mdy[i][0] + cv.y * mdy[i][1] + cv.z * mdy[i][2] +
+                     cv.w * mdy[i][3];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) interp[(r0 + i) * kLanes + cl] = part[i];
+  }
+
+  // 4. <D, M>, the carry's gradient: per thread, then per warp, then in
+  //    warp order
+  {
+    double v = 0.0;
+    if (has_prev && has_dm)
+      for (int e = tid; e < n * p; e += kBThreads) v += dm[e] * mp[e];
+    v = warp_sum(v);
+    if ((tid & 31) == 0) red[tid >> 5] = v;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double v = 0.0;
+    for (int i = 0; i < kBThreads / 32; ++i) v += red[i];
+    dcarry = v;
+  }
+  __syncthreads();
+
+  // 5. one warp, 2 steps a lane: dcum, its reverse cumulative sum dl (the
+  //    gradient of A dt_q), ddt, and the block's shares of dA and dD
+  if (tid < 32) {
+    const ChunkEnd e = end;
+    double d[2], dco[2], colsum[2];
+    double ksum = 0.0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = 2 * tid + k;
+      double rs = 0.0, cs_ = 0.0, co = 0.0, it = 0.0;
+      for (int l = 0; l < kLanes; ++l) {
+        rs += rowp[q * kLanes + l];
+        cs_ += colp[q * kLanes + l];
+        co += coefp[q * kLanes + l];
+        it += interp[q * kLanes + l];
+      }
+      const double kq = co * coef[q];
+      d[k] = q < len ? rs - dts[q] * cs_ + inter[q] * it - kq : 0.0;
+      dco[k] = co;
+      colsum[k] = cs_;
+      ksum += q < len ? kq : 0.0;
+    }
+    ksum = warp_sum(ksum);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (2 * tid + k == len - 1) d[k] += ksum + e.carry() * dcarry;
+    double sv = d[0] + d[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double t = __shfl_down_sync(kFull, sv, o);
+      if (tid + o < 32) sv += t;
+    }
+    double ex = __shfl_down_sync(kFull, sv, 1);
+    if (tid == 31) ex = 0.0;
+    const double dl[2] = {ex + d[1] + d[0], ex + d[1]};
+    double da_part = 0.0, dd_part = 0.0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = 2 * tid + k;
+      if (q >= len) continue;
+      const float to_end = seg[q] == e.seg_end
+                               ? expf(static_cast<float>(e.total - cum[q])) : 0.f;
+      a.ddt[(row0 + q) * heads + h] = static_cast<float>(
+          colsum[k] + diag[q] + dco[k] * to_end + av * dl[k]);
+      da_part += dts[q] * dl[k];
+      dd_part += sdiag[q];
+    }
+    da_part = warp_sum(da_part);
+    dd_part = warp_sum(dd_part);
+    if (tid == 0) {
+      const size_t slot = (static_cast<size_t>(bb) * a.chunks + ch) * heads + h;
+      const size_t half = static_cast<size_t>(a.batch) * a.chunks * heads;
+      a.head_part[slot] = static_cast<float>(da_part);
+      a.head_part[half + slot] = static_cast<float>(dd_part);
+    }
+  }
+}
+
+// The fixed-order sums: y 0 and 1, db and dc of each (row, group, n) over
+// the group's heads; y 2, dA and dD of each head over (batch row, chunk),
+// in float64, da_log = A dA.
+template <typename T>
+__global__ void __launch_bounds__(kBThreads)
+grad_reduce(const BwdParams a) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * kBThreads + threadIdx.x;
+  const int n = a.n, heads = a.heads, reps = a.heads / a.groups;
+  if (blockIdx.y < 2) {
+    const size_t total = static_cast<size_t>(a.batch) * a.s_len * a.groups * n;
+    if (e >= total) return;
+    const int nn = static_cast<int>(e % n);
+    const size_t gr = e / n;
+    const int g = static_cast<int>(gr % a.groups);
+    const size_t row = gr / a.groups;
+    const float* part = blockIdx.y == 0 ? a.db_part : a.dc_part;
+    const float* src = part + (row * heads + static_cast<size_t>(g) * reps) * n + nn;
+    float v = 0.f;
+    for (int k = 0; k < reps; ++k) v += src[static_cast<size_t>(k) * n];
+    put(static_cast<T*>(blockIdx.y == 0 ? a.db : a.dc) + e, v);
+  } else if (e < static_cast<size_t>(heads)) {
+    const size_t blocks = static_cast<size_t>(a.batch) * a.chunks;
+    double da = 0.0, dd = 0.0;
+    for (size_t j = 0; j < blocks; ++j) {
+      da += a.head_part[j * heads + e];
+      dd += a.head_part[(blocks + j) * heads + e];
+    }
+    a.da_log[e] = static_cast<float>(-exp(static_cast<double>(a.a_log[e])) * da);
+    a.dd_skip[e] = static_cast<float>(dd);
+  }
+}
+
+template <typename K>
+cudaError_t launch_smem(K kernel, dim3 grid, size_t bytes, cudaStream_t stream,
+                        const BwdParams& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Where S > kT: the forward's state and serial passes recompute the states
+// entering each chunk (float32, in place), then U of each chunk and the
+// adjoint pass; then the chunk gradients and the sums.
+template <typename T>
+cudaError_t launch_backward(const Params& f, const BwdParams& a,
+                            cudaStream_t stream) {
+  cudaError_t err;
+  const int np4 = a.n * a.p / 4;
+  const dim3 pass_grid((np4 + kThreads - 1) / kThreads, a.heads, a.batch);
+  if (a.chunks > 1) {
+    err = launch_chunk<T, kState>(f, a.batch, stream);
+    if (err != cudaSuccess) return err;
+    state_pass<false><<<pass_grid, kThreads, 0, stream>>>(
+        a.carry, a.chunk_states, nullptr, nullptr, a.chunks, np4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = launch_smem(chunk_adjoint<T>, dim3(a.chunks - 1, a.heads, a.batch),
+                      bwd_layout(a.n, a.p, false).bytes, stream, a);
+    if (err != cudaSuccess) return err;
+    adjoint_pass<<<pass_grid, kThreads, 0, stream>>>(a.carry, a.adj, a.dstate,
+                                                     a.chunks, np4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = launch_smem(chunk_backward<T>, dim3(a.chunks, a.heads, a.batch),
+                    bwd_layout(a.n, a.p, true).bytes, stream, a);
+  if (err != cudaSuccess) return err;
+  const size_t elems = static_cast<size_t>(a.batch) * a.s_len * a.groups * a.n;
+  const size_t most = elems > static_cast<size_t>(a.heads) ? elems : a.heads;
+  const size_t blocks = (most + kBThreads - 1) / kBThreads;
+  grad_reduce<T><<<dim3(static_cast<unsigned>(blocks), 3), kBThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -876,4 +1542,55 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt,
 
 extern "C" const char* ssd_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The gradients of ssd_scan_launch's (y, final state): x, dt, a_log, b, c,
+// d_skip and reset as the forward takes them, dy of y's shape and type, and
+// dstate (B, H, N, P) float32 or null.  Out: dx, db, dc in x's type, ddt
+// (B, S, H), da_log and dd_skip (H,) float32.  Scratch, float32: db_part
+// and dc_part (B, S, H, N), head_part (2, B, chunks, H), and where chunks >
+// 1 chunk_states and adj (B, H, chunks, N, P) and carry (B, H, chunks);
+// null otherwise.  col_groups is the forward's plan for the recompute.  All
+// contiguous, dstate 16-byte aligned.  Returns the first CUDA error of the
+// call's launches.
+extern "C" int ssd_scan_backward_launch(
+    const void* x, const void* dt, const void* a_log, const void* b,
+    const void* c, const void* d_skip, const void* reset, const void* dy,
+    const void* dstate, void* dx, void* ddt, void* da_log, void* db, void* dc,
+    void* dd_skip, void* chunk_states, void* carry, void* adj, void* db_part,
+    void* dc_part, void* head_part, int batch, int s_len, int heads,
+    int groups, int n, int p, int col_groups, int dtype, int device,
+    void* stream) {
+  const int chunks = (s_len + kT - 1) / kT;
+  if (batch <= 0 || groups <= 0 || heads % groups != 0 || n % 4 != 0 ||
+      p % 4 != 0 || s_len <= 0 || col_groups <= 0 || p % col_groups != 0 ||
+      dtype < 0 || dtype > 1 || db_part == nullptr || dc_part == nullptr ||
+      head_part == nullptr ||
+      (chunks > 1 && (chunk_states == nullptr || carry == nullptr ||
+                      adj == nullptr)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Params f{x, static_cast<const float*>(dt),
+                 static_cast<const float*>(a_log), b, c,
+                 static_cast<const float*>(d_skip),
+                 static_cast<const uint8_t*>(reset), nullptr, nullptr,
+                 static_cast<float*>(chunk_states), nullptr,
+                 static_cast<float*>(carry), s_len, heads, groups, n, p,
+                 chunks, col_groups};
+  const BwdParams a{x, static_cast<const float*>(dt),
+                    static_cast<const float*>(a_log), b, c,
+                    static_cast<const float*>(d_skip),
+                    static_cast<const uint8_t*>(reset), dy,
+                    static_cast<const float*>(dstate), dx,
+                    static_cast<float*>(ddt), static_cast<float*>(da_log), db,
+                    dc, static_cast<float*>(dd_skip),
+                    static_cast<float*>(chunk_states),
+                    static_cast<float*>(carry), static_cast<float*>(adj),
+                    static_cast<float*>(db_part), static_cast<float*>(dc_part),
+                    static_cast<float*>(head_part), batch, s_len, heads,
+                    groups, n, p, chunks};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_backward<float>(f, a, s)
+                    : launch_backward<bf16>(f, a, s);
 }

@@ -6,11 +6,13 @@ switch and no fallback: a kernel that fails to build or launch raises.
 
 Gradients.  The CPU arms are plain torch, differentiable as they stand.  On
 CUDA a gradient is wanted where ``torch.is_grad_enabled()`` and a tensor
-input ``requires_grad``; flash attention then runs through
-``flash_attention.FlashAttention``, whose backward is a kernel too.  The
-other kernels have no backward yet and raise ``NotImplementedError``
-there (``NO_BACKWARD`` names the ROADMAP item that will give each one):
-their outputs would otherwise be tensors autograd does not see.
+input ``requires_grad``; flash attention, the SSD scan and the RG-LRU scan
+then run through ``flash_attention.FlashAttention``, ``ssd_scan.SsdScan``
+and ``rglru_scan.RglruScan``, whose backwards are kernels too.  Decode
+attention (dense and paged) and the partition sweep have no backward and
+raise ``NotImplementedError`` there (``NO_BACKWARD`` names the ROADMAP
+item that would give each one): their outputs would otherwise be tensors
+autograd does not see.
 """
 from __future__ import annotations
 
@@ -30,10 +32,6 @@ NO_BACKWARD = {
                         "training path differentiates them)",
     "decode_attention_paged": "ROADMAP queue 2, item B5 (serving kernels; "
                               "no training path differentiates them)",
-    "ssd_scan": "ROADMAP queue 2, item B1 (the SSD scan's backward, to "
-                "train \"s\" layers)",
-    "rglru_scan": "ROADMAP queue 2, item B2 (the RG-LRU scan's backward, to "
-                  "train \"r\" layers)",
     "partition_sweep": "ROADMAP queue 2, item B5 (the controller never "
                        "differentiates the sweep)",
 }
@@ -152,42 +150,34 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
 
     On CUDA the SSD kernel runs at any S (its tile is its own; ``chunk``
     is a tiling choice that does not change the result).  On the CPU the
-    plain chunked scan runs at ``chunk``, as the reference does: S is
-    right-padded to a chunk multiple with dt = 0 steps (decay exp(0) = 1,
-    contribution dt b x = 0, so the final state is untouched) and the
-    padded rows of y are cut off.
+    plain chunked scan runs at ``chunk``, as the reference does, S padded
+    to a chunk multiple (``ref.ssd_scan_padded``).
     """
     if x.is_cuda:
-        from .ssd_scan import ssd_scan_cuda
-        refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip)
-        return ssd_scan_cuda(
-            x.contiguous(), dt.float().contiguous(),
-            a_log.float().contiguous(), b.contiguous(), c.contiguous(),
-            d_skip.float().contiguous(),
-            reset=None if reset is None else reset.contiguous())
-    s = x.shape[1]
-    tail = (-s) % chunk
-    if tail:
-        def pad_s(t):
-            return torch.cat([t, t.new_zeros((t.shape[0], tail)
-                                             + tuple(t.shape[2:]))], dim=1)
-        x, dt, b, c = pad_s(x), pad_s(dt), pad_s(b), pad_s(c)
-        if reset is not None:
-            reset = pad_s(reset)
-    y, state = ref.ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk=chunk,
-                                reset=reset)
-    return (y[:, :s] if tail else y), state
+        from .ssd_scan import SsdScan, ssd_scan_cuda
+        # the casts stay outside the Function: autograd carries each
+        # gradient back to its parameter's own dtype
+        args = (x.contiguous(), dt.float().contiguous(),
+                a_log.float().contiguous(), b.contiguous(), c.contiguous(),
+                d_skip.float().contiguous(),
+                None if reset is None else reset.contiguous())
+        if grad_wanted(*args):
+            return SsdScan.apply(*args)
+        return ssd_scan_cuda(*args[:-1], reset=args[-1])
+    return ref.ssd_scan_padded(x, dt, a_log, b, c, d_skip, chunk,
+                               reset=reset)
 
 
 def rglru_scan(x, a, reset=None):
     """Gated linear recurrence h_t = a_t h_{t-1} + x_t over (B, S, R), any
     S; ``reset`` (B, S) bool zeroes the state entering flagged steps."""
     if x.is_cuda:
-        from .rglru_scan import rglru_scan_cuda
-        refuse_grad("rglru_scan", x, a)
-        return rglru_scan_cuda(
-            x.contiguous(), a.contiguous(),
-            reset=None if reset is None else reset.contiguous())
+        from .rglru_scan import RglruScan, rglru_scan_cuda
+        x, a = x.contiguous(), a.contiguous()
+        reset = None if reset is None else reset.contiguous()
+        if grad_wanted(x, a):
+            return RglruScan.apply(x, a, reset)
+        return rglru_scan_cuda(x, a, reset=reset)
     return ref.rglru_scan_ref(x, a, reset=reset)
 
 

@@ -251,6 +251,26 @@ def ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
     return y.to(x.dtype), m
 
 
+def ssd_scan_padded(x, dt, a_log, b, c, d_skip, chunk: int, reset=None):
+    """``ssd_scan_ref`` at any S: S right-padded to a ``chunk`` multiple
+    with dt = 0 steps (decay exp(0) = 1, contribution dt b x = 0, so the
+    final state is untouched) and the padded rows of y cut off."""
+    s = x.shape[1]
+    tail = (-s) % chunk
+    if not tail:
+        return ssd_scan_ref(x, dt, a_log, b, c, d_skip, chunk=chunk,
+                            reset=reset)
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros((t.shape[0], tail)
+                                         + tuple(t.shape[2:]))], dim=1)
+
+    y, state = ssd_scan_ref(pad(x), pad(dt), a_log, pad(b), pad(c), d_skip,
+                            chunk=chunk,
+                            reset=None if reset is None else pad(reset))
+    return y[:, :s], state
+
+
 def ssd_step_ref(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
     """One decode step of the SSD recurrence.  state (B, H, N, P) float32;
     x_t (B, H, P); dt_t (B, H); b_t, c_t (B, G, N).  Returns (y_t (B, H, P)

@@ -1,8 +1,9 @@
 """Shared body of the LM-training parity tests (``models.steps``):
 ``test_torch_train.py``, ``test_torch_train_gemma3.py`` and
 ``test_torch_train_moe.py`` run it on reduced qwen3-0.6b, gemma3-1b and
-moonshot-v1-16b-a3b (XLA's compile of the reference's steps takes most of
-each file's time, so each arch has its file, under 40 s).
+moonshot-v1-16b-a3b, ``test_torch_train_scans.py`` on reduced mamba2-1.3b
+and recurrentgemma-2b (XLA's compile of the reference's steps takes most
+of each file's time, so each file stays under 40 s).
 
 The reference's parameters are carried across with
 ``transformer.params_from_reference``; batches are drawn with numpy and fed
@@ -42,7 +43,9 @@ PARAM_TOL = 1e-4
 ARCHS = {"qwen3-0.6b": {},
          "gemma3-1b": dict(block_pattern=("l", "g"), tail_pattern=("l",),
                            n_layers=5),
-         "moonshot-v1-16b-a3b": {}}
+         "moonshot-v1-16b-a3b": {},
+         "mamba2-1.3b": {},
+         "recurrentgemma-2b": {}}
 B, S = 4, 16             # S above the reduced window (8): "l" masks bite
 
 

@@ -1167,9 +1167,10 @@ def test_flash_backward_is_bit_identical_across_calls(b, s, h, kv, hd, kind,
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_refuse_a_gradient():
-    """On the card, decode attention (dense and paged), the SSD and RG-LRU
-    scans and the sweep raise NotImplementedError when a gradient is wanted
-    through them, and run as before under no_grad."""
+    """On the card, decode attention (dense and paged) and the sweep raise
+    NotImplementedError when a gradient is wanted through them, and run as
+    before under no_grad (the SSD and RG-LRU scans have backward kernels:
+    ``test_scan_backward_*``)."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
@@ -1178,16 +1179,10 @@ def test_kernels_without_a_backward_refuse_a_gradient():
     valid = torch.ones(2, 16, dtype=torch.bool, device="cuda")
     table = torch.arange(4, device="cuda", dtype=torch.int32).reshape(2, 2)
     lens = torch.tensor([5, 11], device="cuda", dtype=torch.int32)
-    x = rnd(1, 8, 2, 64).requires_grad_(True)
     calls = {
         "decode_attention": lambda: p_ops.decode_attention(q, k, v, valid),
         "decode_attention_paged": lambda: p_ops.decode_attention_paged(
             q, rnd(4, 8, 2, 32), rnd(4, 8, 2, 32), table, lens),
-        "ssd_scan": lambda: p_ops.ssd_scan(
-            x, rnd(1, 8, 2).abs(), rnd(2), rnd(1, 8, 1, 16), rnd(1, 8, 1, 16),
-            rnd(2), chunk=8),
-        "rglru_scan": lambda: p_ops.rglru_scan(
-            rnd(1, 8, 64).requires_grad_(True), rnd(1, 8, 64).sigmoid()),
     }
     args, scalars = random_sweep_inputs((2, 3), 5, "cuda")
     args[0].requires_grad_(True)
@@ -1200,6 +1195,148 @@ def test_kernels_without_a_backward_refuse_a_gradient():
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+def _grads(outs, leaves, cots):
+    """autograd.grad with zeros for a leaf the outputs never read (the
+    plain RG-LRU at S = 1 never reads a)."""
+    got = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, leaves)]
+
+
+def _assert_grads_close(got, want):
+    """1e-4 of max(1, max |g|) for a float32 gradient, 2e-2 for one that
+    comes out in bf16 (the flash backward's bands)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        tol = 2e-2 if g.dtype == torch.bfloat16 else 1e-4
+        assert float((g.float() - w.float()).abs().max()) <= tol * max(
+            1.0, float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,reset_at,final", [
+    (2, 1, 8, 64, 1, 128, ((1, 0),), "random"),        # the one-kernel path
+    (2, 65, 4, 16, 2, 8, ((0, 64), (1, 0)), "random"),  # G 2, chunk edge
+    (1, 333, 8, 64, 1, 128, ((0, 0), (0, 128), (0, 140), (0, 150)), None),
+    (2, 130, 8, 64, 1, 128, ((0, 64),), "zero"),
+    (4, 512, 64, 64, 1, 128, None, None),               # mamba2 training
+])
+def test_scan_backward_ssd_matches_plain_autograd(dtype, b, s, h, p, g, n,
+                                                  reset_at, final):
+    """The SSD backward kernel (``ops.ssd_scan`` with a gradient wanted, so
+    ``SsdScan``) against autograd through the float32 plain version; the
+    final state's cotangent absent (as in training), zero or drawn; a
+    second call equal to the first bit for bit."""
+    _need_card()
+    args = ssd_inputs(b, s, h, p, g, n, dtype, "cuda", seed=2)
+    reset = None if reset_at is None else resets(b, s, reset_at, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dstate = (None if final is None else torch.zeros(b, h, n, p, device="cuda")
+              if final == "zero" else
+              torch.randn(b, h, n, p, generator=gen, device="cuda"))
+
+    def grads(fn, values, cot):
+        leaves = [t.detach().requires_grad_(True) for t in values]
+        y, st = fn(*leaves)
+        if dstate is None:
+            return _grads(y, leaves, cot)
+        return _grads([y, st], leaves, [cot, dstate])
+
+    kernel = lambda *v: p_ops.ssd_scan(*v, chunk=64, reset=reset)
+    before = p_ssd.ssd_scan_backward_cuda.launches
+    got, again = grads(kernel, args, dy), grads(kernel, args, dy)
+    torch.cuda.synchronize()
+    assert p_ssd.ssd_scan_backward_cuda.launches == before + 2
+    want = grads(lambda *v: p_ref.ssd_scan_padded(*v, 64, reset=reset),
+                 [t.float() for t in args], dy.float())
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype, torch.float32]
+    _assert_grads_close(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,r,reset_at", [
+    (2, 1, 16, ((1, 0),)),
+    (2, 197, 37, ((0, 8), (0, 15), (0, 128), (1, 127), (1, 130), (1, 133))),
+    (1, 300, 40, ((0, 0), (0, 256), (0, 299))),
+    (4, 512, 2560, None),                                # recurrentgemma
+])
+def test_scan_backward_rglru_matches_plain_autograd(dtype, b, s, r,
+                                                    reset_at):
+    """The RG-LRU backward kernel (``ops.rglru_scan`` with a gradient
+    wanted, so ``RglruScan``) against autograd through the float32 plain
+    version, and a second call equal to the first bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor((rng.standard_normal((b, s, r)) * 0.3)
+                        .astype(np.float32), device="cuda").to(dtype)
+    a = torch.sigmoid(torch.as_tensor(rng.standard_normal((b, s, r))
+                                      .astype(np.float32), device="cuda")
+                      + 2.0).to(dtype)
+    dh = torch.as_tensor(rng.standard_normal((b, s, r)).astype(np.float32),
+                         device="cuda").to(dtype)
+    reset = None if reset_at is None else resets(b, s, reset_at, "cuda")
+
+    def grads(fn, values, cot):
+        leaves = [t.detach().requires_grad_(True) for t in values]
+        return _grads(fn(*leaves, reset), leaves, cot)
+
+    before = p_rg.rglru_scan_backward_cuda.launches
+    got = grads(p_ops.rglru_scan, (x, a), dh)
+    again = grads(p_ops.rglru_scan, (x, a), dh)
+    torch.cuda.synchronize()
+    assert p_rg.rglru_scan_backward_cuda.launches == before + 2
+    want = grads(p_ref.rglru_scan_ref, (x.float(), a.float()), dh.float())
+    assert all(t.dtype == dtype for t in got)
+    _assert_grads_close(got, want)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_scan_stack_train_step_on_card_matches_the_cpu(arch):
+    """float32 at full width, remat on: mamba2-1.3b at 2 "s" layers and
+    recurrentgemma-2b as one (r, r, l) unit and an (r,) tail; a gradient
+    step on the card against the CPU from the same parameters and batch:
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its max
+    |g|; the scans' backward kernels launched once a layer, each unit's
+    forward twice (the recompute)."""
+    from repro_torch.data.pipeline import for_arch
+    from repro_torch.models import steps as p_steps
+    _need_card()
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    if arch == "mamba2-1.3b":
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, **f32)
+        counters = (p_ssd.ssd_scan_cuda, p_ssd.ssd_scan_backward_cuda)
+        want_launches = (4, 2)
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=4,
+                                  tail_pattern=("r",), **f32)
+        counters = (p_rg.rglru_scan_cuda, p_rg.rglru_scan_backward_cuda,
+                    p_fa.flash_attention_cuda,
+                    p_fa.flash_attention_backward_cuda)
+        want_launches = (5, 3, 2, 1)
+    assert cfg.remat
+    gpu = p_tf.init_params(0, cfg, "cuda")
+    cpu = _tree.to_device(gpu, "cpu")
+    stream = for_arch(cfg, batch=2, seq=96, seed=5)
+    before = [fn.launches for fn in counters]
+    (loss, _), grads = p_steps.value_and_grad(
+        gpu, cfg, _tree.to_device(stream.get_batch(0), "cuda"))
+    torch.cuda.synchronize()
+    assert tuple(fn.launches - b for fn, b in zip(counters, before)) == \
+        want_launches
+    (cpu_loss, _), cpu_grads = p_steps.value_and_grad(cpu, cfg,
+                                                      stream.get_batch(0))
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    for g, w in zip(_tree.leaves(grads), _tree.leaves(cpu_grads)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 @pytest.mark.gpu

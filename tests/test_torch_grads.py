@@ -3,7 +3,8 @@
 The CPU arms of ``kernels.ops`` are plain torch and stay differentiable:
 flash attention's gradients against ``jax.grad`` of the reference's
 non-Pallas arm (1e-4 / 1e-5).  The CUDA arms of the kernels without a
-backward raise where a gradient is wanted (``ops.refuse_grad``); the
+backward (decode attention and the sweep) raise where a gradient is
+wanted (``ops.refuse_grad``); the
 rule's logic is held here, the raising on the card in
 ``test_torch_gpu.py``.  ``cross_entropy`` against the reference's;
 ``run_units``' one unbind per leaf leaves serving's prefill unchanged.
@@ -99,9 +100,10 @@ def test_gradient_rule_refuses_kernels_without_a_backward():
         p_ops.refuse_grad(name, y, y)                  # nothing wants a grad
         with torch.no_grad():
             p_ops.refuse_grad(name, x)
+    # the scans have backward kernels since the SSD and RG-LRU Functions
     assert set(p_ops.NO_BACKWARD) == {"decode_attention",
-                                      "decode_attention_paged", "ssd_scan",
-                                      "rglru_scan", "partition_sweep"}
+                                      "decode_attention_paged",
+                                      "partition_sweep"}
     assert p_ops.grad_wanted(y, x) and not p_ops.grad_wanted(y, None)
 
 
