@@ -5578,7 +5578,8 @@ SSD_GRAD_NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
 # mamba2's H 64, P 64, N 128 at the training shape (a microbatch of B8 S512
 # in 2), and its P and N at the one-kernel path (S <= 64) and the chunk
 # edges; S 333 with resets at step 0, on the boundary of chunk 2 and twice
-# inside it; G 2 over 4 heads
+# inside it; G 2 over 4 heads; N and P multiples of 4 but not of 16, which
+# the bf16 kernel pads to its tensor-core tiles
 SSD_GRAD_CASES = [
     ("train", 4, 512, 64, 64, 1, 128, "bf16", None, None),
     ("train", 4, 512, 64, 64, 1, 128, "f32", None, None),
@@ -5599,6 +5600,7 @@ SSD_GRAD_CASES = [
      "random"),
     ("final state's cotangent 0", 2, 130, 8, 64, 1, 128, "f32", ((0, 64),),
      "zero"),
+    ("N12 P20", 2, 97, 4, 20, 2, 12, "bf16", ((0, 64),), "random"),
 ]
 # (label, b, s, r, dtype, resets): recurrentgemma's R 2,560 at the training
 # shape; S 1; an odd S (plan: segments of 8 steps, tiles of 128) with

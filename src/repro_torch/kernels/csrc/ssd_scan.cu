@@ -81,7 +81,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kT = 64;           // steps per chunk
 constexpr int kThreads = 128;    // 4 warps; a warp owns 16 rows of a product
 constexpr unsigned kFull = 0xffffffffu;
-enum Mode { kOne = 0, kState = 1, kScan = 2 };
+// kAdjoint is the backward's U_c = C^T (inter dY) of chunks 1..
+// (chunk_adjoint): the kState pass with (C, inter, dY) in place of (B, coef,
+// x)
+enum Mode { kOne = 0, kState = 1, kScan = 2, kAdjoint = 3 };
 
 struct Params {
   const void* x;
@@ -181,11 +184,11 @@ template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
 
 // dst[r][j] = src[r * stride + j] for r < rows, j < width; zeros elsewhere
-// up to rows_pad rows and width_pad columns.  Where the source rows are
-// 16-byte aligned, by cp.async, 16 bytes a thread, every copy of the tile in
-// flight at once (the caller waits with cp_async_wait<0> before its
-// barrier); else element by element.
-template <typename T>
+// up to rows_pad rows and width_pad columns, by the kBlock threads of the
+// block.  Where the source rows are 16-byte aligned, by cp.async, 16 bytes a
+// thread, every copy of the tile in flight at once (the caller waits with
+// cp_async_wait<0> before its barrier); else element by element.
+template <typename T, int kBlock = kThreads>
 __device__ void load_tile(T* dst, int ld, int rows_pad, int width_pad,
                           const T* src, size_t stride, int rows, int width) {
   constexpr int kVec = 16 / sizeof(T);
@@ -194,14 +197,14 @@ __device__ void load_tile(T* dst, int ld, int rows_pad, int width_pad,
                    width_pad % kVec == 0;
   if (vec) {
     const int per_row = width_pad / kVec;
-    for (int i = threadIdx.x; i < rows_pad * per_row; i += kThreads) {
+    for (int i = threadIdx.x; i < rows_pad * per_row; i += kBlock) {
       const int r = i / per_row, j = (i - r * per_row) * kVec;
       const bool live = r < rows && j < width;
       cp_async16(dst + r * ld + j, live ? src + r * stride + j : src, live);
     }
     cp_async_commit();
   } else {
-    for (int i = threadIdx.x; i < rows_pad * width_pad; i += kThreads) {
+    for (int i = threadIdx.x; i < rows_pad * width_pad; i += kBlock) {
       const int r = i / width_pad, j = i - r * width_pad;
       dst[r * ld + j] = (r < rows && j < width) ? src[r * stride + j] : zero<T>();
     }
@@ -224,6 +227,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0,
                                                   uint32_t& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+// one B fragment (16 x 8) of a tile stored [k][n]: lanes 0-15 address rows
+// k 0-15 (the others' addresses are ignored)
+__device__ __forceinline__ void ldmatrix_x2_trans(const void* p, uint32_t& r0,
+                                                  uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)));
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate
@@ -264,9 +275,10 @@ struct Lanes {
 // lo parts; warp w takes the 16-row tiles w, w + 4, ...  Each lane stores
 // its accumulator pairs straight to out (row stride p): a quad's four
 // float2 fill one 32-byte sector.
-__device__ void state_product(const Layout& L, const bf16* bs, const bf16* xh,
-                              const bf16* xl, int n, int pw, int len,
-                              float* out, int p) {
+__device__ __forceinline__ void state_product(const Layout& L, const bf16* bs,
+                                              const bf16* xh, const bf16* xl,
+                                              int n, int pw, int len,
+                                              float* out, int p) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Lanes ln(lane);
   const int np = up16(n), pp = up16(pw);
@@ -637,16 +649,17 @@ __device__ __forceinline__ ChunkEnd chunk_rows(float av, int len,
 
 // One block per (chunk x column group, head, batch row).  kOne: y and the
 // final state of a one-chunk sequence; kState: the chunk's state and carry;
-// kScan: y from the state entering the chunk.  Every global load is issued
-// before the first barrier: the scalars, the per-step dt and resets, and
-// the tiles (cp.async), so their latencies overlap.
+// kScan: y from the state entering the chunk; kAdjoint: U of chunks 1..
+// (chunk_adjoint).  Every global load is issued before the first barrier:
+// the scalars, the per-step dt and resets, and the tiles (cp.async), so
+// their latencies overlap.
 template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-chunk_kernel(const Params a) {
+__device__ __forceinline__ void chunk_body(const Params& a) {
   extern __shared__ uint4 smem16[];
   char* base = reinterpret_cast<char*>(smem16);
+  constexpr int kLay = kMode == kAdjoint ? kState : kMode;   // its layout
   const int cgs = a.col_groups;
-  const int ch = blockIdx.x / cgs, cg = blockIdx.x % cgs;
+  const int ch = blockIdx.x / cgs + (kMode == kAdjoint), cg = blockIdx.x % cgs;
   const int h = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x;
   const int n = a.n, p = a.p, heads = a.heads;
@@ -655,7 +668,7 @@ chunk_kernel(const Params a) {
   const int grp = h / (heads / a.groups);
   const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
   const size_t bh = static_cast<size_t>(bb) * heads + h;
-  const Layout L = layout<T>(kMode, n, pw);
+  const Layout L = layout<T>(kLay, n, pw);
   constexpr bool kTensor = sizeof(T) == 2;
   double* cum = reinterpret_cast<double*>(base + L.cum);
   float* dts = reinterpret_cast<float*>(base + L.dts);
@@ -685,7 +698,7 @@ chunk_kernel(const Params a) {
   const size_t bc_stride = static_cast<size_t>(a.groups) * n;
   load_tile<T>(bs, L.ldb, kT, npad, static_cast<const T*>(a.b) + bc_off,
                bc_stride, len, n);
-  if (kMode != kState)
+  if (kLay != kState)
     load_tile<T>(cs, L.ldb, kT, npad, static_cast<const T*>(a.c) + bc_off,
                  bc_stride, len, n);
   const bool has_prev = kMode == kScan && ch > 0;
@@ -699,13 +712,18 @@ chunk_kernel(const Params a) {
   // 2. one warp: the in-chunk prefix sums and per-step factors, and the
   //    chunk's carry
   if (tid < 32) {
-    const ChunkEnd e = chunk_rows(av, len, dts, cum, seg, inter, coef);
-    if (kMode == kState && tid == 0 && cg == 0)
-      a.carry[bh * a.chunks + ch] = e.carry();
+    if constexpr (kMode == kAdjoint) {    // inter is U's factor: in coef's place
+      chunk_rows(av, len, dts, cum, seg, coef, inter);
+    } else {
+      const ChunkEnd e = chunk_rows(av, len, dts, cum, seg, inter, coef);
+      if (kMode == kState && tid == 0 && cg == 0)
+        a.carry[bh * a.chunks + ch] = e.carry();
+    }
   }
   __syncthreads();
 
-  // 3. the chunk's state (kOne: the final state; kState: scratch)
+  // 3. the chunk's state (kOne: the final state; kState: scratch; kAdjoint:
+  //    U into the scratch slot of the chunk, inter in coef's place)
   if (kMode != kScan) {
     float* out = kMode == kOne ? a.state + bh * n * p + p0
                                : a.chunk_states + (bh * a.chunks + ch) * n * p + p0;
@@ -733,7 +751,7 @@ chunk_kernel(const Params a) {
   }
 
   // 4. y
-  if (kMode != kState) {
+  if (kLay != kState) {
     const size_t y_stride = static_cast<size_t>(heads) * p;
     T* yb = static_cast<T*>(a.y) + (row0 * heads + h) * p + p0;
     if constexpr (kTensor) {
@@ -779,6 +797,21 @@ chunk_kernel(const Params a) {
                      y_stride);
     }
   }
+}
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+chunk_kernel(const Params a) {
+  chunk_body<T, kMode>(a);
+}
+
+// The backward's U pass.  The bound of two blocks an SM (they fit in
+// registers and shared memory) keeps ptxas from spilling the output
+// pointer, which it does at this mode under chunk_kernel's bound.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_adjoint(const Params a) {
+  chunk_body<T, kAdjoint>(a);
 }
 
 // The state pass: per (head, batch row), M_c = carry_c M_{c-1} + S_c over
@@ -833,13 +866,18 @@ state_pass(const float* __restrict__ carry, float* chunk_states,
 template <typename T, int kMode>
 cudaError_t launch_chunk(const Params& a, int batch, cudaStream_t stream) {
   const int pw = a.p / a.col_groups;
-  const size_t bytes = layout<T>(kMode, a.n, pw).bytes;
+  const size_t bytes = layout<T>(kMode == kAdjoint ? kState : kMode, a.n, pw).bytes;
+  void (*kernel)(Params);
+  if constexpr (kMode == kAdjoint)
+    kernel = chunk_adjoint<T>;
+  else
+    kernel = chunk_kernel<T, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.chunks * a.col_groups, a.heads, batch);
-  chunk_kernel<T, kMode><<<grid, kThreads, bytes, stream>>>(a);
+  const int blocks = kMode == kAdjoint ? a.chunks - 1 : a.chunks;
+  const dim3 grid(blocks * a.col_groups, a.heads, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -858,13 +896,46 @@ cudaError_t launch(const Params& a, int batch, cudaStream_t stream) {
 }
 
 // -- the backward ----------------------------------------------------------------
+//
+// ssd_scan_backward_launch gives the gradients of (y, final state).  Where
+// S > kT it recomputes the states entering each chunk (chunk_kernel<kState>
+// and state_pass, float32 in place), forms each chunk's U = C^T (inter dY)
+// (chunk_adjoint: the kState pass with (C, inter, dY) in place of (B, coef,
+// x), so for bf16 on the tensor cores) and walks the chunks
+// backward for D, the adjoint leaving each chunk (adjoint_pass); then one
+// block per (chunk, head, batch row) forms the chunk's dx, ddt and its
+// head's shares of db and dc (chunk_backward_tc for bf16, chunk_backward_f32
+// for float32, whose FMA loops hold 1e-4 where TF32 would not), and
+// grad_reduce sums db and dc over each group's heads and dA and dD over
+// (batch row, chunk) in a fixed order.  No atomics: two calls give the same
+// bits.
+//
+// Bound.  At mamba2's training microbatch (B4 S512 H64 P64 G1 N128 bf16, y's
+// cotangent only) the function moves 53.5 MB (0.016 ms at 3.35 TB/s) and
+// does 14.0 GFLOP (0.014 ms at the bf16 tensor-core rate).  The design adds
+// float32 scratch, each 67 MB there: the entering states and the adjoints
+// (B, H, chunks, N, P) and each head's shares of db and dc (B, S, H, N),
+// written once and read once or twice, about 0.23 ms at 3.35 TB/s before L2
+// hits.  That traffic and the latency of each block's chain of phases, not
+// the arithmetic, bound the call now: on an H100 it takes 0.48-0.49 ms, of
+// which chunk_backward_tc is 0.245 and its products (ablated one group at a
+// time) about 0.1 (PERF.md, section 6, row 7).  What the bf16 design does
+// about it: every product runs on the tensor cores (mma.sync m16n8k16, the
+// float32 operands W, dCB, D, M and inter dY as hi + lo bf16 parts, as in
+// the forward); the tiles are bf16, copied by cp.async; the per-step sums
+// are quad shuffles on the accumulator fragments and one partial per
+// (tile or warp, step), summed in a fixed order, not 16 lanes' arrays; D and
+// M go from the scratch straight into B fragments, each element loaded by
+// one warp of a phase, never staged, so a block takes 97,616 B of shared
+// memory and two blocks of 8 warps share an SM, one block's loads under the
+// other's products; the adjoint pass loads 8 chunks ahead of its chain.
 
-constexpr int kBThreads = 256;   // 16 row tiles of 4 steps x 16 column lanes
-constexpr int kLanes = 16;       // column lanes: each row's partial sums
-constexpr int kLd = kT + 4;      // row stride of the W and dCB tiles
+constexpr int kBThreads = 256;   // 8 warps
+constexpr int kWarps = kBThreads / 32;
+constexpr int kLanes = 16;       // float32: column lanes, each row's partial sums
+constexpr int kLd = kT + 4;      // float32: row stride of the W and dCB tiles
+constexpr int kTiles = 10;       // bf16: the causal 16 x 16 tiles of a chunk
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -893,18 +964,120 @@ struct BwdParams {
   int batch, s_len, heads, groups, n, p, chunks;
 };
 
-// Byte offsets of a backward block's shared memory (kernels/ssd_scan.py::
-// backward_shared_bytes mirrors it): the per-step rows, the 16 column
-// lanes' partial sums of four per-step dot products, then the float32 tiles:
-// C and dY (every backward block), and for the chunk's gradients X, B, the
-// entering state, the leaving adjoint, W and dCB.
+// the sum over the warp, the same on every lane, in a fixed order
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The end both chunk_backward kernels share, one warp, 2 steps a lane: from
+// each step's sums -- rs of G's row off the diagonal times dt_r, cs of its
+// column, co = dcoef and it = dinter -- and the carry's gradient <D, M>,
+// dcum, its reverse cumulative sum dl (float64, the gradient of A dt_q),
+// ddt, and the block's shares of dA and dD.
+__device__ void chunk_tail(const BwdParams& a, const ChunkEnd e, double dcarry,
+                           int ch, int len, size_t row0, float av,
+                           const double* cum, const float* dts,
+                           const float* inter, const float* coef,
+                           const int* seg, const float* diag,
+                           const float* sdiag, const double (&rs)[2],
+                           const double (&cs)[2], const double (&co)[2],
+                           const double (&it)[2]) {
+  const int lane = threadIdx.x & 31, h = blockIdx.y, bb = blockIdx.z;
+  const int heads = a.heads;
+  double d[2];
+  double ksum = 0.0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int q = 2 * lane + k;
+    const double kq = co[k] * coef[q];
+    d[k] = q < len ? rs[k] - dts[q] * cs[k] + inter[q] * it[k] - kq : 0.0;
+    ksum += q < len ? kq : 0.0;
+  }
+  ksum = warp_sum(ksum);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (2 * lane + k == len - 1) d[k] += ksum + e.carry() * dcarry;
+  double sv = d[0] + d[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double t = __shfl_down_sync(kFull, sv, o);
+    if (lane + o < 32) sv += t;
+  }
+  double ex = __shfl_down_sync(kFull, sv, 1);
+  if (lane == 31) ex = 0.0;
+  const double dl[2] = {ex + d[1] + d[0], ex + d[1]};
+  double da_part = 0.0, dd_part = 0.0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int q = 2 * lane + k;
+    if (q >= len) continue;
+    const float to_end = seg[q] == e.seg_end
+                             ? expf(static_cast<float>(e.total - cum[q])) : 0.f;
+    a.ddt[(row0 + q) * heads + h] = static_cast<float>(
+        cs[k] + diag[q] + co[k] * to_end + av * dl[k]);
+    da_part += dts[q] * dl[k];
+    dd_part += sdiag[q];
+  }
+  da_part = warp_sum(da_part);
+  dd_part = warp_sum(dd_part);
+  if (lane == 0) {
+    const size_t slot = (static_cast<size_t>(bb) * a.chunks + ch) * heads + h;
+    const size_t half = static_cast<size_t>(a.batch) * a.chunks * heads;
+    a.head_part[slot] = static_cast<float>(da_part);
+    a.head_part[half + slot] = static_cast<float>(dd_part);
+  }
+}
+
+// The adjoint pass, the state pass run backward: per (head, batch row),
+// from the final state's gradient (or 0), slot c of adj becomes D_c, the
+// gradient reaching the state that leaves chunk c from later steps, and
+// D_{c-1} = carry_c D_c + U_c; four elements a thread.  Loads run 8 chunks
+// ahead of the chain, as in the state pass.
+__global__ void __launch_bounds__(kThreads)
+adjoint_pass(const float* __restrict__ carry, float* adj,
+             const float* __restrict__ dstate, int chunks, int np4) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= np4) return;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const float* cr = carry + bh * chunks;
+  float4* s = reinterpret_cast<float4*>(adj) + bh * chunks * np4 + e;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 m = dstate != nullptr
+                 ? reinterpret_cast<const float4*>(dstate)[bh * np4 + e]
+                 : zero4;
+  for (int c0 = chunks - 1; c0 >= 0; c0 -= 8) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = c0 - i > 0 ? s[static_cast<size_t>(c0 - i) * np4] : zero4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 - i;
+      if (c < 0) break;
+      s[static_cast<size_t>(c) * np4] = m;
+      const float k = cr[c];
+      m = make_float4(k * m.x + v[i].x, k * m.y + v[i].y, k * m.z + v[i].z,
+                      k * m.w + v[i].w);
+    }
+  }
+}
+
+// -- float32: CUDA cores --
+
+// Byte offsets of a float32 backward block's shared memory (kernels/
+// ssd_scan.py::backward_shared_bytes mirrors it): the per-step rows, the 16
+// column lanes' partial sums of four per-step dot products, then the
+// float32 tiles: C, dY, X, B, the entering state, the leaving adjoint, W
+// and dCB.
 struct BwdLayout {
   int ldx, ldn;          // row strides of the (kT x P) and (kT x N) tiles
   size_t cum, dts, inter, coef, seg, sdiag, diag, rowp, colp, coefp,
       interp, red, cs, dys, xs, bs, mp, dm, w, dcb, bytes;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int n, int p, bool full) {
+__host__ __device__ inline BwdLayout bwd_layout(int n, int p) {
   BwdLayout L{};
   L.ldx = p + 4;
   L.ldn = n + 4;
@@ -923,168 +1096,51 @@ __host__ __device__ inline BwdLayout bwd_layout(int n, int p, bool full) {
   L.red = take(o, 32 * 8);
   L.cs = take(o, static_cast<size_t>(kT) * L.ldn * 4);
   L.dys = take(o, static_cast<size_t>(kT) * L.ldx * 4);
-  if (full) {
-    L.xs = take(o, static_cast<size_t>(kT) * L.ldx * 4);
-    L.bs = take(o, static_cast<size_t>(kT) * L.ldn * 4);
-    L.mp = take(o, static_cast<size_t>(n) * p * 4);
-    L.dm = take(o, static_cast<size_t>(n) * p * 4);
-    L.w = take(o, kT * kLd * 4);
-    L.dcb = take(o, kT * kLd * 4);
-  }
+  L.xs = take(o, static_cast<size_t>(kT) * L.ldx * 4);
+  L.bs = take(o, static_cast<size_t>(kT) * L.ldn * 4);
+  L.mp = take(o, static_cast<size_t>(n) * p * 4);
+  L.dm = take(o, static_cast<size_t>(n) * p * 4);
+  L.w = take(o, kT * kLd * 4);
+  L.dcb = take(o, kT * kLd * 4);
   L.bytes = o;
   return L;
 }
 
-// dst[r][j] (row stride ld) = float(src[r * stride + j]) for r < rows,
-// zeros for rows .. rows_pad - 1; j < width
-template <typename T>
+// dst[r][j] (row stride ld) = src[r * stride + j] for r < rows, zeros for
+// rows .. rows_pad - 1; j < width
 __device__ void load_rows(float* dst, int ld, int rows_pad, int width,
-                          const T* src, size_t stride, int rows) {
+                          const float* src, size_t stride, int rows) {
   for (int i = threadIdx.x; i < rows_pad * width; i += blockDim.x) {
     const int r = i / width, j = i - r * width;
-    dst[r * ld + j] = r < rows ? to_f32(src[r * stride + j]) : 0.f;
+    dst[r * ld + j] = r < rows ? src[r * stride + j] : 0.f;
   }
 }
 
 using f32::at;
 using f32::ld4;
 
-// the sum over the warp, the same on every lane, in a fixed order
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// The start both per-chunk backward kernels share, for chunk ch of block
-// (., head, batch row): the chunk's dt and resets, C and dY as float32
-// (rows past len zero); then, after a barrier,
-// the prefix sums and factors (chunk_rows), whose end goes to *end; then a
-// barrier.  `more` issues the caller's other loads before the first one.
-template <typename T, typename More>
-__device__ void begin_chunk(const BwdParams& a, const BwdLayout& L, char* base,
-                            int ch, float av, ChunkEnd* end, More more) {
-  const int h = blockIdx.y, bb = blockIdx.z, tid = threadIdx.x;
-  const int heads = a.heads, n = a.n, p = a.p;
-  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
-  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
-  const int grp = h / (heads / a.groups);
-  float* dts = reinterpret_cast<float*>(base + L.dts);
-  int* seg = reinterpret_cast<int*>(base + L.seg);
-  if (tid < kT) {
-    const bool live = tid < len;
-    dts[tid] = live ? a.dt[(row0 + tid) * heads + h] : 0.f;
-    seg[tid] = (a.reset != nullptr && live) ? (a.reset[row0 + tid] != 0) : 0;
-  }
-  load_rows<T>(reinterpret_cast<float*>(base + L.cs), L.ldn, kT, n,
-               static_cast<const T*>(a.c) + (row0 * a.groups + grp) * n,
-               static_cast<size_t>(a.groups) * n, len);
-  load_rows<T>(reinterpret_cast<float*>(base + L.dys), L.ldx, kT, p,
-               static_cast<const T*>(a.dy) + (row0 * heads + h) * p,
-               static_cast<size_t>(heads) * p, len);
-  more(len, row0, grp);
-  __syncthreads();
-  if (tid < 32) {
-    const ChunkEnd e = chunk_rows(
-        av, len, dts, reinterpret_cast<double*>(base + L.cum), seg,
-        reinterpret_cast<float*>(base + L.inter),
-        reinterpret_cast<float*>(base + L.coef));
-    if (tid == 0) *end = e;
-  }
-  __syncthreads();
-}
-
-// U_c = sum_q inter_q c_q dY_q^T of chunk c >= 1 (what the state entering
-// the chunk receives from the chunk's y), into slot c of adj; one block per
-// (chunk 1.., head, batch row), 4 x 4 register tiles of (N, P).
-template <typename T>
-__global__ void __launch_bounds__(kBThreads)
-chunk_adjoint(const BwdParams a) {
-  extern __shared__ uint4 smem16[];
-  char* base = reinterpret_cast<char*>(smem16);
-  __shared__ ChunkEnd end;
-  const int n = a.n, p = a.p;
-  const BwdLayout L = bwd_layout(n, p, false);
-  const float av = -expf(a.a_log[blockIdx.y]);
-  const int ch = blockIdx.x + 1, len = min(kT, a.s_len - ch * kT);
-  begin_chunk<T>(a, L, base, ch, av, &end, [](int, size_t, int) {});
-  const size_t bh = static_cast<size_t>(blockIdx.z) * a.heads + blockIdx.y;
-  const float* inter = reinterpret_cast<const float*>(base + L.inter);
-  const float* cs = reinterpret_cast<const float*>(base + L.cs);
-  const float* dys = reinterpret_cast<const float*>(base + L.dys);
-  float* out = a.adj + (bh * a.chunks + ch) * n * p;
-  const int pt = p / 4;
-  for (int tile = threadIdx.x; tile < (n / 4) * pt; tile += kBThreads) {
-    const int n0 = (tile / pt) * 4, p0 = (tile % pt) * 4;
-    float acc[4][4] = {};
-    for (int q = 0; q < len; ++q) {
-      const float iv = inter[q];
-      const float4 cv = ld4(cs + q * L.ldn + n0);
-      const float4 dv = ld4(dys + q * L.ldx + p0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ci = at(cv, i) * iv;
-        acc[i][0] += ci * dv.x;
-        acc[i][1] += ci * dv.y;
-        acc[i][2] += ci * dv.z;
-        acc[i][3] += ci * dv.w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(out + static_cast<size_t>(n0 + i) * p + p0) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
-// The adjoint pass, the state pass run backward: per (head, batch row),
-// from the final state's gradient (or 0), slot c of adj becomes D_c, the
-// gradient reaching the state that leaves chunk c from later steps, and
-// D_{c-1} = carry_c D_c + U_c; four elements a thread.
-__global__ void __launch_bounds__(kThreads)
-adjoint_pass(const float* __restrict__ carry, float* adj,
-             const float* __restrict__ dstate, int chunks, int np4) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= np4) return;
-  const size_t bh = static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const float* cr = carry + bh * chunks;
-  float4* s = reinterpret_cast<float4*>(adj) + bh * chunks * np4 + e;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 m = dstate != nullptr
-                 ? reinterpret_cast<const float4*>(dstate)[bh * np4 + e]
-                 : zero4;
-  for (int c = chunks - 1; c >= 0; --c) {
-    const float4 v = c > 0 ? s[static_cast<size_t>(c) * np4] : zero4;
-    s[static_cast<size_t>(c) * np4] = m;
-    const float k = cr[c];
-    m = make_float4(k * m.x + v.x, k * m.y + v.y, k * m.z + v.z,
-                    k * m.w + v.w);
-  }
-}
-
-// The chunk's gradients; one block per (chunk, head, batch row), thread
-// (row tile rt, lane cl) takes steps 4 rt .. 4 rt + 3 and the column tiles
-// cl, cl + 16, ... of each product, and keeps its per-row partial sums in
-// lane cl's column, so that every sum is taken in one fixed order.  With
-// S = C.B^T and dS = dY.X^T over the causal triangle, E the masked decay,
-// V = dS E: W = S E dt_r, dCB = V dt_r, G = V S dt_r; then
+// The chunk's gradients for float32 x; one block per (chunk, head, batch
+// row), thread (row tile rt, lane cl) takes steps 4 rt .. 4 rt + 3 and the
+// column tiles cl, cl + 16, ... of each product, and keeps its per-row
+// partial sums in lane cl's column, so that every sum is taken in one fixed
+// order.  With S = C.B^T and dS = dY.X^T over the causal triangle, E the
+// masked decay, V = dS E: W = S E dt_r, dCB = V dt_r, G = V S dt_r; then
 //   dX_r  = sum_q W_qr dY_q + coef_r (B_r D) + D_h dY_r
 //   dB_r  = sum_q dCB_qr C_q + coef_r (D X_r)     (this head's share)
 //   dC_q  = sum_r dCB_qr B_r + inter_q (M dY_q)   (this head's share)
 // and the gradient of the prefix sums, dcum_q = sum_{r<q} G_qr -
 // sum_{r>q} G_rq + inter_q dinter_q - coef_q dcoef_q, plus at the last
 // step sum_r coef_r dcoef_r + carry <D, M>, whose reverse cumulative sum
-// (float64) is the gradient of each step's A dt.
-template <typename T>
+// (float64) is the gradient of each step's A dt (chunk_tail).
 __global__ void __launch_bounds__(kBThreads)
-chunk_backward(const BwdParams a) {
+chunk_backward_f32(const BwdParams a) {
   extern __shared__ uint4 smem16[];
   char* base = reinterpret_cast<char*>(smem16);
   __shared__ ChunkEnd end;
   __shared__ double dcarry;
   const int h = blockIdx.y, bb = blockIdx.z, tid = threadIdx.x;
   const int n = a.n, p = a.p, heads = a.heads, ch = blockIdx.x;
-  const BwdLayout L = bwd_layout(n, p, true);
+  const BwdLayout L = bwd_layout(n, p);
   const size_t bh = static_cast<size_t>(bb) * heads + h;
   const float av = -expf(a.a_log[h]);
   const float dskip = a.d_skip[h];
@@ -1092,32 +1148,20 @@ chunk_backward(const BwdParams a) {
   const float* dm_src = a.chunks > 1 ? a.adj + (bh * a.chunks + ch) * n * p
                         : (a.dstate != nullptr ? a.dstate + bh * n * p : nullptr);
   const bool has_dm = dm_src != nullptr;
+  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
+  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
+  const int grp = h / (heads / a.groups);
+  double* cum = reinterpret_cast<double*>(base + L.cum);
+  float* dts = reinterpret_cast<float*>(base + L.dts);
+  float* inter = reinterpret_cast<float*>(base + L.inter);
+  float* coef = reinterpret_cast<float*>(base + L.coef);
+  int* seg = reinterpret_cast<int*>(base + L.seg);
+  float* cs = reinterpret_cast<float*>(base + L.cs);
+  float* dys = reinterpret_cast<float*>(base + L.dys);
   float* xs = reinterpret_cast<float*>(base + L.xs);
   float* bs = reinterpret_cast<float*>(base + L.bs);
   float* mp = reinterpret_cast<float*>(base + L.mp);
   float* dm = reinterpret_cast<float*>(base + L.dm);
-  begin_chunk<T>(a, L, base, ch, av, &end,
-                 [&](int len, size_t row0, int grp) {
-    load_rows<T>(xs, L.ldx, kT, p,
-                 static_cast<const T*>(a.x) + (row0 * heads + h) * p,
-                 static_cast<size_t>(heads) * p, len);
-    load_rows<T>(bs, L.ldn, kT, n,
-                 static_cast<const T*>(a.b) + (row0 * a.groups + grp) * n,
-                 static_cast<size_t>(a.groups) * n, len);
-    if (has_prev)
-      load_rows<float>(mp, p, n, p, a.chunk_states + (bh * a.chunks + ch) * n * p,
-                       p, n);
-    if (has_dm) load_rows<float>(dm, p, n, p, dm_src, p, n);
-  });
-  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
-  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
-  const double* cum = reinterpret_cast<const double*>(base + L.cum);
-  const float* dts = reinterpret_cast<const float*>(base + L.dts);
-  const float* inter = reinterpret_cast<const float*>(base + L.inter);
-  const float* coef = reinterpret_cast<const float*>(base + L.coef);
-  const int* seg = reinterpret_cast<const int*>(base + L.seg);
-  const float* cs = reinterpret_cast<const float*>(base + L.cs);
-  const float* dys = reinterpret_cast<const float*>(base + L.dys);
   float* sdiag = reinterpret_cast<float*>(base + L.sdiag);
   float* diag = reinterpret_cast<float*>(base + L.diag);
   float* rowp = reinterpret_cast<float*>(base + L.rowp);
@@ -1127,6 +1171,33 @@ chunk_backward(const BwdParams a) {
   double* red = reinterpret_cast<double*>(base + L.red);
   float* w = reinterpret_cast<float*>(base + L.w);
   float* dcb = reinterpret_cast<float*>(base + L.dcb);
+
+  // 0. the chunk's dt and resets, its C, dY, X and B rows (zero past len),
+  //    the entering state and the leaving adjoint; then one warp: the
+  //    prefix sums and factors
+  if (tid < kT) {
+    const bool live = tid < len;
+    dts[tid] = live ? a.dt[(row0 + tid) * heads + h] : 0.f;
+    seg[tid] = (a.reset != nullptr && live) ? (a.reset[row0 + tid] != 0) : 0;
+  }
+  const float* bc = static_cast<const float*>(a.c) + (row0 * a.groups + grp) * n;
+  const size_t bc_stride = static_cast<size_t>(a.groups) * n;
+  const size_t xo = (row0 * heads + h) * p, x_stride = static_cast<size_t>(heads) * p;
+  load_rows(cs, L.ldn, kT, n, bc, bc_stride, len);
+  load_rows(dys, L.ldx, kT, p, static_cast<const float*>(a.dy) + xo, x_stride, len);
+  load_rows(xs, L.ldx, kT, p, static_cast<const float*>(a.x) + xo, x_stride, len);
+  load_rows(bs, L.ldn, kT, n,
+            static_cast<const float*>(a.b) + (row0 * a.groups + grp) * n,
+            bc_stride, len);
+  if (has_prev)
+    load_rows(mp, p, n, p, a.chunk_states + (bh * a.chunks + ch) * n * p, p, n);
+  if (has_dm) load_rows(dm, p, n, p, dm_src, p, n);
+  __syncthreads();
+  if (tid < 32) {
+    const ChunkEnd e = chunk_rows(av, len, dts, cum, seg, inter, coef);
+    if (tid == 0) end = e;
+  }
+  __syncthreads();
   const int rt = tid / kLanes, cl = tid % kLanes;
   const int r0 = rt * 4;        // this thread's four rows of every product
 
@@ -1202,7 +1273,7 @@ chunk_backward(const BwdParams a) {
 
   // 2. dX = W^T dY + coef (B D) + D_h dY, and dcoef_r = (B_r D) . X_r
   {
-    T* dx = static_cast<T*>(a.dx) + (row0 * heads + h) * p;
+    float* dx = static_cast<float*>(a.dx) + (row0 * heads + h) * p;
     float part[4] = {};
     for (int ct = cl; ct < p / 4; ct += kLanes) {
       const int p0 = ct * 4;
@@ -1366,61 +1437,514 @@ chunk_backward(const BwdParams a) {
   }
   __syncthreads();
 
-  // 5. one warp, 2 steps a lane: dcum, its reverse cumulative sum dl (the
-  //    gradient of A dt_q), ddt, and the block's shares of dA and dD
+  // 5. one warp: each step's sums over the 16 lanes, then chunk_tail
   if (tid < 32) {
-    const ChunkEnd e = end;
-    double d[2], dco[2], colsum[2];
-    double ksum = 0.0;
+    double rs[2], cs_[2], co[2], it[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int q = 2 * tid + k;
-      double rs = 0.0, cs_ = 0.0, co = 0.0, it = 0.0;
+      rs[k] = cs_[k] = co[k] = it[k] = 0.0;
       for (int l = 0; l < kLanes; ++l) {
-        rs += rowp[q * kLanes + l];
-        cs_ += colp[q * kLanes + l];
-        co += coefp[q * kLanes + l];
-        it += interp[q * kLanes + l];
+        rs[k] += rowp[q * kLanes + l];
+        cs_[k] += colp[q * kLanes + l];
+        co[k] += coefp[q * kLanes + l];
+        it[k] += interp[q * kLanes + l];
       }
-      const double kq = co * coef[q];
-      d[k] = q < len ? rs - dts[q] * cs_ + inter[q] * it - kq : 0.0;
-      dco[k] = co;
-      colsum[k] = cs_;
-      ksum += q < len ? kq : 0.0;
     }
-    ksum = warp_sum(ksum);
+    chunk_tail(a, end, dcarry, ch, len, row0, av, cum, dts, inter, coef, seg,
+               diag, sdiag, rs, cs_, co, it);
+  }
+}
+
+// -- bf16: tensor cores --
+
+// The causal tile t = qt (qt + 1) / 2 + rt of a chunk: rows q of the 16-row
+// tile qt, columns r of the tile rt <= qt
+__host__ __device__ constexpr int tile_of(int qt, int rt) {
+  return qt * (qt + 1) / 2 + rt;
+}
+
+__device__ __forceinline__ int tile_row(int t) {
+  return t < 1 ? 0 : (t < 3 ? 1 : (t < 6 ? 2 : 3));
+}
+
+// Byte offsets of a bf16 backward block's shared memory (kernels/
+// ssd_scan.py::backward_shared_bytes mirrors it): the per-step rows, one
+// partial sum of G's rows and columns per (tile, row), of dcoef and dinter
+// per (warp, step), <D, M> per warp and the chunk's end; then the bf16
+// tiles, N and P padded to 16 and rows by 8 (ldmatrix without bank
+// conflicts): C, B, X, dY, and W and dCB as hi + lo parts.
+struct BwdTcLayout {
+  int ldn, ldx, ldw;     // row strides of the (kT x N), (kT x P), (kT x kT) tiles
+  size_t cum, dts, inter, coef, seg, sdiag, diag, rowp, colp, coefp, interp,
+      red, end, cs, bs, xs, dys, wh, wl, gh, gl, bytes;
+};
+
+__host__ __device__ inline BwdTcLayout bwd_tc_layout(int n, int p) {
+  BwdTcLayout L{};
+  L.ldn = up16(n) + 8;
+  L.ldx = up16(p) + 8;
+  L.ldw = kT + 8;
+  size_t o = 0;
+  L.cum = take(o, kT * 8);
+  L.dts = take(o, kT * 4);
+  L.inter = take(o, kT * 4);
+  L.coef = take(o, kT * 4);
+  L.seg = take(o, kT * 4);
+  L.sdiag = take(o, kT * 4);
+  L.diag = take(o, kT * 4);
+  L.rowp = take(o, kTiles * 16 * 4);
+  L.colp = take(o, kTiles * 16 * 4);
+  L.coefp = take(o, kWarps * kT * 4);
+  L.interp = take(o, kWarps * kT * 4);
+  L.red = take(o, kWarps * 8);
+  L.end = take(o, sizeof(ChunkEnd));
+  L.cs = take(o, static_cast<size_t>(kT) * L.ldn * 2);
+  L.bs = take(o, static_cast<size_t>(kT) * L.ldn * 2);
+  L.xs = take(o, static_cast<size_t>(kT) * L.ldx * 2);
+  L.dys = take(o, static_cast<size_t>(kT) * L.ldx * 2);
+  L.wh = take(o, kT * L.ldw * 2);
+  L.wl = take(o, kT * L.ldw * 2);
+  L.gh = take(o, kT * L.ldw * 2);
+  L.gl = take(o, kT * L.ldw * 2);
+  L.bytes = o;
+  return L;
+}
+
+// For the four 16-row tiles mt of the (kT x P) bf16 tiles X and dY (row
+// stride ld): adb[mt] += X_mt D_row^T and adc[mt] += dY_mt M_row^T, where
+// D's and M's row `row` (float32, row stride p, zero past n rows and p
+// columns; a null state is zero) is a B fragment (k = column, n = row of
+// the lane's group) as hi + lo parts, and dot += sum D_row M_row (float64)
+// where both are there.  Each lane loads D's and M's elements once, two
+// float2 each a k-step, four k-steps in flight at once.
+__device__ __forceinline__ void state_row_products(
+    float (&adb)[4][4], float (&adc)[4][4], const bf16* xs, const bf16* dys,
+    int ld, const float* dm, const float* mp, double& dot, int row, int n,
+    int p) {
+  const int lane = threadIdx.x & 31, cq = lane & 3;
+  const tc::Lanes ln(lane);
+  const float2 zero2 = make_float2(0.f, 0.f);
+  for (int k0 = 0; k0 < up16(p); k0 += 64) {
+    float2 d[4][2], m[4][2];
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (2 * tid + k == len - 1) d[k] += ksum + e.carry() * dcarry;
-    double sv = d[0] + d[1];
+    for (int s = 0; s < 4; ++s)
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double t = __shfl_down_sync(kFull, sv, o);
-      if (tid + o < 32) sv += t;
+      for (int i = 0; i < 2; ++i) {
+        const int c = k0 + s * 16 + 2 * cq + i * 8;
+        const size_t at = static_cast<size_t>(row) * p + c;
+        const bool live = row < n && c < p;
+        d[s][i] = live && dm != nullptr
+                      ? *reinterpret_cast<const float2*>(dm + at) : zero2;
+        m[s][i] = live && mp != nullptr
+                      ? *reinterpret_cast<const float2*>(mp + at) : zero2;
+      }
+    if (dm != nullptr && mp != nullptr)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          dot += static_cast<double>(d[s][i].x) * m[s][i].x +
+                 static_cast<double>(d[s][i].y) * m[s][i].y;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int kd = k0 + s * 16;
+      if (kd >= up16(p)) break;
+      uint32_t h0, l0, h1, l1, a0, a1, a2, a3;
+      if (dm != nullptr) {
+        tc::split_bf16(d[s][0].x, d[s][0].y, h0, l0);
+        tc::split_bf16(d[s][1].x, d[s][1].y, h1, l1);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          tc::ldmatrix_x4(xs + (mt * 16 + ln.a_row) * ld + kd + ln.a_col, a0, a1, a2, a3);
+          tc::mma(adb[mt], a0, a1, a2, a3, h0, h1);
+          tc::mma(adb[mt], a0, a1, a2, a3, l0, l1);
+        }
+      }
+      if (mp != nullptr) {
+        tc::split_bf16(m[s][0].x, m[s][0].y, h0, l0);
+        tc::split_bf16(m[s][1].x, m[s][1].y, h1, l1);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          tc::ldmatrix_x4(dys + (mt * 16 + ln.a_row) * ld + kd + ln.a_col, a0, a1, a2, a3);
+          tc::mma(adc[mt], a0, a1, a2, a3, h0, h1);
+          tc::mma(adc[mt], a0, a1, a2, a3, l0, l1);
+        }
+      }
     }
-    double ex = __shfl_down_sync(kFull, sv, 1);
-    if (tid == 31) ex = 0.0;
-    const double dl[2] = {ex + d[1] + d[0], ex + d[1]};
-    double da_part = 0.0, dd_part = 0.0;
+  }
+}
+
+// The chunk's gradients for bf16 x, the float32 kernel's algebra on the
+// tensor cores: one block of 8 warps per (chunk, head, batch row), two
+// blocks an SM.  (1) The bf16 tiles arrive by cp.async; (2) warp 0
+// takes the prefix sums while every warp forms S = C B^T and dS = dY X^T on
+// its causal 16 x 16 tiles (t = warp, warp + 8; bf16 products, exact); (3)
+// it masks them, stores W and dCB as hi + lo parts and sums G off the
+// diagonal by quad shuffles (rows) and over the 8 lanes of a column, one
+// partial per (tile, row); (4) warp w forms dX on the 8-column tiles w, w +
+// 8, ... of P, all rows: coef (B D), with the leaving adjoint D read from
+// the scratch straight into B fragments (hi + lo), then W^T dY over the
+// causal tiles, then D_h dY; (5) and dB and dC on the 8-column tiles of N:
+// coef (X D^T) + dCB^T C and inter (dY M^T) + dCB B, M and D again read
+// into fragments, each element by one warp, which also sums <D, M> from
+// them in float64 (the carry's gradient); (6) warp 0 sums the partials
+// over tiles and warps in a fixed order and ends in chunk_tail.  No
+// atomics: two calls give the same bits.
+__global__ void __launch_bounds__(kBThreads, 2)
+chunk_backward_tc(const BwdParams a) {
+  extern __shared__ uint4 smem16[];
+  char* base = reinterpret_cast<char*>(smem16);
+  const int h = blockIdx.y, bb = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, cq = lane & 3;
+  const int n = a.n, p = a.p, heads = a.heads, ch = blockIdx.x;
+  const int np = up16(n), pp = up16(p);
+  const BwdTcLayout L = bwd_tc_layout(n, p);
+  const tc::Lanes ln(lane);
+  const size_t bh = static_cast<size_t>(bb) * heads + h;
+  const float av = -expf(a.a_log[h]);
+  const float dskip = a.d_skip[h];
+  // the state entering the chunk and the adjoint leaving it, or null: zero
+  const float* mp = ch > 0 ? a.chunk_states + (bh * a.chunks + ch) * n * p : nullptr;
+  const float* dm = a.chunks > 1 ? a.adj + (bh * a.chunks + ch) * n * p
+                    : (a.dstate != nullptr ? a.dstate + bh * n * p : nullptr);
+  const int t0 = ch * kT, len = min(kT, a.s_len - t0);
+  const size_t row0 = static_cast<size_t>(bb) * a.s_len + t0;
+  const int grp = h / (heads / a.groups);
+  double* cum = reinterpret_cast<double*>(base + L.cum);
+  float* dts = reinterpret_cast<float*>(base + L.dts);
+  float* inter = reinterpret_cast<float*>(base + L.inter);
+  float* coef = reinterpret_cast<float*>(base + L.coef);
+  int* seg = reinterpret_cast<int*>(base + L.seg);
+  float* sdiag = reinterpret_cast<float*>(base + L.sdiag);
+  float* diag = reinterpret_cast<float*>(base + L.diag);
+  float* rowp = reinterpret_cast<float*>(base + L.rowp);
+  float* colp = reinterpret_cast<float*>(base + L.colp);
+  float* coefp = reinterpret_cast<float*>(base + L.coefp);
+  float* interp = reinterpret_cast<float*>(base + L.interp);
+  double* red = reinterpret_cast<double*>(base + L.red);
+  ChunkEnd* end = reinterpret_cast<ChunkEnd*>(base + L.end);
+  bf16* cs = reinterpret_cast<bf16*>(base + L.cs);
+  bf16* bs = reinterpret_cast<bf16*>(base + L.bs);
+  bf16* xs = reinterpret_cast<bf16*>(base + L.xs);
+  bf16* dys = reinterpret_cast<bf16*>(base + L.dys);
+  bf16* wh = reinterpret_cast<bf16*>(base + L.wh);
+  bf16* wl = reinterpret_cast<bf16*>(base + L.wl);
+  bf16* gh = reinterpret_cast<bf16*>(base + L.gh);
+  bf16* gl = reinterpret_cast<bf16*>(base + L.gl);
+
+  // 1. the chunk's dt and resets; C, B, X, dY (cp.async; zeros past len and
+  //    in the padding)
+  if (tid < kT) {
+    const bool live = tid < len;
+    dts[tid] = live ? a.dt[(row0 + tid) * heads + h] : 0.f;
+    seg[tid] = (a.reset != nullptr && live) ? (a.reset[row0 + tid] != 0) : 0;
+  }
+  const size_t bc_off = (row0 * a.groups + grp) * n;
+  const size_t bc_stride = static_cast<size_t>(a.groups) * n;
+  const size_t xo = (row0 * heads + h) * p, x_stride = static_cast<size_t>(heads) * p;
+  load_tile<bf16, kBThreads>(cs, L.ldn, kT, np, static_cast<const bf16*>(a.c) + bc_off,
+                             bc_stride, len, n);
+  load_tile<bf16, kBThreads>(bs, L.ldn, kT, np, static_cast<const bf16*>(a.b) + bc_off,
+                             bc_stride, len, n);
+  load_tile<bf16, kBThreads>(xs, L.ldx, kT, pp, static_cast<const bf16*>(a.x) + xo,
+                             x_stride, len, p);
+  load_tile<bf16, kBThreads>(dys, L.ldx, kT, pp, static_cast<const bf16*>(a.dy) + xo,
+                             x_stride, len, p);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. warp 0: the prefix sums and factors; every warp: S and dS on its
+  //    tiles, two n8 halves each
+  if (warp == 0) {
+    const ChunkEnd e = chunk_rows(av, len, dts, cum, seg, inter, coef);
+    if (lane == 0) *end = e;
+  }
+  float sc[2][2][4], ds[2][2][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[k][j][e] = ds[k][j][e] = 0.f;
+    const int t = warp + k * kWarps;
+    if (t >= kTiles) continue;
+    const int qt = tile_row(t), rt = t - tile_of(qt, 0);
+    for (int kd = 0; kd < np; kd += 16) {
+      uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+      tc::ldmatrix_x4(cs + (qt * 16 + ln.a_row) * L.ldn + kd + ln.a_col, a0, a1, a2, a3);
+      tc::ldmatrix_x4(bs + (rt * 16 + ln.b_row) * L.ldn + kd + ln.b_col, b0, b1, b2, b3);
+      tc::mma(sc[k][0], a0, a1, a2, a3, b0, b1);
+      tc::mma(sc[k][1], a0, a1, a2, a3, b2, b3);
+    }
+    for (int kd = 0; kd < pp; kd += 16) {
+      uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+      tc::ldmatrix_x4(dys + (qt * 16 + ln.a_row) * L.ldx + kd + ln.a_col, a0, a1, a2, a3);
+      tc::ldmatrix_x4(xs + (rt * 16 + ln.b_row) * L.ldx + kd + ln.b_col, b0, b1, b2, b3);
+      tc::mma(ds[k][0], a0, a1, a2, a3, b0, b1);
+      tc::mma(ds[k][1], a0, a1, a2, a3, b2, b3);
+    }
+  }
+  __syncthreads();
+
+  // 3. the decay mask (linear domain, before the exp); W = S E dt_r and
+  //    dCB = dS E dt_r stored as hi + lo parts; G = dS E S summed off the
+  //    diagonal, times dt_r along rows (quad shuffles) and along columns
+  //    (the 8 lanes of a column), one partial per (tile, row); the diagonal
+  //    of G and of dS (the skip's gradient)
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int t = warp + k * kWarps;
+    if (t >= kTiles) continue;
+    const int qt = tile_row(t), rt = t - tile_of(qt, 0);
+    float rsum[2] = {0.f, 0.f}, csum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = qt * 16 + g + (e >> 1) * 8;
+        const int r = rt * 16 + j * 8 + 2 * cq + (e & 1);
+        const bool keep = r <= q && q < len && seg[q] == seg[r];
+        float wv = 0.f, dv = 0.f, gt = 0.f;
+        if (keep) {
+          const float ex = expf(static_cast<float>(cum[q] - cum[r]));
+          const float v = ds[k][j][e] * ex;
+          wv = sc[k][j][e] * ex * dts[r];
+          dv = v * dts[r];
+          gt = v * sc[k][j][e];
+          if (r < q) {
+            rsum[e >> 1] += gt * dts[r];
+            csum[j][e & 1] += gt;
+          }
+        }
+        if (q == r) {
+          diag[q] = gt;
+          sdiag[q] = keep ? ds[k][j][e] : 0.f;
+        }
+        sc[k][j][e] = wv;
+        ds[k][j][e] = dv;
+      }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int off = (qt * 16 + g + hf * 8) * L.ldw + rt * 16 + j * 8 + 2 * cq;
+        uint32_t hi, lo;
+        tc::split_bf16(sc[k][j][2 * hf], sc[k][j][2 * hf + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(wh + off) = hi;
+        *reinterpret_cast<uint32_t*>(wl + off) = lo;
+        tc::split_bf16(ds[k][j][2 * hf], ds[k][j][2 * hf + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(gh + off) = hi;
+        *reinterpret_cast<uint32_t*>(gl + off) = lo;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(kFull, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(kFull, rsum[i], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          csum[j][i] += __shfl_xor_sync(kFull, csum[j][i], o);
+    if (cq == 0) {
+      rowp[t * 16 + g] = rsum[0];
+      rowp[t * 16 + g + 8] = rsum[1];
+    }
+    if (g == 0)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) colp[t * 16 + j * 8 + 2 * cq + i] = csum[j][i];
+  }
+  __syncthreads();
+
+  // 4. dX = coef (B D) + W^T dY + D_h dY on the 8-column tiles of P, and
+  //    dcoef_r = (B_r D) . X_r, one partial per (warp, row)
+  {
+    bf16* dx = static_cast<bf16*>(a.dx) + xo;
+    float cpart[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    for (int jt = warp; jt < pp / 8; jt += kWarps) {
+      const int p0 = jt * 8, col = p0 + g;   // col: the B fragment's column
+      float acc[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+      if (dm != nullptr) {
+        // B D: D's column col over N as B fragments (k = state row), hi + lo
+        for (int k0 = 0; k0 < np; k0 += 128) {
+          float v[8][4];
+#pragma unroll
+          for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = k0 + s * 16 + 2 * cq + (i & 1) + (i >> 1) * 8;
+              v[s][i] = row < n && col < p ? dm[static_cast<size_t>(row) * p + col] : 0.f;
+            }
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int kd = k0 + s * 16;
+            if (kd >= np) break;
+            uint32_t h0, l0, h1, l1;
+            tc::split_bf16(v[s][0], v[s][1], h0, l0);
+            tc::split_bf16(v[s][2], v[s][3], h1, l1);
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt) {
+              uint32_t a0, a1, a2, a3;
+              tc::ldmatrix_x4(bs + (mt * 16 + ln.a_row) * L.ldn + kd + ln.a_col, a0, a1, a2, a3);
+              tc::mma(acc[mt], a0, a1, a2, a3, h0, h1);
+              tc::mma(acc[mt], a0, a1, a2, a3, l0, l1);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = mt * 16 + g + hf * 8;
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(xs + r * L.ldx + p0 + 2 * cq));
+            cpart[mt][hf] += acc[mt][2 * hf] * xv.x + acc[mt][2 * hf + 1] * xv.y;
+            acc[mt][2 * hf] *= coef[r];
+            acc[mt][2 * hf + 1] *= coef[r];
+          }
+      }
+      // W^T dY: rows r of tile mt, keys q of the tiles qt >= mt; W^T's A
+      // fragments from W's tile by ldmatrix.trans
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        for (int qt = mt; qt < 4; ++qt) {
+          uint32_t h0, h1, h2, h3, l0, l1, l2, l3, b0, b1;
+          const int off = (qt * 16 + ln.b_row) * L.ldw + mt * 16 + ln.b_col;
+          tc::ldmatrix_x4_trans(wh + off, h0, h1, h2, h3);
+          tc::ldmatrix_x4_trans(wl + off, l0, l1, l2, l3);
+          tc::ldmatrix_x2_trans(dys + (qt * 16 + (lane & 15)) * L.ldx + p0, b0, b1);
+          tc::mma(acc[mt], h0, h1, h2, h3, b0, b1);
+          tc::mma(acc[mt], l0, l1, l2, l3, b0, b1);
+        }
+      // + D_h dY, two bf16 a lane
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + g + hf * 8, c = p0 + 2 * cq;
+          if (r >= len || c >= p) continue;
+          const float2 dv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dys + r * L.ldx + c));
+          *reinterpret_cast<__nv_bfloat162*>(dx + r * x_stride + c) =
+              __floats2bfloat162_rn(acc[mt][2 * hf] + dskip * dv.x,
+                                    acc[mt][2 * hf + 1] + dskip * dv.y);
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        cpart[mt][hf] += __shfl_xor_sync(kFull, cpart[mt][hf], 1);
+        cpart[mt][hf] += __shfl_xor_sync(kFull, cpart[mt][hf], 2);
+        if (cq == 0) coefp[warp * kT + mt * 16 + g + hf * 8] = cpart[mt][hf];
+      }
+  }
+
+  // 5. this head's dB = coef (X D^T) + dCB^T C and dC = inter (dY M^T) +
+  //    dCB B on the 8-column tiles of N, with dinter_q = C_q . (M dY_q),
+  //    one partial per (warp, step), and <D, M>, the carry's gradient, from
+  //    the elements of D and M the warp loads, per lane then per warp
+  {
+    float* dbp = a.db_part + (row0 * heads + h) * n;
+    float* dcp = a.dc_part + (row0 * heads + h) * n;
+    const size_t stride = static_cast<size_t>(heads) * n;
+    float ipart[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    double dmdot = 0.0;
+    for (int jn = warp; jn < np / 8; jn += kWarps) {
+      const int n0 = jn * 8, c = n0 + 2 * cq;
+      float adb[4][4], adc[4][4];     // dB's rows r, dC's rows q
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) adb[mt][e] = adc[mt][e] = 0.f;
+      state_row_products(adb, adc, xs, dys, L.ldx, dm, mp, dmdot, n0 + g, n, p);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + g + hf * 8;
+          const float2 cv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(cs + r * L.ldn + c));
+          ipart[mt][hf] += cv.x * adc[mt][2 * hf] + cv.y * adc[mt][2 * hf + 1];
+          adb[mt][2 * hf] *= coef[r];
+          adb[mt][2 * hf + 1] *= coef[r];
+          adc[mt][2 * hf] *= inter[r];
+          adc[mt][2 * hf + 1] *= inter[r];
+        }
+      // dCB^T C (rows r of tile mt, keys q of the tiles qt >= mt) and dCB B
+      // (rows q of tile mt, keys r of the tiles rt <= mt)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        for (int qt = mt; qt < 4; ++qt) {
+          uint32_t h0, h1, h2, h3, l0, l1, l2, l3, b0, b1;
+          const int off = (qt * 16 + ln.b_row) * L.ldw + mt * 16 + ln.b_col;
+          tc::ldmatrix_x4_trans(gh + off, h0, h1, h2, h3);
+          tc::ldmatrix_x4_trans(gl + off, l0, l1, l2, l3);
+          tc::ldmatrix_x2_trans(cs + (qt * 16 + (lane & 15)) * L.ldn + n0, b0, b1);
+          tc::mma(adb[mt], h0, h1, h2, h3, b0, b1);
+          tc::mma(adb[mt], l0, l1, l2, l3, b0, b1);
+        }
+        for (int rt = 0; rt <= mt; ++rt) {
+          uint32_t h0, h1, h2, h3, l0, l1, l2, l3, b0, b1;
+          const int off = (mt * 16 + ln.a_row) * L.ldw + rt * 16 + ln.a_col;
+          tc::ldmatrix_x4(gh + off, h0, h1, h2, h3);
+          tc::ldmatrix_x4(gl + off, l0, l1, l2, l3);
+          tc::ldmatrix_x2_trans(bs + (rt * 16 + (lane & 15)) * L.ldn + n0, b0, b1);
+          tc::mma(adc[mt], h0, h1, h2, h3, b0, b1);
+          tc::mma(adc[mt], l0, l1, l2, l3, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + g + hf * 8;
+          if (r >= len || c >= n) continue;
+          *reinterpret_cast<float2*>(dbp + r * stride + c) =
+              make_float2(adb[mt][2 * hf], adb[mt][2 * hf + 1]);
+          *reinterpret_cast<float2*>(dcp + r * stride + c) =
+              make_float2(adc[mt][2 * hf], adc[mt][2 * hf + 1]);
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        ipart[mt][hf] += __shfl_xor_sync(kFull, ipart[mt][hf], 1);
+        ipart[mt][hf] += __shfl_xor_sync(kFull, ipart[mt][hf], 2);
+        if (cq == 0) interp[warp * kT + mt * 16 + g + hf * 8] = ipart[mt][hf];
+      }
+    dmdot = warp_sum(dmdot);
+    if (lane == 0) red[warp] = dmdot;
+  }
+  __syncthreads();
+
+  // 6. one warp: each step's partials over tiles and warps in a fixed
+  //    order, then chunk_tail
+  if (warp == 0) {
+    double dcarry = 0.0;
+    for (int i = 0; i < kWarps; ++i) dcarry += red[i];
+    double rs[2], cs_[2], co[2], it[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int q = 2 * tid + k;
-      if (q >= len) continue;
-      const float to_end = seg[q] == e.seg_end
-                               ? expf(static_cast<float>(e.total - cum[q])) : 0.f;
-      a.ddt[(row0 + q) * heads + h] = static_cast<float>(
-          colsum[k] + diag[q] + dco[k] * to_end + av * dl[k]);
-      da_part += dts[q] * dl[k];
-      dd_part += sdiag[q];
+      const int q = 2 * lane + k, qt = q >> 4, qi = q & 15;
+      rs[k] = cs_[k] = co[k] = it[k] = 0.0;
+      for (int rt = 0; rt <= qt; ++rt) rs[k] += rowp[tile_of(qt, rt) * 16 + qi];
+      for (int t = qt; t < 4; ++t) cs_[k] += colp[tile_of(t, qt) * 16 + qi];
+      for (int w = 0; w < kWarps; ++w) {
+        co[k] += coefp[w * kT + q];
+        it[k] += interp[w * kT + q];
+      }
     }
-    da_part = warp_sum(da_part);
-    dd_part = warp_sum(dd_part);
-    if (tid == 0) {
-      const size_t slot = (static_cast<size_t>(bb) * a.chunks + ch) * heads + h;
-      const size_t half = static_cast<size_t>(a.batch) * a.chunks * heads;
-      a.head_part[slot] = static_cast<float>(da_part);
-      a.head_part[half + slot] = static_cast<float>(dd_part);
-    }
+    chunk_tail(a, *end, dcarry, ch, len, row0, av, cum, dts, inter, coef, seg,
+               diag, sdiag, rs, cs_, co, it);
   }
 }
 
@@ -1467,8 +1991,9 @@ cudaError_t launch_smem(K kernel, dim3 grid, size_t bytes, cudaStream_t stream,
 }
 
 // Where S > kT: the forward's state and serial passes recompute the states
-// entering each chunk (float32, in place), then U of each chunk and the
-// adjoint pass; then the chunk gradients and the sums.
+// entering each chunk (float32, in place), then U of each chunk
+// (chunk_adjoint, into adj) and the adjoint pass;
+// then the chunk gradients and the sums.
 template <typename T>
 cudaError_t launch_backward(const Params& f, const BwdParams& a,
                             cudaStream_t stream) {
@@ -1482,22 +2007,41 @@ cudaError_t launch_backward(const Params& f, const BwdParams& a,
         a.carry, a.chunk_states, nullptr, nullptr, a.chunks, np4);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = launch_smem(chunk_adjoint<T>, dim3(a.chunks - 1, a.heads, a.batch),
-                      bwd_layout(a.n, a.p, false).bytes, stream, a);
+    Params u = f;                  // U = C^T (inter dY) in place of B^T (coef x)
+    u.x = a.dy;
+    u.b = a.c;
+    u.chunk_states = a.adj;
+    err = launch_chunk<T, kAdjoint>(u, a.batch, stream);
     if (err != cudaSuccess) return err;
     adjoint_pass<<<pass_grid, kThreads, 0, stream>>>(a.carry, a.adj, a.dstate,
                                                      a.chunks, np4);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  err = launch_smem(chunk_backward<T>, dim3(a.chunks, a.heads, a.batch),
-                    bwd_layout(a.n, a.p, true).bytes, stream, a);
+  const dim3 grid(a.chunks, a.heads, a.batch);
+  if constexpr (sizeof(T) == 2)
+    err = launch_smem(chunk_backward_tc, grid, bwd_tc_layout(a.n, a.p).bytes,
+                      stream, a);
+  else
+    err = launch_smem(chunk_backward_f32, grid, bwd_layout(a.n, a.p).bytes,
+                      stream, a);
   if (err != cudaSuccess) return err;
   const size_t elems = static_cast<size_t>(a.batch) * a.s_len * a.groups * a.n;
   const size_t most = elems > static_cast<size_t>(a.heads) ? elems : a.heads;
   const size_t blocks = (most + kBThreads - 1) / kBThreads;
   grad_reduce<T><<<dim3(static_cast<unsigned>(blocks), 3), kBThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename K>
+int blocks_per_sm(K kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBThreads,
+                                                        bytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -1593,4 +2137,15 @@ extern "C" int ssd_scan_backward_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_backward<float>(f, a, s)
                     : launch_backward<bf16>(f, a, s);
+}
+
+// Blocks of the chunk-gradient kernel (dtype 0: float32, 1: bf16) one SM of
+// the device holds at N x P, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// minus the CUDA error where a call fails.
+extern "C" int ssd_scan_backward_blocks_per_sm(int n, int p, int dtype,
+                                               int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return dtype == 1 ? blocks_per_sm(chunk_backward_tc, bwd_tc_layout(n, p).bytes)
+                    : blocks_per_sm(chunk_backward_f32, bwd_layout(n, p).bytes);
 }

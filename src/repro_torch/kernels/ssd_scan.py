@@ -28,18 +28,21 @@ gradients of (y, final state) with respect to x, dt, a_log, b, c and d_skip
 at any S, through ``SsdScan``, the autograd Function ``ops.ssd_scan`` runs
 on CUDA where a gradient is wanted.  Where S > CHUNK it recomputes the
 states entering each chunk with the forward's state and serial passes,
-forms each chunk's U = sum_q inter_q c_q dy_q^T, and walks the chunks
-backward (the adjoint pass) for D_c, the gradient reaching the state that
-leaves chunk c: seeded with the final state's gradient, carried by each
-chunk's carry factor, so zero across a chunk that holds a reset.  One
+forms each chunk's U = sum_q inter_q c_q dy_q^T (the forward's state pass
+again, with C, inter and dy in place of B, coef and x), and walks the
+chunks backward (the adjoint pass) for D_c, the gradient reaching the state
+that leaves chunk c: seeded with the final state's gradient, carried by
+each chunk's carry factor, so zero across a chunk that holds a reset.  One
 block per (chunk, head, batch row) then forms the chunk's dx, ddt and its
-head's shares of db and dc from those and the chunk's C B^T and dY X^T, in
-float32 FMA loops; a last pass sums db and dc over each group's heads and
-dA and dD over (B, S) in a fixed order, so two calls give the same bits.
-The gradient of the float64 prefix sums of A dt is reverse-summed in
-float64.  ``ssd_scan_backward_chunked`` mirrors those passes in plain
-torch, used by no path.  ``ssd_scan_backward_cuda.launches`` counts its
-calls.
+head's shares of db and dc from those and the chunk's C B^T and dY X^T: for
+bf16 on the tensor cores, the float32 operands (W, dCB, D, M, inter dy) as
+hi + lo bf16 parts, two blocks an SM; for float32 in FMA loops.  A last
+pass sums db and dc over each group's heads and dA and dD over (B, S) in a
+fixed order, so two calls give the same bits.  The gradient of the float64
+prefix sums of A dt is reverse-summed in float64.
+``ssd_scan_backward_chunked`` mirrors those passes in plain torch, used by
+no path (``split=True`` rounds as the bf16 kernel does).
+``ssd_scan_backward_cuda.launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -122,19 +125,34 @@ def shared_bytes(n: int, p: int, itemsize: int = 4, mode: str | None = None) -> 
     return at
 
 
-def backward_shared_bytes(n: int, p: int, full: bool = True) -> int:
-    """Dynamic shared memory of one backward block (csrc ``bwd_layout``):
-    the per-step rows (one float64, six 4-byte), four arrays of 16 lanes'
-    partial sums a step, 32 float64 of warp sums, the float32 C and dY
-    tiles (rows padded by 4), and with ``full`` (the chunk gradients, not
-    the U pass) the X and B tiles, the entering state and the leaving
-    adjoint (N x P each) and W and dCB (CHUNK x (CHUNK + 4))."""
+BWD_WARPS = 8                  # warps of a backward block (csrc kBThreads)
+BWD_TILES = 10                 # causal 16 x 16 tiles of a chunk (csrc kTiles)
+
+
+def backward_shared_bytes(n: int, p: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one chunk-gradient block: the per-step rows
+    (one float64, six 4-byte), then for float32 x (csrc ``bwd_layout``)
+    four arrays of 16 lanes' partial sums a step, 32 float64 of warp sums,
+    the C, dY, X and B tiles (rows padded by 4), the entering state and the
+    leaving adjoint (N x P each) and W and dCB (CHUNK x (CHUNK + 4)); for
+    bf16 x (csrc ``bwd_tc_layout``) a partial sum of G's rows and of its
+    columns per (tile, row), of dcoef and dinter per (warp, step), a
+    float64 per warp and the chunk's end (16 bytes), then the bf16 tiles C,
+    B (CHUNK x (N + 8), N padded to 16), X, dY (CHUNK x (P + 8)), and W and
+    dCB as hi and lo parts (CHUNK x (CHUNK + 8) each)."""
+    sizes = [CHUNK * 8] + [CHUNK * 4] * 6
+    if itemsize == 2:
+        ldn, ldx, ldw = _up16(n) + 8, _up16(p) + 8, CHUNK + 8
+        sizes += ([BWD_TILES * 16 * 4] * 2 + [BWD_WARPS * CHUNK * 4] * 2
+                  + [BWD_WARPS * 8, 16] + [CHUNK * ldn * 2] * 2
+                  + [CHUNK * ldx * 2] * 2 + [CHUNK * ldw * 2] * 4)
+    else:
+        sizes += ([CHUNK * 16 * 4] * 4
+                  + [32 * 8, CHUNK * (n + 4) * 4, CHUNK * (p + 4) * 4,
+                     CHUNK * (p + 4) * 4, CHUNK * (n + 4) * 4, n * p * 4,
+                     n * p * 4, CHUNK * (CHUNK + 4) * 4,
+                     CHUNK * (CHUNK + 4) * 4])
     at = 0
-    sizes = ([CHUNK * 8] + [CHUNK * 4] * 6 + [CHUNK * 16 * 4] * 4
-             + [32 * 8, CHUNK * (n + 4) * 4, CHUNK * (p + 4) * 4])
-    if full:
-        sizes += [CHUNK * (p + 4) * 4, CHUNK * (n + 4) * 4, n * p * 4,
-                  n * p * 4, CHUNK * (CHUNK + 4) * 4, CHUNK * (CHUNK + 4) * 4]
     for nbytes in sizes:
         at = _after(at, nbytes)
     return at
@@ -213,12 +231,21 @@ def _in_chunks(t, nc: int, chunk: int):
     return t.reshape((t.shape[0], nc, chunk) + tuple(t.shape[2:]))
 
 
-def _chunk_terms(x, dt, a_log, b, c, reset, chunk: int) -> dict:
+def _hi_lo(t):
+    """t as the bf16 kernels enter a float32 operand: hi = bf16(t) plus lo =
+    bf16(t - hi), about 16 significant bits."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def _chunk_terms(x, dt, a_log, b, c, reset, chunk: int,
+                 split: bool = False) -> dict:
     """Passes (a) and (b) of the kernel, shared by both mirrors: the
     chunked inputs, the prefix sums ``cum`` of A dt (float64) and segment
     ids ``seg``, the factors coef, carry and inter, and the states entering
     each chunk (``m_prev``, (B, C, H, N, P)) and leaving the last
-    (``final``)."""
+    (``final``).  ``split``: coef x enters the chunk states as hi + lo
+    parts (``_hi_lo``), as the bf16 kernel's tensor cores take it."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     nc = -(-s // chunk)
@@ -236,7 +263,8 @@ def _chunk_terms(x, dt, a_log, b, c, reset, chunk: int) -> dict:
     to_end = (torch.exp(total[:, :, None] - cum).float()
               * (seg == seg_end[..., None])[..., None])      # (B,C,Q,H)
     coef = to_end * dtc
-    s_c = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", coef, bc, xc)
+    cx = coef[..., None] * xc
+    s_c = torch.einsum("bcqhn,bcqhp->bchnp", bc, _hi_lo(cx) if split else cx)
     carry = torch.exp(total).float() * (seg_end == 0)[..., None]   # (B,C,H)
     inter = torch.exp(cum).float() * (seg == 0)[..., None]   # (B,C,Q,H)
 
@@ -290,7 +318,8 @@ def ssd_scan_chunked(x, dt, a_log, b, c, d_skip, *, reset=None,
 
 
 def ssd_scan_backward_chunked(x, dt, a_log, b, c, d_skip, dy, dstate=None,
-                              *, reset=None, chunk: int = CHUNK):
+                              *, reset=None, chunk: int = CHUNK,
+                              split: bool = False):
     """Plain torch mirror of the backward kernel's passes, any S: the
     gradients (dx, ddt, da_log, db, dc, dd_skip) of ``ssd_scan``'s (y,
     final state) under the cotangents ``dy`` and ``dstate`` (None: 0).
@@ -309,17 +338,22 @@ def ssd_scan_backward_chunked(x, dt, a_log, b, c, d_skip, dy, dstate=None,
     sum_{r>q} G_rq + inter_q dinter_q - coef_q dcoef_q, plus at the last
     step sum_r coef_r dcoef_r + carry <D, M>, reverse-summed in float64
     into dl_t, the gradient of A dt_t: ddt gets A dl, da_log A sum dt dl.
-    dx, db, dc come back in the inputs' dtypes, the rest float32."""
+    dx, db, dc come back in the inputs' dtypes, the rest float32.
+    ``split`` rounds the float32 operands of the products as the bf16
+    kernel enters them into its tensor cores, hi + lo bf16 parts
+    (``_hi_lo``): coef x, inter dy, W, dCB, D and M; <D, M> and the
+    products of two bf16 inputs stay as they are."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    t = _chunk_terms(x, dt, a_log, b, c, reset, chunk)
+    t = _chunk_terms(x, dt, a_log, b, c, reset, chunk, split)
+    rnd = _hi_lo if split else (lambda v: v)
     nc = t["nc"]
     xc, dtc, bc, cc = t["xc"], t["dtc"], t["bc"], t["cc"]
     coef, inter, carry, m_prev = t["coef"], t["inter"], t["carry"], t["m_prev"]
     dyc = _in_chunks(dy, nc, chunk)
 
     # (u) what each chunk's y sends back to its entering state
-    u = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", inter, cc, dyc)
+    u = torch.einsum("bcqhn,bcqhp->bchnp", cc, rnd(inter[..., None] * dyc))
     # (v) the adjoint pass
     m = (torch.zeros(bsz, h, n, p, device=x.device) if dstate is None
          else dstate.float())
@@ -340,11 +374,12 @@ def ssd_scan_backward_chunked(x, dt, a_log, b, c, d_skip, dy, dstate=None,
     rowsum = (gt * dt_r * strict).sum(-1).permute(0, 1, 3, 2)   # (B,C,Q,H)
     colsum = (gt * strict).sum(-2).permute(0, 1, 3, 2)
     diag = torch.diagonal(gt, dim1=-2, dim2=-1).permute(0, 1, 3, 2)
-    bd = torch.einsum("bcrhn,bchnp->bcrhp", bc, d_c)
+    w, dcb = rnd(w), rnd(dcb)
+    bd = torch.einsum("bcrhn,bchnp->bcrhp", bc, rnd(d_c))
     dx = (torch.einsum("bchqr,bcqhp->bcrhp", w, dyc) + coef[..., None] * bd
           + d_skip.float()[None, None, None, :, None] * dyc)
-    dxm = torch.einsum("bchnp,bcrhp->bcrhn", d_c, xc)
-    mdy = torch.einsum("bchnp,bcqhp->bcqhn", m_prev, dyc)
+    dxm = torch.einsum("bchnp,bcrhp->bcrhn", rnd(d_c), xc)
+    mdy = torch.einsum("bchnp,bcqhp->bcqhn", rnd(m_prev), dyc)
     db = torch.einsum("bchqr,bcqhn->bcrhn", dcb, cc) + coef[..., None] * dxm
     dc = torch.einsum("bchqr,bcrhn->bcqhn", dcb, bc) + inter[..., None] * mdy
     dcoef, dinter = (bd * xc).sum(-1), (cc * mdy).sum(-1)    # (B,C,Q,H)
@@ -378,6 +413,10 @@ def _bind(lib) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    if hasattr(lib, "ssd_scan_backward_blocks_per_sm"):   # not in older builds
+        fn = lib.ssd_scan_backward_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = _build.Library("ssd_scan", _build.CSRC / "ssd_scan.cu", _bind)
@@ -474,8 +513,9 @@ def ssd_scan_backward_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *,
     dtype, the rest float32.  The inputs as ``ssd_scan_cuda`` takes them;
     outputs and float32 scratch are allocated here (``torch.empty``)."""
     # the chunk gradients' blocks, and the forward's state pass they rerun
+    # (also in its U mode)
     _check(x, dt, a_log, b, c, d_skip, reset, lambda n, p: max(
-        backward_shared_bytes(n, p),
+        backward_shared_bytes(n, p, x.element_size()),
         shared_bytes(n, p, x.element_size(), "state")))
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
             or dy.device != x.device:
@@ -518,6 +558,17 @@ def ssd_scan_backward_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *,
 
 
 ssd_scan_backward_cuda.launches = 0
+
+
+def backward_blocks_per_sm(n: int, p: int, dtype=torch.bfloat16) -> int:
+    """Chunk-gradient blocks one SM of the current card holds at N x P
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = LIBRARY.load()
+    got = lib.ssd_scan_backward_blocks_per_sm(n, p, DTYPES[dtype],
+                                              torch.cuda.current_device())
+    if got < 0:
+        LIBRARY.check(-got)
+    return got
 
 
 class SsdScan(torch.autograd.Function):

@@ -1223,6 +1223,7 @@ def _assert_grads_close(got, want):
     (1, 333, 8, 64, 1, 128, ((0, 0), (0, 128), (0, 140), (0, 150)), None),
     (2, 130, 8, 64, 1, 128, ((0, 64),), "zero"),
     (4, 512, 64, 64, 1, 128, None, None),               # mamba2 training
+    (2, 97, 4, 20, 2, 12, ((0, 64),), "random"),        # N, P not by 16
 ])
 def test_scan_backward_ssd_matches_plain_autograd(dtype, b, s, h, p, g, n,
                                                   reset_at, final):

@@ -15,8 +15,10 @@ the port's plain versions, on inputs and cotangents drawn once with numpy,
 within 1e-4 of each gradient's max |g| (2e-2 where the inputs are bf16):
 resets at step 0, on a chunk (segment, tile) boundary and twice in one
 chunk, S not a multiple of the chunk, G = 1 and 2, a final-state
-cotangent that is nonzero, zero or absent.  The backward's shared-memory
-mirror and the bounds' counts are checked too.
+cotangent that is nonzero, zero or absent.  The SSD mirror with
+``split=True`` rehearses the bf16 kernel's rounding of its float32
+operands (hi + lo bf16 parts) at mamba2's widths.  The backward's
+shared-memory mirror and the bounds' counts are checked too.
 """
 import jax
 import jax.numpy as jnp
@@ -171,6 +173,41 @@ def test_ssd_backward_mirror_absent_and_zero_final_cotangent_agree():
     assert all(torch.equal(a, z) for a, z in zip(none, zero))
 
 
+def test_ssd_backward_mirror_split_as_the_bf16_kernel():
+    """A rehearsal of the bf16 kernel's numerics off the card: the mirror
+    with its float32 operands (coef x, inter dy, W, dCB, D, M) entered as
+    hi + lo bf16 parts (``split``), as the kernel's tensor cores take them,
+    on bf16 inputs at mamba2's widths (H 64, P 64, N 128), B1 S130 with a
+    reset on the chunk edge, against the reference's VJP on the same bf16
+    values in float32, within the card tests' bands: 1e-4 of max(1, max
+    |g|) for a float32 gradient, 2e-2 for one that comes out in bf16."""
+    b, s, h, p, g, n = 1, 130, 64, 64, 1, 128
+    arrays = list(ssd_inputs(b, s, h, p, g, n, seed=6))
+    rng = np.random.default_rng(106)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dstate = rng.standard_normal((b, h, n, p)).astype(np.float32)
+    reset = resets(b, s, ((0, 64),))
+    bf16 = lambda a: torch.from_numpy(a).bfloat16()
+    for i in (0, 3, 4):                 # x, b and c hold bf16 values
+        arrays[i] = bf16(arrays[i]).float().numpy()
+    dy = bf16(dy).float().numpy()
+    want = _ssd_vjp(arrays, dy, dstate, reset, p_ssd.CHUNK)
+    t = [bf16(a) if i in (0, 3, 4) else torch.from_numpy(a)
+         for i, a in enumerate(arrays)]
+    got = p_ssd.ssd_scan_backward_chunked(
+        *t, bf16(dy), torch.from_numpy(dstate),
+        reset=torch.from_numpy(reset), split=True)
+    assert [v.dtype for v in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
+    for name, v, w in zip(SSD_NAMES, got, want):
+        w = np.asarray(w, np.float32)
+        tol = TOL_BF16 if v.dtype == torch.bfloat16 else TOL
+        err = float(np.abs(v.float().numpy() - w).max())
+        bound = tol * max(1.0, float(np.abs(w).max()))
+        assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
+
+
 def _rglru_case(case, seed=3):
     b, s, r, segments, steps, at = RGLRU_CASES[case]
     x, a = rglru_inputs(b, s, r, seed=seed)
@@ -230,13 +267,25 @@ def test_rglru_backward_mirror_in_bf16(case):
 
 
 def test_backward_shared_memory_and_counts():
-    """The backward block's shared memory (csrc ``bwd_layout``) and the
-    bounds' counts, worked out by hand."""
-    # rows 512 + 6 x 256, four 64 x 16 partial arrays, 32 doubles; C (64 x
-    # 132) and dY (64 x 68) float32; then X, B, M and D (128 x 64), W, dCB
-    assert p_ssd.backward_shared_bytes(128, 64, full=False) == 69_888
+    """The chunk-gradient block's shared memory (csrc ``bwd_layout`` for
+    float32, ``bwd_tc_layout`` for bf16), U's block (the forward's state
+    layout) and the bounds' counts, worked out by hand."""
+    # float32: rows 512 + 6 x 256, four 64 x 16 partial arrays, 32 doubles;
+    # C (64 x 132) and dY (64 x 68) float32; then X, B, M and D (128 x 64),
+    # W, dCB
     assert p_ssd.backward_shared_bytes(128, 64) == 221_440
     assert p_ssd.backward_shared_bytes(128, 64) <= p_ssd.MAX_SHARED
+    # bf16: rows 2,048; G's row and column partials 2 x 10 tiles x 16 x 4 =
+    # 1,280; dcoef's and dinter's 2 x 8 warps x 64 x 4 = 4,096; 8 doubles
+    # and the chunk's end, 64 + 16; C and B 2 x 64 x 136 x 2 = 34,816; X
+    # and dY 2 x 64 x 72 x 2 = 18,432; W and dCB, hi and lo, 4 x 64 x 72 x
+    # 2 = 36,864
+    assert p_ssd.backward_shared_bytes(128, 64, 2) == 97_616
+    # two blocks an SM: each with the 1 KB the card reserves, within 228 KB
+    assert 2 * (p_ssd.backward_shared_bytes(128, 64, 2) + 1024) <= 228 * 1024
+    # U (bf16): rows 512 + 4 x 256, dY 64 x 72, C 64 x 136, inter dY's hi
+    # and lo 2 x 64 x 72, all 2-byte
+    assert p_ssd.shared_bytes(128, 64, 2, "state") == 46_592
     # one 64-step chunk, P = N = 4: pairs 2,080 x (2 x 8 + 2 x 12)
     assert p_ssd.backward_op_count(1, 64, 1, 4, 4) == 83_200
     # two chunks: + the leaving adjoint's products in the first, the
